@@ -1,0 +1,237 @@
+"""Command-line interface of the port (from ``sema_tpu/cli.py``).
+
+    python -m sema_tpu_torch index [DIR] [flags]    headless index build
+    python -m sema_tpu_torch query "text" [flags]   headless query
+                                                    ('-prefix = keyword)
+
+The flags are the JAX package's, plus ``--device {cuda,cpu}`` (default
+``cuda``; a missing card raises rather than falling back). Config and
+data live where the JAX package keeps them (``SEMA_TPU_HOME``,
+``SEMA_TPU_DATA``), so both packages can serve one data dir. The TUI,
+``serve``, ``bench`` and ``doctor`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+import time
+from pathlib import Path
+from typing import List, Optional
+
+from sema_tpu_torch.config import (Config, ConfigManager, apply_cli_overrides,
+                                   data_dir)
+from sema_tpu_torch.types import CrawlerConfig
+
+
+def _add_crawl_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("directory", nargs="?", help="Directory path to crawl")
+    p.add_argument("--max-file-size", type=int, default=None,
+                   help="Maximum file size to process (in bytes)")
+    p.add_argument("--include-hidden", action="store_true",
+                   help="Include hidden files in crawling")
+    p.add_argument("--follow-symlinks", action="store_true",
+                   help="Follow symbolic links")
+    p.add_argument("--extensions", type=lambda s: s.split(","), default=None,
+                   help="File extensions to crawl (comma-separated). "
+                        "When specified, ignores default extensions.")
+    p.add_argument("--exclude", type=lambda s: s.split(","), default=None,
+                   help="Additional patterns to exclude (comma-separated)")
+    p.add_argument("--ignore-gitignore", action="store_true",
+                   help="Ignore files and patterns listed in .gitignore files")
+
+
+def _add_model_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model", default=None,
+                   help="Encoder model (minilm-l6, bge-small-en, e5-base, "
+                        "gte-large)")
+    p.add_argument("--weights", default=None,
+                   help="Local safetensors dir for encoder weights")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device to run on (default cuda)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from sema_tpu_torch import __version__
+    p = argparse.ArgumentParser(
+        prog="sema_tpu_torch",
+        description="Semantic File Search — semantic + keyword search in "
+                    "local files, on an NVIDIA GPU")
+    p.add_argument("--version", action="version",
+                   version=f"sema_tpu_torch {__version__}")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    index = sub.add_parser("index", help="build/update the index headlessly")
+    _add_crawl_flags(index)
+    _add_model_flags(index)
+    index.add_argument("--reindex", action="store_true",
+                       help="Discard the existing index first")
+    index.add_argument("--stats", action="store_true",
+                       help="Print per-stage timing JSON")
+
+    query = sub.add_parser("query", help="run one query against the index")
+    query.add_argument("text", help="query text; prefix with ' for keyword "
+                                    "(BM25) search")
+    query.add_argument("--limit", type=int, default=50,
+                       help="max results (default 50)")
+    query.add_argument("--json", action="store_true", help="JSON output")
+    query.add_argument("--group", action="store_true",
+                       help="group results by file (TUI behavior)")
+    query.add_argument("--trace", metavar="DIR", default=None,
+                       help="capture a torch.profiler trace into DIR")
+    _add_model_flags(query)
+    return p
+
+
+def load_config(args) -> Config:
+    """Init-on-first-run, then CLI overrides in memory."""
+    manager = ConfigManager()
+    manager.init()
+    config = manager.load_config()
+    if getattr(args, "weights", None):
+        config.model.weights_path = args.weights
+    return apply_cli_overrides(config, args)
+
+
+def resolve_directory(args) -> Path:
+    """Default cwd, canonicalize, must be a directory."""
+    target = Path(getattr(args, "directory", None) or os.getcwd())
+    try:
+        canonical = target.resolve(strict=True)
+    except OSError:
+        sys.exit(f"Error: Directory '{target}' does not exist or cannot be "
+                 f"accessed")
+    if not canonical.is_dir():
+        sys.exit(f"Error: '{canonical}' is not a directory")
+    return canonical
+
+
+def crawler_config(config: Config) -> CrawlerConfig:
+    g = config.general
+    return CrawlerConfig(
+        max_file_size=g.max_file_size,
+        follow_symlinks=g.follow_symlinks,
+        include_hidden=g.include_hidden,
+        file_extensions=tuple(g.file_extensions),
+        exclude_patterns=tuple(g.exclude_patterns),
+        ignore_gitignore=g.ignore_gitignore)
+
+
+def make_index_manager(config: Config, device: str, metrics=None):
+    from sema_tpu_torch.index import IndexManager
+    from sema_tpu_torch.models import Encoder
+
+    unported = [name for name, on in (
+        ("[index] ivf", config.index.ivf),
+        ("[mesh] shape", config.mesh.shape),
+        ("[mesh] model_axis", config.mesh.model_axis),
+        ("[mesh] slice_axis", config.mesh.slice_axis)) if on]
+    if unported:
+        raise NotImplementedError(
+            f"{', '.join(unported)} not ported to sema_tpu_torch yet "
+            "(single-device exact search only)")
+    if metrics is None and os.environ.get("SEMA_TPU_LOG"):
+        from sema_tpu_torch.utils.metrics import Metrics
+        metrics = Metrics(log_stream=open(
+            os.environ["SEMA_TPU_LOG"], "a", buffering=1))
+    encoder = Encoder.from_config(config.model, device=device)
+    if encoder.weights_source == "random":
+        print("Warning: no weights for model "
+              f"{config.model.name!r} (none under --weights or in the HF "
+              "cache); using random init (rankings will be meaningless).",
+              file=sys.stderr)
+    return IndexManager(data_dir(), encoder,
+                        store_dtype=config.index.store_dtype,
+                        metrics=metrics)
+
+
+def cmd_index(args) -> int:
+    from sema_tpu_torch.crawl import FileCrawler
+    from sema_tpu_torch.utils.metrics import Metrics
+
+    config = load_config(args)
+    directory = resolve_directory(args)
+
+    if args.reindex:
+        import shutil
+        for sub in ("vector_index", "text_index"):
+            shutil.rmtree(data_dir() / sub, ignore_errors=True)
+
+    metrics = Metrics()
+    t0 = time.perf_counter()
+    with metrics.timer("crawl"):
+        files = FileCrawler(crawler_config(config)).crawl_directory(directory)
+    print(f"crawled {len(files)} files")
+
+    mgr = make_index_manager(config, args.device, metrics=metrics)
+
+    def progress(stage, done, total):
+        if total:
+            print(f"\r{stage}: {done}/{total}", end="", file=sys.stderr)
+            if done == total:
+                print(file=sys.stderr)
+
+    n = mgr.process_and_index_files(files, progress=progress,
+                                    purge_missing_under=directory)
+    mgr.close()
+    dt = time.perf_counter() - t0
+    print(f"indexed {n} chunks in {dt:.1f}s "
+          f"({mgr.vector_store.live_rows} live vectors)")
+    if args.stats:
+        print(json.dumps(metrics.report(), indent=2))
+    return 0
+
+
+def cmd_query(args) -> int:
+    config = load_config(args)
+    mgr = make_index_manager(config, args.device)
+    tracer = contextlib.nullcontext()
+    if args.trace:
+        from sema_tpu_torch.utils.metrics import trace
+        tracer = trace(args.trace)
+    t0 = time.perf_counter()
+    with tracer:
+        results = mgr.search(args.text, args.limit)
+    dt = time.perf_counter() - t0
+    mgr.close()
+
+    if args.group:
+        from sema_tpu_torch.search.engine import group_results_by_file
+        from sema_tpu_torch.types import SearchResult
+        grouped = group_results_by_file(
+            [SearchResult(chunk=c, score=s) for c, s in results])
+        results = [(g.chunk, g.score) for g in grouped]
+        counts = {str(g.chunk.file_path): g.total_matches_in_file
+                  for g in grouped}
+
+    if args.json:
+        for chunk, score in results:
+            print(json.dumps({
+                "id": chunk.id, "file_path": str(chunk.file_path),
+                "start_line": chunk.start_line, "end_line": chunk.end_line,
+                "score": score,
+                "content": chunk.content}))
+    else:
+        if not results:
+            print("no results")
+        for chunk, score in results:
+            loc = f"{chunk.file_path}:L{chunk.start_line}-{chunk.end_line}"
+            extra = (f"  (+{counts[str(chunk.file_path)] - 1} more)"
+                     if args.group and counts.get(str(chunk.file_path), 1) > 1
+                     else "")
+            print(f"{score:8.4f}  {loc}{extra}")
+        print(f"-- {len(results)} results in {dt * 1e3:.1f} ms",
+              file=sys.stderr)
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return {"index": cmd_index, "query": cmd_query}[args.command](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""K2 of the port: ``sema_tpu_torch.ops.fused_encoder_layer`` (on CPU
+tensors, its plain version) held against the JAX package's fused Pallas
+layer in interpret mode, on the same numpy weights and inputs."""
+
+import importlib
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sema_tpu.ops.fused_attention import fused_encoder_layer as jax_layer
+from sema_tpu_torch.ops.encoder_layer import fused_encoder_layer
+
+layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
+LN_EPS = 1e-12
+
+
+def _layer(h, inter, seed):
+    rng = np.random.default_rng(seed)
+    w = lambda *s: (rng.standard_normal(s) * 0.08).astype(np.float32)
+    return {
+        "qkv_w": w(h, 3 * h), "qkv_b": w(3 * h),
+        "attn_out_w": w(h, h), "attn_out_b": w(h),
+        "attn_ln_scale": 1.0 + w(h), "attn_ln_bias": w(h),
+        "ffn_in_w": w(h, inter), "ffn_in_b": w(inter),
+        "ffn_out_w": w(inter, h), "ffn_out_b": w(h),
+        "ffn_ln_scale": 1.0 + w(h), "ffn_ln_bias": w(h),
+    }
+
+
+def _inputs(b, s, h, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h)).astype(np.float32)
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = s
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.float32)
+    return x, ((1.0 - mask) * -1e9).astype(np.float32)
+
+
+def _run_both(b, s, h, heads, inter, dtype, seed=0):
+    layer = _layer(h, inter, seed)
+    x, bias = _inputs(b, s, h, seed + 1)
+    scale = 1.0 / math.sqrt(h // heads)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jax_layer(jnp.asarray(x, dtype=jdt),
+                     {k: jnp.asarray(v) for k, v in layer.items()},
+                     jnp.asarray(bias), num_heads=heads, scale=scale,
+                     ln_eps=LN_EPS, interpret=True)
+    got = fused_encoder_layer(torch.from_numpy(x).to(dtype),
+                              {k: torch.from_numpy(v)
+                               for k, v in layer.items()},
+                              torch.from_numpy(bias), heads, scale, LN_EPS)
+    assert got.dtype == dtype and got.shape == (b, s, h)
+    return (np.asarray(want.astype(jnp.float32)),
+            got.float().numpy())
+
+
+@pytest.mark.parametrize("b,s,h,heads,inter", [
+    (2, 32, 64, 2, 128),     # head dim 32 (MiniLM's)
+    (3, 16, 128, 2, 256),    # head dim 64 (e5-base's)
+])
+def test_layer_matches_pallas_kernel_f32(b, s, h, heads, inter):
+    want, got = _run_both(b, s, h, heads, inter, torch.float32)
+    # the JAX package's own bound between its fused and composed layers
+    # (tests/test_fused_attention.py): f32 sums taken in another order
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,heads,inter", [
+    (2, 32, 64, 2, 128),
+    (3, 16, 128, 2, 256),
+])
+def test_layer_matches_pallas_kernel_bf16(b, s, h, heads, inter):
+    want, got = _run_both(b, s, h, heads, inter, torch.bfloat16)
+    # bf16 rounds at the same places in both, but a softmax or GELU input
+    # that lands one bf16 ulp apart propagates: per-row cosine plus an
+    # absolute bound of a few bf16 ulps at LayerNorm scale (|x| ~ 1);
+    # rtol lets one ulp through past |x| = 4, where an ulp is 2^-5 > atol
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    assert cos.min() >= 0.999
+    np.testing.assert_allclose(got, want, atol=3e-2, rtol=2 ** -8)
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
+    called = []
+    monkeypatch.setattr(layer_mod, "encoder_layer_reference",
+                        lambda *a, **k: called.append(1))
+    x = torch.empty((1, 32, 64), dtype=torch.bfloat16, device="meta")
+    mask = torch.empty((1, 32), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_encoder_layer(x, {}, mask, 2, 0.17, LN_EPS)
+    monkeypatch.setattr(layer_mod, "_check", lambda *a: None)
+
+    def failing_library(*a, **k):
+        raise RuntimeError("kernel build failed: nvcc rc=1")
+    monkeypatch.setattr(layer_mod._cuda, "library", failing_library)
+    before = fused_encoder_layer.launches
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        fused_encoder_layer(x, {}, mask, 2, 0.17, LN_EPS)
+    assert not called and fused_encoder_layer.launches == before
+
+
+def _meta_args(b=2, s=32, h=64, heads=2, inter=128, dtype=torch.bfloat16):
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+    shapes = {"qkv_w": (h, 3 * h), "qkv_b": (3 * h,), "attn_out_w": (h, h),
+              "attn_out_b": (h,), "ffn_in_w": (h, inter),
+              "ffn_in_b": (inter,), "ffn_out_w": (inter, h),
+              "ffn_out_b": (h,), "attn_ln_scale": (h,), "attn_ln_bias": (h,),
+              "ffn_ln_scale": (h,), "ffn_ln_bias": (h,)}
+    layer = {name: meta(*shape) for name, shape in shapes.items()}
+    return meta(b, s, h, dt=dtype), layer, meta(b, s), heads
+
+
+def test_check_args_takes_the_shapes_the_kernels_take():
+    for hd_case in ({}, {"h": 128, "heads": 2, "inter": 256}):
+        layer_mod._check_args(*_meta_args(**hd_case))      # head dims 32 and 64
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"dtype": torch.float32}, "takes bf16"),
+    ({"dtype": torch.float16}, "takes bf16"),
+    ({"h": 96, "heads": 3}, "multiple of 64"),
+    ({"h": 128, "heads": 1}, "head dim 32 or 64"),
+    ({"s": 257}, "S <= 256"),
+    ({"inter": 96}, "multiple of 64"),
+])
+def test_check_args_raises_on_what_the_kernels_do_not_take(change, match):
+    with pytest.raises(ValueError, match=match):
+        layer_mod._check_args(*_meta_args(**change))
+
+
+def test_check_args_raises_on_a_misshapen_weight_or_mask():
+    x, layer, mask, heads = _meta_args()
+    with pytest.raises(ValueError, match="qkv_w"):
+        layer_mod._check_args(x, {**layer, "qkv_w": layer["attn_out_w"]}, mask,
+                         heads)
+    with pytest.raises(ValueError, match="mask_bias"):
+        layer_mod._check_args(x, layer, mask[:, :16], heads)

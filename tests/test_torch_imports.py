@@ -1,0 +1,193 @@
+"""The port stands alone: it imports neither ``jax`` nor ``sema_tpu``, its
+headed copies of ``sema_tpu``'s host modules have not drifted from their
+sources, and a request for the card never continues on the CPU."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from sema_tpu_torch import cli, device
+from sema_tpu_torch.index.vector_store import VectorStore
+from sema_tpu_torch.models.encoder import Encoder
+from sema_tpu_torch.models.loader import random_params
+from sema_tpu_torch.models.registry import get_spec
+from sema_tpu_torch.ops import _cuda
+from sema_tpu_torch.tokenizer import HashTokenizer
+
+REPO = Path(__file__).resolve().parents[1]
+
+# A blocked jax, every module of the port imported, then the CLI's index
+# and query on the CPU with the default model (MiniLM-L6, random weights).
+_ISOLATED = r"""
+import importlib, io, json, pkgutil, sys
+from contextlib import redirect_stdout
+sys.modules["jax"] = None
+import sema_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sema_tpu_torch.__path__,
+                                               "sema_tpu_torch.")]
+for name in names:
+    try:
+        importlib.import_module(name)
+    except ImportError as e:    # the optional C++ library, when unbuilt
+        if "libsema_native.so" not in str(e):
+            raise
+from sema_tpu_torch import cli
+out = io.StringIO()
+with redirect_stdout(out):
+    assert cli.main(["index", sys.argv[1], "--device", "cpu"]) == 0
+    assert cli.main(["query", "exponential backoff", "--json",
+                     "--device", "cpu"]) == 0
+hits = [json.loads(l) for l in out.getvalue().splitlines()
+        if l.startswith("{")]
+print(json.dumps({
+    "modules": names, "hits": len(hits),
+    "sema_tpu": sorted(m for m in sys.modules
+                       if m == "sema_tpu" or m.startswith("sema_tpu.")),
+    "jax": sorted(m for m in sys.modules
+                  if (m == "jax" or m.startswith("jax."))
+                  and sys.modules[m] is not None)}))
+"""
+
+
+def test_port_runs_with_jax_blocked_and_imports_no_sema_tpu(tmp_path):
+    tree = tmp_path / "tree"
+    tree.mkdir()
+    (tree / "net.md").write_text(
+        "# HTTP networking\nRetry logic with exponential backoff.\n" * 8)
+    (tree / "parse.py").write_text("def parse(tokens):\n    return tokens\n")
+    env = dict(os.environ, SEMA_TPU_HOME=str(tmp_path / "home"),
+               SEMA_TPU_DATA=str(tmp_path / "data"))
+    proc = subprocess.run([sys.executable, "-c", _ISOLATED, str(tree)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    report = json.loads(proc.stdout.splitlines()[-1])
+    assert "sema_tpu_torch.ops.scan_topk" in report["modules"]
+    assert "sema_tpu_torch.cli" in report["modules"]
+    assert report["hits"] > 0
+    assert report["sema_tpu"] == [] and report["jax"] == []
+
+
+def test_no_import_of_jax_or_sema_tpu_in_the_port_source():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|sema_tpu)\b", re.M)
+    files = sorted((REPO / "sema_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert len(files) > 30 and offenders == []
+
+
+# Headed copies of sema_tpu host modules: identical to their source once
+# ``sema_tpu`` is renamed in import lines, apart from the header line and
+# the replacements listed here (each must match its source exactly once).
+COPIES = """types.py config.py utils/__init__.py utils/fsio.py utils/metrics.py
+utils/hfcache.py crawl/__init__.py crawl/gitignore.py crawl/crawler.py
+ingest/__init__.py ingest/chunker.py ingest/hashing.py native/__init__.py
+native/bindings.py tokenizer/__init__.py tokenizer/wordpiece.py
+models/registry.py index/text_segment.py index/text_index.py
+search/__init__.py search/engine.py""".split()
+
+_XXHASH_OPTIONAL = '''import hashlib
+from pathlib import Path
+
+try:
+    import xxhash
+except ImportError:
+    # blake2b-128 instead; the "b2:" prefix keeps these digests from ever
+    # matching an xxh3 manifest written by a host that has xxhash
+    xxhash = None
+
+HASH_NAME = "xxh3-128" if xxhash is not None else "blake2b-128"
+'''
+
+REPLACEMENTS = {
+    "ingest/hashing.py": [
+        ("from pathlib import Path\n\nimport xxhash\n", _XXHASH_OPTIONAL),
+        ('hex."""\n    return format(',
+         'hex."""\n    if xxhash is None:\n        return "b2:" + '
+         'hashlib.blake2b(data, digest_size=16).hexdigest()\n'
+         '    return format('),
+        ("    h = xxhash.xxh3_128()\n",
+         "    if xxhash is None:\n        h = hashlib.blake2b(digest_size=16)"
+         "\n    else:\n        h = xxhash.xxh3_128()\n"),
+        ('            h.update(block)\n    return',
+         '            h.update(block)\n    if xxhash is None:\n'
+         '        return "b2:" + h.hexdigest()\n    return'),
+    ],
+    "utils/metrics.py": [
+        ("``jax.profiler`` trace", "``torch.profiler`` trace"),
+        ("a jax.profiler trace (view in XProf/Perfetto)",
+         "a torch.profiler trace (view in Perfetto/chrome://tracing)"),
+        ("    import jax\n", "    import torch\n"),
+        ("    jax.profiler.start_trace(log_dir)\n",
+         "    acts = [torch.profiler.ProfilerActivity.CPU]\n"
+         "    if torch.cuda.is_available():\n"
+         "        acts.append(torch.profiler.ProfilerActivity.CUDA)\n"
+         "    prof = torch.profiler.profile(activities=acts)\n"
+         "    prof.start()\n"),
+        ("        jax.profiler.stop_trace()\n",
+         "        prof.stop()\n"
+         "        os.makedirs(log_dir, exist_ok=True)\n"
+         "        prof.export_chrome_trace(os.path.join(log_dir, "
+         "\"trace.json\"))\n"),
+    ],
+}
+
+
+# Absolute paths of the machine the source was written on, in its prose,
+# become relative in the copy (pattern, replacement; one match each).
+PATTERN_REPLACEMENTS = {
+    "index/text_segment.py": [(r"\(/\w+/reference/src/",
+                               "(the reference's src/")],
+}
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_has_not_drifted(rel):
+    source = (REPO / "sema_tpu" / rel).read_text()
+    header, copy = (REPO / "sema_tpu_torch" / rel).read_text().split("\n", 1)
+    assert header.startswith(f"# Copy of sema_tpu/{rel} ")
+    want = re.sub(r"^(\s*)(from|import) sema_tpu\b", r"\1\2 sema_tpu_torch",
+                  source, flags=re.M)
+    for old, new in REPLACEMENTS.get(rel, ()):
+        assert want.count(old) == 1, old
+        want = want.replace(old, new)
+    for pattern, new in PATTERN_REPLACEMENTS.get(rel, ()):
+        want, n = re.subn(pattern, lambda m: new, want)
+        assert n == 1, pattern
+    assert copy == want
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        device.resolve_device()
+    with pytest.raises(RuntimeError, match="is_available"):
+        device.resolve_device("cuda")
+    assert device.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        device.resolve_device("meta")
+    spec = get_spec("test-tiny")
+    with pytest.raises(RuntimeError, match="is_available"):
+        Encoder(spec, random_params(spec), HashTokenizer(spec.vocab_size))
+    with pytest.raises(RuntimeError, match="is_available"):
+        VectorStore(tmp_path, spec.dim, spec.name)
+    monkeypatch.setenv("SEMA_TPU_HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("SEMA_TPU_DATA", str(tmp_path / "data"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(["query", "anything"])
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda.build(["scan_topk"])
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda.library("encoder_layer", {})
