@@ -1,0 +1,61 @@
+#!/bin/bash
+# Mutation check of the kernels' checks in chip_smoke.py, on the card:
+#
+#     bash chip_mutants.sh        # from the repository root; needs one card
+#
+# Each mutant is a copy of chip_smoke.py and sema_tpu_torch/ under
+# build/mut-<name>/ with one fault put into a CUDA source by sed; the
+# phase that must catch it runs from the copy and must exit non-zero.
+# Prints one line per mutant, "caught" or "MISSED", and exits non-zero if
+# any mutant was missed or left its source unchanged.
+set -u
+cd "$(dirname "$0")"
+failed=0
+mutant() {
+  local name=$1 file=$2 expr=$3 phases=$4
+  local dir=build/mut-$name
+  rm -rf "$dir"
+  mkdir -p "$dir"
+  cp -r chip_smoke.py sema_tpu_torch "$dir"/
+  sed -i "$expr" "$dir/sema_tpu_torch/csrc/$file"
+  if cmp -s "$dir/sema_tpu_torch/csrc/$file" "sema_tpu_torch/csrc/$file"; then
+    echo "mutant $name: the fault did not apply"
+    failed=1
+    return
+  fi
+  if (cd "$dir" && python3 chip_smoke.py --phases "$phases" \
+        > out.txt 2> err.txt); then
+    echo "mutant $name: MISSED by phase $phases"
+    failed=1
+  else
+    echo "mutant $name: caught, $(grep -o 'RuntimeError: .*' \
+      "$dir/err.txt" | head -1 | cut -c15-200)"
+  fi
+}
+# K4a/K4b: the row's scale never multiplies its i32 dot
+mutant no_row_scale scan_topk.cu \
+  's/__fmul_rn(__int2float_rn(iacc\[j\]), rscale)/__int2float_rn(iacc[j])/' \
+  scan_int8
+# K3/K4b: the tile list is ignored, rows are read in order
+mutant tiles_ignored scan_topk.cu 's/phys0 = a.tile_ids == nullptr/phys0 = true/' \
+  scan_int8
+# K2, S > 256: probs @ V reads the first key block over and over
+mutant long_rows_first_block encoder_layer.cu 's/load_keys(k0, true);/load_keys(0, true);/' \
+  encoder_layer
+# K2, f32: the padding mask is dropped
+mutant f32_mask_dropped encoder_layer.cu \
+  's/s = __fadd_rn(__fmul_rn(s, scale), bias\[j\]);/s = __fmul_rn(s, scale);/' \
+  encoder_layer
+# K2, f16: the products read the f16 operands as bf16
+mutant f16_as_bf16 encoder_layer.cu 's/f32.f16.f16.f32/f32.bf16.bf16.f32/' \
+  encoder_layer
+# K2, head dim 64 at buckets of 32 and 64 keys (gte-large's short buckets
+# only): half of each head's context is never written
+mutant hd64_short_half_context encoder_layer.cu \
+  's|constexpr int NO = HD / 8;   // n8 tiles of context|constexpr int NO = (HD == 64 \&\& SP <= 64) ? 4 : HD / 8;|' \
+  encoder_layer
+# K2, f16: every result rounds to bf16's precision before it is stored
+mutant f16_rounded_as_bf16 encoder_layer.cu \
+  's/return __float2half_rn(x); }/return __float2half_rn(__bfloat162float(__float2bfloat16_rn(x))); }/; s/__half2 v = __floats2half2_rn(lo, hi);/__half2 v = __floats2half2_rn(__bfloat162float(__float2bfloat16_rn(lo)), __bfloat162float(__float2bfloat16_rn(hi)));/' \
+  encoder_layer
+exit $failed

@@ -25,7 +25,25 @@ Phases, one JSON line each:
                       same limits must reject the plain version with the
                       mask dropped, with the context zeroed and with the
                       keys' heads rotated, so the check sees attention.
-5. ``main_path``      ``index`` then ``query`` of a generated tree of source
+                      K2 also in f32 (limit: the JAX package's f32
+                      parity bound, 5e-5 + 1e-4 |x|) and f16 (limits of
+                      its own, tighter than bf16's) at (256, 128), in bf16
+                      at S = 384 and 512 (the key-block attention), and at
+                      gte-large width (head dim 64, H = 1024) at every
+                      bucket shape of the index, (64, 256) and the query's
+                      (1, 256). The mutants must fail at every shape,
+                      under the limit of its dtype.
+5. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
+                      rows at d = 1024 and 384, Q in {1, 256}, k in
+                      {16, 128}, masked rows and a 17-way tie; scores and
+                      ids bit-equal. Library: ``torch._int_mm`` + scales +
+                      ``torch.topk`` (one query padded to the 17 rows
+                      ``_int_mm`` needs).
+6. ``scan_pruned``    K3 (bf16) and K4b (int8) over 40 of a 128-tile probe
+                      budget of the same stores (tiles of 512): K4b
+                      bit-equal, K3 under K1's limits. Library:
+                      ``index_select`` of the tiles + the product + topk.
+7. ``main_path``      ``index`` then ``query`` of a generated tree of source
                       files through the CLI (MiniLM-L6, bf16, random weights
                       from seed 0, on the card). The launch counts are set
                       to 0 before each step and read after it: the index
@@ -35,19 +53,50 @@ Phases, one JSON line each:
                       may fire. The stored rows (per-row cosine >= 0.9999)
                       and the query's hits are held against the plain
                       versions on a sample.
+8. ``int8_ivf_path``  BASELINE config 4 with IVF on top: gte-large (24
+                      layers, 1024 wide, random weights), ``store_dtype =
+                      "int8"``, ``rescore_k = 100``, ``ivf = true``,
+                      ``ivf_nprobe = 32``. ``VectorStore.add_chunks`` fills
+                      the data dir with 1,048,576 seeded synthetic rows
+                      (unit vectors around 2,048 random centres, the JAX
+                      package's clustered synthetic of ``tools/ivf_bench.py``):
+                      4 sealed buckets. Then the CLI's ``index`` of the tree
+                      above (its chunks land in the unsealed tail) and
+                      ``query``: the query must launch K2 24 times, K4b
+                      once per sealed bucket, K4a once (the tail) and K1
+                      not at all; the index's K2 launches must match its
+                      batches per sequence bucket. The stored rows of a
+                      sample of the tail are held against the plain
+                      encoder on the card (per-row cosine >= 0.9999). The
+                      kernels' hits must equal the plain
+                      versions' on the same card with the same tile
+                      selection; a stored row as the query must come back
+                      first through IVF; ``exact=True`` must launch K4a on
+                      every bucket and no K4b. Prints recall@10 of the IVF
+                      route against ``exact=True`` over 100 perturbed
+                      stored rows (no limit: the frontier constant was
+                      measured on other data), the query p50 over 20 warm
+                      queries, the device busy share and per-stage seconds.
+9. ``bf16_ivf_path``  the same with ``store_dtype = "bfloat16"``: the query
+                      must launch K3 once per sealed bucket and K1 once.
 
 Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises, so the script
 exits non-zero before the last line; without a card, or without the
-repository beside it, it exits non-zero at once.
+repository beside it, it exits non-zero at once. ``--phases a,b`` runs
+only the named phases (and ``device`` and ``build``) and ends without the
+kernels and ``ok`` lines.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of HBM, 989 TFLOP/s of
-dense bf16 and 67 TFLOP/s of f32 outside the tensor cores (at the 700 W
-limit; the device line says what this card has).
+dense bf16 and f16, 1,979 TOP/s of int8 and 67 TFLOP/s of f32 outside the
+tensor cores (at the 700 W limit; the device line says what this card
+has).
 """
 
 from __future__ import annotations
 
+import argparse
+import importlib
 import io
 import json
 import math
@@ -58,19 +107,26 @@ import sys
 import tempfile
 import time
 from collections import Counter
-from contextlib import redirect_stderr, redirect_stdout
+from contextlib import contextmanager, redirect_stderr, redirect_stdout
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 D = 384                        # MiniLM-L6 width, the store's row width
 DEV = torch.device("cuda")
 QUERY = "retry the request with exponential backoff"
+SEAL = 262_144                 # rows of a sealed bucket (VectorStore)
+IVF_MODEL, GTE_D = "gte-large", 1024    # the int8/IVF paths' model, width
+# the scan wrappers, by the name the store calls them under
+SCANS = ("scan_topk", "scan_topk_int8", "scan_topk_pruned",
+         "scan_topk_int8_pruned")
 
 
 def emit(phase: str, **fields) -> None:
@@ -109,16 +165,50 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
                                        else "operations")
 
 
+def _wrappers() -> dict:
+    from sema_tpu_torch import ops
+    return {**{name: getattr(ops, name) for name in SCANS},
+            "encoder_layer": ops.fused_encoder_layer}
+
+
 def launch_counts() -> dict:
-    from sema_tpu_torch.ops import fused_encoder_layer, scan_topk
-    return {"scan_topk": scan_topk.launches,
-            "encoder_layer": fused_encoder_layer.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from sema_tpu_torch.ops import fused_encoder_layer, scan_topk
-    scan_topk.launches = 0
-    fused_encoder_layer.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+@contextmanager
+def plain_layers():
+    """The encoder's layer wrapper replaced by its plain version, on the
+    same card (as ``plain_scans`` does for the scans)."""
+    bert_mod = importlib.import_module("sema_tpu_torch.models.bert")
+    layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
+    saved = bert_mod.fused_encoder_layer
+    bert_mod.fused_encoder_layer = layer_mod.encoder_layer_reference
+    try:
+        yield
+    finally:
+        bert_mod.fused_encoder_layer = saved
+
+
+@contextmanager
+def plain_scans():
+    """The store's scan wrappers replaced by their plain versions, on the
+    same card (the port itself never does this: a CUDA tensor launches
+    the kernel or raises)."""
+    store_mod = importlib.import_module("sema_tpu_torch.index.vector_store")
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    saved = {name: getattr(store_mod, name) for name in SCANS}
+    for name in SCANS:
+        setattr(store_mod, name, getattr(scan_mod, f"{name}_reference"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(store_mod, name, fn)
 
 
 # -- K1 -----------------------------------------------------------------------
@@ -199,30 +289,203 @@ def phase_scan(gen):
     emit("scan_topk", cases=cases)
 
 
+# -- K4a, K3, K4b --------------------------------------------------------------
+
+IVF_TILE = 512                 # VectorStore.IVF_TILE on device buckets
+PROBE_BUDGET = SEAL // IVF_TILE // 4    # a sealed bucket's tile budget
+PROBE_LIVE = 40                # live tiles of the probes below
+
+
+def scan_store(d, gen):
+    """A sealed bucket's worth of unit rows with the 17-way tie, as bf16
+    rows and as the int8 store quantizes them; tombstones; a tile list of
+    PROBE_LIVE live tiles (tile 0, which holds the tie, among them) padded
+    to the budget as ops/ivf.py:select_tiles pads it."""
+    from sema_tpu_torch.ops.quant import quantize_rows_device
+    rows = F.normalize(torch.randn(SEAL, d, generator=gen, device=DEV), dim=1)
+    rows[TIE[1:]] = rows[TIE[0]].clone()
+    bf = rows.to(BF16)
+    del rows
+    qvals, scales = quantize_rows_device(bf)
+    valid = torch.rand(SEAL, generator=gen, device=DEV) > 0.1
+    valid[TIE] = True
+    others = torch.randperm(SEAL // IVF_TILE - 1, generator=gen,
+                            device=DEV)[:PROBE_LIVE - 1] + 1
+    live = sorted([0] + others.tolist())
+    tiles = np.full(PROBE_BUDGET, live[-1], dtype=np.int32)
+    tiles[:PROBE_LIVE] = live
+    rows_idx = (torch.as_tensor(live, device=DEV)[:, None] * IVF_TILE
+                + torch.arange(IVF_TILE, device=DEV)[None, :]).reshape(-1)
+    return {"bf16": bf, "qvals": qvals, "scales": scales, "valid": valid,
+            "tiles": tiles, "rows_idx": rows_idx, "d": d}
+
+
+def int8_library(qvals, scales, valid, queries, k, idx=None):
+    """(``index_select`` of the rows ``idx`` when given, then)
+    ``torch._int_mm`` + scales + mask + ``torch.topk``, or None with the
+    reason where ``_int_mm`` does not take the shape. ``_int_mm`` wants
+    more than 16 rows, so fewer queries are padded with zero rows to 17
+    and the padding's scores dropped."""
+    from sema_tpu_torch.ops.quant import quantize_query
+    nq = queries.shape[0]
+
+    def fn():
+        qv, sc, va = qvals, scales, valid
+        if idx is not None:
+            qv, sc, va = (qv.index_select(0, idx), sc.index_select(0, idx),
+                          va.index_select(0, idx))
+        qi, qs = quantize_query(queries)
+        if nq <= 16:
+            qi = torch.cat([qi, qi.new_zeros(17 - nq, qi.shape[1])])
+        raw = torch._int_mm(qi, qv.t())[:nq]
+        s = raw.float() * sc[None, :] * qs[:, None]
+        return torch.topk(s.masked_fill(~va[None, :], float("-inf")), k)
+    try:
+        fn()
+    except RuntimeError as e:
+        return None, (f"no library call at Q={nq}, "
+                      f"k={k}: {str(e).splitlines()[0][:120]}")
+    return fn, None
+
+
+def scan_more_case(kind, data, nq, k, gen, iters):
+    """One case of K4a ("int8"), K3 ("pruned") or K4b ("int8_pruned")
+    against its plain version, with times and bound."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    d, valid, tiles = data["d"], data["valid"], data["tiles"]
+    q = F.normalize(torch.randn(nq, d, generator=gen, device=DEV), dim=1)
+    q[0] = data["bf16"][TIE[0]].float()
+    if kind == "int8":
+        args = (data["qvals"], data["scales"], q, valid, k)
+        fn, ref = scan_mod.scan_topk_int8, scan_mod.scan_topk_int8_reference
+        rows = SEAL
+    else:
+        store = ((data["qvals"], data["scales"]) if kind == "int8_pruned"
+                 else (data["bf16"],))
+        args = (*store, q, valid, tiles, PROBE_LIVE, k, IVF_TILE)
+        fn = getattr(scan_mod, f"scan_topk_{kind}")
+        ref = getattr(scan_mod, f"scan_topk_{kind}_reference")
+        rows = PROBE_LIVE * IVF_TILE
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    if kind == "pruned":
+        err = check_scan(data["bf16"], q, valid, True, got, want)
+    else:
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{kind} (d={d}, Q={nq}, k={k}): not bit-equal to the plain "
+              "version")
+        err = 0.0
+    t = min(k, len(TIE))
+    check(got[1][0, :t].tolist() == TIE[:t], f"{kind}: tied rows out of id "
+          "order")
+    if kind != "int8":
+        live_tiles = set(tiles[:PROBE_LIVE].tolist())
+        fin = torch.isfinite(got[0])
+        check(all(int(i) // IVF_TILE in live_tiles
+                  for i in got[1][fin].tolist()), f"{kind}: a row outside "
+              "the probed tiles")
+    isz = 2 if kind == "pruned" else 1
+    ms, bound_by = bound(
+        rows * d * isz + rows * (1 if kind == "pruned" else 5)
+        + nq * d * 4 + nq * k * 8 + (0 if kind == "int8" else 4 * PROBE_LIVE),
+        2.0 * nq * rows * d,
+        BF16_OPS_PER_S if kind == "pruned" else INT8_OPS_PER_S)
+    idx = data["rows_idx"]
+    note = None
+    if kind == "pruned":
+        store = data["bf16"]
+        lib = lambda: torch.topk((q.to(BF16) @ store.index_select(0, idx).T)
+                                 .masked_fill(~valid[idx][None, :],
+                                              float("-inf")), k)
+    else:
+        lib, note = int8_library(data["qvals"], data["scales"], valid, q, k,
+                                 idx if kind == "int8_pruned" else None)
+    out = {"kernel": {"int8": "K4a", "pruned": "K3",
+                      "int8_pruned": "K4b"}[kind],
+           "n": SEAL, "rows_scanned": rows, "d": d, "q": nq, "k": k,
+           "max_abs_err": err, "ms": device_ms(lambda: fn(*args), iters),
+           "plain_ms": device_ms(lambda: ref(*args), max(2, iters // 3)),
+           "library_ms": None if lib is None else device_ms(lib, iters),
+           "bound_ms": ms, "bound_by": bound_by}
+    if note:
+        out["library_note"] = note
+    return out
+
+
+def phase_scan_more(gen):
+    int8_cases, pruned_cases = [], []
+    for d in (GTE_D, D):
+        data = scan_store(d, gen)
+        for nq in (1, 256):
+            for k in (16, 128):
+                iters = 10 if nq == 1 else 5
+                int8_cases.append(scan_more_case("int8", data, nq, k, gen,
+                                                 iters))
+                for kind in ("pruned", "int8_pruned"):
+                    pruned_cases.append(scan_more_case(kind, data, nq, k,
+                                                       gen, iters))
+        del data
+        torch.cuda.empty_cache()
+    emit("scan_int8", cases=int8_cases)
+    emit("scan_pruned", cases=pruned_cases)
+    return int8_cases, pruned_cases
+
+
 # -- K2 -----------------------------------------------------------------------
 
-K2_SHAPES = (("minilm-l6", 2048, 32), ("minilm-l6", 1024, 64),
-             ("minilm-l6", 512, 128), ("minilm-l6", 256, 256),
-             ("minilm-l6", 1, 256), ("e5-base", 256, 128))
+BF16 = torch.bfloat16
+K2_SHAPES = (("minilm-l6", BF16, 2048, 32), ("minilm-l6", BF16, 1024, 64),
+             ("minilm-l6", BF16, 512, 128), ("minilm-l6", BF16, 256, 256),
+             ("minilm-l6", BF16, 1, 256), ("e5-base", BF16, 256, 128),
+             ("minilm-l6", torch.float32, 256, 128),
+             ("minilm-l6", torch.float16, 256, 128),
+             ("minilm-l6", BF16, 64, 384), ("minilm-l6", BF16, 32, 512),
+             ("gte-large", BF16, 2048, 32), ("gte-large", BF16, 1024, 64),
+             ("gte-large", BF16, 512, 128), ("gte-large", BF16, 256, 256),
+             ("gte-large", BF16, 64, 256), ("gte-large", BF16, 1, 256))
 COS_MIN = 0.9995               # per output row
 REL_MAX = 2.0 ** -3            # |got - want| / max(|want|, 1)
+COS_MIN_F16, REL_MAX_F16 = 0.99998, 0.015
+F32_ATOL, F32_RTOL = 5e-5, 1e-4
 
 
-def layer_close(got, want):
+def layer_close(got, want, cos_min=COS_MIN, rel_max=REL_MAX):
     """(ok, min per-row cosine, max error relative to max(|want|, 1)).
     Both sides round to bf16 at the same places but sum in another order,
     so an intermediate (a probability, h1, a GELU input) may land one bf16
     ulp apart and carry on through the products after it. On an H100 with
-    the weights of ``layer_params`` the kernel read, at worst over
-    K2_SHAPES, cosine 0.99991 and a relative error of 0.052 (e5-base); the
-    limits leave five and two times that. The plain version with attention
-    broken (``broken_layers``, the mask dropped) and three such mutants of
-    the CUDA source read cosine 0.14 to 0.42 and relative errors above 3."""
+    the weights of ``layer_params`` the kernel read, at worst over the
+    bf16 shapes of K2_SHAPES, cosine 0.99970 and a relative error of 0.090
+    (gte-large at (512, 128)); the limits leave 1.7 and 1.4 times that.
+    The plain version with attention broken (``broken_layers``, the mask
+    dropped) read cosine 0.12 to 0.45, and the CUDA mutants of
+    chip_mutants.sh relative errors above 4 (bf16 and f32) or NaN."""
     h = got.shape[-1]
     g, w = got.float().reshape(-1, h), want.float().reshape(-1, h)
     cos = float(F.cosine_similarity(g, w, dim=1).min())
     rel = float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
-    return cos >= COS_MIN and rel <= REL_MAX, cos, rel
+    return cos >= cos_min and rel <= rel_max, cos, rel
+
+
+def layer_close_f16(got, want):
+    """``layer_close`` at f16's own limits. f16 rounds at the same places
+    with three more mantissa bits, and the kernel read cosine 0.999998 and
+    a relative error of 0.0044 at (256, 128) on an H100, where the bf16
+    shapes read 0.036 to 0.070: a relative error of 0.015 (and 1 - cosine
+    of 2e-5) lets the f16 kernel through and not one that rounds its
+    results at bf16's precision."""
+    return layer_close(got, want, COS_MIN_F16, REL_MAX_F16)
+
+
+def layer_close_f32(got, want):
+    """(ok, min per-row cosine, max relative error) for f32, where nothing
+    rounds and only the order of the f32 sums differs: every output within
+    5e-5 + 1e-4 |want|, the JAX package's bound between its fused and
+    composed f32 layers (tests/test_fused_attention.py)."""
+    _, cos, rel = layer_close(got, want)
+    g, w = got.float(), want.float()
+    ok = bool(((g - w).abs() <= F32_ATOL + F32_RTOL * w.abs()).all())
+    return ok, cos, rel
 
 
 def layer_params(h, inter, gen):
@@ -255,7 +518,7 @@ def broken_layers(layer, heads):
             "heads_rotated": {**layer, "qkv_w": rot_w}}
 
 
-def library_layer(layer, heads, eps):
+def library_layer(layer, heads, eps, dtype):
     """torch.nn.TransformerEncoderLayer holding the same weights: the one
     PyTorch call that computes a post-LN BERT layer (timed, never used by
     the port)."""
@@ -264,7 +527,7 @@ def library_layer(layer, heads, eps):
     mod = torch.nn.TransformerEncoderLayer(
         h, heads, inter, dropout=0.0, activation="gelu",
         layer_norm_eps=eps, batch_first=True, norm_first=False,
-        device=DEV, dtype=torch.bfloat16).eval()
+        device=DEV, dtype=dtype).eval()
     with torch.no_grad():
         for dst, name in ((mod.self_attn.in_proj_weight, "qkv_w"),
                           (mod.self_attn.out_proj.weight, "attn_out_w"),
@@ -283,13 +546,15 @@ def library_layer(layer, heads, eps):
     return mod
 
 
-def layer_case(layer, spec, b, s, gen, iters):
+def layer_case(layer, spec, dtype, b, s, gen, iters):
     from sema_tpu_torch.models.bert import LN_EPS
     from sema_tpu_torch.ops.encoder_layer import (encoder_layer_reference,
                                                   fused_encoder_layer)
     h, heads, inter = spec.hidden_size, spec.num_heads, spec.intermediate_size
     scale = 1.0 / math.sqrt(h // heads)
-    x = torch.randn(b, s, h, generator=gen, device=DEV).to(torch.bfloat16)
+    close = {torch.float32: layer_close_f32,
+             torch.float16: layer_close_f16}.get(dtype, layer_close)
+    x = torch.randn(b, s, h, generator=gen, device=DEV).to(dtype)
     lens = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
     lens[0] = s if b > 1 else min(12, s)   # one query: 12 tokens, padded
     pad = torch.arange(s, device=DEV)[None, :] >= lens[:, None]
@@ -298,30 +563,35 @@ def layer_case(layer, spec, b, s, gen, iters):
     got = fused_encoder_layer(*args)
     want = encoder_layer_reference(*args)
     torch.cuda.synchronize()
-    ok, cos, rel = layer_close(got, want)
-    check(ok, f"{spec.name} ({b}, {s}): cosine {cos}, relative error {rel}")
+    ok, cos, rel = close(got, want)
+    check(ok, f"{spec.name} {dtype} ({b}, {s}): cosine {cos}, relative "
+          f"error {rel}, max abs error "
+          f"{float((got.float() - want.float()).abs().max())}")
     broken = {name: encoder_layer_reference(x, bad, bias, heads, scale,
                                             LN_EPS)
               for name, bad in broken_layers(layer, heads).items()}
     broken["no_mask"] = encoder_layer_reference(
         x, layer, torch.zeros_like(bias), heads, scale, LN_EPS)
     for name, out in broken.items():
-        check(not layer_close(out, want)[0],
-              f"{spec.name} ({b}, {s}): the check passes {name}")
+        check(not close(out, want)[0],
+              f"{spec.name} {dtype} ({b}, {s}): the check passes {name}")
     m = b * s
+    isz = x.element_size()
     weights = 4 * h * h + 2 * h * inter
     ms, bound_by = bound(
-        2 * 2 * m * h + 2 * weights + 2 * (3 * h + h + inter + h)
+        2 * isz * m * h + isz * weights + isz * (3 * h + h + inter + h)
         + 4 * 4 * h + 4 * b * s,
-        2.0 * m * weights + 4.0 * b * s * s * h)
-    lib = library_layer(layer, heads, LN_EPS)
+        2.0 * m * weights + 4.0 * b * s * s * h,
+        F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
+    lib = library_layer(layer, heads, LN_EPS, dtype)
     with torch.inference_mode():
         library_ms = device_ms(lambda: lib(x, src_key_padding_mask=pad),
                                iters)
-    return {"model": spec.name, "b": b, "s": s, "head_dim": h // heads,
+    return {"model": spec.name, "dtype": str(dtype).removeprefix("torch."),
+            "b": b, "s": s, "head_dim": h // heads,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "max_rel_err": rel, "min_cosine": cos,
-            "broken_min_cosine": {name: layer_close(out, want)[1]
+            "broken_min_cosine": {name: close(out, want)[1]
                                   for name, out in broken.items()},
             "ms": device_ms(lambda: fused_encoder_layer(*args), iters),
             "plain_ms": device_ms(lambda: encoder_layer_reference(*args),
@@ -332,11 +602,12 @@ def layer_case(layer, spec, b, s, gen, iters):
 def phase_layer(gen):
     from sema_tpu_torch.models.registry import get_spec
     cases = []
-    for name in dict.fromkeys(m for m, _, _ in K2_SHAPES):
+    for name in dict.fromkeys(m for m, _, _, _ in K2_SHAPES):
         spec = get_spec(name)
         layer = layer_params(spec.hidden_size, spec.intermediate_size, gen)
-        cases += [layer_case(layer, spec, b, s, gen, iters=10)
-                  for m, b, s in K2_SHAPES if m == name]
+        cases += [layer_case(layer, spec, dt, b, s, gen, iters=10)
+                  for m, dt, b, s in K2_SHAPES if m == name]
+        del layer
     emit("encoder_layer", cases=cases)
     return cases
 
@@ -387,6 +658,21 @@ def query_device_time(search, n: int) -> dict:
                        for e in top}}
 
 
+def bucket_batches(enc, texts):
+    """The index's rows and batches per sequence bucket of ``texts``, as
+    Encoder.encode_texts forms them: per super-batch of 8 * batch_size
+    chunks. Returns (rows, batches), two Counters keyed by bucket length."""
+    counts, batches = Counter(), Counter()
+    for off in range(0, len(texts), 8 * enc.batch_size):
+        part = Counter(enc._bucket_len(len(tok_ids)) for tok_ids, _ in
+                       enc._encode(texts[off:off + 8 * enc.batch_size]))
+        for s, n in part.items():
+            counts[s] += n
+            batches[s] += -(-n // (enc.batch_size
+                                   * max(1, enc.max_length // s)))
+    return counts, batches
+
+
 def run_cli(argv):
     """Run the port's CLI in-process; raise on a non-zero exit or on the
     warnings of a swallowed embed failure or of the substring fallback."""
@@ -427,7 +713,9 @@ def phase_main_path(work: Path, n_files: int, extra=()):
     hits = [json.loads(line) for line in out.splitlines()]
     check(len(hits) == 50 and all(math.isfinite(h["score"]) for h in hits),
           f"{len(hits)} hits, or a score that is not finite")
-    check(all(v > 0 for v in query_launches.values()),
+    check(query_launches["encoder_layer"] > 0
+          and query_launches["scan_topk"] > 0
+          and not any(query_launches[n] for n in SCANS[1:]),
           f"query launches {query_launches}")
 
     again = run_cli(["index", str(tree), *extra])
@@ -477,17 +765,8 @@ def phase_main_path(work: Path, n_files: int, extra=()):
     cos = F.cosine_similarity(rows, ref, dim=1)
     check(float(cos.min()) >= 0.9999, f"stored rows: cosine {cos.min()}")
 
-    # the index's batches per sequence bucket, as Encoder.encode_texts
-    # forms them: per super-batch of 8 * batch_size chunks
-    counts, batches = Counter(), Counter()
-    texts = [store.chunk_at(i).content for i in range(n_chunks)]
-    for off in range(0, n_chunks, 8 * enc.batch_size):
-        part = Counter(enc._bucket_len(len(tok_ids)) for tok_ids, _ in
-                       enc._encode(texts[off:off + 8 * enc.batch_size]))
-        for s, n in part.items():
-            counts[s] += n
-            batches[s] += -(-n // (enc.batch_size
-                                   * max(1, enc.max_length // s)))
+    counts, batches = bucket_batches(
+        enc, [store.chunk_at(i).content for i in range(n_chunks)])
     check(sum(batches.values()) * enc.spec.num_layers
           == index_launches["encoder_layer"],
           f"batches {dict(batches)}, launches {index_launches}")
@@ -516,7 +795,283 @@ def phase_main_path(work: Path, n_files: int, extra=()):
     return index_launches, query_launches, k1
 
 
+# -- int8 and IVF stores (BASELINE config 4) ----------------------------------
+
+N_CENTRES = 2048               # true clusters of the synthetic corpus
+NOISE, QNOISE = 1.5, 1.0       # tools/ivf_bench.py's defaults
+
+
+def write_config(home: Path, store_dtype: str) -> None:
+    """gte-large, bf16 compute, max_length 256, batch 256; the store in
+    ``store_dtype`` with rescore_k 100 and IVF at nprobe 32."""
+    from sema_tpu_torch.config import ConfigManager
+    manager = ConfigManager(home)
+    config = manager.load_config()
+    m, ix = config.model, config.index
+    m.name, m.dtype, m.max_length, m.batch_size = (IVF_MODEL, "bfloat16",
+                                                   256, 256)
+    ix.store_dtype, ix.rescore_k, ix.ivf, ix.ivf_nprobe = (store_dtype, 100,
+                                                           True, 32)
+    manager.save_config(config)
+
+
+def fill_store(data: Path, store_dtype: str, n_rows: int, gen) -> float:
+    """``n_rows`` seeded synthetic rows through ``VectorStore.add_chunks``
+    (the call IndexManager makes), one sealed bucket's worth per segment:
+    unit vectors around N_CENTRES random unit centres, noise NOISE/sqrt(d)
+    per dimension (tools/ivf_bench.py's clustered synthetic), with minimal
+    chunk metadata. Returns the seconds it took."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    from sema_tpu_torch.types import Chunk
+    t0 = time.perf_counter()
+    store = VectorStore(data, GTE_D, IVF_MODEL, store_dtype=store_dtype,
+                        ivf=True, device=DEV)
+    seal = store.SEAL_ROWS
+    cent = F.normalize(torch.randn(N_CENTRES, GTE_D, generator=gen,
+                                   device=DEV), dim=1)
+    for part in range(n_rows // seal):
+        g = torch.randint(0, N_CENTRES, (seal,), generator=gen, device=DEV)
+        rows = F.normalize(cent[g] + NOISE / math.sqrt(GTE_D) * torch.randn(
+            seal, GTE_D, generator=gen, device=DEV), dim=1).to(BF16)
+        path = Path(f"/synthetic/part{part}.txt")
+        store.add_chunks([Chunk(f"{path}:{i}", path, i + 1, i + 1, "")
+                          for i in range(seal)], rows)
+    store.close()
+    return time.perf_counter() - t0
+
+
+def path_scan_times(store, qvec, k) -> dict:
+    """The path's scan kernels at the path's shapes (the first sealed
+    bucket's probe for this query, and the tail), against their plain
+    versions and the library call: {kernel name: fields}."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    from sema_tpu_torch.ops.ivf import select_tiles
+    buckets = store.device_buckets()
+    b, tail = buckets[0], buckets[-1]
+    ivf = b["ivf"]
+    budget = max(2, (b["n_pad"] // store.IVF_TILE) // store.IVF_BUDGET_DIV)
+    tiles, n_live = select_tiles(ivf["centroids"], ivf["starts"],
+                                 qvec.cpu().numpy(), store.ivf_nprobe,
+                                 store.IVF_TILE, budget)
+    idx = (torch.as_tensor(tiles[:n_live], device=DEV)[:, None]
+           * store.IVF_TILE + torch.arange(store.IVF_TILE, device=DEV)
+           ).reshape(-1)
+    rows, n, d = n_live * store.IVF_TILE, tail["rows"], GTE_D
+    out = {}
+    if store.quantized:
+        cases = {
+            "scan_topk_int8_pruned": ((*b["store"], qvec, b["valid"], tiles,
+                                       n_live, k, store.IVF_TILE), rows,
+                                      b["store"], b["valid"], idx),
+            "scan_topk_int8": ((*tail["store"], qvec, tail["valid"], k), n,
+                               tail["store"], tail["valid"], None)}
+        for name, (args, r, (qv, sc), valid, gather) in cases.items():
+            lib, note = int8_library(qv, sc, valid, qvec, k, gather)
+            out[name] = {"library_ms": None if lib is None
+                         else device_ms(lib, 20), "library_note": note,
+                         "rows_scanned": r, "k": k, "args": args,
+                         "bound": bound(r * (d + 5) + d * 4 + k * 8
+                                        + (0 if gather is None
+                                           else 4 * n_live),
+                                        2.0 * r * d, INT8_OPS_PER_S)}
+    else:
+        store_b, tail_s = b["store"], tail["store"]
+        out["scan_topk_pruned"] = {
+            "args": (store_b, qvec, b["valid"], tiles, n_live, k,
+                     store.IVF_TILE), "rows_scanned": rows, "k": k,
+            "library_ms": device_ms(lambda: torch.topk(
+                qvec.to(BF16) @ store_b.index_select(0, idx).T, k), 20),
+            "bound": bound(rows * (2 * d + 1) + d * 4 + k * 8 + 4 * n_live,
+                           2.0 * rows * d)}
+        out["scan_topk"] = {
+            "args": (tail_s, qvec, tail["valid"], k,
+                     not tail["all_valid"]), "rows_scanned": n, "k": k,
+            "library_ms": device_ms(lambda: torch.topk(
+                qvec.to(BF16) @ tail_s.T, k), 20),
+            "bound": bound(n * (2 * d + 1) + d * 4 + k * 8, 2.0 * n * d)}
+    for name, f in out.items():
+        fn = getattr(scan_mod, name)
+        ref = getattr(scan_mod, f"{name}_reference")
+        args = f.pop("args")
+        got, want = fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want[0])
+        f["max_abs_err"] = (float((got[0][fin] - want[0][fin]).abs().max())
+                            if fin.any() else 0.0)
+        check(torch.equal(got[1], want[1]), f"{name} on the path: ids differ "
+              "from the plain version's")
+        f["ms"] = device_ms(lambda: fn(*args), 50)
+        f["plain_ms"] = device_ms(lambda: ref(*args), 20)
+        f["bound_ms"], f["bound_by"] = f.pop("bound")
+        if f.get("library_note") is None:
+            f.pop("library_note", None)
+    return out
+
+
+def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
+                   gen, device: str = "cuda") -> dict:
+    from sema_tpu_torch import cli
+    from sema_tpu_torch.models.registry import get_spec
+    from sema_tpu_torch.utils.metrics import Metrics
+    name = "int8_ivf_path" if store_dtype == "int8" else "bf16_ivf_path"
+    home, data = work / f"home-{store_dtype}", work / f"data-{store_dtype}"
+    os.environ["SEMA_TPU_HOME"] = str(home)
+    os.environ["SEMA_TPU_DATA"] = str(data)
+    write_config(home, store_dtype)
+    fill_s = fill_store(data, store_dtype, n_rows, gen)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_cli(["index", str(tree), "--stats", "--device", device])
+    index_s = time.perf_counter() - t0
+    index_launches = launch_counts()
+    n_chunks = int(re.search(r"indexed (\d+) chunks", out).group(1))
+    stats = json.loads(out[out.index("{"):])
+    check(n_chunks > 0 and index_launches["encoder_layer"] > 0
+          and not any(index_launches[n] for n in SCANS),
+          f"{name} index: {n_chunks} chunks, launches {index_launches}")
+
+    # the first query of the store: it builds the buckets (k-means of each
+    # sealed one, its sidecar written) before it scans
+    int8 = store_dtype == "int8"
+    pruned, exact_scan = (("scan_topk_int8_pruned", "scan_topk_int8") if int8
+                          else ("scan_topk_pruned", "scan_topk"))
+    sealed = n_rows // SEAL
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_cli(["query", QUERY, "--json", "--device", device])
+    query_cli_s = time.perf_counter() - t0
+    query_launches = launch_counts()
+    hits = [json.loads(line) for line in out.splitlines()]
+    check(len(hits) == 50 and all(math.isfinite(h["score"]) for h in hits),
+          f"{name}: {len(hits)} hits, or a score that is not finite")
+    want = {n: 0 for n in SCANS}
+    want.update({"encoder_layer": get_spec(IVF_MODEL).num_layers,
+                 pruned: sealed, exact_scan: 1})
+    check(query_launches == want, f"{name} query launches {query_launches}, "
+          f"want {want}")
+
+    args = cli.build_parser().parse_args(["query", QUERY])
+    metrics = Metrics()
+    mgr = cli.make_index_manager(cli.load_config(args), device,
+                                 metrics=metrics)
+    store, enc = mgr.vector_store, mgr.encoder
+    t0 = time.perf_counter()
+    buckets = store.device_buckets()          # the sidecars, no k-means
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    check([b["ivf"] is not None for b in buckets] == [True] * sealed
+          + [False] and buckets[-1]["rows"] == n_chunks,
+          f"{name}: buckets {[(b['rows'], b['sealed']) for b in buckets]}")
+
+    # the index's K2 launches per sequence bucket; the stored rows of a
+    # sample of the tail (bf16 originals on disk) against the plain
+    # encoder on the card
+    tail = buckets[-1]
+    texts = [store.chunk_at(tail["row_offset"] + i).content
+             for i in range(n_chunks)]
+    counts, batches = bucket_batches(enc, texts)
+    layers = get_spec(IVF_MODEL).num_layers
+    check(sum(batches.values()) * layers == index_launches["encoder_layer"],
+          f"{name}: batches {dict(batches)}, launches {index_launches}")
+    sample = list(range(0, n_chunks, max(1, n_chunks // 16)))[:16]
+    with plain_layers():
+        ref = enc.encode_texts([texts[i] for i in sample])
+    rows = torch.from_numpy(store.rows_at(
+        np.array([tail["row_offset"] + i for i in sample])))
+    cos = F.cosine_similarity(rows, ref, dim=1)
+    check(float(cos.min()) >= 0.9999,
+          f"{name}: stored rows against the plain encoder: cosine "
+          f"{cos.tolist()}")
+    for _ in range(3):
+        mgr.search(QUERY, 50)
+    metrics.stage_samples.clear()
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        mgr.search(QUERY, 50)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    stages_p50_ms = {k: v * 1e3 for k, v in metrics.report()["p50_s"].items()}
+    device = query_device_time(lambda: mgr.search(QUERY, 50), 20)
+
+    # the kernels' hits against the plain versions', same card, same query
+    # vector, so the same tile selection
+    qvec = enc.encode_query_device(QUERY)[None, :]
+    got = store.search_batch(qvec, 50)
+    with plain_scans():
+        plain = store.search_batch(qvec, 50)
+    check(np.array_equal(got[1], plain[1]), f"{name}: the kernels' hits "
+          "differ from the plain versions'")
+    if int8:
+        check(np.array_equal(got[0], plain[0]), f"{name}: rescored scores "
+              "differ from the plain versions'")
+
+    # a stored row of each sealed bucket, as the query, comes back first
+    # through the probe; exact=True scans every bucket whole
+    for b in buckets[:sealed]:
+        row = b["row_offset"] + 12_345 % b["rows"]
+        q = torch.from_numpy(store.rows_at(np.array([row])))[0]
+        reset_launch_counts()
+        top = store.search(q, 10)[0][0]
+        c = launch_counts()
+        check(top.id == store.chunk_at(row).id and c[pruned] == sealed,
+              f"{name}: planted row {row} came back as {top.id}, "
+              f"launches {c}")
+    reset_launch_counts()
+    store.search(q, 10, exact=True)
+    c = launch_counts()
+    check(c[exact_scan] == sealed + 1 and c[pruned] == 0,
+          f"{name}: exact=True launches {c}")
+
+    # recall@10 of the probe against exact=True: perturbed stored rows
+    rng = np.random.default_rng(1)
+    picks = rng.choice(n_rows, size=100, replace=False)
+    qs = store.rows_at(picks) + (QNOISE / math.sqrt(GTE_D)) * \
+        rng.standard_normal((100, GTE_D)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    recall, ivf_ms, exact_ms = [], [], []
+    for q in qs:
+        t0 = time.perf_counter()
+        a = store.search_batch(q[None], 10)[1][0]
+        t1 = time.perf_counter()
+        e = store.search_batch(q[None], 10, exact=True)[1][0]
+        t2 = time.perf_counter()
+        recall.append(len(set(a.tolist()) & set(e.tolist())) / 10)
+        ivf_ms.append((t1 - t0) * 1e3)
+        exact_ms.append((t2 - t1) * 1e3)
+    recall = np.asarray(recall)
+    kernels = path_scan_times(store, qvec, 128 if int8 else 64)
+    mgr.close()
+    del store, buckets, mgr
+    torch.cuda.empty_cache()
+    emit(name, rows=n_rows, sealed_buckets=sealed, tail_chunks=n_chunks,
+         fill_s=fill_s, index_s=index_s, index_stages_s=stats["stages_s"],
+         index_launches=index_launches, query_cli_s=query_cli_s,
+         query_launches=query_launches, open_s=open_s,
+         bucket_rows={str(s): n for s, n in sorted(counts.items())},
+         bucket_batches={str(s): n for s, n in sorted(batches.items())},
+         stored_min_cosine=float(cos.min()),
+         query_p50_ms=lat[len(lat) // 2], query_max_ms=lat[-1],
+         query_stages_p50_ms=stages_p50_ms, query_device=device,
+         recall_at_10_mean=float(recall.mean()),
+         recall_at_10_p5=float(np.percentile(recall, 5)),
+         recall_at_10_min=float(recall.min()),
+         search_batch_p50_ms={"ivf": float(np.median(ivf_ms)),
+                              "exact": float(np.median(exact_ms))},
+         kernels=kernels)
+    return {"query_launches": query_launches,
+            "index_launches": index_launches, "kernels": kernels}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all)")
+    cli_args = ap.parse_args()
+    phases = (None if cli_args.phases is None
+              else set(cli_args.phases.split(",")))
+    run = lambda name: phases is None or name in phases
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
               "an NVIDIA card", file=sys.stderr)
@@ -537,29 +1092,62 @@ def main() -> int:
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0)
 
     gen = torch.Generator(device=DEV).manual_seed(0)
-    phase_scan(gen)
-    layer_cases = phase_layer(gen)
+    if run("scan_topk"):
+        phase_scan(gen)
+    if run("encoder_layer"):
+        layer_cases = phase_layer(gen)
+    if run("scan_int8") or run("scan_pruned"):
+        phase_scan_more(gen)
     (ROOT / "build").mkdir(exist_ok=True)
+    paths = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        index_launches, query_launches, k1 = phase_main_path(Path(work), 400)
+        work = Path(work)
+        if run("main_path"):
+            index_launches, query_launches, k1 = phase_main_path(work, 400)
+        tree = work / "tree"
+        if not tree.exists():
+            make_tree(tree, 400)
+        for store_dtype in ("int8", "bfloat16"):
+            name = ("int8_ivf_path" if store_dtype == "int8"
+                    else "bf16_ivf_path")
+            if run(name):
+                paths[store_dtype] = phase_ivf_path(work, tree, store_dtype,
+                                                    4 * SEAL, gen)
+    if phases is not None:
+        print(f"partial run of {sorted(phases)}: no kernels line", flush=True)
+        return 0
 
     k2 = next(c for c in layer_cases
-              if (c["model"], c["b"], c["s"]) == ("minilm-l6", 256, 256))
+              if (c["model"], c["dtype"], c["b"], c["s"])
+              == ("minilm-l6", "bfloat16", 256, 256))
+    int8_k, bf16_k = paths["int8"]["kernels"], paths["bfloat16"]["kernels"]
+    runs = [index_launches, query_launches] + [
+        p[key] for p in paths.values()
+        for key in ("index_launches", "query_launches")]
+    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+
+    def entry(name, source, replaces, shape, f):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "shape": shape, **{key: f[key] for key in fields}}
+    scan_src = "sema_tpu_torch/csrc/scan_topk.cu"
     kernels = [
-        {"name": "scan_topk", "route": "cuda",
-         "source": "sema_tpu_torch/csrc/scan_topk.cu",
-         "replaces": "sema_tpu/ops/pallas_topk.py:280",
-         "launches": index_launches["scan_topk"]
-         + query_launches["scan_topk"], "shape": [k1["n"], 1, k1["k"]],
-         **{key: k1[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}},
-        {"name": "encoder_layer", "route": "cuda",
-         "source": "sema_tpu_torch/csrc/encoder_layer.cu",
-         "replaces": "sema_tpu/ops/fused_attention.py:356",
-         "launches": index_launches["encoder_layer"]
-         + query_launches["encoder_layer"], "shape": [256, 256, D],
-         **{key: k2[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}},
+        entry("scan_topk", scan_src, "sema_tpu/ops/pallas_topk.py:280",
+              [k1["n"], 1, k1["k"]], k1),
+        entry("encoder_layer", "sema_tpu_torch/csrc/encoder_layer.cu",
+              "sema_tpu/ops/fused_attention.py:356", [256, 256, D], k2),
+        entry("scan_topk_pruned", scan_src, "sema_tpu/ops/pallas_topk.py:544",
+              [bf16_k["scan_topk_pruned"]["rows_scanned"], 1, 64],
+              bf16_k["scan_topk_pruned"]),
+        entry("scan_topk_int8", scan_src, "sema_tpu/ops/pallas_topk.py:368",
+              [int8_k["scan_topk_int8"]["rows_scanned"], 1, 128],
+              int8_k["scan_topk_int8"]),
+        entry("scan_topk_int8_pruned", scan_src,
+              "sema_tpu/ops/pallas_topk.py:580",
+              [int8_k["scan_topk_int8_pruned"]["rows_scanned"], 1, 128],
+              int8_k["scan_topk_int8_pruned"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -125,14 +125,13 @@ def make_index_manager(config: Config, device: str, metrics=None):
     from sema_tpu_torch.models import Encoder
 
     unported = [name for name, on in (
-        ("[index] ivf", config.index.ivf),
         ("[mesh] shape", config.mesh.shape),
         ("[mesh] model_axis", config.mesh.model_axis),
         ("[mesh] slice_axis", config.mesh.slice_axis)) if on]
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)} not ported to sema_tpu_torch yet "
-            "(single-device exact search only)")
+            "(single-device search only)")
     if metrics is None and os.environ.get("SEMA_TPU_LOG"):
         from sema_tpu_torch.utils.metrics import Metrics
         metrics = Metrics(log_stream=open(
@@ -145,7 +144,10 @@ def make_index_manager(config: Config, device: str, metrics=None):
               file=sys.stderr)
     return IndexManager(data_dir(), encoder,
                         store_dtype=config.index.store_dtype,
-                        metrics=metrics)
+                        metrics=metrics, rescore_k=config.index.rescore_k,
+                        ivf=config.index.ivf,
+                        ivf_nprobe=config.index.ivf_nprobe,
+                        ivf_min_recall=config.index.ivf_min_recall)
 
 
 def cmd_index(args) -> int:

@@ -1,30 +1,55 @@
-// K1 of the port: exact top-k of queries @ store.T on Hopper (sm_90a).
+// K1, K3, K4a and K4b of the port: exact top-k of queries @ store.T on
+// Hopper (sm_90a), over a whole store or over a list of its tiles, with
+// bf16/f16/f32 or int8 rows.
 //
-// Replaces sema_tpu/ops/pallas_topk.py:pallas_topk (_scan_kernel,
-// _scan_kernel_nomask and their shared _merge_and_emit). The TPU kernel
-// walks the store's tiles in order on one core and keeps each query's
-// running top-k in VMEM scratch from one grid step to the next. Blocks on
-// Hopper run in no order, so the scan is two passes:
+// Replaces, in sema_tpu/ops/pallas_topk.py:
+//   K1   pallas_topk              (_scan_kernel, _scan_kernel_nomask)
+//   K4a  pallas_topk_int8         (_scan_kernel_int8)
+//   K3   pallas_topk_pruned       (_scan_kernel_pruned)
+//   K4b  pallas_topk_int8_pruned  (_scan_kernel_int8_pruned)
+// which all share _merge_and_emit. The TPU kernels walk their tiles in
+// order on one core and keep each query's running top-k in VMEM scratch
+// from one grid step to the next. Blocks on Hopper run in no order, so the
+// scan is two passes:
 //
 //   pass 1  grid (chunk of rows, block of queries). Each block streams its
 //           row range through shared memory 64 rows at a time (a row wider
 //           than shared memory allows goes in slabs of words), scores the
-//           rows against its queries (f32 FMAs over the store dtype, f32
-//           accumulation, invalid rows -inf) and merges the scores into a
+//           rows against its queries and merges the scores into a
 //           per-query sorted list of k in shared memory. A score enters
 //           only if it beats the list's k-th entry (the TPU kernel's
 //           threshold screen), and it goes in after equal scores, so equal
-//           scores keep the lower row id. The lists go out as
+//           scores keep the row scanned first. The lists go out as
 //           (Q, chunks, k) candidates.
 //   pass 2  one warp per query merges its chunks' lists, chunk by chunk in
-//           row order, under the same rule; a list is left at its first
+//           scan order, under the same rule; a list is left at its first
 //           32 entries that do not beat the k-th. Slots with no row are
-//           -inf with id 0, as the TPU kernel's zeroed ids leave them.
+//           -inf with id 0, as the TPU kernels' zeroed ids leave them. An
+//           int8 scan's per-query scale multiplies the merged scores here,
+//           after the merge, as pallas_topk.py:432 does.
 //
-// What bounds it on the H100: at the CLI's Q=1 the single read of the
-// store (N*d*2 bytes at 3.35 TB/s, 60 us for a sealed 262,144-row bucket
-// at d=384); at Q=256 the scoring, 2*Q*N*d operations, which this first
-// version does with scalar FMAs (67 TFLOP/s peak) where mma.sync or wgmma
+// Scoring. bf16/f16/f32 rows: f32 FMAs over the row's values against the
+// query cast to the store dtype, f32 accumulation. int8 rows: __dp4a over
+// packed words of the row and of the per-query quantized query, summed in
+// i32, converted once to f32 and multiplied once by the row's f32 scale:
+// the order of pallas_topk.py:219, exact (the i32 sum converts without
+// loss while d <= 1040), so the scores and ids equal the plain version's.
+// Masked rows score -inf.
+//
+// Row source. A whole store scans rows 0..n-1. A pruned scan (K3, K4b)
+// takes the tile list of an IVF probe: logical row r is the physical row
+// tile_ids[r / tile_n] * tile_n + r % tile_n, for r < n_live * tile_n;
+// ids are physical rows (positions in the cluster-major bucket). The
+// TPU kernel's grid runs over the whole static budget and its steps past
+// n_live add nothing; here they are not launched at all. select_tiles
+// sorts the tile ids, so the scan order is the row order and equal scores
+// keep the lower id.
+//
+// What bounds it on the H100: at the CLI's Q=1 the single read of the rows
+// scanned (N*d*itemsize bytes at 3.35 TB/s: 60 us for a sealed 262,144-row
+// bf16 bucket at d=384, 80 us for an int8 one at d=1024); at Q=256 the
+// scoring, 2*Q*N*d operations, which the kernel does with scalar
+// FMAs (67 TFLOP/s peak) or dp4a where mma.sync or wgmma (IMMA for int8)
 // would reach the tensor cores. The chunking keeps about two blocks per SM
 // in flight whatever Q is; the merge costs next to nothing once the lists
 // fill, since few scores beat the k-th. Pass 2 walks a query's chunk lists
@@ -43,8 +68,10 @@ constexpr int kThreads = 256;
 constexpr int kTileRows = 64;
 constexpr int kGroups = kThreads / kTileRows;  // query groups per tile row
 constexpr int kPass2Warps = 4;
+constexpr int kInt8 = 3;
 
-// One 32-bit word of a row, unpacked to floats. 0 = bf16, 1 = f16, 2 = f32.
+// One 32-bit word of a row, unpacked to floats. 0 = bf16, 1 = f16, 2 = f32;
+// 3 = int8 is scored on packed words and only gives its width here.
 template <int DT> struct Elem;
 template <> struct Elem<0> {
   static constexpr int kPerWord = 2;
@@ -67,6 +94,9 @@ template <> struct Elem<2> {
   __device__ __forceinline__ static void unpack(uint32_t w, float* x) {
     x[0] = __uint_as_float(w);
   }
+};
+template <> struct Elem<kInt8> {
+  static constexpr int kPerWord = 4;
 };
 
 // Insert (v, id) into one query's list of k entries, sorted by score
@@ -104,43 +134,62 @@ __device__ void warp_insert(float* ls, int* li, int k, float v, int id,
   __syncwarp();
 }
 
+// The row source and scoring inputs of one scan.
+struct ScanArgs {
+  const uint32_t* store;    // (physical rows, d) in the store dtype
+  const uint32_t* queries;  // (nq, d) in the store dtype, or packed int8
+  const uint8_t* valid;     // (physical rows,) or null: every row live
+  const float* row_scale;   // (physical rows,) f32, int8 only
+  const int* tile_ids;      // (>= n / tile_n,) or null: rows in order
+  int tile_n;
+  int n;                    // logical rows scanned
+  int d, nq, k;
+  int rows_per_chunk, slab_words, n_chunks;
+  float* cand_s;
+  int* cand_i;
+};
+
 template <int DT, int QB>
-__global__ void __launch_bounds__(kThreads)
-scan_pass1(const uint32_t* __restrict__ store, const uint32_t* __restrict__ queries,
-           const uint8_t* __restrict__ valid, int n, int d, int nq, int k,
-           int rows_per_chunk, int slab_words, float* __restrict__ cand_s,
-           int* __restrict__ cand_i, int n_chunks) {
+__global__ void __launch_bounds__(kThreads) scan_pass1(ScanArgs a) {
   constexpr int PW = Elem<DT>::kPerWord;
   constexpr int QPT = QB / kGroups;  // queries per thread
   extern __shared__ __align__(16) unsigned char smem[];
-  const int words = d / PW;          // 32-bit words per row
-  const int stride = slab_words + 1; // odd stride: a column read hits 32 banks
-  float* qs = reinterpret_cast<float*>(smem);             // [QB][d]
-  uint32_t* tile = reinterpret_cast<uint32_t*>(qs + QB * d);  // [64][stride]
+  const int d = a.d, k = a.k;
+  const int words = d / PW;                    // 32-bit words per row
+  const int qwords = DT == kInt8 ? words : d;  // per staged query
+  const int stride = a.slab_words + 1;  // odd stride: a column read hits 32 banks
+  float* qs = reinterpret_cast<float*>(smem);  // [QB][qwords], floats or packed int8
+  const uint32_t* qw = reinterpret_cast<const uint32_t*>(qs);
+  uint32_t* tile = reinterpret_cast<uint32_t*>(qs + QB * qwords);    // [64][stride]
   float* sc = reinterpret_cast<float*>(tile + kTileRows * stride);  // [QB][64]
-  float* ls = sc + QB * kTileRows;                        // [QB][k]
-  int* li = reinterpret_cast<int*>(ls + QB * k);          // [QB][k]
+  float* ls = sc + QB * kTileRows;                                  // [QB][k]
+  int* li = reinterpret_cast<int*>(ls + QB * k);                    // [QB][k]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int chunk = blockIdx.x;
   const int q0 = blockIdx.y * QB;
-  const int nqb = min(QB, nq - q0);
-  const int r_begin = chunk * rows_per_chunk;
-  const int r_end = min(n, r_begin + rows_per_chunk);
+  const int nqb = min(QB, a.nq - q0);
+  const int r_begin = chunk * a.rows_per_chunk;
+  const int r_end = min(a.n, r_begin + a.rows_per_chunk);
 
   for (int e = tid; e < QB * words; e += kThreads) {
     const int qi = e / words, w = e % words;
-    float x[2] = {0.f, 0.f};
-    if (qi < nqb) Elem<DT>::unpack(queries[(size_t)(q0 + qi) * words + w], x);
+    const uint32_t v = qi < nqb ? a.queries[(size_t)(q0 + qi) * words + w] : 0u;
+    if constexpr (DT == kInt8) {
+      reinterpret_cast<uint32_t*>(qs)[qi * words + w] = v;
+    } else {
+      float x[2] = {0.f, 0.f};
+      Elem<DT>::unpack(v, x);
 #pragma unroll
-    for (int p = 0; p < PW; ++p) qs[qi * d + w * PW + p] = x[p];
+      for (int p = 0; p < PW; ++p) qs[qi * d + w * PW + p] = x[p];
+    }
   }
   for (int e = tid; e < QB * k; e += kThreads) {
     ls[e] = -INFINITY;
     li[e] = 0;
   }
 
-  const uint4* sv = reinterpret_cast<const uint4*>(store);
+  const uint4* sv = reinterpret_cast<const uint4*>(a.store);
   const int vec_per_row = words / 4;
   const int row = tid % kTileRows, grp = tid / kTileRows;
   int n_active = 0;  // how many of this thread's queries are real
@@ -149,17 +198,26 @@ scan_pass1(const uint32_t* __restrict__ store, const uint32_t* __restrict__ quer
 
   for (int t0 = r_begin; t0 < r_end; t0 += kTileRows) {
     const int rows = min(kTileRows, r_end - t0);
+    // the physical row of the tile's first row; a tile never straddles two
+    // entries of tile_ids (tile_n and t0 are multiples of 64)
+    const int phys0 = a.tile_ids == nullptr
+                          ? t0
+                          : a.tile_ids[t0 / a.tile_n] * a.tile_n + t0 % a.tile_n;
     float acc[QPT];
+    int iacc[QPT];
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) acc[j] = 0.f;
-    for (int w0 = 0; w0 < words; w0 += slab_words) {
-      const int wn = min(slab_words, words - w0);
+    for (int j = 0; j < QPT; ++j) {
+      acc[j] = 0.f;
+      iacc[j] = 0;
+    }
+    for (int w0 = 0; w0 < words; w0 += a.slab_words) {
+      const int wn = min(a.slab_words, words - w0);
       const int vec = wn / 4;
       if (w0 > 0) __syncthreads();  // every thread is done with the last slab
       for (int e = tid; e < kTileRows * vec; e += kThreads) {
         const int r = e / vec, v = e % vec;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < rows) val = sv[(size_t)(t0 + r) * vec_per_row + w0 / 4 + v];
+        if (r < rows) val = sv[(size_t)(phys0 + r) * vec_per_row + w0 / 4 + v];
         uint32_t* dst = tile + r * stride + v * 4;
         dst[0] = val.x;
         dst[1] = val.y;
@@ -169,27 +227,45 @@ scan_pass1(const uint32_t* __restrict__ store, const uint32_t* __restrict__ quer
       __syncthreads();
 
       const uint32_t* trow = tile + row * stride;
-      const float* qslab = qs + w0 * PW;
-      // wn is a multiple of 4; without the unroll this loop ran slower on
-      // the H100 than the whole-row loop it replaced (chip_smoke.py, Q=256)
+      if constexpr (DT == kInt8) {
+        const uint32_t* qslab = qw + w0;
 #pragma unroll 4
-      for (int w = 0; w < wn; ++w) {
-        float x[2];
-        Elem<DT>::unpack(trow[w], x);
+        for (int w = 0; w < wn; ++w) {
+          const int x = static_cast<int>(trow[w]);
 #pragma unroll
-        for (int j = 0; j < QPT; ++j) {
-          if (j < n_active) {
-            const float* qrow = qslab + (grp + j * kGroups) * d + w * PW;
+          for (int j = 0; j < QPT; ++j)
+            if (j < n_active)
+              iacc[j] = __dp4a(x, static_cast<int>(qslab[(grp + j * kGroups) * words + w]),
+                               iacc[j]);
+        }
+      } else {
+        const float* qslab = qs + w0 * PW;
+        // wn is a multiple of 4; without the unroll this loop ran slower on
+        // the H100 than the whole-row loop it replaced (chip_smoke.py, Q=256)
+#pragma unroll 4
+        for (int w = 0; w < wn; ++w) {
+          float x[2];
+          Elem<DT>::unpack(trow[w], x);
 #pragma unroll
-            for (int p = 0; p < PW; ++p) acc[j] = fmaf(x[p], qrow[p], acc[j]);
+          for (int j = 0; j < QPT; ++j) {
+            if (j < n_active) {
+              const float* qrow = qslab + (grp + j * kGroups) * d + w * PW;
+#pragma unroll
+              for (int p = 0; p < PW; ++p) acc[j] = fmaf(x[p], qrow[p], acc[j]);
+            }
           }
         }
       }
     }
-    const bool live = row < rows && (valid == nullptr || valid[t0 + row]);
+    const int prow = phys0 + row;
+    const bool live = row < rows && (a.valid == nullptr || a.valid[prow]);
+    float rscale = 0.f;
+    if (DT == kInt8 && live) rscale = a.row_scale[prow];
 #pragma unroll
-    for (int j = 0; j < QPT; ++j)
-      sc[(grp + j * kGroups) * kTileRows + row] = live ? acc[j] : -INFINITY;
+    for (int j = 0; j < QPT; ++j) {
+      const float s = DT == kInt8 ? __fmul_rn(__int2float_rn(iacc[j]), rscale) : acc[j];
+      sc[(grp + j * kGroups) * kTileRows + row] = live ? s : -INFINITY;
+    }
     __syncthreads();
 
     // merge: one warp per query; survivors in row order
@@ -204,7 +280,7 @@ scan_pass1(const uint32_t* __restrict__ store, const uint32_t* __restrict__ quer
           const int src = __ffs(m) - 1;
           m &= m - 1;
           const float v = __shfl_sync(0xffffffffu, s, src);
-          if (v > qls[k - 1]) warp_insert(qls, qli, k, v, t0 + base + src, lane);
+          if (v > qls[k - 1]) warp_insert(qls, qli, k, v, phys0 + base + src, lane);
         }
       }
     }
@@ -212,16 +288,16 @@ scan_pass1(const uint32_t* __restrict__ store, const uint32_t* __restrict__ quer
   __syncthreads();
   for (int e = tid; e < nqb * k; e += kThreads) {
     const int qi = e / k, j = e % k;
-    const size_t o = ((size_t)(q0 + qi) * n_chunks + chunk) * k + j;
-    cand_s[o] = ls[e];
-    cand_i[o] = li[e];
+    const size_t o = ((size_t)(q0 + qi) * a.n_chunks + chunk) * k + j;
+    a.cand_s[o] = ls[e];
+    a.cand_i[o] = li[e];
   }
 }
 
 __global__ void __launch_bounds__(kPass2Warps * 32)
 scan_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
-           int nq, int n_chunks, int k, float* __restrict__ out_s,
-           int* __restrict__ out_i) {
+           int nq, int n_chunks, int k, const float* __restrict__ qscale,
+           float* __restrict__ out_s, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* ls = reinterpret_cast<float*>(smem) + warp * k;
@@ -252,70 +328,73 @@ scan_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
       }
     }
   }
+  const float qs = qscale == nullptr ? 1.f : qscale[q];
   for (int j = lane; j < k; j += 32) {
     const float s = ls[j];
-    out_s[(size_t)q * k + j] = s;
-    out_i[(size_t)q * k + j] = s == -INFINITY ? 0 : li[j];
+    const bool empty = s == -INFINITY;
+    out_s[(size_t)q * k + j] = empty || qscale == nullptr ? s : __fmul_rn(s, qs);
+    out_i[(size_t)q * k + j] = empty ? 0 : li[j];
   }
 }
 
 template <int DT, int QB>
-cudaError_t launch_pass1(const void* store, const void* queries,
-                         const uint8_t* valid, int n, int d, int nq, int k,
-                         int rows_per_chunk, int slab_words, int n_chunks,
-                         float* cand_s, int* cand_i, cudaStream_t stream) {
-  if (slab_words < 4 || slab_words % 4) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)QB * d * 4 + (size_t)kTileRows * (slab_words + 1) * 4 +
-                      (size_t)QB * kTileRows * 4 + (size_t)QB * k * 8;
+cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
+  if (a.slab_words < 4 || a.slab_words % 4) return cudaErrorInvalidValue;
+  if (a.tile_ids != nullptr && (a.tile_n < kTileRows || a.tile_n % kTileRows))
+    return cudaErrorInvalidValue;
+  const size_t qwords = DT == kInt8 ? a.d / 4 : a.d;
+  const size_t smem = (size_t)QB * qwords * 4 + (size_t)kTileRows * (a.slab_words + 1) * 4 +
+                      (size_t)QB * kTileRows * 4 + (size_t)QB * a.k * 8;
   auto kern = scan_pass1<DT, QB>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(n_chunks, (nq + QB - 1) / QB);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(store), static_cast<const uint32_t*>(queries),
-      valid, n, d, nq, k, rows_per_chunk, slab_words, cand_s, cand_i, n_chunks);
+  dim3 grid(a.n_chunks, (a.nq + QB - 1) / QB);
+  kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int QB>
-cudaError_t launch_pass1_dt(int dtype, const void* store, const void* queries,
-                            const uint8_t* valid, int n, int d, int nq, int k,
-                            int rows_per_chunk, int slab_words, int n_chunks,
-                            float* cand_s, int* cand_i, cudaStream_t stream) {
+cudaError_t launch_pass1_dt(int dtype, const ScanArgs& a, cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch_pass1<0, QB>(store, queries, valid, n, d, nq, k, rows_per_chunk,
-                                       slab_words, n_chunks, cand_s, cand_i, stream);
-    case 1: return launch_pass1<1, QB>(store, queries, valid, n, d, nq, k, rows_per_chunk,
-                                       slab_words, n_chunks, cand_s, cand_i, stream);
-    case 2: return launch_pass1<2, QB>(store, queries, valid, n, d, nq, k, rows_per_chunk,
-                                       slab_words, n_chunks, cand_s, cand_i, stream);
+    case 0: return launch_pass1<0, QB>(a, stream);
+    case 1: return launch_pass1<1, QB>(a, stream);
+    case 2: return launch_pass1<2, QB>(a, stream);
+    case kInt8: return launch_pass1<kInt8, QB>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// dtype: 0 bf16, 1 f16, 2 f32, 3 int8 (row_scale and qscale then given).
+// tile_ids null: scan rows 0..n-1; else n = live tiles * tile_n logical
+// rows through the tile list.
 extern "C" int sema_scan_topk(const void* store, const void* queries,
-                              const uint8_t* valid, int n, int d, int nq,
-                              int k, int dtype, int qb, int rows_per_chunk,
-                              int slab_words, int n_chunks, float* cand_s,
-                              int* cand_i, float* out_s, int* out_i,
-                              void* stream) {
+                              const uint8_t* valid, const float* row_scale,
+                              const int* tile_ids, int tile_n, int n, int d,
+                              int nq, int k, int dtype, int qb,
+                              int rows_per_chunk, int slab_words, int n_chunks,
+                              float* cand_s, int* cand_i, const float* qscale,
+                              float* out_s, int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kInt8 && (row_scale == nullptr || qscale == nullptr))
+    return cudaErrorInvalidValue;
+  const ScanArgs a{static_cast<const uint32_t*>(store),
+                   static_cast<const uint32_t*>(queries),
+                   valid, row_scale, tile_ids, tile_n, n, d, nq, k,
+                   rows_per_chunk, slab_words, n_chunks, cand_s, cand_i};
   cudaError_t e;
   if (qb == 16)
-    e = launch_pass1_dt<16>(dtype, store, queries, valid, n, d, nq, k,
-                            rows_per_chunk, slab_words, n_chunks, cand_s, cand_i, st);
+    e = launch_pass1_dt<16>(dtype, a, st);
   else if (qb == 4)
-    e = launch_pass1_dt<4>(dtype, store, queries, valid, n, d, nq, k,
-                           rows_per_chunk, slab_words, n_chunks, cand_s, cand_i, st);
+    e = launch_pass1_dt<4>(dtype, a, st);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return e;
   const size_t smem2 = (size_t)kPass2Warps * k * 8;
   scan_pass2<<<(nq + kPass2Warps - 1) / kPass2Warps, kPass2Warps * 32, smem2,
-               st>>>(cand_s, cand_i, nq, n_chunks, k, out_s, out_i);
+               st>>>(cand_s, cand_i, nq, n_chunks, k, qscale, out_s, out_i);
   return cudaGetLastError();
 }
 

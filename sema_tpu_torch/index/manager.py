@@ -36,12 +36,16 @@ class IndexManager:
 
     def __init__(self, data_dir: Path | str, encoder,
                  store_dtype: str = "bfloat16",
-                 metrics: Optional[Metrics] = None):
+                 metrics: Optional[Metrics] = None, rescore_k: int = 100,
+                 ivf: bool = False, ivf_nprobe: int = 32,
+                 ivf_min_recall: float = 0.0):
         self.encoder = encoder
         self.metrics = metrics or null_metrics()
         self.vector_store = VectorStore(
             data_dir, dim=encoder.spec.dim, model=encoder.spec.name,
-            store_dtype=store_dtype, device=encoder.device)
+            store_dtype=store_dtype, device=encoder.device,
+            rescore_k=rescore_k, ivf=ivf, ivf_nprobe=ivf_nprobe,
+            ivf_min_recall=ivf_min_recall)
         self.text_index = make_text_index(data_dir)
 
     # -- indexing ------------------------------------------------------------
@@ -141,8 +145,11 @@ class IndexManager:
 
     # -- search ----------------------------------------------------------------
 
-    def search(self, query: str, limit: int) -> List[Tuple[Chunk, float]]:
-        """Dispatch on the ``'`` prefix."""
+    def search(self, query: str, limit: int,
+               exact: bool = False) -> List[Tuple[Chunk, float]]:
+        """Dispatch on the ``'`` prefix. ``exact=True`` makes the vector
+        scan bypass IVF pruning for this query (recall@k 1.0 by
+        construction); a no-op for text queries and stores without IVF."""
         query = query.strip()
         if query.startswith("'"):
             stripped = query[1:]
@@ -154,7 +161,7 @@ class IndexManager:
             with self.metrics.timer("embed_query"):
                 qvec = self.encoder.encode_query_device(query)
             with self.metrics.timer("vector_search"):
-                return self.vector_store.search(qvec, limit)
+                return self.vector_store.search(qvec, limit, exact=exact)
         except Exception as e:  # noqa: BLE001 — parity: degrade, don't fail
             print(f"Warning: semantic query failed ({e}); falling back "
                   "to substring scan", file=sys.stderr)

@@ -40,13 +40,6 @@ class Encoder:
                  max_length: Optional[int] = None, batch_size: int = 256,
                  compute_dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and compute_dtype != torch.bfloat16:
-            # K2 (csrc/encoder_layer.cu) is bf16 only so far; sema_tpu's
-            # fused layer also takes f32 (ROADMAP.md, faults)
-            raise NotImplementedError(
-                f"compute dtype {compute_dtype} on the card: the CUDA "
-                "encoder layer takes bfloat16 only; use [model] dtype = "
-                "\"bfloat16\" or --device cpu")
         self.spec = spec
         self.params = bert.cast_params(
             {g: {k: v.to(self.device) for k, v in leaves.items()}

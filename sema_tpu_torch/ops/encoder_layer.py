@@ -14,10 +14,14 @@ cast to x's dtype, LayerNorm params f32); ``mask_bias`` (B, S) f32,
 0 where attended and -1e9 where padded. The rounding sequence is the TPU
 kernel's (``fused_attention.py:269-307``): in bf16 the products round to
 bf16 before their bias is added in bf16, the softmax runs in bf16 and
-residuals and LayerNorm statistics stay f32; in f32 nothing rounds.
+residuals and LayerNorm statistics stay f32; in f16 the biases add in f32
+and a result rounds to f16 where it is stored (qkv, the out-projection,
+the GELU output, the scores, the probabilities, the context, the LayerNorm
+outputs); in f32 nothing rounds.
 
-The CUDA kernels take bf16 only, head dims 32 and 64, H a multiple of 64
-and S up to 256; the wrapper raises on anything else.
+The CUDA kernels take bf16, f16 and f32 (every compute dtype of the JAX
+package's ``Encoder``), head dims 32 and 64, H a multiple of 64 and any
+S >= 1; the wrapper raises on anything else.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from sema_tpu_torch.ops import _cuda
 _P = ctypes.c_void_p
 _SIGNATURES = {"sema_encoder_layer": (
     [_P] * 19                  # x, 12 params, mask, 5 outs
-    + [ctypes.c_int] * 5       # B, S, H, I, heads
+    + [ctypes.c_int] * 6       # B, S, H, I, heads, dtype
     + [ctypes.c_float, ctypes.c_float, _P])}      # scale, eps, stream
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _WEIGHTS = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
 _BIASES = ("qkv_b", "attn_out_b", "ffn_in_b", "ffn_out_b")
 _LN = ("attn_ln_scale", "attn_ln_bias", "ffn_ln_scale", "ffn_ln_bias")
@@ -95,16 +100,17 @@ def _check(x, layer, mask_bias, num_heads):
 
 def _check_args(x, layer, mask_bias, num_heads):
     """Raise ValueError unless the CUDA kernels take these arguments."""
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA encoder layer takes bf16, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError("the CUDA encoder layer takes bf16, f16 or f32, "
+                         f"got {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, H), got {tuple(x.shape)}")
     b, s, h = x.shape
     if h % 64 or h % num_heads or h // num_heads not in (32, 64):
         raise ValueError(f"H={h} with {num_heads} heads: the kernel takes "
                          "H a multiple of 64 and head dim 32 or 64")
-    if not 1 <= s <= 256:
-        raise ValueError(f"S={s}: the kernel takes 1 <= S <= 256")
+    if s < 1:
+        raise ValueError(f"S={s}: the kernel takes S >= 1")
     inter = layer["ffn_in_w"].shape[-1]
     shapes = {"qkv_w": (h, 3 * h), "qkv_b": (3 * h,), "attn_out_w": (h, h),
               "attn_out_b": (h,), "ffn_in_w": (h, inter),
@@ -151,7 +157,7 @@ def fused_encoder_layer(x: torch.Tensor, layer: dict,
         ptr(biases[1]), ptr(lns[0]), ptr(lns[1]), ptr(weights[2]),
         ptr(biases[2]), ptr(weights[3]), ptr(biases[3]), ptr(lns[2]),
         ptr(lns[3]), ptr(mask), ptr(qkv), ptr(ctx), ptr(h1), ptr(up),
-        ptr(out), b, s, h, inter, num_heads, scale, ln_eps,
+        ptr(out), b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps,
         _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "fused_encoder_layer")
     fused_encoder_layer.launches += 1

@@ -1,55 +1,74 @@
-"""Exact top-k scan of ``queries @ store.T`` (K1 of the port).
+"""Exact top-k scans of ``queries @ store.T`` (K1, K4a, K3 and K4b of the port).
 
-Replaces the TPU kernel ``sema_tpu/ops/pallas_topk.py:pallas_topk``
-(``_scan_kernel`` / ``_scan_kernel_nomask`` over ``_merge_and_emit``).
-On a CUDA tensor :func:`scan_topk` launches the Hopper kernel of
-``csrc/scan_topk.cu``; on a CPU tensor it runs
-:func:`scan_topk_reference`, the plain PyTorch version of the same
-contract. There is no other path.
+Four wrappers, one kernel source (``csrc/scan_topk.cu``), each replacing a
+TPU kernel of ``sema_tpu/ops/pallas_topk.py``:
 
-Contract (that of ``pallas_topk``, ``pallas_topk.py:309-344``):
+- :func:`scan_topk` (K1, ``pallas_topk``): a bf16/f16/f32 store;
+- :func:`scan_topk_int8` (K4a, ``pallas_topk_int8``): an int8 store;
+- :func:`scan_topk_pruned` (K3, ``pallas_topk_pruned``): the tiles of an
+  IVF probe of a bf16/f16/f32 store;
+- :func:`scan_topk_int8_pruned` (K4b, ``pallas_topk_int8_pruned``): the
+  same of an int8 store.
 
-- scores are ``queries.astype(store.dtype) @ store.T`` with f32
-  accumulation; rows whose ``valid`` entry is False score -inf
-  (``masked=False`` skips the mask: every row is live);
+On a CUDA tensor each launches the Hopper kernel; on a CPU tensor it runs
+its ``*_reference``, the plain PyTorch version of the same contract. There
+is no other path. Each wrapper counts its launches in ``.launches``.
+
+Contract (``pallas_topk.py:309-344, 407-433, 520-594``):
+
+- bf16/f16/f32 scores are ``queries.astype(store.dtype) @ store.T`` with
+  f32 accumulation; int8 scores are ``(qi . row_i8)`` summed in i32, cast
+  to f32 and multiplied by the row's f32 scale, where ``qi`` is the query
+  quantized per row (:func:`sema_tpu_torch.ops.quant.quantize_query`), and
+  the query's scale multiplies the merged scores;
+- rows whose ``valid`` entry is False score -inf (``masked=False`` skips
+  the mask of K1: every row is live);
 - each query's k best rows, ranked by score descending; equal scores put
-  the lower row id first;
+  the row scanned first first, which is the lower row id (a pruned scan's
+  tile ids come sorted from ``ops/ivf.py:select_tiles``);
 - slots past the live rows are -inf with id 0;
 - returns (Q, k) f32 scores and (Q, k) int32 ids.
 
-Unlike the TPU kernel, N need not be a tile multiple (the kernel masks its
-own ragged edge) and k may reach 1024 (the store's largest k class).
+A pruned scan reads the tiles ``tile_ids[:n_live]`` of ``tile_n`` rows
+each; entries past ``n_live`` add nothing; ids are rows of the store as
+given (the cluster-major bucket). ``tile_ids`` is a host array: the store
+picks it on the host, and its range is checked there.
+
+Unlike the TPU kernels, N need not be a tile multiple (the kernel masks
+its own ragged edge) and k may reach 1024 (the store's largest k class).
+The int8 scores and ids equal the plain version's bit for bit: an i32 sum
+of d <= 1040 products of int8 values converts to f32 without loss.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from sema_tpu_torch.ops import _cuda
+from sema_tpu_torch.ops.quant import quantize_query
 
 K_MAX = 1024
 _TILE_ROWS = 64         # rows per tile of pass 1 (csrc/scan_topk.cu)
 _SMEM_MAX = 232_448     # dynamic shared memory one block may use on Hopper
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2,
+                torch.int8: 3}
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"sema_scan_topk": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # store, q, valid
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, d, nq, k
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    # dtype, query block, rows per chunk, words per slab, chunks
-    ctypes.c_void_p, ctypes.c_void_p,                    # candidates
-    ctypes.c_void_p, ctypes.c_void_p,                    # outputs
-    ctypes.c_void_p]}                                    # stream
+    _P, _P, _P, _P, _P,    # store, queries, valid, row scales, tile ids
+    _I, _I, _I, _I, _I,    # tile_n, n, d, nq, k
+    _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
+                           # slab, chunks
+    _P, _P, _P,            # candidates, query scales
+    _P, _P, _P]}           # outputs, stream
 
 
-def scan_topk_reference(store: torch.Tensor, queries: torch.Tensor,
-                        valid: torch.Tensor, k: int, masked: bool = True):
-    """Plain PyTorch version of :func:`scan_topk` (same contract)."""
-    n = store.shape[0]
-    scores = queries.to(store.dtype).float() @ store.float().T   # (Q, N)
-    if masked:
-        scores = scores.masked_fill(~valid.bool()[None, :], float("-inf"))
+def _select(scores: torch.Tensor, k: int):
+    """(Q, N) f32 scores → the k best of each row (stable: equal scores
+    keep the lower column), -inf slots with id 0, padded to k."""
+    n = scores.shape[1]
     vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     kk = min(k, n)
     top_s = vals[:, :kk].contiguous()
@@ -63,24 +82,94 @@ def scan_topk_reference(store: torch.Tensor, queries: torch.Tensor,
     return top_s, top_i
 
 
+def scan_topk_reference(store: torch.Tensor, queries: torch.Tensor,
+                        valid: torch.Tensor, k: int, masked: bool = True):
+    """Plain PyTorch version of :func:`scan_topk` (same contract)."""
+    scores = queries.to(store.dtype).float() @ store.float().T   # (Q, N)
+    if masked:
+        scores = scores.masked_fill(~valid.bool()[None, :], float("-inf"))
+    return _select(scores, k)
+
+
+def int8_dot(qi: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Exact (Q, N) i32 sums of int8 products, as f32 (rounded once, as
+    the kernel converts them). f32 products sum exactly while every
+    partial sum stays below 2^24, that is for d * 127^2 < 2^24; wider rows
+    sum in f64."""
+    d = qi.shape[1]
+    dt = torch.float32 if d * 127 * 127 < 2 ** 24 else torch.float64
+    return (qi.to(dt) @ rows.to(dt).T).float()
+
+
+def scan_topk_int8_reference(qvals: torch.Tensor, scales: torch.Tensor,
+                             queries: torch.Tensor, valid: torch.Tensor,
+                             k: int):
+    """Plain PyTorch version of :func:`scan_topk_int8` (same contract)."""
+    qi, qscale = quantize_query(queries.float())
+    scores = int8_dot(qi, qvals) * scales.float()[None, :]
+    scores = scores.masked_fill(~valid.bool()[None, :], float("-inf"))
+    top_s, top_i = _select(scores, k)
+    top_s = torch.where(torch.isneginf(top_s), top_s,
+                        top_s * qscale[:, None])
+    return top_s, top_i
+
+
+def _tile_rows(tile_ids, n_live: int, tile_n: int, device) -> torch.Tensor:
+    """The physical rows a pruned scan reads, in scan order."""
+    tiles = torch.as_tensor(np.asarray(tile_ids)[:n_live], dtype=torch.long)
+    rows = tiles[:, None] * tile_n + torch.arange(tile_n)[None, :]
+    return rows.reshape(-1).to(device)
+
+
+def _pruned(select, rows: torch.Tensor):
+    """Map a scan of the gathered rows back to physical ids."""
+    top_s, top_i = select
+    top_i = rows[top_i.long()].to(torch.int32)
+    return top_s, top_i.masked_fill(torch.isneginf(top_s), 0)
+
+
+def scan_topk_pruned_reference(store, queries, valid, tile_ids, n_live: int,
+                               k: int, tile_n: int):
+    """Plain PyTorch version of :func:`scan_topk_pruned`."""
+    rows = _tile_rows(tile_ids, n_live, tile_n, store.device)
+    return _pruned(scan_topk_reference(store[rows], queries, valid[rows], k),
+                   rows)
+
+
+def scan_topk_int8_pruned_reference(qvals, scales, queries, valid, tile_ids,
+                                    n_live: int, k: int, tile_n: int):
+    """Plain PyTorch version of :func:`scan_topk_int8_pruned`."""
+    rows = _tile_rows(tile_ids, n_live, tile_n, qvals.device)
+    return _pruned(scan_topk_int8_reference(qvals[rows], scales[rows],
+                                            queries, valid[rows], k), rows)
+
+
 def _query_block(k: int) -> int:
     return 16 if k <= 128 else 4
+
+
+def _query_bytes(d: int, itemsize: int) -> int:
+    """Shared memory of one staged query: f32 values, or packed int8."""
+    return d if itemsize == 1 else d * 4
 
 
 def slab_words(d: int, itemsize: int, k: int) -> int:
     """32-bit words of each row that pass 1 stages at a time: the whole
     row where shared memory holds 64 of them beside the queries and the
-    lists, else the most that fit, a multiple of 4 (0: nothing fits)."""
+    lists, else the most that fit, a multiple of 4 (0: nothing fits).
+    ``itemsize`` 1 is an int8 store."""
     qb = _query_block(k)
     words = d * itemsize // 4
-    free = _SMEM_MAX - (qb * d * 4 + qb * _TILE_ROWS * 4 + qb * k * 8)
+    free = _SMEM_MAX - (qb * _query_bytes(d, itemsize) + qb * _TILE_ROWS * 4
+                        + qb * k * 8)
     return max(0, min(words, (free // (_TILE_ROWS * 4) - 1) // 4 * 4))
 
 
 def pass1_smem_bytes(d: int, itemsize: int, k: int) -> int:
     """Dynamic shared memory of pass 1 (mirrors csrc/scan_topk.cu)."""
     qb = _query_block(k)
-    return (qb * d * 4 + _TILE_ROWS * (slab_words(d, itemsize, k) + 1) * 4
+    return (qb * _query_bytes(d, itemsize)
+            + _TILE_ROWS * (slab_words(d, itemsize, k) + 1) * 4
             + qb * _TILE_ROWS * 4 + qb * k * 8)
 
 
@@ -94,15 +183,17 @@ def chunk_plan(n: int, nq: int, k: int, sms: int):
     return rows, -(-n // rows)
 
 
-def _check(store, queries, valid, k, masked):
+def _check(store, queries, valid, k, masked, dtypes=(torch.bfloat16,
+                                                     torch.float16,
+                                                     torch.float32)):
     if store.device.type != "cuda":
-        raise ValueError(f"scan_topk takes CPU or CUDA tensors, got "
+        raise ValueError(f"the scan takes CPU or CUDA tensors, got "
                          f"{store.device}")
     if store.dim() != 2 or not store.is_contiguous():
         raise ValueError("store must be a contiguous (N, d) tensor")
-    if store.dtype not in _DTYPE_CODES:
+    if store.dtype not in dtypes:
         raise ValueError(f"store dtype {store.dtype} not supported; "
-                         "bf16, f16 or f32")
+                         f"{', '.join(str(t) for t in dtypes)}")
     n, d = store.shape
     if n < 1:
         raise ValueError("empty store")
@@ -125,34 +216,121 @@ def _check(store, queries, valid, k, masked):
                          "lists alone fill the scan's shared memory")
 
 
-def scan_topk(store: torch.Tensor, queries: torch.Tensor,
-              valid: torch.Tensor, k: int, masked: bool = True):
-    """Exact top-k (see the module docstring). CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
-    if store.device.type == "cpu":
-        return scan_topk_reference(store, queries, valid, k, masked=masked)
-    _check(store, queries, valid, k, masked)
+def _check_int8(qvals, scales, queries, valid, k):
+    _check(qvals, queries, valid, k, True, dtypes=(torch.int8,))
+    n = qvals.shape[0]
+    if (scales.shape != (n,) or scales.dtype != torch.float32
+            or scales.device != qvals.device or not scales.is_contiguous()):
+        raise ValueError("scales must be a contiguous (N,) f32 tensor on "
+                         "the store's device")
+
+
+def _check_tiles(tile_ids, n_live: int, tile_n: int, n: int) -> np.ndarray:
+    tiles = np.asarray(tile_ids)
+    if tiles.ndim != 1 or not 1 <= n_live <= len(tiles):
+        raise ValueError(f"n_live={n_live} with {tiles.shape} tile ids")
+    if tile_n % _TILE_ROWS or tile_n < _TILE_ROWS:
+        raise ValueError(f"tile_n={tile_n} must be a multiple of "
+                         f"{_TILE_ROWS}")
+    live = tiles[:n_live]
+    if live.min() < 0 or (int(live.max()) + 1) * tile_n > n:
+        raise ValueError(f"tile ids outside the store's {n // tile_n} "
+                         "whole tiles")
+    return np.ascontiguousarray(live, dtype=np.int32)
+
+
+def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
+            qscale=None):
+    """Both passes on the current stream; returns (Q, k) scores and ids.
+    ``q`` is in the store dtype (int8 for an int8 store)."""
     lib = _cuda.library("scan_topk", _SIGNATURES)
-    n, d = store.shape
-    q = _cuda.aligned(queries.to(store.dtype))
+    q = _cuda.aligned(q)
+    d = store.shape[1]
     nq = q.shape[0]
+    n = store.shape[0] if tiles is None else len(tiles) * tile_n
+    tile_dev = (None if tiles is None
+                else torch.from_numpy(tiles).to(store.device))
     sms = torch.cuda.get_device_properties(store.device).multi_processor_count
     rows, chunks = chunk_plan(n, nq, k, sms)
-    cand_s = torch.empty((nq, chunks, k), dtype=torch.float32,
-                         device=store.device)
-    cand_i = torch.empty((nq, chunks, k), dtype=torch.int32,
-                         device=store.device)
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=store.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=store.device)
+    f32, i32 = torch.float32, torch.int32
+    cand_s = torch.empty((nq, chunks, k), dtype=f32, device=store.device)
+    cand_i = torch.empty((nq, chunks, k), dtype=i32, device=store.device)
+    out_s = torch.empty((nq, k), dtype=f32, device=store.device)
+    out_i = torch.empty((nq, k), dtype=i32, device=store.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.sema_scan_topk(
-        store.data_ptr(), q.data_ptr(),
-        valid.data_ptr() if masked else None,
-        n, d, nq, k, _DTYPE_CODES[store.dtype], _query_block(k), rows,
-        slab_words(d, store.element_size(), k), chunks, cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), _cuda.stream_ptr(store.device))
+        store.data_ptr(), q.data_ptr(), ptr(valid), ptr(row_scale),
+        ptr(tile_dev), tile_n, n, d, nq, k, _DTYPE_CODES[store.dtype],
+        _query_block(k), rows, slab_words(d, store.element_size(), k),
+        chunks, cand_s.data_ptr(), cand_i.data_ptr(), ptr(qscale),
+        out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_ptr(store.device))
     _cuda.check(lib, err, "scan_topk")
-    scan_topk.launches += 1
     return out_s, out_i
 
 
-scan_topk.launches = 0
+def scan_topk(store: torch.Tensor, queries: torch.Tensor,
+              valid: torch.Tensor, k: int, masked: bool = True):
+    """K1: exact top-k of a bf16/f16/f32 store (see the module
+    docstring). CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if store.device.type == "cpu":
+        return scan_topk_reference(store, queries, valid, k, masked=masked)
+    _check(store, queries, valid, k, masked)
+    out = _launch(store, queries.to(store.dtype), valid if masked else None,
+                  k)
+    scan_topk.launches += 1
+    return out
+
+
+def scan_topk_int8(qvals: torch.Tensor, scales: torch.Tensor,
+                   queries: torch.Tensor, valid: torch.Tensor, k: int):
+    """K4a: exact top-k of an int8 store, ``queries`` f32 (quantized
+    here). CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if qvals.device.type == "cpu":
+        return scan_topk_int8_reference(qvals, scales, queries, valid, k)
+    _check_int8(qvals, scales, queries, valid, k)
+    qi, qscale = quantize_query(queries.float())
+    out = _launch(qvals, qi, valid, k, row_scale=scales, qscale=qscale)
+    scan_topk_int8.launches += 1
+    return out
+
+
+def scan_topk_pruned(store: torch.Tensor, queries: torch.Tensor,
+                     valid: torch.Tensor, tile_ids, n_live: int, k: int,
+                     tile_n: int):
+    """K3: top-k of a bf16/f16/f32 store over ``tile_ids[:n_live]``.
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if store.device.type == "cpu":
+        return scan_topk_pruned_reference(store, queries, valid, tile_ids,
+                                          n_live, k, tile_n)
+    _check(store, queries, valid, k, True)
+    tiles = _check_tiles(tile_ids, n_live, tile_n, store.shape[0])
+    out = _launch(store, queries.to(store.dtype), valid, k, tiles=tiles,
+                  tile_n=tile_n)
+    scan_topk_pruned.launches += 1
+    return out
+
+
+def scan_topk_int8_pruned(qvals: torch.Tensor, scales: torch.Tensor,
+                          queries: torch.Tensor, valid: torch.Tensor,
+                          tile_ids, n_live: int, k: int, tile_n: int):
+    """K4b: top-k of an int8 store over ``tile_ids[:n_live]``. CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if qvals.device.type == "cpu":
+        return scan_topk_int8_pruned_reference(
+            qvals, scales, queries, valid, tile_ids, n_live, k, tile_n)
+    _check_int8(qvals, scales, queries, valid, k)
+    tiles = _check_tiles(tile_ids, n_live, tile_n, qvals.shape[0])
+    qi, qscale = quantize_query(queries.float())
+    out = _launch(qvals, qi, valid, k, row_scale=scales, tiles=tiles,
+                  tile_n=tile_n, qscale=qscale)
+    scan_topk_int8_pruned.launches += 1
+    return out
+
+
+for _fn in (scan_topk, scan_topk_int8, scan_topk_pruned,
+            scan_topk_int8_pruned):
+    _fn.launches = 0

@@ -197,9 +197,13 @@ def test_cast_params_rounds_as_each_forward_would():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 def test_encoder_on_the_card_takes_bf16_only(monkeypatch, dtype):
+    """The card's encoder takes every compute dtype of the JAX package's
+    Encoder (K2 has bf16, f16 and f32 routes)."""
     from sema_tpu_torch.models import encoder as encoder_mod
     monkeypatch.setattr(encoder_mod, "resolve_device",
                         lambda device: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="bfloat16 only"):
-        Encoder(get_spec("test-tiny"), {}, HashTokenizer(64),
-                compute_dtype=dtype, device="cuda")
+    monkeypatch.setattr(encoder_mod.bert, "cast_params",
+                        lambda params, compute_dtype: params)
+    enc = Encoder(get_spec("test-tiny"), {}, HashTokenizer(64),
+                  compute_dtype=dtype, device="cuda")
+    assert enc.device.type == "cuda" and enc.compute_dtype == dtype

@@ -1,6 +1,7 @@
 """K2 of the port: ``sema_tpu_torch.ops.fused_encoder_layer`` (on CPU
 tensors, its plain version) held against the JAX package's fused Pallas
-layer in interpret mode, on the same numpy weights and inputs."""
+layer in interpret mode, and against its K6 + XLA layer over the VMEM
+gate, on the same numpy weights and inputs."""
 
 import importlib
 import math
@@ -43,7 +44,8 @@ def _run_both(b, s, h, heads, inter, dtype, seed=0):
     layer = _layer(h, inter, seed)
     x, bias = _inputs(b, s, h, seed + 1)
     scale = 1.0 / math.sqrt(h // heads)
-    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16,
+           torch.float32: jnp.float32}[dtype]
     want = jax_layer(jnp.asarray(x, dtype=jdt),
                      {k: jnp.asarray(v) for k, v in layer.items()},
                      jnp.asarray(bias), num_heads=heads, scale=scale,
@@ -84,6 +86,77 @@ def test_layer_matches_pallas_kernel_bf16(b, s, h, heads, inter):
     np.testing.assert_allclose(got, want, atol=3e-2, rtol=2 ** -8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_layer_at_s384_matches_pallas_kernel(dtype):
+    """A row longer than 256 (the kernel's key-block attention on the
+    card), and f16, at a narrow width: the plain version against the
+    fused Pallas layer."""
+    want, got = _run_both(1, 384, 64, 2, 128, dtype, seed=5)
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
+    elif dtype == torch.float16:
+        # the bf16 limits scaled by 2^-3 for f16's three more mantissa
+        # bits (read: max abs error 0.002, 1 - cosine 2.4e-7); a layer
+        # that rounded at bf16's precision would not pass
+        assert cos.min() >= 0.9999
+        np.testing.assert_allclose(got, want, atol=4e-3, rtol=2 ** -11)
+    else:
+        # the limits of the bf16 case above
+        assert cos.min() >= 0.999
+        np.testing.assert_allclose(got, want, atol=3e-2, rtol=2 ** -8)
+
+
+@pytest.mark.parametrize("dtype,s", [(torch.bfloat16, 192),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 192)])
+def test_layer_matches_jax_layer_over_the_vmem_gate(monkeypatch, dtype, s):
+    """gte-large's layers are over the JAX package's 14.5 MB VMEM gate
+    (sema_tpu/models/bert.py:278-281), so there a layer at S >= 192 runs
+    K6 (``fused_attention_block``) and XLA epilogues, and a shorter one
+    XLA alone. The port runs K2 for every layer and keeps K2's rounding:
+    f32 residuals where the XLA epilogues add them in bf16, and at S < 192
+    f32 scores where XLA rounds them to bf16. Held here at H = 768 with an
+    FFN of 4,096 (17.3 MB of bf16 weights, head dim 64), over the gate."""
+    fa = importlib.import_module("sema_tpu.ops.fused_attention")
+    jax_bert = importlib.import_module("sema_tpu.models.bert")
+    calls = []
+    real_block = fa.fused_attention_block
+    monkeypatch.setattr(
+        fa, "fused_attention_block",
+        lambda *a, **k: calls.append(1) or real_block(*a, **k))
+    monkeypatch.setattr(fa, "fused_encoder_layer",
+                        lambda *a, **k: pytest.fail("under the gate"))
+    h, heads, inter = 768, 12, 4096
+    layer = _layer(h, inter, 7)
+    x, bias = _inputs(2, s, h, 8)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jax_bert.encoder_layer(
+        jnp.asarray(x, dtype=jdt),
+        {k: jnp.asarray(v) for k, v in layer.items()}, jnp.asarray(bias),
+        heads, attn_impl="fused")
+    want = np.asarray(want.astype(jnp.float32))
+    assert len(calls) == (1 if s >= 192 else 0)
+    got = fused_encoder_layer(torch.from_numpy(x).to(dtype),
+                              {k: torch.from_numpy(v)
+                               for k, v in layer.items()},
+                              torch.from_numpy(bias), heads,
+                              1.0 / math.sqrt(h // heads), LN_EPS)
+    got = got.float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
+        return
+    # the bf16 limits of chip_smoke.py's layer_close (read: 1 - cosine
+    # 3.1e-5 and 3.0e-4, relative error 0.027 and 0.090 at S 192 and 128)
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    assert cos.min() >= 0.999
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+    assert rel.max() <= 2 ** -3
+
+
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     called = []
     monkeypatch.setattr(layer_mod, "encoder_layer_reference",
@@ -120,12 +193,23 @@ def test_check_args_takes_the_shapes_the_kernels_take():
         layer_mod._check_args(*_meta_args(**hd_case))      # head dims 32 and 64
 
 
+@pytest.mark.parametrize("case", [
+    {"dtype": torch.float16}, {"dtype": torch.float32},
+    {"s": 257}, {"s": 384}, {"s": 512}, {"s": 1}, {"s": 512, "h": 128,
+                                                    "heads": 2, "inter": 256},
+])
+def test_check_args_takes_every_dtype_and_length(case):
+    """K2 takes f16 and f32 as well as bf16, and any S >= 1 (rows longer
+    than 256 go through the attention in key blocks)."""
+    layer_mod._check_args(*_meta_args(**case))
+
+
 @pytest.mark.parametrize("change,match", [
-    ({"dtype": torch.float32}, "takes bf16"),
-    ({"dtype": torch.float16}, "takes bf16"),
+    ({"dtype": torch.float64}, "takes bf16"),
+    ({"dtype": torch.int32}, "takes bf16"),
     ({"h": 96, "heads": 3}, "multiple of 64"),
     ({"h": 128, "heads": 1}, "head dim 32 or 64"),
-    ({"s": 257}, "S <= 256"),
+    pytest.param({"s": 0}, "S >= 1", id="change4-S <= 256"),
     ({"inter": 96}, "multiple of 64"),
 ])
 def test_check_args_raises_on_what_the_kernels_do_not_take(change, match):

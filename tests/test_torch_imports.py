@@ -89,7 +89,7 @@ COPIES = """types.py config.py utils/__init__.py utils/fsio.py utils/metrics.py
 utils/hfcache.py crawl/__init__.py crawl/gitignore.py crawl/crawler.py
 ingest/__init__.py ingest/chunker.py ingest/hashing.py native/__init__.py
 native/bindings.py tokenizer/__init__.py tokenizer/wordpiece.py
-models/registry.py index/text_segment.py index/text_index.py
+models/registry.py index/text_segment.py index/text_index.py index/ivf_cache.py
 search/__init__.py search/engine.py""".split()
 
 _XXHASH_OPTIONAL = '''import hashlib

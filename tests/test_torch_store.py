@@ -131,11 +131,20 @@ def test_k_larger_than_live_rows_and_empty_store(tmp_path):
 
 
 def test_int8_manifest_raises_not_implemented(tmp_path):
+    """An int8 manifest opens in the port (the disk holds bf16
+    originals) and answers as the JAX package does, also when the port is
+    configured for another dtype (the disk format wins)."""
     js = _jax(tmp_path, "int8")
     js.add_chunks(_chunks(JaxChunk, 10, 0), _rows(10, 0))
+    want = js.search_batch(_queries(), 5)
     js.close()
-    with pytest.raises(NotImplementedError, match="int8"):
-        _port(tmp_path, "bfloat16")
-    with pytest.raises(NotImplementedError, match="int8"):
-        VectorStore(tmp_path / "other", DIM, MODEL, store_dtype="int8",
-                    device="cpu")
+    ps = _port(tmp_path, "bfloat16")
+    assert ps.store_dtype == "int8" and ps.quantized
+    got = ps.search_batch(_queries(), 5)
+    assert _finite_ids(*got) == _finite_ids(*want)
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    ps.close()
+    fresh = VectorStore(tmp_path / "other", DIM, MODEL, store_dtype="int8",
+                        device="cpu")
+    assert fresh.quantized and fresh.np_dtype == np.uint16
+    fresh.close()
