@@ -6,6 +6,9 @@
 # Each mutant is a copy of chip_smoke.py and sema_tpu_torch/ under
 # build/mut-<name>/ with one fault put into a CUDA source by sed; the
 # phase that must catch it runs from the copy and must exit non-zero.
+# A cli_mutant breaks K5 so that it cannot build or refuses its tensors,
+# and `python -m sema_tpu_torch query` on the int8 encoder must then exit
+# non-zero with the kernel's error, not answer from the substring scan.
 # Prints one line per mutant, "caught" or "MISSED", and exits non-zero if
 # any mutant was missed or left its source unchanged.
 set -u
@@ -58,4 +61,52 @@ mutant hd64_short_half_context encoder_layer.cu \
 mutant f16_rounded_as_bf16 encoder_layer.cu \
   's/return __float2half_rn(x); }/return __float2half_rn(__bfloat162float(__float2bfloat16_rn(x))); }/; s/__half2 v = __floats2half2_rn(lo, hi);/__half2 v = __floats2half2_rn(__bfloat162float(__float2bfloat16_rn(lo)), __bfloat162float(__float2bfloat16_rn(hi)));/' \
   encoder_layer
+# K5: activations rounded toward zero, not half to even
+mutant k5_round_toward_zero encoder_layer.cu \
+  's/__float2int_rn(__fdiv_rn(v, sx))/__float2int_rz(__fdiv_rn(v, sx))/' \
+  encoder_layer_int8
+# K5: the activation scale taken by output column, not by row
+mutant k5_scale_by_column encoder_layer.cu 's/sa\[row\]/sa[col % M]/g' \
+  encoder_layer_int8
+# K5: the weight scale dropped from the rescale
+mutant k5_no_weight_scale encoder_layer.cu \
+  's/return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), ws);/return __fmul_rn(__int2float_rn(acc), sx);/' \
+  encoder_layer_int8
+# K5 at S > 256: probs @ V reads the first key block over and over
+mutant k5_long_rows_first_block encoder_layer.cu \
+  's/load_keys(k0, true);/load_keys(0, true);/' encoder_layer_int8
+cli_mutant() {
+  local name=$1 file=$2 expr=$3 expect=$4
+  local dir=build/mut-$name
+  rm -rf "$dir"
+  mkdir -p "$dir"
+  cp -r chip_smoke.py sema_tpu_torch "$dir"/
+  sed -i "$expr" "$dir/sema_tpu_torch/$file"
+  if cmp -s "$dir/sema_tpu_torch/$file" "sema_tpu_torch/$file"; then
+    echo "mutant $name: the fault did not apply"
+    failed=1
+    return
+  fi
+  if (cd "$dir" && SEMA_TPU_HOME="$PWD/home" SEMA_TPU_DATA="$PWD/data" \
+        SEMA_TPU_ENCODER_QUANT=int8 python3 -m sema_tpu_torch query \
+        "retry with exponential backoff" > out.txt 2> err.txt); then
+    echo "mutant $name: MISSED, query exited 0"
+    failed=1
+  elif grep -q "substring" "$dir/err.txt" \
+      || ! grep -q "$expect" "$dir/err.txt"; then
+    echo "mutant $name: MISSED, $(tail -c 300 "$dir/err.txt")"
+    failed=1
+  else
+    echo "mutant $name: caught, query exited non-zero:" \
+      "$(grep -o 'Error: .*' "$dir/err.txt" | head -1 | cut -c1-160)"
+  fi
+}
+# K5's library does not build
+cli_mutant k5_build_fails csrc/encoder_layer.cu \
+  's/^extern "C" int sema_qmm/#error a build that fails\nextern "C" int sema_qmm/' \
+  "kernel build failed"
+# K5's wrapper refuses the tensors it is given
+cli_mutant k5_refuses ops/encoder_layer_int8.py \
+  's/    _check(x, layer, mask_bias, num_heads, quantized=True)/    raise KernelError("refused by the mutant")/' \
+  "refused by the mutant"
 exit $failed

@@ -33,17 +33,26 @@ Phases, one JSON line each:
                       bucket shape of the index, (64, 256) and the query's
                       (1, 256). The mutants must fail at every shape,
                       under the limit of its dtype.
-5. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
+5. ``encoder_layer_int8``  K5 against its plain version: ``qmm`` (the row
+                      quantization, the int8 GEMM and the rescale) bit-equal
+                      at the four products of MiniLM and gte-large at M =
+                      256 and 65,536; the W8A8 layer in bf16, f16 and f32 at
+                      MiniLM (256, 256) and in bf16 at gte-large (1, 256),
+                      (64, 256), (256, 256), (2048, 32) and (32, 512), under
+                      ``K5_LIMITS``, which must reject the plain version with
+                      attention broken. Library: ``torch._int_mm`` of the
+                      four products alone.
+6. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
                       rows at d = 1024 and 384, Q in {1, 256}, k in
                       {16, 128}, masked rows and a 17-way tie; scores and
                       ids bit-equal. Library: ``torch._int_mm`` + scales +
                       ``torch.topk`` (one query padded to the 17 rows
                       ``_int_mm`` needs).
-6. ``scan_pruned``    K3 (bf16) and K4b (int8) over 40 of a 128-tile probe
+7. ``scan_pruned``    K3 (bf16) and K4b (int8) over 40 of a 128-tile probe
                       budget of the same stores (tiles of 512): K4b
                       bit-equal, K3 under K1's limits. Library:
                       ``index_select`` of the tiles + the product + topk.
-7. ``main_path``      ``index`` then ``query`` of a generated tree of source
+8. ``main_path``      ``index`` then ``query`` of a generated tree of source
                       files through the CLI (MiniLM-L6, bf16, random weights
                       from seed 0, on the card). The launch counts are set
                       to 0 before each step and read after it: the index
@@ -53,8 +62,10 @@ Phases, one JSON line each:
                       may fire. The stored rows (per-row cosine >= 0.9999)
                       and the query's hits are held against the plain
                       versions on a sample.
-8. ``int8_ivf_path``  BASELINE config 4 with IVF on top: gte-large (24
-                      layers, 1024 wide, random weights), ``store_dtype =
+9. ``int8_ivf_path``  BASELINE config 4 with IVF on top: gte-large (24
+                      layers, 1024 wide, random weights from seed 0, written
+                      once as a safetensors file that every process loads)
+                      with W8A8 linears (``quant = "int8"``), ``store_dtype =
                       "int8"``, ``rescore_k = 100``, ``ivf = true``,
                       ``ivf_nprobe = 32``. ``VectorStore.add_chunks`` fills
                       the data dir with 1,048,576 seeded synthetic rows
@@ -62,14 +73,14 @@ Phases, one JSON line each:
                       package's clustered synthetic of ``tools/ivf_bench.py``):
                       4 sealed buckets. Then the CLI's ``index`` of the tree
                       above (its chunks land in the unsealed tail) and
-                      ``query``: the query must launch K2 24 times, K4b
-                      once per sealed bucket, K4a once (the tail) and K1
-                      not at all; the index's K2 launches must match its
-                      batches per sequence bucket. The stored rows of a
-                      sample of the tail are held against the plain
-                      encoder on the card (per-row cosine >= 0.9999). The
-                      kernels' hits must equal the plain
-                      versions' on the same card with the same tile
+                      ``query``: the query must launch K5 24 times, K2
+                      not at all, K4b once per sealed bucket, K4a once (the
+                      tail) and K1 not at all; the index's K5 launches must
+                      match its batches per sequence bucket, with no K2.
+                      The stored rows of a sample of the tail are held
+                      against the plain encoder on the card (per-row
+                      cosine >= 0.9999). The kernels' hits must equal the
+                      plain versions' on the same card with the same tile
                       selection; a stored row as the query must come back
                       first through IVF; ``exact=True`` must launch K4a on
                       every bucket and no K4b. Prints recall@10 of the IVF
@@ -77,8 +88,20 @@ Phases, one JSON line each:
                       stored rows (no limit: the frontier constant was
                       measured on other data), the query p50 over 20 warm
                       queries, the device busy share and per-stage seconds.
-9. ``bf16_ivf_path``  the same with ``store_dtype = "bfloat16"``: the query
-                      must launch K3 once per sealed bucket and K1 once.
+                      Then ``serve``: ``python -m sema_tpu_torch serve`` on
+                      that data dir with ``--reindex-interval 2`` answers
+                      256 requests from 32 clients (semantic queries from
+                      the tree's chunks at k 10, one in 8 ``exact=true``, a
+                      few keyword ones) with no error and no status but
+                      200, every exact answer id for id the in-process
+                      ``IndexManager.search``'s; three rewritten files are
+                      found after the next re-index tick; SIGTERM stops it
+                      with exit code 0 and no traceback. Prints qps,
+                      p50/p99 ms, recall@10 of the IVF answers and
+                      ``/healthz``'s batcher stats.
+10. ``bf16_ivf_path`` the same with ``store_dtype = "bfloat16"`` and float
+                      linears (``quant = "none"``): K2 24 times a query, K3
+                      once per sealed bucket and K1 once; no serve.
 
 Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises, so the script
@@ -168,7 +191,8 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
 def _wrappers() -> dict:
     from sema_tpu_torch import ops
     return {**{name: getattr(ops, name) for name in SCANS},
-            "encoder_layer": ops.fused_encoder_layer}
+            "encoder_layer": ops.fused_encoder_layer,
+            "encoder_layer_int8": ops.fused_encoder_layer_int8}
 
 
 def launch_counts() -> dict:
@@ -182,16 +206,20 @@ def reset_launch_counts() -> None:
 
 @contextmanager
 def plain_layers():
-    """The encoder's layer wrapper replaced by its plain version, on the
-    same card (as ``plain_scans`` does for the scans)."""
+    """The encoder's layer wrappers (K2, K5) replaced by their plain
+    versions, on the same card (as ``plain_scans`` does for the scans)."""
     bert_mod = importlib.import_module("sema_tpu_torch.models.bert")
-    layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
-    saved = bert_mod.fused_encoder_layer
-    bert_mod.fused_encoder_layer = layer_mod.encoder_layer_reference
+    ops = importlib.import_module("sema_tpu_torch.ops")
+    names = {"fused_encoder_layer": ops.encoder_layer_reference,
+             "fused_encoder_layer_int8": ops.encoder_layer_int8_reference}
+    saved = {name: getattr(bert_mod, name) for name in names}
+    for name, fn in names.items():
+        setattr(bert_mod, name, fn)
     try:
         yield
     finally:
-        bert_mod.fused_encoder_layer = saved
+        for name, fn in saved.items():
+            setattr(bert_mod, name, fn)
 
 
 @contextmanager
@@ -612,6 +640,198 @@ def phase_layer(gen):
     return cases
 
 
+# -- K5 -----------------------------------------------------------------------
+
+F16, F32 = torch.float16, torch.float32
+K5_QMM_M = (256, 65_536)
+K5_SHAPES = (("minilm-l6", BF16, 256, 256), ("minilm-l6", F16, 256, 256),
+             ("minilm-l6", F32, 256, 256), ("gte-large", BF16, 1, 256),
+             ("gte-large", BF16, 64, 256), ("gte-large", BF16, 256, 256),
+             ("gte-large", BF16, 2048, 32), ("gte-large", BF16, 32, 512))
+# (min per-row cosine, max error relative to max(|want|, 1)) of K5 against
+# its plain version. Where the two sides' sums land one ulp apart (as K2's
+# do), a row's int8 quantum can move by one: a value on a rounding
+# boundary, or the row's absmax and so its scale. One quantum is 1/127 of
+# the row's absmax; at the weights of int8_layer_params one quantum of the
+# FFN-out input moves an output by about 0.015, more than an f16 or f32
+# ulp, so those dtypes take limits set by quanta, not by their ulps. On an
+# H100 the kernel read: bf16 cosine >= 0.99969, relative error <= 0.096
+# (over the bf16 shapes); f16 0.99984 and 0.070; f32 0.99997 and 0.027
+# (two quanta). The plain version with attention broken read cosine 0.15
+# to 0.33.
+K5_LIMITS = {BF16: (COS_MIN, REL_MAX),   # K2's bf16 limits
+             # K2's f16 limits (0.99998, 0.015) sit below one quantum:
+             # bf16's instead
+             F16: (COS_MIN, REL_MAX),
+             # K2's 5e-5 + 1e-4 |x| cannot hold once a quantum moves: four
+             # quanta of FFN-out
+             F32: (0.9999, 0.06)}
+
+
+def linears(spec):
+    """(name, K, N) of a layer's four products."""
+    h, i = spec.hidden_size, spec.intermediate_size
+    return (("qkv_w", h, 3 * h), ("attn_out_w", h, h), ("ffn_in_w", h, i),
+            ("ffn_out_w", i, h))
+
+
+def int8_layer_params(spec, gen):
+    """One quantized layer at sigma 0.08 (as ``layer_params``): the f32
+    weights quantized per output channel and laid out as the Encoder lays
+    them out for K5; biases bf16, LayerNorm params f32."""
+    from sema_tpu_torch.models.bert import quantize_linear
+    from sema_tpu_torch.ops.encoder_layer_int8 import column_major
+    w = lambda *shape: 0.08 * torch.randn(*shape, generator=gen, device=DEV)
+    h, inter = spec.hidden_size, spec.intermediate_size
+    layer = {"qkv_b": w(3 * h).to(BF16), "attn_out_b": w(h).to(BF16),
+             "ffn_in_b": w(inter).to(BF16), "ffn_out_b": w(h).to(BF16),
+             "attn_ln_scale": 1.0 + w(h), "attn_ln_bias": w(h),
+             "ffn_ln_scale": 1.0 + w(h), "ffn_ln_bias": w(h)}
+    for name, k, n in linears(spec):
+        q, sc = quantize_linear(w(k, n))
+        layer[name + "_q"], layer[name + "_s"] = column_major(q), sc
+    return layer
+
+
+def broken_int8_layers(layer, heads):
+    """``broken_layers`` for the int8 layer: the context zeroed and the
+    keys' heads rotated (their scales with them)."""
+    h = layer["qkv_w_q"].shape[0]
+    rot = {}
+    for name in ("qkv_w_q", "qkv_w_s"):
+        t = layer[name].clone()
+        keys = t[..., h:2 * h]
+        t[..., h:2 * h] = keys.reshape(*keys.shape[:-1], heads, -1).roll(
+            1, dims=-2).reshape(keys.shape)
+        rot[name] = t
+    return {"zero_ctx": {**layer, "attn_out_w_q": torch.zeros_like(
+                layer["attn_out_w_q"])},
+            "heads_rotated": {**layer, **rot}}
+
+
+def int_mm_ms(m, spec, gen, iters):
+    """The library yardstick of K5: ``torch._int_mm`` of the layer's four
+    products alone, on int8 rows of its M (no quantization, no rescale,
+    no epilogue)."""
+    mats = [(torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
+                           dtype=torch.int8),
+             torch.randint(-127, 128, (n, k), generator=gen, device=DEV,
+                           dtype=torch.int8).t())
+            for _, k, n in linears(spec)]
+    return device_ms(lambda: [torch._int_mm(a, b) for a, b in mats], iters)
+
+
+def qmm_case(spec, m, k, n, name, gen, iters):
+    from sema_tpu_torch.models.bert import quantize_linear
+    from sema_tpu_torch.ops.encoder_layer_int8 import (column_major, qmm,
+                                                       qmm_reference)
+    x = torch.randn(m, k, generator=gen, device=DEV).to(BF16)
+    wq, ws = quantize_linear(0.08 * torch.randn(k, n, generator=gen,
+                                                device=DEV))
+    wq = column_major(wq)
+    got, want = qmm(x, wq, ws), qmm_reference(x, wq, ws)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
+                       dtype=torch.int8)
+    ms, bound_by = bound(m * k * 2 + k * n + n * 4 + m * n * 4,
+                         2.0 * m * k * n, INT8_OPS_PER_S)
+    return {"model": spec.name, "linear": name, "m": m, "k": k, "n": n,
+            "bit_equal": equal,
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": device_ms(lambda: qmm(x, wq, ws), iters),
+            "plain_ms": device_ms(lambda: qmm_reference(x, wq, ws),
+                                  max(2, iters // 2)),
+            "library_ms": device_ms(lambda: torch._int_mm(xq, wq), iters),
+            "library_call": "torch._int_mm of int8 rows alone",
+            "bound_ms": ms, "bound_by": bound_by}
+
+
+def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
+    from sema_tpu_torch.models.bert import LN_EPS
+    from sema_tpu_torch.ops.encoder_layer_int8 import (
+        encoder_layer_int8_reference, fused_encoder_layer_int8)
+    h, heads, inter = spec.hidden_size, spec.num_heads, spec.intermediate_size
+    scale = 1.0 / math.sqrt(h // heads)
+    cos_min, rel_max = K5_LIMITS[dtype]
+    close = lambda got, want: layer_close(got, want, cos_min, rel_max)
+    x = torch.randn(b, s, h, generator=gen, device=DEV).to(dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
+    lens[0] = s if b > 1 else min(12, s)   # one query: 12 tokens, padded
+    pad = torch.arange(s, device=DEV)[None, :] >= lens[:, None]
+    bias = pad.float() * -1e9
+    args = (x, layer, bias, heads, scale, LN_EPS)
+    got = fused_encoder_layer_int8(*args)
+    want = encoder_layer_int8_reference(*args)
+    torch.cuda.synchronize()
+    ok, cos, rel = close(got, want)
+    broken = {name: encoder_layer_int8_reference(x, bad, bias, heads, scale,
+                                                 LN_EPS)
+              for name, bad in broken_int8_layers(layer, heads).items()}
+    broken["no_mask"] = encoder_layer_int8_reference(
+        x, layer, torch.zeros_like(bias), heads, scale, LN_EPS)
+    m = b * s
+    isz = x.element_size()
+    weights = 4 * h * h + 2 * h * inter
+    # int8 products at the int8 rate plus attention at the bf16 (f32) rate,
+    # as int8-rate-equivalent operations
+    attn_rate = F32_OPS_PER_S if dtype == F32 else BF16_OPS_PER_S
+    ms, bound_by = bound(
+        2 * isz * m * h + weights + (4 + isz) * (3 * h + h + inter + h)
+        + 4 * 4 * h + 4 * b * s,
+        2.0 * m * weights + 4.0 * b * s * s * h * INT8_OPS_PER_S / attn_rate,
+        INT8_OPS_PER_S)
+    return {"model": spec.name, "dtype": str(dtype).removeprefix("torch."),
+            "b": b, "s": s, "head_dim": h // heads, "ok": ok,
+            "limits": {"min_cosine": cos_min, "max_rel_err": rel_max},
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_rel_err": rel, "min_cosine": cos,
+            "broken_min_cosine": {name: close(out, want)[1]
+                                  for name, out in broken.items()},
+            "broken_passes": [name for name, out in broken.items()
+                              if close(out, want)[0]],
+            "ms": device_ms(lambda: fused_encoder_layer_int8(*args), iters),
+            "plain_ms": device_ms(
+                lambda: encoder_layer_int8_reference(*args),
+                max(2, iters // 3)),
+            "library_ms": int_mm_ms(m, spec, gen, iters),
+            "library_call": "torch._int_mm x4, the four products alone",
+            "bound_ms": ms, "bound_by": bound_by}
+
+
+def phase_layer_int8(gen):
+    """K5: ``qmm`` bit-equal to its plain version at the four products of
+    MiniLM and gte-large at M = 256 and 65,536; the layer against its
+    plain version under K5_LIMITS, which must reject the plain version
+    with attention broken. Every case is emitted before a failure
+    raises."""
+    from sema_tpu_torch.models.registry import get_spec
+    qmm_cases, cases = [], []
+    for name in ("minilm-l6", "gte-large"):
+        spec = get_spec(name)
+        for m in K5_QMM_M:
+            for lin, k, n in linears(spec):
+                qmm_cases.append(qmm_case(spec, m, k, n, lin, gen,
+                                          iters=20 if m == 256 else 5))
+        layer = int8_layer_params(spec, gen)
+        cases += [int8_layer_case(layer, spec, dt, b, s, gen, iters=10)
+                  for m, dt, b, s in K5_SHAPES if m == name]
+        del layer
+        torch.cuda.empty_cache()
+    emit("encoder_layer_int8", qmm=qmm_cases, cases=cases)
+    bad = ([f"qmm {c['model']} {c['linear']} M={c['m']}: not bit-equal "
+            f"(max abs error {c['max_abs_err']})"
+            for c in qmm_cases if not c["bit_equal"]]
+           + [f"{c['model']} {c['dtype']} ({c['b']}, {c['s']}): cosine "
+              f"{c['min_cosine']}, relative error {c['max_rel_err']}"
+              for c in cases if not c["ok"]]
+           + [f"{c['model']} {c['dtype']} ({c['b']}, {c['s']}): the check "
+              f"passes {c['broken_passes']}" for c in cases
+              if c["broken_passes"]])
+    check(not bad, "K5: " + "; ".join(bad))
+    return cases
+
+
 # -- main path ----------------------------------------------------------------
 
 _WORDS = ("request", "retry", "backoff", "socket", "parse", "token", "vector",
@@ -801,15 +1021,58 @@ N_CENTRES = 2048               # true clusters of the synthetic corpus
 NOISE, QNOISE = 1.5, 1.0       # tools/ivf_bench.py's defaults
 
 
-def write_config(home: Path, store_dtype: str) -> None:
-    """gte-large, bf16 compute, max_length 256, batch 256; the store in
-    ``store_dtype`` with rescore_k 100 and IVF at nprobe 32."""
+def write_weights(path: Path) -> Path:
+    """gte-large's random weights from seed 0 (``random_params``, what the
+    port would draw with no weights at hand) written once as a
+    ``model.safetensors`` under HF names, so each process of the paths
+    loads them instead of drawing 335M numbers again. Returns the dir."""
+    from sema_tpu_torch.models.loader import (_EMB_LEAVES, _LAYER_LEAVES,
+                                              random_params)
+    from sema_tpu_torch.models.registry import get_spec
+    spec = get_spec(IVF_MODEL)
+    params = random_params(spec, seed=0)
+    emb, layers = params["embeddings"], params["layers"]
+    h = spec.hidden_size
+    tensors = {hf: emb[ours] for ours, hf in _EMB_LEAVES}
+    for i in range(spec.num_layers):
+        pre = f"encoder.layer.{i}."
+        for ours, suffix, transpose in _LAYER_LEAVES:
+            tensors[pre + suffix] = (layers[ours][i].T if transpose
+                                     else layers[ours][i])
+        for j, part in enumerate(("query", "key", "value")):
+            self_ = pre + f"attention.self.{part}."
+            tensors[self_ + "weight"] = layers["qkv_w"][i][:, j * h:
+                                                         (j + 1) * h].T
+            tensors[self_ + "bias"] = layers["qkv_b"][i][j * h:(j + 1) * h]
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 4
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "model.safetensors", "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for t in tensors.values():
+            f.write(t.contiguous().numpy().tobytes())
+    return path
+
+
+def write_config(home: Path, store_dtype: str, weights: Path) -> None:
+    """gte-large from ``weights``, bf16 compute, max_length 256, batch
+    256, with W8A8 linears (``[model] quant = "int8"``) over an int8 store:
+    BASELINE config 4; the store in ``store_dtype`` with rescore_k 100
+    and IVF at nprobe 32."""
     from sema_tpu_torch.config import ConfigManager
     manager = ConfigManager(home)
     config = manager.load_config()
     m, ix = config.model, config.index
     m.name, m.dtype, m.max_length, m.batch_size = (IVF_MODEL, "bfloat16",
                                                    256, 256)
+    m.quant = "int8" if store_dtype == "int8" else "none"
+    m.weights_path = str(weights)
     ix.store_dtype, ix.rescore_k, ix.ivf, ix.ivf_nprobe = (store_dtype, 100,
                                                            True, 32)
     manager.save_config(config)
@@ -909,7 +1172,7 @@ def path_scan_times(store, qvec, k) -> dict:
 
 
 def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
-                   gen, device: str = "cuda") -> dict:
+                   gen, weights: Path, device: str = "cuda") -> dict:
     from sema_tpu_torch import cli
     from sema_tpu_torch.models.registry import get_spec
     from sema_tpu_torch.utils.metrics import Metrics
@@ -917,8 +1180,12 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
     home, data = work / f"home-{store_dtype}", work / f"data-{store_dtype}"
     os.environ["SEMA_TPU_HOME"] = str(home)
     os.environ["SEMA_TPU_DATA"] = str(data)
-    write_config(home, store_dtype)
+    write_config(home, store_dtype, weights)
     fill_s = fill_store(data, store_dtype, n_rows, gen)
+    # the int8 deployment runs every layer through K5, the bf16 one K2
+    int8 = store_dtype == "int8"
+    layer_k, other_k = (("encoder_layer_int8", "encoder_layer") if int8
+                        else ("encoder_layer", "encoder_layer_int8"))
 
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -927,13 +1194,13 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
     index_launches = launch_counts()
     n_chunks = int(re.search(r"indexed (\d+) chunks", out).group(1))
     stats = json.loads(out[out.index("{"):])
-    check(n_chunks > 0 and index_launches["encoder_layer"] > 0
+    check(n_chunks > 0 and index_launches[layer_k] > 0
+          and not index_launches[other_k]
           and not any(index_launches[n] for n in SCANS),
           f"{name} index: {n_chunks} chunks, launches {index_launches}")
 
     # the first query of the store: it builds the buckets (k-means of each
     # sealed one, its sidecar written) before it scans
-    int8 = store_dtype == "int8"
     pruned, exact_scan = (("scan_topk_int8_pruned", "scan_topk_int8") if int8
                           else ("scan_topk_pruned", "scan_topk"))
     sealed = n_rows // SEAL
@@ -945,8 +1212,8 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
     hits = [json.loads(line) for line in out.splitlines()]
     check(len(hits) == 50 and all(math.isfinite(h["score"]) for h in hits),
           f"{name}: {len(hits)} hits, or a score that is not finite")
-    want = {n: 0 for n in SCANS}
-    want.update({"encoder_layer": get_spec(IVF_MODEL).num_layers,
+    want = {n: 0 for n in (*SCANS, other_k)}
+    want.update({layer_k: get_spec(IVF_MODEL).num_layers,
                  pruned: sealed, exact_scan: 1})
     check(query_launches == want, f"{name} query launches {query_launches}, "
           f"want {want}")
@@ -972,7 +1239,7 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
              for i in range(n_chunks)]
     counts, batches = bucket_batches(enc, texts)
     layers = get_spec(IVF_MODEL).num_layers
-    check(sum(batches.values()) * layers == index_launches["encoder_layer"],
+    check(sum(batches.values()) * layers == index_launches[layer_k],
           f"{name}: batches {dict(batches)}, launches {index_launches}")
     sample = list(range(0, n_chunks, max(1, n_chunks // 16)))[:16]
     with plain_layers():
@@ -993,7 +1260,7 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
         lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
     stages_p50_ms = {k: v * 1e3 for k, v in metrics.report()["p50_s"].items()}
-    device = query_device_time(lambda: mgr.search(QUERY, 50), 20)
+    busy = query_device_time(lambda: mgr.search(QUERY, 50), 20)
 
     # the kernels' hits against the plain versions', same card, same query
     # vector, so the same tile selection
@@ -1042,8 +1309,9 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
         exact_ms.append((t2 - t1) * 1e3)
     recall = np.asarray(recall)
     kernels = path_scan_times(store, qvec, 128 if int8 else 64)
+    requests = serve_requests(mgr) if int8 else None
     mgr.close()
-    del store, buckets, mgr
+    del store, buckets, mgr, enc
     torch.cuda.empty_cache()
     emit(name, rows=n_rows, sealed_buckets=sealed, tail_chunks=n_chunks,
          fill_s=fill_s, index_s=index_s, index_stages_s=stats["stages_s"],
@@ -1053,15 +1321,168 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
          bucket_batches={str(s): n for s, n in sorted(batches.items())},
          stored_min_cosine=float(cos.min()),
          query_p50_ms=lat[len(lat) // 2], query_max_ms=lat[-1],
-         query_stages_p50_ms=stages_p50_ms, query_device=device,
+         query_stages_p50_ms=stages_p50_ms, query_device=busy,
          recall_at_10_mean=float(recall.mean()),
          recall_at_10_p5=float(np.percentile(recall, 5)),
          recall_at_10_min=float(recall.min()),
          search_batch_p50_ms={"ivf": float(np.median(ivf_ms)),
                               "exact": float(np.median(exact_ms))},
          kernels=kernels)
+    if requests is not None:
+        phase_serve(tree, requests, device)
     return {"query_launches": query_launches,
             "index_launches": index_launches, "kernels": kernels}
+
+
+# -- serve (the int8 deployment behind its HTTP daemon) -----------------------
+
+SERVE_REQUESTS, SERVE_CLIENTS = 256, 32
+
+
+def serve_requests(mgr) -> dict:
+    """The serve sub-phase's requests and the answers they are held to:
+    64 semantic queries taken from the tree's chunks (a chunk's first 12
+    words), 256 requests at k 10 cycling over them, every 8th with
+    ``exact=true`` and every 32nd a keyword query; for each semantic query
+    the ids of ``IndexManager.search(q, 10, exact=True)`` in this process,
+    from the same int8 encoder."""
+    store = mgr.vector_store
+    tail = store.device_buckets()[-1]
+    texts = []
+    for i in range(0, tail["rows"], max(1, tail["rows"] // 64))[:64]:
+        words = store.chunk_at(tail["row_offset"] + i).content.split()
+        texts.append(" ".join(words[:12]))
+    exact_ids = {q: [c.id for c, _ in mgr.search(q, 10, exact=True)]
+                 for q in dict.fromkeys(texts)}
+    requests = [(("'backoff", "'retry")[i // 32 % 2], False) if i % 32 == 5
+                else (texts[i % len(texts)], i % 8 == 0)
+                for i in range(SERVE_REQUESTS)]
+    return {"requests": requests, "exact_ids": exact_ids}
+
+
+def http_get(url: str, timeout: float = 120.0):
+    """(status, JSON body); an HTTP error status is returned, not
+    raised."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+def search_url(base: str, q: str, exact: bool = False, k: int = 10) -> str:
+    import urllib.parse
+    args = {"q": q, "k": k, **({"exact": 1} if exact else {})}
+    return f"{base}/search?{urllib.parse.urlencode(args)}"
+
+
+def phase_serve(tree: Path, plan: dict, device: str = "cuda") -> None:
+    """``python -m sema_tpu_torch serve`` on the int8 deployment's data
+    dir with ``--reindex-interval 2``: SERVE_REQUESTS requests from
+    SERVE_CLIENTS concurrent clients, 0 errors and 0 non-200 answers,
+    every ``exact=true`` answer id for id the in-process one; recall@10 of
+    the IVF answers against the in-process exact ones; three files of the
+    tree rewritten, found by keyword and by their text after the next
+    re-index tick; then SIGTERM, an exit code of 0 and no traceback."""
+    import signal
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    out_path, err_path = tree.parent / "serve.out", tree.parent / "serve.err"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sema_tpu_torch", "serve", str(tree),
+             "--port", str(port), "--reindex-interval", "2",
+             "--device", device],
+            cwd=ROOT, stdout=out, stderr=err)
+    try:
+        while True:
+            check(proc.poll() is None, "serve exited before it answered: "
+                  + err_path.read_text()[-3000:])
+            check(time.perf_counter() - t0 < 600, "serve: no /healthz in "
+                  "600 s")
+            try:
+                if http_get(f"{base}/healthz", 5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+
+        def one(req):
+            q, exact = req
+            t = time.perf_counter()
+            try:
+                code, body = http_get(search_url(base, q, exact))
+            except OSError as e:
+                code, body = None, str(e)
+            return q, exact, code, body, time.perf_counter() - t
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            answers = list(pool.map(one, plan["requests"]))
+        wall_s = time.perf_counter() - t1
+        errors = [a for a in answers if a[2] is None]
+        non_200 = [a for a in answers if a[2] not in (None, 200)]
+        check(not errors and not non_200, f"serve: {len(errors)} errors, "
+              f"{len(non_200)} non-200: {(errors + non_200)[:3]}")
+        ids = lambda body: [h["id"] for h in body["results"]]
+        wrong = [q for q, exact, _, body, _ in answers
+                 if exact and ids(body) != plan["exact_ids"][q]]
+        check(not wrong, f"serve: {len(wrong)} exact answers differ from "
+              f"the in-process ones, e.g. {wrong[:2]}")
+        recall = [len(set(ids(body)) & set(plan["exact_ids"][q]))
+                  / max(1, len(plan["exact_ids"][q]))
+                  for q, exact, _, body, _ in answers
+                  if not exact and not q.startswith("'")]
+        lat = sorted(a[4] * 1e3 for a in answers)
+        health = http_get(f"{base}/healthz")[1]
+
+        # three files rewritten while serving: found after the next tick
+        changed = sorted(tree.rglob("*.py"))[:3]
+        for j, f in enumerate(changed):
+            f.write_text(f"def okapi_{j}(zebra):\n    # the quagga herd {j} "
+                         "crosses the river at dawn\n    return zebra\n")
+        t2 = time.perf_counter()
+        want = {str(f) for f in changed}
+        while True:
+            body = http_get(search_url(base, "'quagga"))[1]
+            found = {h["file_path"]: h["content"] for h in body["results"]}
+            if want <= set(found):
+                break
+            check(time.perf_counter() - t2 < 120, f"serve: the rewritten "
+                  f"files not found by keyword after 120 s: {sorted(found)}")
+            time.sleep(0.5)
+        reindex_s = time.perf_counter() - t2
+        for path in want:
+            body = http_get(search_url(base, found[path], exact=True))[1]
+            check(body["results"][0]["file_path"] == path, f"serve: the "
+                  f"text of {path} finds {body['results'][0]['file_path']}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err_text = err_path.read_text()
+    check(rc == 0 and "stopped by signal 15" in err_text
+          and "Traceback" not in err_text,
+          f"serve exited {rc}: {err_text[-3000:]}")
+    emit("serve", requests=len(answers), clients=SERVE_CLIENTS,
+         exact_requests=sum(a[1] for a in answers),
+         keyword_requests=sum(a[0].startswith("'") for a in answers),
+         errors=len(errors), non_200=len(non_200), start_s=start_s,
+         wall_s=wall_s, qps=len(answers) / wall_s,
+         p50_ms=lat[len(lat) // 2], p99_ms=lat[int(0.99 * (len(lat) - 1))],
+         max_ms=lat[-1], ivf_recall_at_10_mean=float(np.mean(recall)),
+         ivf_recall_at_10_min=float(np.min(recall)),
+         reindex_found_s=reindex_s, healthz=health, exit_code=rc)
 
 
 def main() -> int:
@@ -1096,6 +1517,8 @@ def main() -> int:
         phase_scan(gen)
     if run("encoder_layer"):
         layer_cases = phase_layer(gen)
+    if run("encoder_layer_int8"):
+        int8_cases = phase_layer_int8(gen)
     if run("scan_int8") or run("scan_pruned"):
         phase_scan_more(gen)
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1107,12 +1530,18 @@ def main() -> int:
         tree = work / "tree"
         if not tree.exists():
             make_tree(tree, 400)
+        weights = None
         for store_dtype in ("int8", "bfloat16"):
             name = ("int8_ivf_path" if store_dtype == "int8"
                     else "bf16_ivf_path")
             if run(name):
+                if weights is None:
+                    t0 = time.perf_counter()
+                    weights = write_weights(work / "gte-weights")
+                    emit("weights", model=IVF_MODEL,
+                         seconds=time.perf_counter() - t0)
                 paths[store_dtype] = phase_ivf_path(work, tree, store_dtype,
-                                                    4 * SEAL, gen)
+                                                    4 * SEAL, gen, weights)
     if phases is not None:
         print(f"partial run of {sorted(phases)}: no kernels line", flush=True)
         return 0
@@ -1120,6 +1549,9 @@ def main() -> int:
     k2 = next(c for c in layer_cases
               if (c["model"], c["dtype"], c["b"], c["s"])
               == ("minilm-l6", "bfloat16", 256, 256))
+    k5 = next(c for c in int8_cases
+              if (c["model"], c["dtype"], c["b"], c["s"])
+              == (IVF_MODEL, "bfloat16", 1, 256))
     int8_k, bf16_k = paths["int8"]["kernels"], paths["bfloat16"]["kernels"]
     runs = [index_launches, query_launches] + [
         p[key] for p in paths.values()
@@ -1138,6 +1570,8 @@ def main() -> int:
               [k1["n"], 1, k1["k"]], k1),
         entry("encoder_layer", "sema_tpu_torch/csrc/encoder_layer.cu",
               "sema_tpu/ops/fused_attention.py:356", [256, 256, D], k2),
+        entry("encoder_layer_int8", "sema_tpu_torch/csrc/encoder_layer.cu",
+              "sema_tpu/ops/fused_attention.py:493", [1, 256, GTE_D], k5),
         entry("scan_topk_pruned", scan_src, "sema_tpu/ops/pallas_topk.py:544",
               [bf16_k["scan_topk_pruned"]["rows_scanned"], 1, 64],
               bf16_k["scan_topk_pruned"]),

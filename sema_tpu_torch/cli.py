@@ -3,12 +3,22 @@
     python -m sema_tpu_torch index [DIR] [flags]    headless index build
     python -m sema_tpu_torch query "text" [flags]   headless query
                                                     ('-prefix = keyword)
+    python -m sema_tpu_torch serve [DIR] [flags]    HTTP search daemon
+                                                    (--host, --port,
+                                                    --reindex-interval)
 
 The flags are the JAX package's, plus ``--device {cuda,cpu}`` (default
 ``cuda``; a missing card raises rather than falling back). Config and
 data live where the JAX package keeps them (``SEMA_TPU_HOME``,
-``SEMA_TPU_DATA``), so both packages can serve one data dir. The TUI,
-``serve``, ``bench`` and ``doctor`` are not ported yet.
+``SEMA_TPU_DATA``), so both packages can serve one data dir. ``serve``
+answers ``GET /healthz`` and ``GET``/``POST /search`` (see
+``search/http_server.py``) until SIGINT or SIGTERM; with
+``--reindex-interval N`` a thread re-crawls DIR every N seconds and
+indexes what changed while queries go on. Every command exits non-zero
+when a kernel does not build, launch or take its tensors
+(:class:`~sema_tpu_torch.ops._cuda.KernelError`); ``serve`` does so
+before it takes traffic, from its warm-up query. The TUI, ``bench`` and
+``doctor`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from typing import List, Optional
 
 from sema_tpu_torch.config import (Config, ConfigManager, apply_cli_overrides,
                                    data_dir)
+from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.types import CrawlerConfig
 
 
@@ -83,6 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
     query.add_argument("--trace", metavar="DIR", default=None,
                        help="capture a torch.profiler trace into DIR")
     _add_model_flags(query)
+
+    serve = sub.add_parser("serve", help="HTTP search daemon over the index")
+    _add_crawl_flags(serve)
+    serve.add_argument("--host", default="127.0.0.1")
+    serve.add_argument("--port", type=int, default=7700)
+    serve.add_argument("--reindex-interval", type=float, default=0,
+                       metavar="SECONDS",
+                       help="re-crawl the directory and incrementally "
+                            "index changed files every N seconds while "
+                            "serving (0 = off)")
+    _add_model_flags(serve)
     return p
 
 
@@ -176,9 +198,11 @@ def cmd_index(args) -> int:
             if done == total:
                 print(file=sys.stderr)
 
-    n = mgr.process_and_index_files(files, progress=progress,
-                                    purge_missing_under=directory)
-    mgr.close()
+    try:
+        n = mgr.process_and_index_files(files, progress=progress,
+                                        purge_missing_under=directory)
+    finally:
+        mgr.close()
     dt = time.perf_counter() - t0
     print(f"indexed {n} chunks in {dt:.1f}s "
           f"({mgr.vector_store.live_rows} live vectors)")
@@ -195,10 +219,12 @@ def cmd_query(args) -> int:
         from sema_tpu_torch.utils.metrics import trace
         tracer = trace(args.trace)
     t0 = time.perf_counter()
-    with tracer:
-        results = mgr.search(args.text, args.limit)
+    try:
+        with tracer:
+            results = mgr.search(args.text, args.limit)
+    finally:
+        mgr.close()
     dt = time.perf_counter() - t0
-    mgr.close()
 
     if args.group:
         from sema_tpu_torch.search.engine import group_results_by_file
@@ -230,9 +256,77 @@ def cmd_query(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The HTTP daemon (``sema_tpu/cli.py:385-425``) until SIGINT or
+    SIGTERM, with the streaming re-index thread when asked. A KernelError
+    of the warm-up or of a re-index ends it and propagates."""
+    import _thread
+    import signal
+    import threading
+    from sema_tpu_torch.search.http_server import serve_forever
+    config = load_config(args)
+    mgr = make_index_manager(config, args.device)
+    failed: List[KernelError] = []
+    stop = threading.Event()
+
+    def on_signal(signum, _frame):
+        print(f"stopped by signal {signum}", file=sys.stderr)
+        raise KeyboardInterrupt
+
+    if args.reindex_interval > 0:
+        # streaming re-index while serving: each pass appends its segments
+        # and tombstones under the store's lock; searches scan the bucket
+        # snapshot they took, and the text index serializes its writes
+        from sema_tpu_torch.crawl import FileCrawler
+        directory = resolve_directory(args)
+
+        def reindex_loop():
+            while not stop.wait(args.reindex_interval):
+                try:
+                    files = FileCrawler(
+                        crawler_config(config)).crawl_directory(directory)
+                    n = mgr.process_and_index_files(
+                        files, purge_missing_under=directory)
+                    if n:
+                        print(f"re-indexed {n} chunks "
+                              f"({mgr.vector_store.live_rows} live)",
+                              file=sys.stderr)
+                except KernelError as e:
+                    failed.append(e)
+                    _thread.interrupt_main()
+                    return
+                except Exception as e:  # noqa: BLE001 — keep serving
+                    print(f"re-index failed: {e}", file=sys.stderr)
+
+        threading.Thread(target=reindex_loop, daemon=True,
+                         name="reindex").start()
+        print(f"re-indexing {directory} every "
+              f"{args.reindex_interval:g}s", file=sys.stderr)
+    main_thread = threading.current_thread() is threading.main_thread()
+    if main_thread:             # only the main thread may take a signal
+        previous = signal.signal(signal.SIGTERM, on_signal)
+    try:
+        serve_forever(mgr, host=args.host, port=args.port)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        stop.set()
+        if main_thread:
+            signal.signal(signal.SIGTERM, previous)
+    if failed:
+        raise failed[0]
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"index": cmd_index, "query": cmd_query}[args.command](args)
+    cmd = {"index": cmd_index, "query": cmd_query,
+           "serve": cmd_serve}[args.command]
+    try:
+        return cmd(args)
+    except KernelError as e:
+        print(f"Error: a CUDA kernel failed: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -4,13 +4,16 @@
   skip; changed → remove old chunks from BOTH indexes, then re-index;
   new → index;
 - chunks go to both the vector and the text index; a failure in one is
-  warned, not fatal;
+  warned, not fatal, except a :class:`~sema_tpu_torch.ops._cuda.
+  KernelError` (a kernel that does not build, launch or take its
+  tensors), which propagates;
 - the file hash is recorded only after its chunks are indexed, so a crash
   mid-index retries that file next run;
 - search dispatch: queries starting with ``'`` hit the BM25 text index
   (prefix stripped; empty rest → no results), everything else is
   semantic; a failed semantic query degrades to a substring scan with a
-  warning, as the reference does.
+  warning, as the reference does, but a KernelError propagates: the
+  fallback must not hide a broken kernel behind plausible answers.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from sema_tpu_torch.index.text_index import make_text_index
 from sema_tpu_torch.index.vector_store import VectorStore
 from sema_tpu_torch.ingest.chunker import process_files
 from sema_tpu_torch.ingest.hashing import hash_file
+from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.types import Chunk
 from sema_tpu_torch.utils.metrics import Metrics, null_metrics
 
@@ -109,7 +113,8 @@ class IndexManager:
         return len(chunks)
 
     def index_chunks(self, chunks: Sequence[Chunk], progress=None) -> None:
-        """Dual-index chunks in bounded slices; failures are warnings."""
+        """Dual-index chunks in bounded slices; failures are warnings,
+        apart from a KernelError."""
         try:
             batch = int(os.environ.get("SEMA_TPU_INDEX_BATCH",
                                        self.INDEX_BATCH))
@@ -133,6 +138,8 @@ class IndexManager:
                         out_dtype=self.vector_store.torch_dtype)
                 with self.metrics.timer("vector_write"):
                     self.vector_store.add_chunks(part, embeddings)
+            except KernelError:
+                raise
             except Exception as e:  # noqa: BLE001 — parity: warn, go on
                 print("Warning: Failed to index chunks in vector "
                       f"store: {e}", file=sys.stderr)
@@ -162,6 +169,8 @@ class IndexManager:
                 qvec = self.encoder.encode_query_device(query)
             with self.metrics.timer("vector_search"):
                 return self.vector_store.search(qvec, limit, exact=exact)
+        except KernelError:
+            raise
         except Exception as e:  # noqa: BLE001 — parity: degrade, don't fail
             print(f"Warning: semantic query failed ({e}); falling back "
                   "to substring scan", file=sys.stderr)

@@ -45,6 +45,13 @@ Store modes (``vector_store.py:68-76, 749-792``):
   JAX kernels' 128, and ``exact=True`` (or an ``ivf_min_recall`` above
   the measured frontier) routes every query there.
 
+A batched search comes in two halves for the serving batcher
+(``search/server.py``): ``search_batch_async`` launches every bucket's
+scan and returns at once, ``search_batch_finish`` brings the candidates
+to the host, merges and rescores. A search works on a snapshot of the
+buckets and, for the int8 rescore, of the segments' memmaps, so appends,
+tombstones and a compaction may run beside it.
+
 Not ported yet: HBM spill (with the spilled-IVF union probe), meshes and
 the in-place device append of new rows. Not carried over at all: the
 (Q, 2k) integer pack of scores and ids (it saved one fetch through the
@@ -644,12 +651,14 @@ class VectorStore:
         row_offset = (buckets[-1]["row_offset"] + buckets[-1]["rows"]
                       if buckets else 0)
         if self._valid_dirty:
-            for b in buckets:
+            # new dicts, not updates: a scan in flight keeps the snapshot
+            # it took (device_buckets)
+            for i, b in enumerate(buckets):
                 valid = self._valid_host(
                     b["seg_range"], b["n_pad"],
                     None if b["ivf"] is None else b["ivf"]["perm"])
-                b["valid"] = torch.from_numpy(valid).to(self.device)
-                b["all_valid"] = bool(valid.all())
+                buckets[i] = dict(b, valid=torch.from_numpy(valid).to(
+                    self.device), all_valid=bool(valid.all()))
         n_segs = len(self.segments)
         seg_start = covered
         while seg_start < n_segs:
@@ -676,7 +685,10 @@ class VectorStore:
         self._valid_dirty = False
 
     def device_buckets(self) -> List[dict]:
-        """The current bucket list (built or extended as needed)."""
+        """The current bucket list (built or extended as needed), as a
+        snapshot: an append, a tombstone or a compaction after this call
+        builds new bucket dicts and leaves these, and the tensors they
+        hold, as they were."""
         with self._lock:
             if (self._buckets is None or self._valid_dirty
                     or sum(b["rows"] for b in self._buckets)
@@ -719,14 +731,30 @@ class VectorStore:
         self._chunk_cache[row] = chunk
         return chunk
 
-    def rows_at(self, rows: np.ndarray) -> np.ndarray:
+    def _rows_view(self):
+        """(row starts, each segment's vector memmap) of the current
+        segments: what :meth:`rows_at` reads. The memmaps stay mapped while
+        the view holds them, through a segment's ``close`` or a compaction
+        that unlinks its file."""
+        with self._lock:
+            segs = list(self.segments)
+        starts = np.zeros(len(segs) + 1, dtype=np.int64)
+        np.cumsum([s.rows for s in segs], out=starts[1:])
+        return starts, [s.vectors for s in segs]
+
+    def rows_at(self, rows: np.ndarray, view=None) -> np.ndarray:
         """Full-precision (f32) vectors of global row ids, from the
-        segment files: the host side of the int8 rescore. One memmap row
-        read each; nothing else pages in."""
+        segment files (of ``view``, a :meth:`_rows_view`, when given): the
+        host side of the int8 rescore. One memmap row read each; nothing
+        else pages in."""
+        starts, vectors = view if view is not None else self._rows_view()
         out = np.zeros((len(rows), self.dim), dtype=np.float32)
         for i, row in enumerate(rows):
-            seg, local = self._locate(int(row))
-            out[i] = _host_f32(seg.vectors[local])
+            row = int(row)
+            if not 0 <= row < starts[-1]:
+                raise IndexError(row)
+            si = int(np.searchsorted(starts, row, side="right")) - 1
+            out[i] = _host_f32(vectors[si][row - int(starts[si])])
         return out
 
     # -- search -----------------------------------------------------------------
@@ -759,50 +787,66 @@ class VectorStore:
         return scan_topk_pruned(b["store"], q, b["valid"], tiles, n_live,
                                 k, self.IVF_TILE)
 
-    def search_batch(self, query_vecs, k: int, exact: bool = False
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """(Q, dim) queries → host (Q, k) f32 scores and int64 global row
-        ids, best first; slots past the live rows are -inf. Each bucket is
-        scanned at the k class above ``k`` (an int8 store: above
-        ``max(k, rescore_k)``), an IVF bucket by its probe unless
-        ``exact``; the buckets' candidates merge on the host (stable: equal
-        scores keep the lower row id), and an int8 store's are re-scored
-        from the originals."""
+    def search_batch_async(self, query_vecs, k: int,
+                           live: Optional[int] = None, exact: bool = False):
+        """Launch every bucket's scan on the current stream and return a
+        handle for :meth:`search_batch_finish`, without waiting for the
+        card (``vector_store.py:2108-2213``). ``live`` marks how many
+        leading queries are real: a serving batch is padded with zero
+        rows, which the scans take and the merge and rescore drop. An IVF
+        bucket's probe picks its tiles on the host from the live queries;
+        ``exact=True`` scans every bucket whole. The handle holds the
+        bucket snapshot and, for an int8 store, the segment view the
+        rescore reads, so a concurrent append, tombstone or compaction
+        changes neither under it."""
         q = torch.as_tensor(query_vecs).to(self.device, torch.float32)
-        nq = q.shape[0]
+        live = q.shape[0] if live is None else live
         exact = exact or self._ivf_route_exact
         buckets = self.device_buckets()
-        if not buckets:
-            return (np.full((nq, k), -np.inf, dtype=np.float32),
-                    np.zeros((nq, k), dtype=np.int64))
+        view = self._rows_view() if self.quantized and buckets else None
         k_want = max(k, self.rescore_k) if self.quantized else k
         k_class = next((c for c in K_CLASSES if c >= k_want), k_want)
         q_host = None
-        parts = []
+        pending = []
         for b in buckets:
             k_scan = min(k_class, b["n_pad"])
             got = None
             if b["ivf"] is not None and not exact:
                 if q_host is None:
-                    q_host = q.cpu().numpy()
+                    q_host = q[:live].cpu().numpy()
                 got = self._ivf_scan(b, q, q_host, k_scan)
             if got is None:
                 got = self._scan(b, q, k_scan)
-            parts.append((*got, b))
-        scores = np.concatenate([s.cpu().numpy() for s, _, _ in parts], 1)
+            pending.append((*got, b))
+        return live, k, pending, view
+
+    def search_batch_finish(self, handle, query_vecs
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+        """The host half of a batched scan (``vector_store.py:2215-2246``):
+        the candidates of the live queries to the host, cluster-major
+        positions mapped through ``perm``, the buckets merged (stable:
+        equal scores keep the lower row id) and an int8 store's candidates
+        re-scored from the originals. (live, k) f32 scores and int64 row
+        ids, best first; slots past the live rows are -inf."""
+        live, k, pending, view = handle
+        if not pending:
+            return (np.full((live, k), -np.inf, dtype=np.float32),
+                    np.zeros((live, k), dtype=np.int64))
+        scores = np.concatenate([s[:live].cpu().numpy()
+                                 for s, _, _ in pending], 1)
         ids = []
-        for _, i, b in parts:
-            i = i.cpu().numpy().astype(np.int64)
+        for _, i, b in pending:
+            i = i[:live].cpu().numpy().astype(np.int64)
             if b["ivf"] is not None:
                 # cluster-major positions → rows of the bucket's segments
                 i = b["ivf"]["perm"][i].astype(np.int64)
             ids.append(i + b["row_offset"])
         idx = np.concatenate(ids, 1)
-        if self.quantized:
-            if q_host is None:
-                q_host = q.cpu().numpy()
-            return self._merge_rescore(scores, idx, q_host, k, len(parts))
-        if len(parts) > 1 or scores.shape[1] > k:
+        if view is not None:
+            q_host = torch.as_tensor(query_vecs)[:live].float().cpu().numpy()
+            return self._merge_rescore(scores, idx, q_host, k, len(pending),
+                                       view)
+        if len(pending) > 1 or scores.shape[1] > k:
             order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
             scores = np.take_along_axis(scores, order, axis=1)
             idx = np.take_along_axis(idx, order, axis=1)
@@ -813,7 +857,20 @@ class VectorStore:
             idx = np.pad(idx, ((0, 0), (0, pad)))
         return scores, idx
 
-    def _merge_rescore(self, scores, idx, query_vecs, k: int, n_parts: int):
+    def search_batch(self, query_vecs, k: int, exact: bool = False
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """(Q, dim) queries → host (Q, k) f32 scores and int64 global row
+        ids, best first; slots past the live rows are -inf. Each bucket is
+        scanned at the k class above ``k`` (an int8 store: above
+        ``max(k, rescore_k)``), an IVF bucket by its probe unless
+        ``exact``; the buckets' candidates merge on the host (stable: equal
+        scores keep the lower row id), and an int8 store's are re-scored
+        from the originals."""
+        return self.search_batch_finish(
+            self.search_batch_async(query_vecs, k, exact=exact), query_vecs)
+
+    def _merge_rescore(self, scores, idx, query_vecs, k: int, n_parts: int,
+                       view=None):
         """An int8 store's merge (vector_store.py:2256-2281): the best
         ``max(k, rescore_k)`` candidates by int8 score, re-scored at full
         precision from the originals on disk, the best k of them."""
@@ -828,11 +885,33 @@ class VectorStore:
             ids = idx[qi][np.isfinite(scores[qi])]
             if len(ids) == 0:
                 continue
-            s, ii = rescore_exact(self.rows_at(ids),
+            s, ii = rescore_exact(self.rows_at(ids, view),
                                   np.asarray(query_vecs[qi]), ids, k)
             out_s[qi, :len(s)] = s
             out_i[qi, :len(s)] = ii
         return out_s, out_i
+
+    def device_residency(self) -> dict:
+        """Where the store lives, for a health probe
+        (``vector_store.py:1435-1460``): non-blocking (a store busy
+        building its buckets reports ``busy``) and non-forcing (it counts
+        the buckets already built). There is no spill yet: every bucket is
+        on the device."""
+        if not self._lock.acquire(blocking=False):
+            return {"buckets": None, "host_buckets": None,
+                    "spilled_rows": None, "device_bytes": None,
+                    "busy": True}
+        try:
+            buckets = list(self._buckets or [])
+        finally:
+            self._lock.release()
+        tensors = lambda b: (b["store"] if isinstance(b["store"], tuple)
+                             else (b["store"],)) + (b["valid"],)
+        return {"buckets": len(buckets), "host_buckets": 0,
+                "spilled_rows": 0,
+                "device_bytes": sum(t.numel() * t.element_size()
+                                    for b in buckets for t in tensors(b)),
+                "busy": False}
 
     def search(self, query_vec, k: int,
                exact: bool = False) -> List[Tuple[Chunk, float]]:

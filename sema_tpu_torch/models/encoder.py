@@ -8,12 +8,19 @@ carries about the same number of tokens. Results leave the card through
 non-blocking copies into pinned host memory and are gathered once, after
 the last batch has been launched.
 
+``quant="int8"`` (``[model] quant``, overridden by
+``SEMA_TPU_ENCODER_QUANT``) quantizes the four linears of every layer to
+int8 with per-output-channel scales as loaded, before any cast, and each
+layer then runs W8A8 (K5); the int8 weights are laid out once, at load,
+as the kernel reads them.
+
 Data-parallel and tensor-parallel meshes and the device-resident
 ``return_device`` result are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,12 +45,20 @@ class Encoder:
 
     def __init__(self, spec: EncoderSpec, params, tokenizer,
                  max_length: Optional[int] = None, batch_size: int = 256,
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, device=None,
+                 quant: str = "none"):
+        quant = os.environ.get("SEMA_TPU_ENCODER_QUANT", quant)
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown encoder quant mode {quant!r}")
         self.device = resolve_device(device)
+        self.quant = quant
         self.spec = spec
-        self.params = bert.cast_params(
-            {g: {k: v.to(self.device) for k, v in leaves.items()}
-             for g, leaves in params.items()}, compute_dtype)
+        params = {g: {k: v.to(self.device) for k, v in leaves.items()}
+                  for g, leaves in params.items()}
+        if quant == "int8":
+            params = bert.int8_kernel_layout(
+                bert.quantize_params_int8(params))
+        self.params = bert.cast_params(params, compute_dtype)
         self.tokenizer = tokenizer
         self.max_length = max_length or spec.default_max_length
         self.batch_size = batch_size
@@ -52,17 +67,14 @@ class Encoder:
     @classmethod
     def from_config(cls, model_cfg, device=None) -> "Encoder":
         """Build from a :class:`sema_tpu_torch.config.ModelConfig`."""
-        if getattr(model_cfg, "quant", "none") != "none":
-            raise NotImplementedError(
-                f"encoder quant={model_cfg.quant!r} (int8 W8A8 linears) is "
-                "not ported yet")
         spec = get_spec(model_cfg.name)
         params, wsource = load_params(spec, model_cfg.weights_path)
         tok, tsource = load_tokenizer(spec.vocab_size, spec.hf_repo,
                                       path=model_cfg.weights_path)
         enc = cls(spec, params, tok, max_length=model_cfg.max_length,
                   batch_size=model_cfg.batch_size,
-                  compute_dtype=DTYPES[model_cfg.dtype], device=device)
+                  compute_dtype=DTYPES[model_cfg.dtype], device=device,
+                  quant=model_cfg.quant)
         enc.weights_source = wsource
         enc.tokenizer_source = tsource
         return enc

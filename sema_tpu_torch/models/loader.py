@@ -97,10 +97,17 @@ def params_from_jax(tree: Mapping[str, Mapping[str, Any]],
                     param_dtype=torch.float32) -> Params:
     """The port's params from a ``sema_tpu`` param pytree (its leaves as
     numpy arrays or anything ``np.asarray`` takes), so both packages can
-    compute with identical weights."""
-    return {group: {name: torch.from_numpy(
-                np.array(leaf, dtype=np.float32)).to(param_dtype)
-                for name, leaf in tree[group].items()}
+    compute with identical weights. A quantized tree
+    (``quantize_params_int8``) keeps its int8 ``*_q`` values and f32
+    ``*_s`` scales as they are."""
+    def leaf_tensor(name, leaf):
+        if name.endswith("_w_q"):
+            return torch.from_numpy(np.array(leaf, dtype=np.int8))
+        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        return t if name.endswith("_w_s") else t.to(param_dtype)
+
+    return {group: {name: leaf_tensor(name, leaf)
+                    for name, leaf in tree[group].items()}
             for group in ("embeddings", "layers")}
 
 

@@ -1,9 +1,12 @@
 """Device kernels of the port: the top-k scans (K1, K3, K4a, K4b) and the
-encoder layer (K2), each a hand-written Hopper kernel beside its plain
-PyTorch version."""
+encoder layer, with float (K2) or W8A8 (K5) linears, each a hand-written
+Hopper kernel beside its plain PyTorch version."""
 
 from sema_tpu_torch.ops.encoder_layer import (encoder_layer_reference,
                                               fused_encoder_layer)
+from sema_tpu_torch.ops.encoder_layer_int8 import (
+    encoder_layer_int8_reference, fused_encoder_layer_int8, qmm,
+    qmm_reference)
 from sema_tpu_torch.ops.scan_topk import (scan_topk, scan_topk_int8,
                                           scan_topk_int8_pruned,
                                           scan_topk_pruned,
@@ -11,4 +14,6 @@ from sema_tpu_torch.ops.scan_topk import (scan_topk, scan_topk_int8,
 
 __all__ = ["scan_topk", "scan_topk_reference", "scan_topk_int8",
            "scan_topk_pruned", "scan_topk_int8_pruned",
-           "fused_encoder_layer", "encoder_layer_reference"]
+           "fused_encoder_layer", "encoder_layer_reference",
+           "fused_encoder_layer_int8", "encoder_layer_int8_reference", "qmm",
+           "qmm_reference"]

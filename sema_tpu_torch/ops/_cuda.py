@@ -10,6 +10,14 @@ The build directory (``build/kernels/`` at the repository root) is listed
 in ``.gitignore``. Nothing here runs at import time: a host without
 ``nvcc`` or a card imports this module and only fails when a CUDA tensor
 asks for a kernel.
+
+Every failure of a kernel on the card raises :class:`KernelError`: a
+missing ``nvcc``, a failed build, a CUDA error returned by an entry point,
+and a wrapper's refusal of a CUDA tensor it does not take. The index,
+query and serving paths let it through where they degrade on any other
+error, so a kernel that does not build or launch never hides behind the
+substring fallback. A CPU tensor never raises it: it takes the plain
+version.
 """
 
 from __future__ import annotations
@@ -31,7 +39,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: set = set()          # (library, entry point) with argtypes set
 _lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel of ``csrc/`` did not build, did not launch, or refused the
+    CUDA tensors it was given."""
 
 
 def _nvcc() -> str:
@@ -39,7 +53,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (looked on PATH and in "
+    raise KernelError("nvcc not found (looked on PATH and in "
                        f"{home}/bin); the CUDA kernels cannot be built")
 
 
@@ -54,7 +68,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every missing library of ``names`` (default: all), one
     ``nvcc`` process per source, all started together. Returns the
     seconds each build took (0.0 when the library was already there).
-    Raises RuntimeError with the compiler's output if one fails."""
+    Raises KernelError with the compiler's output if one fails."""
     names = tuple(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -83,26 +97,32 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             failed.append(f"{name} (nvcc rc={rc}):\n"
                           + out.with_suffix(".log").read_text())
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelError("kernel build failed: " + "\n".join(failed))
     return seconds
 
 
 def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
-    ``signatures`` maps each C entry point to its ctypes argtypes; every
-    entry point returns a ``cudaError_t`` as int."""
+    ``signatures`` maps each C entry point to its ctypes argtypes (two
+    modules may bind entry points of one library); every entry point
+    returns a ``cudaError_t`` as int."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(lib_path(name)))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
+            try:
+                lib = ctypes.CDLL(str(lib_path(name)))
+            except OSError as e:
+                raise KernelError(f"cannot load {lib_path(name)}: {e}") from e
             lib.sema_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sema_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+        for fn, argtypes in signatures.items():
+            if (name, fn) not in _bound:
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                _bound.add((name, fn))
         return lib
 
 
@@ -110,7 +130,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a kernel entry point reported a CUDA error."""
     if err != 0:
         msg = lib.sema_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        raise KernelError(f"{what}: CUDA error {err} ({msg})")
 
 
 def aligned(t):

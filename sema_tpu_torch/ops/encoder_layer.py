@@ -21,7 +21,9 @@ outputs); in f32 nothing rounds.
 
 The CUDA kernels take bf16, f16 and f32 (every compute dtype of the JAX
 package's ``Encoder``), head dims 32 and 64, H a multiple of 64 and any
-S >= 1; the wrapper raises on anything else.
+S >= 1; the wrapper raises :class:`~sema_tpu_torch.ops._cuda.KernelError`
+on anything else. The W8A8 layer (K5) is ``ops/encoder_layer_int8.py``,
+on the same rounding sequence (:func:`layer_with_products`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import ctypes
 import torch
 
 from sema_tpu_torch.ops import _cuda
+from sema_tpu_torch.ops._cuda import KernelError
 
 _P = ctypes.c_void_p
 _SIGNATURES = {"sema_encoder_layer": (
@@ -56,14 +59,26 @@ def encoder_layer_reference(x: torch.Tensor, layer: dict,
                             mask_bias: torch.Tensor, num_heads: int,
                             scale: float, ln_eps: float) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_encoder_layer`."""
+    dt = x.dtype
+
+    def mm(a, name):                     # f32 accumulation of dt operands
+        return a.float() @ layer[name].to(dt).float()
+
+    return layer_with_products(x, layer, mask_bias, num_heads, scale,
+                               ln_eps, mm)
+
+
+def layer_with_products(x: torch.Tensor, layer: dict,
+                        mask_bias: torch.Tensor, num_heads: int,
+                        scale: float, ln_eps: float, mm) -> torch.Tensor:
+    """The layer's rounding sequence around its four products, each
+    ``mm(rows, name)``: the f32 (rows, out) product of ``(rows, in)``
+    activations in the compute dtype with the linear ``name``."""
     b, s, h = x.shape
     dt = x.dtype
     f32 = torch.float32
     acc = dt if dt == torch.bfloat16 else f32
     hd = h // num_heads
-
-    def mm(a, name):                     # f32 accumulation of dt operands
-        return a.float() @ layer[name].to(dt).float()
 
     def bias(name, d):                   # the bias rounded to dt, then d
         return layer[name].to(dt).to(d)
@@ -91,40 +106,53 @@ def encoder_layer_reference(x: torch.Tensor, layer: dict,
     return out.to(dt).reshape(b, s, h)
 
 
-def _check(x, layer, mask_bias, num_heads):
+def _check(x, layer, mask_bias, num_heads, quantized=False):
     if x.device.type != "cuda":
-        raise ValueError(f"fused_encoder_layer takes CPU or CUDA tensors, "
-                         f"got {x.device}")
-    _check_args(x, layer, mask_bias, num_heads)
+        raise KernelError(f"fused_encoder_layer takes CPU or CUDA tensors, "
+                          f"got {x.device}")
+    _check_args(x, layer, mask_bias, num_heads, quantized)
 
 
-def _check_args(x, layer, mask_bias, num_heads):
-    """Raise ValueError unless the CUDA kernels take these arguments."""
+def _check_args(x, layer, mask_bias, num_heads, quantized=False):
+    """Raise KernelError unless the CUDA kernels take these arguments: the
+    float layer's (K2) or, ``quantized``, the int8 layer's (K5), whose
+    linears are ``{name}_q`` int8 (in, out) and ``{name}_s`` f32 (out,)."""
     if x.dtype not in _DTYPE_CODES:
-        raise ValueError("the CUDA encoder layer takes bf16, f16 or f32, "
-                         f"got {x.dtype}")
+        raise KernelError("the CUDA encoder layer takes bf16, f16 or f32, "
+                          f"got {x.dtype}")
     if x.dim() != 3:
-        raise ValueError(f"x must be (B, S, H), got {tuple(x.shape)}")
+        raise KernelError(f"x must be (B, S, H), got {tuple(x.shape)}")
     b, s, h = x.shape
     if h % 64 or h % num_heads or h // num_heads not in (32, 64):
-        raise ValueError(f"H={h} with {num_heads} heads: the kernel takes "
-                         "H a multiple of 64 and head dim 32 or 64")
+        raise KernelError(f"H={h} with {num_heads} heads: the kernel takes "
+                          "H a multiple of 64 and head dim 32 or 64")
     if s < 1:
-        raise ValueError(f"S={s}: the kernel takes S >= 1")
-    inter = layer["ffn_in_w"].shape[-1]
-    shapes = {"qkv_w": (h, 3 * h), "qkv_b": (3 * h,), "attn_out_w": (h, h),
-              "attn_out_b": (h,), "ffn_in_w": (h, inter),
-              "ffn_in_b": (inter,), "ffn_out_w": (inter, h),
+        raise KernelError(f"S={s}: the kernel takes S >= 1")
+    inter = layer["ffn_in_w_q" if quantized else "ffn_in_w"].shape[-1]
+    linears = {"qkv_w": (h, 3 * h), "attn_out_w": (h, h),
+               "ffn_in_w": (h, inter), "ffn_out_w": (inter, h)}
+    shapes = {"qkv_b": (3 * h,), "attn_out_b": (h,), "ffn_in_b": (inter,),
               "ffn_out_b": (h,), **{n: (h,) for n in _LN}}
+    for name, shape in linears.items():
+        if quantized:
+            shapes[name + "_q"] = shape
+            shapes[name + "_s"] = shape[1:]
+        else:
+            shapes[name] = shape
     for name, shape in shapes.items():
         t = layer[name]
         if tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"layer[{name!r}] must be {shape} on {x.device}"
-                             f", got {tuple(t.shape)} on {t.device}")
+            raise KernelError(f"layer[{name!r}] must be {shape} on "
+                              f"{x.device}, got {tuple(t.shape)} on "
+                              f"{t.device}")
+        if quantized and name.endswith(("_q", "_s")) and t.dtype != (
+                torch.int8 if name.endswith("_q") else torch.float32):
+            raise KernelError(f"layer[{name!r}] must be int8 (values) or "
+                              f"f32 (scales), got {t.dtype}")
     if inter % 64:
-        raise ValueError(f"FFN width {inter} must be a multiple of 64")
+        raise KernelError(f"FFN width {inter} must be a multiple of 64")
     if mask_bias.shape != (b, s) or mask_bias.device != x.device:
-        raise ValueError(f"mask_bias must be ({b}, {s}) on {x.device}")
+        raise KernelError(f"mask_bias must be ({b}, {s}) on {x.device}")
 
 
 def fused_encoder_layer(x: torch.Tensor, layer: dict,

@@ -1,0 +1,163 @@
+"""One post-LN BERT encoder layer with W8A8 linears (K5 of the port).
+
+Replaces the TPU kernel ``sema_tpu/ops/fused_attention.py:
+fused_encoder_layer_int8`` (``_encoder_layer_kernel_int8`` with ``_qmm``).
+On a CUDA tensor :func:`fused_encoder_layer_int8` launches the int8 route
+of ``csrc/encoder_layer.cu`` (eight launches on the current stream: three
+row quantizations, four int8 GEMMs with K2's epilogues, K2's attention);
+on a CPU tensor it runs :func:`encoder_layer_int8_reference`, the plain
+PyTorch version. There is no other path.
+
+Contract (``fused_attention.py:372-440``): ``x`` (B, S, H) in the compute
+dtype; ``layer`` the quantized per-layer dict of ``models/bert.py``
+(``{name}_q`` int8 (in, out) and ``{name}_s`` f32 (out,) for the four
+linears; biases in the compute dtype, LayerNorm params f32); ``mask_bias``
+(B, S) f32. Each product is :func:`qmm`: the activation rows quantized per
+row, ``sx = max(max|x|, 1e-8) / 127`` and ``round_half_even(x / sx)``
+clipped to +-127, an i32 dot with the int8 weights, then ``f32(acc) * sx *
+ws``. Around the products the rounding sequence is K2's: for qkv the f32
+bias is added before the one rounding to the compute dtype; the other
+three round the product to ``acc`` (bf16 in bf16, else f32) and add the
+bias there. Attention stays full precision, as in K2.
+
+The kernel reads each int8 weight as (out, in) rows, K-contiguous per
+output column: :func:`column_major` lays a ``{name}_q`` out so once (the
+``Encoder`` does at load) and the wrapper then passes it without a copy.
+The plain version's i32 dot is an f64 product of the int8 values, exact
+for the sums of at most 4,096 products these widths give, so the product
+alone is bit-equal between the two (``chip_smoke.py`` holds it so).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sema_tpu_torch.ops import _cuda
+from sema_tpu_torch.ops._cuda import KernelError
+from sema_tpu_torch.ops.encoder_layer import (_BIASES, _DTYPE_CODES, _LN,
+                                              _check, layer_with_products)
+from sema_tpu_torch.ops.quant import div127
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "sema_encoder_layer_int8": (
+        [_P] * 29              # x, 16 params, mask, 5 outs, 6 scratch
+        + [_I] * 6             # B, S, H, I, heads, dtype
+        + [_F, _F, _P]),       # scale, eps, stream
+    "sema_qmm": [_P] * 6 + [_I] * 4 + [_P],
+}
+LINEARS = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
+
+
+def qmm_reference(x: torch.Tensor, wq: torch.Tensor,
+                  ws: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`qmm`: (..., K) activations, (K, N) int8
+    weights, (N,) f32 scales → (..., N) f32."""
+    xf = x.float()
+    sx = div127(xf.abs().amax(-1, keepdim=True).clamp(min=1e-8))
+    xq = torch.round(xf / sx).clamp(-127.0, 127.0)
+    acc = xq.double() @ wq.double()      # exact: integers below 2^53
+    return acc.float() * sx * ws
+
+
+def column_major(wq: torch.Tensor) -> torch.Tensor:
+    """``wq`` (..., in, out) with its values laid out (..., out, in): the
+    same tensor to every reader, each output column's weights contiguous
+    for the kernel."""
+    return wq.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def _rows(wq: torch.Tensor) -> torch.Tensor:
+    """The (out, in) int8 rows the kernel reads: a view when ``wq`` is
+    already :func:`column_major`, else a copy."""
+    return _cuda.aligned(wq.t())
+
+
+def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """K5's product alone: the row quantization, the int8 GEMM and the
+    rescale, (M, K) bf16/f16/f32 ``x`` → (M, N) f32. CPU tensors run the
+    plain version; CUDA tensors launch the kernels or raise."""
+    if x.device.type == "cpu":
+        return qmm_reference(x, wq, ws)
+    m, k = x.shape
+    n = wq.shape[1]
+    if (x.dtype not in _DTYPE_CODES or k % 64 or n % 8
+            or wq.shape != (k, n) or wq.dtype != torch.int8
+            or ws.shape != (n,) or ws.dtype != torch.float32
+            or not x.device == wq.device == ws.device):
+        raise KernelError(f"qmm takes (M, K) bf16/f16/f32 x with K a "
+                          f"multiple of 64, (K, N) int8 weights and (N,) "
+                          f"f32 scales on one card; got {tuple(x.shape)} "
+                          f"{x.dtype}, {tuple(wq.shape)} {wq.dtype}, "
+                          f"{tuple(ws.shape)} {ws.dtype}")
+    lib = _cuda.library("encoder_layer", _SIGNATURES)
+    x = _cuda.aligned(x)
+    rows = _rows(wq)
+    ws = _cuda.aligned(ws)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = lib.sema_qmm(x.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                       xq.data_ptr(), sx.data_ptr(), out.data_ptr(), m, k, n,
+                       _DTYPE_CODES[x.dtype], _cuda.stream_ptr(x.device))
+    _cuda.check(lib, err, "qmm")
+    return out
+
+
+def encoder_layer_int8_reference(x: torch.Tensor, layer: dict,
+                                 mask_bias: torch.Tensor, num_heads: int,
+                                 scale: float,
+                                 ln_eps: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_encoder_layer_int8`."""
+    def mm(a, name):
+        return qmm_reference(a, layer[name + "_q"], layer[name + "_s"])
+
+    return layer_with_products(x, layer, mask_bias, num_heads, scale,
+                               ln_eps, mm)
+
+
+def fused_encoder_layer_int8(x: torch.Tensor, layer: dict,
+                             mask_bias: torch.Tensor, num_heads: int,
+                             scale: float, ln_eps: float) -> torch.Tensor:
+    """One post-LN BERT layer with W8A8 linears (see the module
+    docstring). CPU tensors run the plain version; CUDA tensors launch the
+    kernels or raise."""
+    if x.device.type == "cpu":
+        return encoder_layer_int8_reference(x, layer, mask_bias, num_heads,
+                                            scale, ln_eps)
+    _check(x, layer, mask_bias, num_heads, quantized=True)
+    lib = _cuda.library("encoder_layer", _SIGNATURES)
+    b, s, h = x.shape
+    inter = layer["ffn_in_w_q"].shape[-1]
+    dt, dev = x.dtype, x.device
+    x = _cuda.aligned(x)
+    rows = [_rows(layer[n + "_q"]) for n in LINEARS]
+    scales = [_cuda.aligned(layer[n + "_s"]) for n in LINEARS]
+    biases = [_cuda.aligned(layer[n].to(dt)) for n in _BIASES]
+    lns = [_cuda.aligned(layer[n].float()) for n in _LN]
+    mask = _cuda.aligned(mask_bias.float())
+    m = b * s
+    empty = lambda *shape, d=dt: torch.empty(shape, dtype=d, device=dev)
+    qkv, ctx, h1 = empty(m, 3 * h), empty(m, h), empty(m, h)
+    up, out = empty(m, inter), empty(b, s, h)
+    i8, f32 = torch.int8, torch.float32
+    qa, qh, qu = empty(m, h, d=i8), empty(m, h, d=i8), empty(m, inter, d=i8)
+    sa, sh, su = empty(m, d=f32), empty(m, d=f32), empty(m, d=f32)
+    ptr = lambda t: t.data_ptr()
+    params = []
+    for w, sc, bi in zip(rows, scales, biases):
+        params += [ptr(w), ptr(sc), ptr(bi)]
+    err = lib.sema_encoder_layer_int8(
+        ptr(x), *params[:6], ptr(lns[0]), ptr(lns[1]), *params[6:],
+        ptr(lns[2]), ptr(lns[3]), ptr(mask), ptr(qkv), ptr(ctx), ptr(h1),
+        ptr(up), ptr(out), ptr(qa), ptr(sa), ptr(qh), ptr(sh), ptr(qu),
+        ptr(su), b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps,
+        _cuda.stream_ptr(dev))
+    _cuda.check(lib, err, "fused_encoder_layer_int8")
+    fused_encoder_layer_int8.launches += 1
+    return out
+
+
+fused_encoder_layer_int8.launches = 0

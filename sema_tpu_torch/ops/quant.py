@@ -31,10 +31,17 @@ def quantize_rows(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return q, scales.astype(np.float32)
 
 
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as an IEEE division on any device, as numpy and JAX
+    divide: PyTorch's CUDA division by a Python scalar multiplies by the
+    scalar's reciprocal instead, which can land one ulp off."""
+    return t / torch.full_like(t, 127.0)
+
+
 def quantize_query(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 of (Q, d) f32 rows, on their device:
     (int8 (Q, d), f32 scales (Q,)). A zero row has scale 0 and values 0."""
-    scale = q.abs().amax(dim=1) / 127.0
+    scale = div127(q.abs().amax(dim=1))
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     qi = torch.round(q / safe[:, None]).clamp_(-127, 127).to(torch.int8)
     return qi, scale

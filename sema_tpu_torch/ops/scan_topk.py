@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from sema_tpu_torch.ops import _cuda
+from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.ops.quant import quantize_query
 
 K_MAX = 1024
@@ -187,33 +188,33 @@ def _check(store, queries, valid, k, masked, dtypes=(torch.bfloat16,
                                                      torch.float16,
                                                      torch.float32)):
     if store.device.type != "cuda":
-        raise ValueError(f"the scan takes CPU or CUDA tensors, got "
-                         f"{store.device}")
+        raise KernelError(f"the scan takes CPU or CUDA tensors, got "
+                          f"{store.device}")
     if store.dim() != 2 or not store.is_contiguous():
-        raise ValueError("store must be a contiguous (N, d) tensor")
+        raise KernelError("store must be a contiguous (N, d) tensor")
     if store.dtype not in dtypes:
-        raise ValueError(f"store dtype {store.dtype} not supported; "
-                         f"{', '.join(str(t) for t in dtypes)}")
+        raise KernelError(f"store dtype {store.dtype} not supported; "
+                          f"{', '.join(str(t) for t in dtypes)}")
     n, d = store.shape
     if n < 1:
-        raise ValueError("empty store")
+        raise KernelError("empty store")
     if (d * store.element_size()) % 16 or store.data_ptr() % 16:
-        raise ValueError(f"store rows must be 16-byte multiples, d={d}")
+        raise KernelError(f"store rows must be 16-byte multiples, d={d}")
     if queries.dim() != 2 or queries.shape[1] != d or queries.shape[0] < 1:
-        raise ValueError(f"queries must be (Q, {d}), got "
-                         f"{tuple(queries.shape)}")
+        raise KernelError(f"queries must be (Q, {d}), got "
+                          f"{tuple(queries.shape)}")
     if queries.device != store.device:
-        raise ValueError("queries and store lie on different devices")
+        raise KernelError("queries and store lie on different devices")
     if masked and (valid.shape != (n,) or valid.dtype != torch.bool
                    or valid.device != store.device
                    or not valid.is_contiguous()):
-        raise ValueError("valid must be a contiguous (N,) bool tensor on "
-                         "the store's device")
+        raise KernelError("valid must be a contiguous (N,) bool tensor on "
+                          "the store's device")
     if not 1 <= k <= K_MAX:
-        raise ValueError(f"k={k} outside [1, {K_MAX}]")
+        raise KernelError(f"k={k} outside [1, {K_MAX}]")
     if slab_words(d, store.element_size(), k) < 4:
-        raise ValueError(f"d={d} at {store.dtype}, k={k}: the queries and "
-                         "lists alone fill the scan's shared memory")
+        raise KernelError(f"d={d} at {store.dtype}, k={k}: the queries and "
+                          "lists alone fill the scan's shared memory")
 
 
 def _check_int8(qvals, scales, queries, valid, k):
@@ -221,21 +222,21 @@ def _check_int8(qvals, scales, queries, valid, k):
     n = qvals.shape[0]
     if (scales.shape != (n,) or scales.dtype != torch.float32
             or scales.device != qvals.device or not scales.is_contiguous()):
-        raise ValueError("scales must be a contiguous (N,) f32 tensor on "
-                         "the store's device")
+        raise KernelError("scales must be a contiguous (N,) f32 tensor on "
+                          "the store's device")
 
 
 def _check_tiles(tile_ids, n_live: int, tile_n: int, n: int) -> np.ndarray:
     tiles = np.asarray(tile_ids)
     if tiles.ndim != 1 or not 1 <= n_live <= len(tiles):
-        raise ValueError(f"n_live={n_live} with {tiles.shape} tile ids")
+        raise KernelError(f"n_live={n_live} with {tiles.shape} tile ids")
     if tile_n % _TILE_ROWS or tile_n < _TILE_ROWS:
-        raise ValueError(f"tile_n={tile_n} must be a multiple of "
-                         f"{_TILE_ROWS}")
+        raise KernelError(f"tile_n={tile_n} must be a multiple of "
+                          f"{_TILE_ROWS}")
     live = tiles[:n_live]
     if live.min() < 0 or (int(live.max()) + 1) * tile_n > n:
-        raise ValueError(f"tile ids outside the store's {n // tile_n} "
-                         "whole tiles")
+        raise KernelError(f"tile ids outside the store's {n // tile_n} "
+                          "whole tiles")
     return np.ascontiguousarray(live, dtype=np.int32)
 
 

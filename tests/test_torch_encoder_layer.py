@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from sema_tpu.ops.fused_attention import fused_encoder_layer as jax_layer
+from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.ops.encoder_layer import fused_encoder_layer
 
 layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
@@ -163,7 +164,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
                         lambda *a, **k: called.append(1))
     x = torch.empty((1, 32, 64), dtype=torch.bfloat16, device="meta")
     mask = torch.empty((1, 32), device="meta")
-    with pytest.raises(ValueError, match="CPU or CUDA"):
+    with pytest.raises(KernelError, match="CPU or CUDA"):
         fused_encoder_layer(x, {}, mask, 2, 0.17, LN_EPS)
     monkeypatch.setattr(layer_mod, "_check", lambda *a: None)
 
@@ -213,14 +214,14 @@ def test_check_args_takes_every_dtype_and_length(case):
     ({"inter": 96}, "multiple of 64"),
 ])
 def test_check_args_raises_on_what_the_kernels_do_not_take(change, match):
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(KernelError, match=match):
         layer_mod._check_args(*_meta_args(**change))
 
 
 def test_check_args_raises_on_a_misshapen_weight_or_mask():
     x, layer, mask, heads = _meta_args()
-    with pytest.raises(ValueError, match="qkv_w"):
+    with pytest.raises(KernelError, match="qkv_w"):
         layer_mod._check_args(x, {**layer, "qkv_w": layer["attn_out_w"]}, mask,
                          heads)
-    with pytest.raises(ValueError, match="mask_bias"):
+    with pytest.raises(KernelError, match="mask_bias"):
         layer_mod._check_args(x, layer, mask[:, :16], heads)

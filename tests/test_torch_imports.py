@@ -90,7 +90,8 @@ utils/hfcache.py crawl/__init__.py crawl/gitignore.py crawl/crawler.py
 ingest/__init__.py ingest/chunker.py ingest/hashing.py native/__init__.py
 native/bindings.py tokenizer/__init__.py tokenizer/wordpiece.py
 models/registry.py index/text_segment.py index/text_index.py index/ivf_cache.py
-search/__init__.py search/engine.py""".split()
+search/__init__.py search/engine.py search/server.py
+search/http_server.py""".split()
 
 _XXHASH_OPTIONAL = '''import hashlib
 from pathlib import Path
@@ -106,6 +107,31 @@ HASH_NAME = "xxh3-128" if xxhash is not None else "blake2b-128"
 '''
 
 REPLACEMENTS = {
+    # a KernelError is surfaced, never degraded to the substring scan or
+    # swallowed by the warm-up
+    "search/http_server.py": [
+        ("from sema_tpu_torch.search.server import QueryBatcher, "
+         "ServerOverloaded\n",
+         "from sema_tpu_torch.ops._cuda import KernelError\n"
+         "from sema_tpu_torch.search.server import QueryBatcher, "
+         "ServerOverloaded\n"),
+        ("        except (ServerOverloaded, TimeoutError):\n"
+         "            raise   # shed load",
+         "        except KernelError:\n"
+         "            raise   # a kernel that does not build or launch is a "
+         "fault to\n"
+         "            #         surface (500), never a query to degrade\n"
+         "        except (ServerOverloaded, TimeoutError):\n"
+         "            raise   # shed load"),
+        ('            service.search("warmup", 1)\n        except Exception:',
+         '            service.search("warmup", 1)\n'
+         "        except KernelError:\n"
+         "            # kernels that do not build or launch: take no traffic\n"
+         "            service.close()\n"
+         "            server.server_close()\n"
+         "            raise\n"
+         "        except Exception:"),
+    ],
     "ingest/hashing.py": [
         ("from pathlib import Path\n\nimport xxhash\n", _XXHASH_OPTIONAL),
         ('hex."""\n    return format(',

@@ -1,0 +1,289 @@
+"""The W8A8 encoder of the port (K5, ``quantize_params_int8``, ``qmm``) held
+against ``sema_tpu``'s on the same numpy weights and inputs: the weight
+quantization and the product bit for bit, the layer's plain version
+against the fused int8 Pallas layer in interpret mode, and the forward."""
+
+import dataclasses
+import importlib
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sema_tpu.models import bert as jax_bert
+from sema_tpu.models.encoder import Encoder as JaxEncoder
+from sema_tpu.models.loader import random_params
+from sema_tpu.models.registry import get_spec as jax_spec
+from sema_tpu.ops.fused_attention import fused_encoder_layer_int8 as jax_layer
+from sema_tpu.tokenizer import HashTokenizer as JaxHashTokenizer
+from sema_tpu_torch.config import ModelConfig
+from sema_tpu_torch.models import bert
+from sema_tpu_torch.models.encoder import Encoder
+from sema_tpu_torch.models.loader import params_from_jax
+from sema_tpu_torch.models.registry import get_spec
+from sema_tpu_torch.ops._cuda import KernelError
+from sema_tpu_torch.ops.encoder_layer_int8 import (column_major,
+                                                   fused_encoder_layer_int8,
+                                                   qmm, qmm_reference)
+from sema_tpu_torch.tokenizer import HashTokenizer
+
+int8_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer_int8")
+LN_EPS = 1e-12
+LEAVES = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
+
+
+def _assert_same_quantization(jax_layers, port_layers):
+    for name in LEAVES:
+        q, s = port_layers[name + "_q"], port_layers[name + "_s"]
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert np.array_equal(q.cpu().numpy(),
+                              np.asarray(jax_layers[name + "_q"]))
+        assert np.array_equal(s.cpu().numpy(),
+                              np.asarray(jax_layers[name + "_s"]))
+        assert name not in port_layers
+
+
+@pytest.mark.parametrize("model", ["test-tiny", "minilm-l6"])
+def test_quantize_params_int8_bit_equal(model):
+    """The four linears of every layer at the model's shapes, drawn as
+    its random init draws them (sigma 0.02), plus an all-zero column (the
+    1e-12 floor) and exact halves of a quantum."""
+    spec = get_spec(model)
+    h, inter, n = spec.hidden_size, spec.intermediate_size, spec.num_layers
+    rng = np.random.default_rng(n)
+    shapes = {"qkv_w": (n, h, 3 * h), "attn_out_w": (n, h, h),
+              "ffn_in_w": (n, h, inter), "ffn_out_w": (n, inter, h)}
+    layers = {name: (0.02 * rng.standard_normal(shape)).astype(np.float32)
+              for name, shape in shapes.items()}
+    layers["qkv_w"][0, :, 5] = 0.0
+    layers["qkv_w"][0, :3, 6] = [1.0, 0.5 / 127, -1.5 / 127]
+    want = jax_bert.quantize_params_int8({"layers": layers})["layers"]
+    got = bert.quantize_params_int8(
+        {"layers": {k: torch.from_numpy(v) for k, v in layers.items()}})
+    _assert_same_quantization(want, got["layers"])
+
+
+def test_encoder_quantizes_before_the_bf16_cast():
+    """The JAX Encoder quantizes the params as loaded; the port's must do
+    the same, not quantize weights already rounded to bf16."""
+    js, ps = jax_spec("test-tiny"), get_spec("test-tiny")
+    jp = random_params(js)
+    jenc = JaxEncoder(js, jp, JaxHashTokenizer(js.vocab_size),
+                      compute_dtype=jnp.bfloat16, quant="int8")
+    enc = Encoder(ps, params_from_jax(jp), HashTokenizer(ps.vocab_size),
+                  compute_dtype=torch.bfloat16, device="cpu", quant="int8")
+    _assert_same_quantization(jenc.params["layers"], enc.params["layers"])
+    rounded = bert.quantize_params_int8(bert.cast_params(
+        params_from_jax(jp), torch.bfloat16))["layers"]
+    assert any(not torch.equal(rounded[n + "_q"],
+                               enc.params["layers"][n + "_q"])
+               for n in LEAVES)
+    assert enc.params["layers"]["qkv_b"].dtype == torch.bfloat16
+    assert enc.params["layers"]["attn_ln_scale"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (6, 64, 192, torch.float32),          # test-tiny's qkv
+    (8, 384, 1152, torch.float32),        # MiniLM's qkv
+    (8, 1536, 384, torch.bfloat16),       # MiniLM's FFN-out, bf16 rows
+])
+def test_qmm_reference_bit_equal_to_int8_matmul(m, k, n, dtype):
+    rng = np.random.default_rng(k)
+    x = (rng.standard_normal((m, k)) * 3.0).astype(np.float32)
+    x[0, :5] = [0.5, -1.5, 2.5, 127.0, -127.0]     # halves of a quantum
+    x[1] = 0.0                                     # the 1e-8 floor
+    w = (rng.standard_normal((1, k, n)) * 0.05).astype(np.float32)
+    jq = jax_bert.quantize_params_int8(
+        {"layers": {name: w for name in LEAVES}})["layers"]
+    wq, ws = np.array(jq["qkv_w_q"][0]), np.array(jq["qkv_w_s"][0])
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    want = np.asarray(jax_bert._int8_matmul(jnp.asarray(x, dtype=jdt),
+                                            jnp.asarray(wq), jnp.asarray(ws),
+                                            jnp.float32))
+    xt = torch.from_numpy(x).to(dtype)
+    got = qmm_reference(xt, torch.from_numpy(wq), torch.from_numpy(ws))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
+    # the wrapper takes the plain version on the CPU, in either layout
+    assert torch.equal(qmm(xt, column_major(torch.from_numpy(wq)),
+                           torch.from_numpy(ws)), got)
+
+
+def _quantized_layer(h, inter, seed):
+    rng = np.random.default_rng(seed)
+    w = lambda *s: (rng.standard_normal(s) * 0.08).astype(np.float32)
+    layer = {"qkv_w": w(1, h, 3 * h), "attn_out_w": w(1, h, h),
+             "ffn_in_w": w(1, h, inter), "ffn_out_w": w(1, inter, h)}
+    q = jax_bert.quantize_params_int8({"layers": layer})["layers"]
+    q = {k: np.array(v[0]) for k, v in q.items()}
+    q.update({"qkv_b": w(3 * h), "attn_out_b": w(h), "ffn_in_b": w(inter),
+              "ffn_out_b": w(h), "attn_ln_scale": 1.0 + w(h),
+              "attn_ln_bias": w(h), "ffn_ln_scale": 1.0 + w(h),
+              "ffn_ln_bias": w(h)})
+    return q
+
+
+def _layer_both(b, s, h, heads, inter, dtype, seed=0):
+    layer = _quantized_layer(h, inter, seed)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.standard_normal((b, s, h)).astype(np.float32)
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = s
+    bias = ((np.arange(s)[None, :] >= lengths[:, None]) * -1e9).astype(
+        np.float32)
+    scale = 1.0 / math.sqrt(h // heads)
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}[dtype]
+    want = jax_layer(jnp.asarray(x, dtype=jdt),
+                     {k: jnp.asarray(v) for k, v in layer.items()},
+                     jnp.asarray(bias), num_heads=heads, scale=scale,
+                     ln_eps=LN_EPS, interpret=True)
+    got = fused_encoder_layer_int8(
+        torch.from_numpy(x).to(dtype),
+        {k: torch.from_numpy(v) for k, v in layer.items()},
+        torch.from_numpy(bias), heads, scale, LN_EPS)
+    assert got.dtype == dtype and got.shape == (b, s, h)
+    return np.asarray(want.astype(jnp.float32)), got.float().numpy()
+
+
+@pytest.mark.parametrize("b,s,h,heads,inter", [
+    (2, 16, 64, 4, 128),     # test-tiny
+    (2, 32, 64, 2, 128),     # head dim 32 (MiniLM's)
+])
+def test_int8_layer_matches_pallas_kernel_f32(b, s, h, heads, inter):
+    want, got = _layer_both(b, s, h, heads, inter, torch.float32)
+    # the JAX package's own bound between its int8 kernel and the
+    # composed XLA W8A8 layer (tests/test_fused_attention.py)
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,heads,inter,atol", [
+    # K2's bf16 limits (tests/test_torch_encoder_layer.py)
+    (2, 16, 64, 4, 128, 3e-2),
+    (2, 32, 64, 2, 128, 3e-2),
+    # head dim 64 (gte-large's), at twice K2's atol: where both sides land
+    # a bf16 ulp apart on a row's absmax, that row's scale moves by 2^-8
+    # and every quantum of the row may shift by one; read 0.047 at worst
+    # over seeds 0-3 (K2's layer at this shape: 0.031)
+    (3, 16, 128, 2, 256, 6e-2),
+])
+def test_int8_layer_matches_pallas_kernel_bf16(b, s, h, heads, inter, atol):
+    want, got = _layer_both(b, s, h, heads, inter, torch.bfloat16)
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    assert cos.min() >= 0.999
+    np.testing.assert_allclose(got, want, atol=atol, rtol=2 ** -8)
+
+
+def test_quantized_embed_matches_jax_embed():
+    """2 layers at MiniLM width, f32, the same quantized params: the port's
+    forward (the int8 layer's plain version) against ``sema_tpu``'s int8
+    forward (its fused int8 kernel in interpret mode)."""
+    cut = dict(num_layers=2, vocab_size=2048)     # the width stays
+    js = dataclasses.replace(jax_spec("minilm-l6"), **cut)
+    ps = dataclasses.replace(get_spec("minilm-l6"), **cut)
+    jq = jax_bert.quantize_params_int8(random_params(js))
+    rng = np.random.default_rng(3)
+    ids = rng.integers(5, js.vocab_size, size=(2, 32)).astype(np.int32)
+    mask = (np.arange(32)[None, :] < np.array([[32], [20]])).astype(np.int32)
+    want = np.asarray(jax_bert.embed(jq, jnp.asarray(ids), jnp.asarray(mask),
+                                     js, compute_dtype=jnp.float32,
+                                     attn_impl="fused"))
+    got = bert.embed(params_from_jax(jq), torch.from_numpy(ids),
+                     torch.from_numpy(mask), ps,
+                     compute_dtype=torch.float32).numpy()
+    assert (got * want).sum(-1).min() >= 0.99999
+
+
+def test_quant_mode_from_config_and_environment(monkeypatch):
+    spec = get_spec("test-tiny")
+    params = params_from_jax(random_params(jax_spec("test-tiny")))
+    tok = HashTokenizer(spec.vocab_size)
+    monkeypatch.delenv("SEMA_TPU_ENCODER_QUANT", raising=False)
+    plain = Encoder(spec, params, tok, device="cpu")
+    assert plain.quant == "none" and "qkv_w" in plain.params["layers"]
+    enc = Encoder.from_config(ModelConfig(name="test-tiny", quant="int8"),
+                              device="cpu")
+    assert enc.quant == "int8" and "qkv_w_q" in enc.params["layers"]
+    assert enc.encode_texts(["int8 encoder"]).shape == (1, spec.dim)
+    monkeypatch.setenv("SEMA_TPU_ENCODER_QUANT", "none")
+    assert Encoder(spec, params, tok, device="cpu", quant="int8").quant == \
+        "none"
+    monkeypatch.setenv("SEMA_TPU_ENCODER_QUANT", "int8")
+    assert Encoder(spec, params, tok, device="cpu").quant == "int8"
+    monkeypatch.setenv("SEMA_TPU_ENCODER_QUANT", "int4")
+    with pytest.raises(ValueError, match="int4"):
+        Encoder(spec, params, tok, device="cpu")
+    monkeypatch.delenv("SEMA_TPU_ENCODER_QUANT")
+    with pytest.raises(ValueError, match="fp8"):
+        Encoder.from_config(ModelConfig(name="test-tiny", quant="fp8"),
+                            device="cpu")
+
+
+def test_int8_weights_are_laid_out_once_for_the_kernel():
+    spec = get_spec("test-tiny")
+    enc = Encoder(spec, params_from_jax(random_params(jax_spec("test-tiny"))),
+                  HashTokenizer(spec.vocab_size), device="cpu", quant="int8")
+    for name in LEAVES:
+        leaf = enc.params["layers"][name + "_q"]
+        assert leaf.shape[0] == spec.num_layers
+        assert leaf[0].t().is_contiguous()      # (out, in) rows, no copy
+
+
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    called = []
+    monkeypatch.setattr(int8_mod, "encoder_layer_int8_reference",
+                        lambda *a, **k: called.append(1))
+    monkeypatch.setattr(int8_mod, "qmm_reference",
+                        lambda *a, **k: called.append(1))
+    x = torch.empty((1, 32, 64), dtype=torch.bfloat16, device="meta")
+    mask = torch.empty((1, 32), device="meta")
+    with pytest.raises(KernelError, match="CPU or CUDA"):
+        fused_encoder_layer_int8(x, {}, mask, 2, 0.17, LN_EPS)
+    with pytest.raises(KernelError, match="int8 weights"):
+        qmm(x[0], torch.empty((64, 96), device="meta"),
+            torch.empty((96,), device="meta"))
+    monkeypatch.setattr(int8_mod, "_check", lambda *a, **k: None)
+
+    def failing_library(*a, **k):
+        raise KernelError("kernel build failed: nvcc rc=1")
+    monkeypatch.setattr(int8_mod._cuda, "library", failing_library)
+    before = fused_encoder_layer_int8.launches
+    with pytest.raises(KernelError, match="kernel build failed"):
+        fused_encoder_layer_int8(x, {}, mask, 2, 0.17, LN_EPS)
+    with pytest.raises(KernelError, match="kernel build failed"):
+        qmm(x[0], torch.empty((64, 96), dtype=torch.int8, device="meta"),
+            torch.empty((96,), device="meta"))
+    assert not called and fused_encoder_layer_int8.launches == before
+
+
+def _meta_int8_args(h=64, heads=2, inter=128, **change):
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+    layer = {"qkv_b": meta(3 * h), "attn_out_b": meta(h),
+             "ffn_in_b": meta(inter), "ffn_out_b": meta(h),
+             **{n: meta(h) for n in ("attn_ln_scale", "attn_ln_bias",
+                                     "ffn_ln_scale", "ffn_ln_bias")}}
+    for name, (i, o) in {"qkv_w": (h, 3 * h), "attn_out_w": (h, h),
+                         "ffn_in_w": (h, inter),
+                         "ffn_out_w": (inter, h)}.items():
+        layer[name + "_q"] = meta(i, o, dt=torch.int8)
+        layer[name + "_s"] = meta(o)
+    layer.update(change)
+    return meta(2, 32, h, dt=torch.bfloat16), layer, meta(2, 32), heads
+
+
+def test_check_args_of_the_int8_layer():
+    layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
+    layer_mod._check_args(*_meta_int8_args(), quantized=True)
+    layer_mod._check_args(*_meta_int8_args(h=128, inter=256), quantized=True)
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+    for change, match in (
+            ({"qkv_w_q": meta(64, 192)}, "int8"),
+            ({"ffn_out_w_s": meta(64, dt=torch.bfloat16)}, "f32"),
+            ({"attn_out_w_q": meta(64, 128, dt=torch.int8)}, "attn_out_w_q"),
+            ({"qkv_w_s": meta(64)}, "qkv_w_s")):
+        with pytest.raises(KernelError, match=match):
+            layer_mod._check_args(*_meta_int8_args(**change), quantized=True)

@@ -15,6 +15,7 @@ from sema_tpu.ops.pallas_topk import (pallas_topk_int8,
                                       pallas_topk_int8_pruned,
                                       pallas_topk_pruned)
 from sema_tpu.ops.quant import quantize_rows
+from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.ops.scan_topk import (scan_topk_int8,
                                           scan_topk_int8_pruned,
                                           scan_topk_pruned)
@@ -158,7 +159,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch, name):
     if "pruned" in name:
         args.append(TILE)
     fn = getattr(scan_mod, name)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
+    with pytest.raises(KernelError, match="CPU or CUDA"):
         fn(*args)
     for check in ("_check", "_check_int8"):
         monkeypatch.setattr(scan_mod, check, lambda *a, **k: None)
@@ -180,7 +181,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch, name):
     ([-1, 0], 2, 128, "outside"),
 ])
 def test_tile_list_checked_on_the_host(tiles, n_live, tile_n, match):
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(KernelError, match=match):
         scan_mod._check_tiles(np.array(tiles), n_live, tile_n, 256)
 
 

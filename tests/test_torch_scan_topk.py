@@ -12,6 +12,7 @@ import torch
 
 from sema_tpu.ops.pallas_topk import pallas_topk
 from sema_tpu.ops.topk import batched_topk_scores
+from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
 
 # the package re-exports the function under the module's name
@@ -118,7 +119,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     monkeypatch.setattr(scan_mod, "scan_topk_reference",
                         lambda *a, **k: called.append(1))
     store, q, valid = _meta(64, 32), _meta(2, 32), _meta(64, dtype=torch.bool)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
+    with pytest.raises(KernelError, match="CPU or CUDA"):
         scan_topk(store, q, valid, 5)
     monkeypatch.setattr(scan_mod, "_check", lambda *a: None)
 
