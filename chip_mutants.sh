@@ -2,9 +2,11 @@
 # Mutation check of the kernels' checks in chip_smoke.py, on the card:
 #
 #     bash chip_mutants.sh        # from the repository root; needs one card
+#     bash chip_mutants.sh k6_no_bias k7_next_heads_keys   # only these
 #
 # Each mutant is a copy of chip_smoke.py and sema_tpu_torch/ under
-# build/mut-<name>/ with one fault put into a CUDA source by sed; the
+# build/mut-<name>/ with one fault put into a CUDA source by sed (and,
+# where the fault spans both, into the Python wrapper beside it); the
 # phase that must catch it runs from the copy and must exit non-zero.
 # A cli_mutant breaks K5 so that it cannot build or refuses its tensors,
 # and `python -m sema_tpu_torch query` on the int8 encoder must then exit
@@ -14,14 +16,22 @@
 set -u
 cd "$(dirname "$0")"
 failed=0
+ONLY=("$@")
+# true for every mutant when none is named on the command line
+chosen() { [ ${#ONLY[@]} -eq 0 ] || [[ " ${ONLY[*]} " == *" $1 "* ]]; }
 mutant() {
-  local name=$1 file=$2 expr=$3 phases=$4
+  # name, CUDA source, sed expression, phases[, a second file under
+  # sema_tpu_torch/ and its sed expression]
+  local name=$1 file=csrc/$2 expr=$3 phases=$4 file2=${5:-} expr2=${6:-}
+  chosen "$name" || return 0
   local dir=build/mut-$name
   rm -rf "$dir"
   mkdir -p "$dir"
   cp -r chip_smoke.py sema_tpu_torch "$dir"/
-  sed -i "$expr" "$dir/sema_tpu_torch/csrc/$file"
-  if cmp -s "$dir/sema_tpu_torch/csrc/$file" "sema_tpu_torch/csrc/$file"; then
+  sed -i "$expr" "$dir/sema_tpu_torch/$file"
+  [ -z "$file2" ] || sed -i "$expr2" "$dir/sema_tpu_torch/$file2"
+  if cmp -s "$dir/sema_tpu_torch/$file" "sema_tpu_torch/$file" || { [ -n "$file2" ] \
+      && cmp -s "$dir/sema_tpu_torch/$file2" "sema_tpu_torch/$file2"; }; then
     echo "mutant $name: the fault did not apply"
     failed=1
     return
@@ -75,8 +85,24 @@ mutant k5_no_weight_scale encoder_layer.cu \
 # K5 at S > 256: probs @ V reads the first key block over and over
 mutant k5_long_rows_first_block encoder_layer.cu \
   's/load_keys(k0, true);/load_keys(0, true);/' encoder_layer_int8
+# K6: the qkv GEMM's epilogue drops the bias (K2's qkv GEMM shares it)
+mutant k6_no_bias encoder_layer.cu \
+  's/store2<DT>(out + (size_t)row \* N + col, v0 + b0, v1 + b1);/store2<DT>(out + (size_t)row * N + col, v0, v1);/' \
+  attention
+# K6 keeps K2's qkv layout: a scratch of x's width (3 H) that the attention
+# steps through 3 H a row, where the GEMM writes its 3 H_out columns
+# densely; every read stays inside the scratch and the head dim stays right
+mutant k6_stride_of_x encoder_layer.cu \
+  's/return attention_any<DT>(qkv, mask_bias, ctx, B, S, H_out, 3 \* H_out, num_heads, scale,/return attention_any<DT>(qkv, mask_bias, ctx, B, S, H_out, 3 * H, num_heads, scale,/' \
+  attention ops/attention.py \
+  's/qkv = torch.empty((b \* s, h3), dtype=dt, device=x.device)/qkv = torch.empty((b * s, 3 * h), dtype=dt, device=x.device)/'
+# K7 (and K2) at S <= 256: each head scores against the next head's keys
+mutant k7_next_heads_keys encoder_layer.cu \
+  's|in ? \*reinterpret_cast<const uint4\*>(base + r \* rs + H + v \* 8) : zero;|in ? *reinterpret_cast<const uint4*>(base + r * rs + H + ((head + 1) % (H / HD) - head) * HD + v * 8) : zero;|' \
+  attention
 cli_mutant() {
   local name=$1 file=$2 expr=$3 expect=$4
+  chosen "$name" || return 0
   local dir=build/mut-$name
   rm -rf "$dir"
   mkdir -p "$dir"

@@ -42,17 +42,31 @@ Phases, one JSON line each:
                       ``K5_LIMITS``, which must reject the plain version with
                       attention broken. Library: ``torch._int_mm`` of the
                       four products alone.
-6. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
+6. ``attention``      K6 (the qkv projection + attention of one shard of
+                      heads) and K7 (attention alone, from a qkv) against
+                      their plain versions at the local widths of gte-large
+                      at tp 2 and 4 (512 and 256 wide, head dim 64) and of
+                      MiniLM at tp 2 and 4 (192 and 96, head dim 32), in
+                      bf16, f16 and f32: K6 at (B, S) (1, 256), (64, 256)
+                      and (256, 192), K7 at (256, 32), (128, 128) and (32,
+                      512) (the key-block route), then both at the
+                      tp_path's batches. Limits: ``K67_LIMITS``, K2's
+                      widened for what attention alone returns; they must
+                      reject the plain version with the mask dropped, with
+                      the keys' heads rotated and (K6) with its bias
+                      dropped. Library: ``F.scaled_dot_product_attention``
+                      on the qkv viewed as heads (K6: after ``torch.addmm``).
+7. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
                       rows at d = 1024 and 384, Q in {1, 256}, k in
                       {16, 128}, masked rows and a 17-way tie; scores and
                       ids bit-equal. Library: ``torch._int_mm`` + scales +
                       ``torch.topk`` (one query padded to the 17 rows
                       ``_int_mm`` needs).
-7. ``scan_pruned``    K3 (bf16) and K4b (int8) over 40 of a 128-tile probe
+8. ``scan_pruned``    K3 (bf16) and K4b (int8) over 40 of a 128-tile probe
                       budget of the same stores (tiles of 512): K4b
                       bit-equal, K3 under K1's limits. Library:
                       ``index_select`` of the tiles + the product + topk.
-8. ``main_path``      ``index`` then ``query`` of a generated tree of source
+9. ``main_path``      ``index`` then ``query`` of a generated tree of source
                       files through the CLI (MiniLM-L6, bf16, random weights
                       from seed 0, on the card). The launch counts are set
                       to 0 before each step and read after it: the index
@@ -62,7 +76,7 @@ Phases, one JSON line each:
                       may fire. The stored rows (per-row cosine >= 0.9999)
                       and the query's hits are held against the plain
                       versions on a sample.
-9. ``int8_ivf_path``  BASELINE config 4 with IVF on top: gte-large (24
+10. ``int8_ivf_path``  BASELINE config 4 with IVF on top: gte-large (24
                       layers, 1024 wide, random weights from seed 0, written
                       once as a safetensors file that every process loads)
                       with W8A8 linears (``quant = "int8"``), ``store_dtype =
@@ -99,9 +113,26 @@ Phases, one JSON line each:
                       with exit code 0 and no traceback. Prints qps,
                       p50/p99 ms, recall@10 of the IVF answers and
                       ``/healthz``'s batcher stats.
-10. ``bf16_ivf_path`` the same with ``store_dtype = "bfloat16"`` and float
+11. ``bf16_ivf_path`` the same with ``store_dtype = "bfloat16"`` and float
                       linears (``quant = "none"``): K2 24 times a query, K3
                       once per sealed bucket and K1 once; no serve.
+12. ``tp_path``       the tensor-parallel encoder: gte-large at full width
+                      and depth over a (data 1, model 2) mesh whose two
+                      shards lie on the card, behind an ``IndexManager``
+                      with an exact bf16 store: the tree indexed (K6 for
+                      each shard and layer of the 256 bucket's batches, K7
+                      for the shorter buckets', exactly), 3 + 20 warm
+                      queries (K6 48 times and K1 once a query), K2, K5
+                      and every plain version never; the stored rows of
+                      256 chunks against the single-device encoder (K2) on
+                      the card at per-row cosine >= 0.999; the query and
+                      its hits against the same TP path through the plain
+                      versions. Then the same with W8A8 linears (K7 and
+                      ``qmm`` in every layer, against K5), then four shards
+                      at 4 of the 24 layers, embeddings only. First,
+                      ``bert._linear`` at gte-large's widest shard product
+                      must sum in f32, and every (B, S) at which the path
+                      launches K6 or K7 must be one ``attention`` holds.
 
 Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises, so the script
@@ -130,7 +161,8 @@ import sys
 import tempfile
 import time
 from collections import Counter
-from contextlib import contextmanager, redirect_stderr, redirect_stdout
+from contextlib import (ExitStack, contextmanager, redirect_stderr,
+                        redirect_stdout)
 from pathlib import Path
 
 import numpy as np
@@ -192,7 +224,9 @@ def _wrappers() -> dict:
     from sema_tpu_torch import ops
     return {**{name: getattr(ops, name) for name in SCANS},
             "encoder_layer": ops.fused_encoder_layer,
-            "encoder_layer_int8": ops.fused_encoder_layer_int8}
+            "encoder_layer_int8": ops.fused_encoder_layer_int8,
+            "attention_block": ops.fused_attention_block,
+            "attention_qkv": ops.fused_attention_qkv}
 
 
 def launch_counts() -> dict:
@@ -205,21 +239,65 @@ def reset_launch_counts() -> None:
 
 
 @contextmanager
-def plain_layers():
-    """The encoder's layer wrappers (K2, K5) replaced by their plain
-    versions, on the same card (as ``plain_scans`` does for the scans)."""
-    bert_mod = importlib.import_module("sema_tpu_torch.models.bert")
-    ops = importlib.import_module("sema_tpu_torch.ops")
-    names = {"fused_encoder_layer": ops.encoder_layer_reference,
-             "fused_encoder_layer_int8": ops.encoder_layer_int8_reference}
-    saved = {name: getattr(bert_mod, name) for name in names}
-    for name, fn in names.items():
-        setattr(bert_mod, name, fn)
+def swapped(module: str, replacements: dict):
+    """``module``'s attributes replaced by ``replacements`` (name → object)
+    for the duration, then restored."""
+    mod = importlib.import_module(module)
+    saved = {name: getattr(mod, name) for name in replacements}
+    for name, obj in replacements.items():
+        setattr(mod, name, obj)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(bert_mod, name, fn)
+        for name, obj in saved.items():
+            setattr(mod, name, obj)
+
+
+@contextmanager
+def plain_layers():
+    """The encoder's layer wrappers (K2, K5) replaced by their plain
+    versions, on the same card (as ``plain_scans`` does for the scans)."""
+    ops = importlib.import_module("sema_tpu_torch.ops")
+    with swapped("sema_tpu_torch.models.bert", {
+            "fused_encoder_layer": ops.encoder_layer_reference,
+            "fused_encoder_layer_int8": ops.encoder_layer_int8_reference}):
+        yield
+
+
+@contextmanager
+def plain_attention():
+    """The tensor-parallel layer's kernels (K6, K7 and K5's ``qmm``)
+    replaced by their plain versions, on the same card."""
+    ops = importlib.import_module("sema_tpu_torch.ops")
+    with swapped("sema_tpu_torch.models.bert", {
+            "fused_attention_block": ops.attention_block_reference,
+            "fused_attention_qkv": ops.attention_qkv_reference,
+            "qmm": ops.qmm_reference}):
+        yield
+
+
+# every kernel's plain version, by the module its wrapper calls it from
+PLAIN = {"sema_tpu_torch.ops.attention": ("attention_qkv_reference",
+                                          "attention_block_reference"),
+         "sema_tpu_torch.ops.encoder_layer": ("encoder_layer_reference",),
+         "sema_tpu_torch.ops.encoder_layer_int8": (
+             "encoder_layer_int8_reference", "qmm_reference")}
+
+
+@contextmanager
+def counted_plain_calls():
+    """A Counter of the calls of each plain version of PLAIN, made through
+    its wrapper's module, for the duration."""
+    counts = Counter()
+    with ExitStack() as stack:
+        for module, names in PLAIN.items():
+            mod = importlib.import_module(module)
+            for name in names:
+                def counted(*a, _fn=getattr(mod, name), _name=name, **k):
+                    counts[_name] += 1
+                    return _fn(*a, **k)
+                stack.enter_context(swapped(module, {name: counted}))
+        yield counts
 
 
 @contextmanager
@@ -832,6 +910,169 @@ def phase_layer_int8(gen):
     return cases
 
 
+# -- K6, K7 -------------------------------------------------------------------
+
+# (model, tp): the local width of one shard of heads, H_out = H / tp over
+# heads / tp heads: gte-large 512 (8 heads of 64) and 256 (4), MiniLM 192
+# (6 heads of 32) and 96 (3)
+K67_WIDTHS = (("gte-large", 2), ("gte-large", 4), ("minilm-l6", 2),
+              ("minilm-l6", 4))
+K6_BS = ((1, 256), (64, 256), (256, 192))
+K7_BS = ((256, 32), (128, 128), (32, 512))      # 512: the key-block route
+# the tp_path's own (B, S) of gte-large at tp 2, bf16, beyond those of
+# K6_BS and K7_BS: a full index batch of each sequence bucket
+# (``Encoder.encode_texts``: batch_size * max_length // S rows) through K6
+# (the 256 bucket, float linears) and K7 (the shorter buckets, and every
+# bucket with W8A8), and the W8A8 query's K7; tp_run fails if the path
+# runs K6 or K7 at a (B, S) that phase_attention does not hold
+K67_PATH = (("block", 256, 256), ("qkv", 2048, 32), ("qkv", 1024, 64),
+            ("qkv", 512, 128), ("qkv", 256, 256), ("qkv", 1, 256))
+# (min per-row cosine, max relative error) of K6 and K7 in bf16 and f16;
+# f32 takes ``layer_close_f32``. Both round at K2's places, but what they
+# return is the context itself, not a LayerNorm's output, and K6's qkv
+# comes from its own GEMM, so an element of q, k or v may land one ulp
+# (2^-5 of |qkv| up to 8 in bf16, 2^-8 in f16) from the plain version's
+# before the softmax weighs it. On an H100 over the cases of
+# phase_attention the kernels read at worst cosine 0.99992 and relative
+# error 0.110 in bf16 (K6, gte-large tp 4, (256, 192)) and 0.9999976 and
+# 0.0166 in f16 (K6, gte-large tp 2, (64, 256)), above K2's f16 limit of
+# 0.015. The limits leave 1.8 times those errors; the plain versions with
+# the mask dropped, the keys' heads rotated or K6's bias dropped read
+# cosine 0.54 at best.
+K67_LIMITS = {BF16: (COS_MIN, 0.2), F16: (COS_MIN_F16, 0.03)}
+
+
+def attention_close(got, want):
+    """``layer_close`` at K67_LIMITS for ``want``'s dtype, or
+    ``layer_close_f32``."""
+    if want.dtype == F32:
+        return layer_close_f32(got, want)
+    return layer_close(got, want, *K67_LIMITS[want.dtype])
+
+
+def sdpa(qkv, bias, heads, scale):
+    """The library yardstick of K7: ``F.scaled_dot_product_attention`` on
+    the (B, S, 3·H_out) qkv viewed as heads, with its transposes back to
+    the (B, S, H_out) layout."""
+    b, s, h3 = qkv.shape
+    q, k, v = qkv.view(b, s, 3, heads, h3 // 3 // heads).permute(2, 0, 3, 1,
+                                                                  4)
+    out = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias[:, None, None, :].to(qkv.dtype), scale=scale)
+    return out.transpose(1, 2).reshape(b, s, h3 // 3)
+
+
+def rotated_keys(t, h_out, heads):
+    """``t`` (..., 3·H_out) with the keys' heads rotated by one."""
+    t = t.clone()
+    keys = t[..., h_out:2 * h_out]
+    t[..., h_out:2 * h_out] = keys.reshape(*keys.shape[:-1], heads, -1).roll(
+        1, dims=-2).reshape(keys.shape)
+    return t
+
+
+def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
+    """K6 (``kind`` "block") or K7 ("qkv") at one shard of heads of
+    ``spec`` at ``tp`` against its plain version, under
+    ``attention_close``, which must reject the plain version with the mask
+    dropped, with the keys' heads rotated and, for K6, with its bias
+    dropped. K6's weights are drawn at 1.5/sqrt(H) and K7's qkv at 1.5, so
+    that q, k and v are about 1.5 and the scaled scores about 2: a softmax
+    neither flat nor one-hot; K6's bias at 1, as large as what it is added
+    to, so that a kernel that drops it fails."""
+    from sema_tpu_torch.ops.attention import (attention_block_reference,
+                                              attention_qkv_reference,
+                                              fused_attention_block,
+                                              fused_attention_qkv)
+    h, heads = spec.hidden_size, spec.num_heads
+    h_out, n = h // tp, heads // tp
+    scale = 1.0 / math.sqrt(h // heads)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
+    lens[0] = s if b > 1 else min(12, s)   # one query: 12 tokens, padded
+    if b > 1:
+        lens[-1] = max(1, s // 3)          # a padded row, whatever the draw
+    bias = (torch.arange(s, device=DEV)[None, :] >= lens[:, None]).float() \
+        * -1e9
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=DEV)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    if kind == "block":
+        x = randn(b, s, h).to(dtype)
+        w = (1.5 / math.sqrt(h) * randn(h, 3 * h_out)).to(dtype)
+        qb = randn(3 * h_out).to(dtype)
+        fn, ref = fused_attention_block, attention_block_reference
+        args = (x, w, qb, bias, n, scale)
+        broken = {"no_mask": (x, w, qb, torch.zeros_like(bias), n, scale),
+                  "heads_rotated": (x, rotated_keys(w, h_out, n), qb, bias,
+                                    n, scale),
+                  "no_bias": (x, w, torch.zeros_like(qb), bias, n, scale)}
+        lib = lambda: sdpa(torch.addmm(qb, x.view(b * s, h), w).view(
+            b, s, 3 * h_out), bias, n, scale)
+        moved = (b * s * h + h * 3 * h_out + 3 * h_out + b * s * h_out) \
+            * isz + 4 * b * s
+        ops = 2.0 * b * s * h * 3 * h_out + 4.0 * b * s * s * h_out
+    else:
+        qkv = (1.5 * randn(b, s, 3 * h_out)).to(dtype)
+        fn, ref = fused_attention_qkv, attention_qkv_reference
+        args = (qkv, bias, n, scale)
+        broken = {"no_mask": (qkv, torch.zeros_like(bias), n, scale),
+                  "heads_rotated": (rotated_keys(qkv, h_out, n), bias, n,
+                                    scale)}
+        lib = lambda: sdpa(qkv, bias, n, scale)
+        moved = (b * s * 3 * h_out + b * s * h_out) * isz + 4 * b * s
+        ops = 4.0 * b * s * s * h_out
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    ok, cos, rel = attention_close(got, want)
+    broken = {name: ref(*a) for name, a in broken.items()}
+    ms, bound_by = bound(moved, ops, F32_OPS_PER_S if dtype == F32
+                         else BF16_OPS_PER_S)
+    with torch.inference_mode():
+        library_ms = device_ms(lib, iters)
+    return {"kernel": "K6" if kind == "block" else "K7",
+            "model": spec.name, "tp": tp, "h": h, "h_out": h_out,
+            "heads": n, "head_dim": h // heads,
+            "dtype": str(dtype).removeprefix("torch."), "b": b, "s": s,
+            "ok": ok, "max_abs_err": float((got.float() - want.float())
+                                           .abs().max()),
+            "max_rel_err": rel, "min_cosine": cos,
+            "broken_min_cosine": {name: attention_close(out, want)[1]
+                                  for name, out in broken.items()},
+            "broken_passes": [name for name, out in broken.items()
+                              if attention_close(out, want)[0]],
+            "ms": device_ms(lambda: fn(*args), iters),
+            "plain_ms": device_ms(lambda: ref(*args), max(2, iters // 2)),
+            "library_ms": library_ms,
+            "library_call": ("torch.addmm + " if kind == "block" else "")
+            + "F.scaled_dot_product_attention with its transposes",
+            "bound_ms": ms, "bound_by": bound_by}
+
+
+def phase_attention(gen):
+    """K6 and K7 at the local widths of K67_WIDTHS, in bf16, f16 and f32,
+    K6 at K6_BS and K7 at K7_BS, then both at the tp_path's batches
+    (K67_PATH). Every case is emitted before a failure raises."""
+    from sema_tpu_torch.models.registry import get_spec
+    cases = []
+    for model, tp in K67_WIDTHS:
+        spec = get_spec(model)
+        for dtype in (BF16, F16, F32):
+            for kind, shapes in (("block", K6_BS), ("qkv", K7_BS)):
+                cases += [attention_case(kind, spec, tp, dtype, b, s, gen,
+                                         iters=10) for b, s in shapes]
+    spec = get_spec(IVF_MODEL)
+    cases += [attention_case(kind, spec, 2, BF16, b, s, gen, iters=10)
+              for kind, b, s in K67_PATH]
+    emit("attention", cases=cases)
+    bad = ([f"{c['kernel']} {c['model']} tp {c['tp']} {c['dtype']} "
+            f"({c['b']}, {c['s']}): cosine {c['min_cosine']}, relative "
+            f"error {c['max_rel_err']}" for c in cases if not c["ok"]]
+           + [f"{c['kernel']} {c['model']} tp {c['tp']} {c['dtype']} "
+              f"({c['b']}, {c['s']}): the check passes {c['broken_passes']}"
+              for c in cases if c["broken_passes"]])
+    check(not bad, "K6/K7: " + "; ".join(bad))
+    return cases
+
+
 # -- main path ----------------------------------------------------------------
 
 _WORDS = ("request", "retry", "backoff", "socket", "parse", "token", "vector",
@@ -1212,7 +1453,7 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
     hits = [json.loads(line) for line in out.splitlines()]
     check(len(hits) == 50 and all(math.isfinite(h["score"]) for h in hits),
           f"{name}: {len(hits)} hits, or a score that is not finite")
-    want = {n: 0 for n in (*SCANS, other_k)}
+    want = dict.fromkeys(query_launches, 0)
     want.update({layer_k: get_spec(IVF_MODEL).num_layers,
                  pruned: sealed, exact_scan: 1})
     check(query_launches == want, f"{name} query launches {query_launches}, "
@@ -1485,6 +1726,252 @@ def phase_serve(tree: Path, plan: dict, device: str = "cuda") -> None:
          reindex_found_s=reindex_s, healthz=health, exit_code=rc)
 
 
+# -- the tensor-parallel encoder (K6, K7) -------------------------------------
+
+TP_SAMPLE = 256                # chunks held against the single-device encoder
+TP4_LAYERS = 4                 # depth of the tp = 4 embeddings check
+TP_COS_MIN = 0.999             # TP against single-device, per row: see below
+
+
+def close_hits(got, want, tol) -> bool:
+    """``got`` and ``want`` ((chunk, score) lists) name the same chunks at
+    every rank, or where they differ the two scores are within ``tol`` of
+    each other: two query vectors ``tol`` / 2 apart give the same unit row
+    scores ``tol`` / 2 apart, so such near-ties may swap places."""
+    return len(got) == len(want) and all(
+        a.id == b.id or abs(sa - sb) <= tol
+        for (a, sa), (b, sb) in zip(got, want))
+
+
+def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
+           model: str = IVF_MODEL) -> dict:
+    """``model`` (bf16, ``quant``) on the tensor-parallel ``Encoder`` over
+    ``mesh`` behind an ``IndexManager`` with an exact bf16 store: the
+    tree indexed, then 3 warm-up and 20 warm queries. Launches: K6 for
+    every shard of every layer of every index batch of the 256 bucket with
+    float linears, K7 for the others and for every int8 layer; one query
+    K6 (K7 with int8) once per shard and layer and K1 once; K2, K5 and
+    every plain version never. The stored rows of TP_SAMPLE chunks are
+    held against the single-device encoder (K2 or K5) on the card at
+    per-row cosine >= TP_COS_MIN: the TP layer rounds as the JAX package's
+    does (f32 partials summed over the shards, then the bias, then bf16
+    before the residual add), K2 and K5 as their kernels do, so the two
+    differ by design by a few bf16 ulps a layer. The query vector and hits
+    of the same path through the plain versions (``plain_attention``) on
+    the card must agree with the kernels' (``close_hits``)."""
+    from sema_tpu_torch import cli
+    from sema_tpu_torch.config import Config, ModelConfig
+    from sema_tpu_torch.crawl import FileCrawler
+    from sema_tpu_torch.index import IndexManager
+    from sema_tpu_torch.models.encoder import Encoder
+    from sema_tpu_torch.utils.metrics import Metrics
+    cfg = ModelConfig(name=model, max_length=256, batch_size=256,
+                      dtype="bfloat16", quant=quant,
+                      weights_path=str(weights or ""))
+    t0 = time.perf_counter()
+    enc = Encoder.from_config(cfg, mesh=mesh, data_axis="data",
+                              model_axis="model")
+    load_s = time.perf_counter() - t0
+    metrics = Metrics()
+    mgr = IndexManager(work / f"data-tp-{quant}", enc,
+                       store_dtype="bfloat16", metrics=metrics)
+    files = FileCrawler(cli.crawler_config(Config())).crawl_directory(tree)
+    layers, tp = enc.spec.num_layers, mesh.shape["model"]
+    err = io.StringIO()
+    with counted_plain_calls() as plain, redirect_stderr(err):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        n_chunks = mgr.process_and_index_files(files)
+        index_s = time.perf_counter() - t0
+        index_launches = launch_counts()
+        index_stages_s = metrics.report()["stages_s"]
+        reset_launch_counts()
+        mgr.search(QUERY, 50)
+        one_query = launch_counts()
+        for _ in range(3):
+            mgr.search(QUERY, 50)
+        metrics.stage_samples.clear()
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            mgr.search(QUERY, 50)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+        stages_p50_ms = {k: v * 1e3
+                         for k, v in metrics.report()["p50_s"].items()}
+        busy = query_device_time(lambda: mgr.search(QUERY, 50), 20)
+    check("Failed to index" not in err.getvalue()
+          and "falling back" not in err.getvalue(),
+          f"tp_path {quant}: {err.getvalue()[-2000:]}")
+    check(not sum(plain.values()), f"tp_path {quant}: plain versions "
+          f"called {dict(plain)}")
+    store = mgr.vector_store
+    texts = [store.chunk_at(i).content for i in range(n_chunks)]
+    counts, batches = bucket_batches(enc, texts)
+    k6 = (sum(n for s, n in batches.items() if s >= 192)
+          if quant == "none" else 0)
+    want = dict.fromkeys(index_launches, 0)
+    want.update(attention_block=k6 * layers * tp,
+                attention_qkv=(sum(batches.values()) - k6) * layers * tp)
+    check(n_chunks > 0 and index_launches == want,
+          f"tp_path {quant} index: {n_chunks} chunks, batches "
+          f"{dict(batches)}, launches {index_launches}, want {want}")
+    # every (B, S) at which this run launched K6 or K7 (a full batch of
+    # each bucket, and the query) is one that phase_attention holds
+    kind = lambda s: "block" if quant == "none" and s >= 192 else "qkv"
+    ran = {(kind(s), enc.batch_size * max(1, enc.max_length // s), s)
+           for s in batches} | {(kind(enc.max_length), 1, enc.max_length)}
+    held = ({*K67_PATH} | {("block", b, s) for b, s in K6_BS}
+            | {("qkv", b, s) for b, s in K7_BS})
+    check(ran <= held, f"tp_path {quant}: K6/K7 ran at {sorted(ran - held)}"
+          f", which phase_attention does not hold (K67_PATH)")
+    want = dict.fromkeys(one_query, 0)
+    want.update({"attention_block" if quant == "none" else "attention_qkv":
+                 layers * tp, "scan_topk": 1})
+    check(one_query == want, f"tp_path {quant} query launches {one_query}, "
+          f"want {want}")
+
+    # the same path through the plain versions on the card
+    qvec = enc.encode_query_device(QUERY)
+    hits = mgr.search(QUERY, 50)
+    with plain_attention():
+        qvec_p = enc.encode_query_device(QUERY)
+        hits_p = mgr.search(QUERY, 50)
+    q_cos = float(F.cosine_similarity(qvec, qvec_p, dim=0))
+    q_err = float((qvec - qvec_p).norm())
+    check(q_cos >= 0.9999 and close_hits(hits, hits_p, 2 * q_err),
+          f"tp_path {quant}: the kernels' query (cosine {q_cos} to the "
+          f"plain versions') finds {[c.id for c, _ in hits[:10]]}, the "
+          f"plain versions {[c.id for c, _ in hits_p[:10]]}")
+
+    # stored rows against the single-device encoder on the card
+    sample = list(range(0, n_chunks, max(1, n_chunks // TP_SAMPLE)))
+    sample = sample[:TP_SAMPLE]
+    bucket = store.device_buckets()
+    check(len(bucket) == 1, f"tp_path: {len(bucket)} device buckets")
+    rows = bucket[0]["store"][sample].float()
+    single = Encoder.from_config(cfg, device=DEV)
+    ref = single.encode_texts([texts[i] for i in sample]).to(rows.device)
+    cos = F.cosine_similarity(rows, ref, dim=1)
+    check(float(cos.min()) >= TP_COS_MIN, f"tp_path {quant}: TP rows "
+          f"against the single-device encoder: cosine {float(cos.min())}")
+    mgr.close()
+    del single, mgr, store, bucket, enc
+    torch.cuda.empty_cache()
+    return {"quant": quant, "tp": tp, "chunks": n_chunks, "load_s": load_s,
+            "index_s": index_s, "chunks_per_s": n_chunks / index_s,
+            "index_stages_s": index_stages_s,
+            "bucket_rows": {str(s): n for s, n in sorted(counts.items())},
+            "bucket_batches": {str(s): n for s, n in sorted(batches.items())},
+            "index_launches": index_launches, "query_launches": one_query,
+            "query_p50_ms": lat[len(lat) // 2], "query_max_ms": lat[-1],
+            "query_stages_p50_ms": stages_p50_ms, "query_device": busy,
+            "query_cosine_to_plain": q_cos,
+            "hits_equal_plain": [c.id for c, _ in hits]
+            == [c.id for c, _ in hits_p],
+            "hit_ranks_differing": [i for i, ((a, _), (b, _)) in enumerate(
+                zip(hits, hits_p)) if a.id != b.id],
+            "hit_score_tolerance": 2 * q_err,
+            "single_device_min_cosine": float(cos.min()),
+            "single_device_mean_cosine": float(cos.mean())}
+
+
+def tp_embeddings(weights, texts, shape, layers=None,
+                  model: str = IVF_MODEL) -> dict:
+    """``model`` (cut to ``layers`` layers if given), bf16, on a (data,
+    model) mesh of ``shape`` whose shards all lie on the card: the
+    embeddings of ``texts`` against the single-device encoder (K2) there,
+    per-row cosine >= TP_COS_MIN, with K6 and K7 launching and K2 not."""
+    import dataclasses
+    from sema_tpu_torch.models.encoder import Encoder
+    from sema_tpu_torch.models.loader import load_params
+    from sema_tpu_torch.models.registry import get_spec
+    from sema_tpu_torch.parallel.mesh import make_mesh
+    from sema_tpu_torch.tokenizer import HashTokenizer
+    spec = get_spec(model)
+    params, _ = load_params(spec, str(weights or ""))
+    spec = dataclasses.replace(
+        spec, num_layers=min(layers or spec.num_layers, spec.num_layers))
+    params["layers"] = {k: v[:spec.num_layers]
+                        for k, v in params["layers"].items()}
+    tok = HashTokenizer(spec.vocab_size)
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=[DEV] * math.prod(shape))
+    enc = Encoder(spec, params, tok, max_length=256, batch_size=256,
+                  mesh=mesh, data_axis="data", model_axis="model")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = enc.encode_texts(texts)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    single = Encoder(spec, params, tok, max_length=256, batch_size=256,
+                     device=DEV)
+    cos = F.cosine_similarity(got, single.encode_texts(texts), dim=1)
+    check(launches["attention_block"] > 0 and launches["attention_qkv"] > 0
+          and not launches["encoder_layer"]
+          and float(cos.min()) >= TP_COS_MIN,
+          f"mesh {mesh.shape}: launches {launches}, cosine "
+          f"{float(cos.min())}")
+    return {"mesh": mesh.shape, "layers": spec.num_layers,
+            "chunks": len(texts),
+            "encode_s": seconds, "launches": launches,
+            "min_cosine": float(cos.min()), "mean_cosine": float(cos.mean())}
+
+
+def tree_heads(tree: Path) -> list:
+    """Heads of TP_SAMPLE of the tree's files, 40 to 1,570 characters:
+    every sequence bucket."""
+    return [f.read_text()[:40 + 6 * i] for i, f in enumerate(
+        sorted(tree.rglob("*.py"))[:TP_SAMPLE])]
+
+
+# the tp_path's widest row-parallel product: gte-large's FFN-out at tp 2
+# over a full index batch of the 256 bucket, (65,536, 2,048) @ (2,048, 1,024)
+LINEAR_SHAPE = (256 * 256, 2048, 1024)
+
+
+def linear_sums(gen) -> dict:
+    """``bert._linear`` at LINEAR_SHAPE in bf16 against the f32 product of
+    the same operands: its sums must be f32 (relative error, norm-wise,
+    <= 1e-5; sums in another order read about 1e-7, a GEMM that rounded
+    or reduced in bf16 about 2^-9). Times it against that f32 product."""
+    from sema_tpu_torch.models.bert import _linear
+    m, k, n = LINEAR_SHAPE
+    x = torch.randn(1, m, k, generator=gen, device=DEV).to(BF16)
+    w = (torch.randn(k, n, generator=gen, device=DEV) / math.sqrt(k)).to(BF16)
+    layer = {"ffn_out_w": w}
+    got = _linear(x, layer, "ffn_out_w", F32)
+    f32_product = lambda: torch.matmul(x.float(), w.float())
+    want = f32_product()
+    rel = float((got - want).norm() / want.norm())
+    out = {"shape": list(LINEAR_SHAPE), "rel_err": rel,
+           "ms": device_ms(lambda: _linear(x, layer, "ffn_out_w", F32), 5),
+           "f32_product_ms": device_ms(f32_product, 5),
+           "bound_ms": bound((m * k + k * n) * 2 + m * n * 4,
+                             2.0 * m * k * n)[0]}
+    check(got.dtype == F32 and rel <= 1e-5,
+          f"tp_path: _linear's sums are not f32: {out}")
+    return out
+
+
+def phase_tp_path(work: Path, tree: Path, weights, gen,
+                  model: str = IVF_MODEL):
+    """The slice end to end: ``_linear``'s f32 sums (``linear_sums``),
+    then gte-large at full width and depth over a (data 1, model 2) mesh
+    of two shards on the card, float linears (K6 and K7) then W8A8 (K7
+    and ``qmm``), through ``tp_run``; then four shards on the card at
+    TP4_LAYERS layers (``tp_embeddings``)."""
+    from sema_tpu_torch.parallel.mesh import make_mesh
+    linear = linear_sums(gen)
+    mesh = make_mesh([1, 2], ("data", "model"), devices=[DEV] * 2)
+    runs = [tp_run(work, tree, weights, quant, mesh, model)
+            for quant in ("none", "int8")]
+    tp4 = tp_embeddings(weights, tree_heads(tree), [1, 4], TP4_LAYERS, model)
+    emit("tp_path", model=model, mesh={"data": 1, "model": 2},
+         linear=linear, runs=runs, tp4=tp4)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
@@ -1519,6 +2006,8 @@ def main() -> int:
         layer_cases = phase_layer(gen)
     if run("encoder_layer_int8"):
         int8_cases = phase_layer_int8(gen)
+    if run("attention"):
+        attention_cases = phase_attention(gen)
     if run("scan_int8") or run("scan_pruned"):
         phase_scan_more(gen)
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1542,6 +2031,13 @@ def main() -> int:
                          seconds=time.perf_counter() - t0)
                 paths[store_dtype] = phase_ivf_path(work, tree, store_dtype,
                                                     4 * SEAL, gen, weights)
+        if run("tp_path"):
+            if weights is None:
+                t0 = time.perf_counter()
+                weights = write_weights(work / "gte-weights")
+                emit("weights", model=IVF_MODEL,
+                     seconds=time.perf_counter() - t0)
+            tp_runs = phase_tp_path(work, tree, weights, gen)
     if phases is not None:
         print(f"partial run of {sorted(phases)}: no kernels line", flush=True)
         return 0
@@ -1554,7 +2050,7 @@ def main() -> int:
               == (IVF_MODEL, "bfloat16", 1, 256))
     int8_k, bf16_k = paths["int8"]["kernels"], paths["bfloat16"]["kernels"]
     runs = [index_launches, query_launches] + [
-        p[key] for p in paths.values()
+        p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")]
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1583,6 +2079,16 @@ def main() -> int:
               [int8_k["scan_topk_int8_pruned"]["rows_scanned"], 1, 128],
               int8_k["scan_topk_int8_pruned"]),
     ]
+    k6, k7 = (next(c for c in attention_cases
+                   if (c["kernel"], c["model"], c["tp"], c["dtype"], c["b"],
+                       c["s"]) == (kernel, IVF_MODEL, 2, "bfloat16", b, s))
+              for kernel, b, s in (("K6", 1, 256), ("K7", 256, 32)))
+    kernels += [
+        entry("attention_block", "sema_tpu_torch/csrc/encoder_layer.cu",
+              "sema_tpu/ops/fused_attention.py:216", [1, 256, GTE_D, 512],
+              k6),
+        entry("attention_qkv", "sema_tpu_torch/csrc/encoder_layer.cu",
+              "sema_tpu/ops/fused_attention.py:134", [256, 32, 3 * 512], k7)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

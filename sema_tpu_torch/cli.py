@@ -17,8 +17,10 @@ answers ``GET /healthz`` and ``GET``/``POST /search`` (see
 indexes what changed while queries go on. Every command exits non-zero
 when a kernel does not build, launch or take its tensors
 (:class:`~sema_tpu_torch.ops._cuda.KernelError`); ``serve`` does so
-before it takes traffic, from its warm-up query. The TUI, ``bench`` and
-``doctor`` are not ported yet.
+before it takes traffic, from its warm-up query. ``[mesh] shape`` (with
+``model_axis``) runs the encoder data- and tensor-parallel over a mesh
+(:func:`config_mesh`); the store stays single-shard. The TUI, ``bench``
+and ``doctor`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import sys
 import time
@@ -142,23 +145,58 @@ def crawler_config(config: Config) -> CrawlerConfig:
         ignore_gitignore=g.ignore_gitignore)
 
 
+def config_mesh(config: Config, device: str):
+    """(mesh, model_axis) of ``[mesh]`` (``sema_tpu/cli.py:175-201``): with
+    ``model_axis``, a (data, model, index) mesh of the explicit 3-entry
+    ``shape`` (SystemExit without one); else a (data, index) mesh of an
+    explicit ``shape``. Without a shape there is no mesh: the JAX package's
+    default mesh puts every device on ``index`` to shard the store's rows,
+    and the port's store is single-shard, so a mesh whose ``index`` axis is
+    larger than 1 raises NotImplementedError, as ``slice_axis`` does. The
+    shards lie on the CUDA devices, or for ``device="cpu"`` all on the CPU
+    (the counterpart of the JAX package's virtual CPU devices)."""
+    from sema_tpu_torch.device import resolve_device
+    from sema_tpu_torch.parallel.mesh import local_devices, make_mesh
+    m = config.mesh
+    if m.slice_axis:
+        raise NotImplementedError(
+            "[mesh] slice_axis (multislice) not ported to sema_tpu_torch yet")
+    model_axis = m.model_axis or None
+    axes = [m.data_axis] + ([model_axis] if model_axis else []) \
+        + [m.index_axis]
+    if model_axis and len(m.shape) != len(axes):
+        raise SystemExit(
+            f"[mesh] model_axis requires an explicit {len(axes)}-entry shape "
+            f"({' x '.join(axes)}), e.g. shape = [1, 2, 1] for two shards "
+            "of the model")
+    if not m.shape:
+        return None, None
+    kind = resolve_device(device).type
+    devices = (local_devices() if kind == "cuda"
+               else local_devices("cpu") * math.prod(m.shape))
+    mesh = make_mesh(m.shape, axes, devices)
+    if mesh.shape[m.index_axis] > 1:
+        raise NotImplementedError(
+            f"[mesh] shape {list(m.shape)} puts {mesh.shape[m.index_axis]} "
+            f"shards on the {m.index_axis!r} axis: row-sharding the store is "
+            "not ported to sema_tpu_torch yet (single-shard store)")
+    return mesh, model_axis
+
+
 def make_index_manager(config: Config, device: str, metrics=None):
     from sema_tpu_torch.index import IndexManager
     from sema_tpu_torch.models import Encoder
 
-    unported = [name for name, on in (
-        ("[mesh] shape", config.mesh.shape),
-        ("[mesh] model_axis", config.mesh.model_axis),
-        ("[mesh] slice_axis", config.mesh.slice_axis)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)} not ported to sema_tpu_torch yet "
-            "(single-device search only)")
+    mesh, model_axis = config_mesh(config, device)
     if metrics is None and os.environ.get("SEMA_TPU_LOG"):
         from sema_tpu_torch.utils.metrics import Metrics
         metrics = Metrics(log_stream=open(
             os.environ["SEMA_TPU_LOG"], "a", buffering=1))
-    encoder = Encoder.from_config(config.model, device=device)
+    # the JAX CLI splits the encoder's batch over the index axis (its
+    # default mesh's only axis); here that axis is 1, so the data axis
+    encoder = Encoder.from_config(config.model, device=device, mesh=mesh,
+                                  data_axis=config.mesh.data_axis,
+                                  model_axis=model_axis)
     if encoder.weights_source == "random":
         print("Warning: no weights for model "
               f"{config.model.name!r} (none under --weights or in the HF "

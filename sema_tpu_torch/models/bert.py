@@ -15,6 +15,15 @@ gate of ``bert.py:51-63, 256-281``) has no counterpart here. Its
 ``_int8_matmul`` is :func:`sema_tpu_torch.ops.encoder_layer_int8.
 qmm_reference` (the same numerics; the port has no unfused int8 path).
 
+The tensor-parallel forward (:func:`embed_tp`, :func:`encoder_layer_tp`)
+runs each layer over the shards of ``models/tp.py``, one process driving
+every shard: the local attention through K6 (``fused_attention_block``)
+at S >= 192 with float qkv weights and through the qkv product and K7
+(``fused_attention_qkv``) otherwise, int8 layers included, as the JAX
+package dispatches on its TPU (``attn_impl == "fused"``); the linears
+around it are :func:`_linear`, and the all-reduce of JAX's ``psum`` is
+:func:`psum`.
+
 Parameter tree: see :mod:`sema_tpu_torch.models.loader`.
 """
 
@@ -26,10 +35,13 @@ from typing import Dict
 import torch
 
 from sema_tpu_torch.models.registry import EncoderSpec
+from sema_tpu_torch.ops.attention import (fused_attention_block,
+                                          fused_attention_qkv)
 from sema_tpu_torch.ops.encoder_layer import (fused_encoder_layer,
                                               layer_norm_f32)
 from sema_tpu_torch.ops.encoder_layer_int8 import (LINEARS, column_major,
-                                                   fused_encoder_layer_int8)
+                                                   fused_encoder_layer_int8,
+                                                   qmm)
 from sema_tpu_torch.ops.quant import div127
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -76,14 +88,16 @@ def int8_kernel_layout(params: Params) -> Params:
     return {**params, "layers": layers}
 
 
-def cast_params(params: Params, compute_dtype) -> Params:
-    """``params`` with the word table and each layer's weights and biases
-    rounded to the compute dtype once, as every forward would round them;
-    the position and token-type tables and the LayerNorm parameters stay
-    as they are."""
+def cast_params(params: Params, compute_dtype, biases: bool = True) -> Params:
+    """``params`` with the word table and each layer's weights and, with
+    ``biases``, biases rounded to the compute dtype once, as every forward
+    would round them; the position and token-type tables and the LayerNorm
+    parameters stay as they are. The tensor-parallel layer adds two of its
+    biases in f32 (:func:`encoder_layer_tp`), so its trees keep them."""
     emb = dict(params["embeddings"])
     emb["word"] = emb["word"].to(compute_dtype)
-    layers = {name: leaf.to(compute_dtype) if name in _CAST_LEAVES else leaf
+    cast = _CAST_LEAVES if biases else LINEARS
+    layers = {name: leaf.to(compute_dtype) if name in cast else leaf
               for name, leaf in params["layers"].items()}
     return {"embeddings": emb, "layers": layers}
 
@@ -125,6 +139,112 @@ def bert_forward(params: Params, input_ids: torch.Tensor,
         layer = {name: leaf[i] for name, leaf in layers.items()}
         x = fused(x, layer, mask_bias, spec.num_heads, scale, LN_EPS)
     return x
+
+
+def _linear(x: torch.Tensor, layer: dict, name: str, acc) -> torch.Tensor:
+    """One linear of a tensor-parallel layer (``bert.py:108-116``): x
+    (B, S, in) in the compute dtype → (B, S, out) in ``acc``. Float
+    weights (in the compute dtype, ``cast_params``): the sums in f32, as
+    JAX's ``preferred_element_type`` makes them, rounded to ``acc``. On
+    the card a bf16 or f16 GEMM with f32 output (``out_dtype``), which
+    accumulates and reduces in f32 whatever
+    ``allow_bf16_reduced_precision_reduction`` says; on the CPU, which
+    has no such GEMM, the f32 product of the same operands, whose
+    products f32 holds exactly. W8A8 weights: K5's
+    :func:`~sema_tpu_torch.ops.encoder_layer_int8.qmm`, with one
+    activation scale per token of this shard's features."""
+    b, s, k = x.shape
+    x2 = x.reshape(b * s, k)
+    wq = layer.get(name + "_q")
+    if wq is not None:
+        y = qmm(x2, wq, layer[name + "_s"])
+    elif x.dtype == torch.float32:
+        y = torch.mm(x2, layer[name])
+    elif x.is_cuda:
+        y = torch.mm(x2, layer[name], out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), layer[name].float())
+    return y.reshape(b, s, -1).to(acc)
+
+
+def psum(parts):
+    """The f32 sum of the shards' partials, in shard order, on the first
+    shard's device; then one reference to it on every shard's device."""
+    total = parts[0].float()
+    for p in parts[1:]:
+        total = total + p.to(total.device, torch.float32)
+    return [total.to(p.device) for p in parts]
+
+
+def encoder_layer_tp(xs, layers, mask_biases, num_heads: int, tp: int):
+    """One post-LN BERT block over ``tp`` shards of heads
+    (``bert.py:306-371``): per shard, ``xs[i]`` (B, S, H) the replicated
+    layer input on the shard's device, ``layers[i]`` its local weights
+    (head-contiguous qkv columns, contiguous FFN splits,
+    ``models/tp.py``), ``mask_biases[i]`` the (B, S) f32 mask there.
+    Local attention over heads/tp heads (K6 at S >= 192 with float qkv
+    weights, else the qkv product and K7), partial out-projection, sum
+    over the shards, residual + LN1, local FFN-in half, partial FFN-out,
+    sum, residual + LN2. Returns the shards' outputs.
+
+    Rounding as the JAX package's: products round to ``acc`` (bf16 in
+    bf16, else f32) and take the bias there, but the row-parallel
+    partials stay f32 through the sum, take the f32 bias and round to the
+    compute dtype before the residual add."""
+    b, s, h = xs[0].shape
+    dt = xs[0].dtype
+    f32 = torch.float32
+    acc = dt if dt == torch.bfloat16 else f32
+    n_local = num_heads // tp
+    scale = 1.0 / math.sqrt(h // num_heads)
+    ctxs = []
+    for x, layer, mb in zip(xs, layers, mask_biases):
+        if s >= 192 and "qkv_w" in layer:
+            ctx = fused_attention_block(x, layer["qkv_w"], layer["qkv_b"],
+                                        mb, n_local, scale)
+        else:
+            qkv = _linear(x, layer, "qkv_w", acc)
+            qkv = (qkv + layer["qkv_b"].to(acc)).to(dt)
+            ctx = fused_attention_qkv(qkv, mb, n_local, scale)
+        ctxs.append(ctx)
+    attn = psum([_linear(c, layer, "attn_out_w", f32)
+                 for c, layer in zip(ctxs, layers)])
+    xs = [layer_norm(x + (a + layer["attn_out_b"].float()).to(dt),
+                     layer["attn_ln_scale"], layer["attn_ln_bias"])
+          for x, a, layer in zip(xs, attn, layers)]
+    downs = []
+    for x, layer in zip(xs, layers):
+        up = _linear(x, layer, "ffn_in_w", acc)
+        up = (up + layer["ffn_in_b"].to(acc)).float()
+        up = 0.5 * up * (1.0 + torch.erf(up * (2.0 ** -0.5)))
+        downs.append(_linear(up.to(dt), layer, "ffn_out_w", f32))
+    down = psum(downs)
+    return [layer_norm(x + (d + layer["ffn_out_b"].float()).to(dt),
+                       layer["ffn_ln_scale"], layer["ffn_ln_bias"])
+            for x, d, layer in zip(xs, down, layers)]
+
+
+def embed_tp(shards, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+             spec: EncoderSpec, compute_dtype=torch.float32) -> torch.Tensor:
+    """Tensor-parallel sentence embeddings (``bert.py:374-391``): one
+    per-layer-stacked tree per model shard, each on its own device
+    (``models/tp.py:shard_params_tp``). Embeddings, LayerNorms and
+    pooling are replicated work, done on every shard as on every chip.
+    (batch, dim) f32 on the first shard's device."""
+    tp = len(shards)
+    devices = [sh["embeddings"]["word"].device for sh in shards]
+    ids = [input_ids.to(d) for d in devices]
+    masks = [attention_mask.to(d) for d in devices]
+    xs = [_embed_tokens(sh["embeddings"], i, compute_dtype)
+          for sh, i in zip(shards, ids)]
+    mask_biases = [(1.0 - m.float()) * -1e9 for m in masks]
+    for i in range(spec.num_layers):
+        layers = [{name: leaf[i] for name, leaf in sh["layers"].items()}
+                  for sh in shards]
+        xs = encoder_layer_tp(xs, layers, mask_biases, spec.num_heads, tp)
+    if spec.pooling == "cls":
+        return cls_pool_normalize(xs[0], masks[0])
+    return mean_pool_normalize(xs[0], masks[0])
 
 
 def mean_pool_normalize(hidden: torch.Tensor,

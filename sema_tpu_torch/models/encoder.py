@@ -14,8 +14,15 @@ int8 with per-output-channel scales as loaded, before any cast, and each
 layer then runs W8A8 (K5); the int8 weights are laid out once, at load,
 as the kernel reads them.
 
-Data-parallel and tensor-parallel meshes and the device-resident
-``return_device`` result are not ported yet.
+With a :class:`~sema_tpu_torch.parallel.mesh.Mesh` (``mesh=``), the
+batch splits over ``data_axis`` (data parallelism: each part embedded on
+its shard's device with the params replicated there) and, with
+``model_axis``, every layer's weights shard over that axis (Megatron
+tensor parallelism, ``models/tp.py``; each layer runs
+``bert.encoder_layer_tp``, K6 and K7). The two compose over a (data,
+model) mesh; other axes of the mesh repeat the same work, so it runs once.
+One process drives every shard, and a device may hold several. The
+device-resident ``return_device`` result is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from sema_tpu_torch.device import resolve_device
 from sema_tpu_torch.models import bert
 from sema_tpu_torch.models.loader import load_params
 from sema_tpu_torch.models.registry import EncoderSpec, get_spec
+from sema_tpu_torch.models.tp import shard_params_tp
 from sema_tpu_torch.tokenizer import load_tokenizer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -37,7 +45,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 class Encoder:
-    """Owns spec + params (on the device) + tokenizer."""
+    """Owns spec + params (on the device, or one tree per shard of the
+    mesh) + tokenizer."""
 
     # sequence-length bucket ladder (encoder.py:201): both the linear
     # FLOPs (∝ S) and the attention FLOPs (∝ S²) shrink with the bucket
@@ -46,27 +55,82 @@ class Encoder:
     def __init__(self, spec: EncoderSpec, params, tokenizer,
                  max_length: Optional[int] = None, batch_size: int = 256,
                  compute_dtype=torch.bfloat16, device=None,
-                 quant: str = "none"):
+                 quant: str = "none", mesh=None, data_axis: str = "data",
+                 model_axis: Optional[str] = None):
         quant = os.environ.get("SEMA_TPU_ENCODER_QUANT", quant)
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown encoder quant mode {quant!r}")
-        self.device = resolve_device(device)
         self.quant = quant
         self.spec = spec
-        params = {g: {k: v.to(self.device) for k, v in leaves.items()}
-                  for g, leaves in params.items()}
-        if quant == "int8":
-            params = bert.int8_kernel_layout(
-                bert.quantize_params_int8(params))
-        self.params = bert.cast_params(params, compute_dtype)
+        self.mesh, self.data_axis = mesh, data_axis
+        # tensor parallelism shards over an axis of a mesh
+        self.model_axis = model_axis if mesh is not None else None
         self.tokenizer = tokenizer
         self.max_length = max_length or spec.default_max_length
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
+        if mesh is None:
+            self.device = resolve_device(device)
+            grid = np.empty((1, 1), dtype=object)
+            grid[0, 0] = self.device
+        else:
+            # the mesh's devices: ``device`` names none of them
+            grid = mesh.grid([data_axis] + ([model_axis] if model_axis
+                                            else []))
+            grid = grid.reshape(grid.shape[0], -1).copy()
+            for idx in np.ndindex(*grid.shape):
+                grid[idx] = resolve_device(grid[idx])
+            self.device = grid[0, 0]
+        self._dp = grid.shape[0]
+        params = {g: {k: v.to(self.device) for k, v in leaves.items()}
+                  for g, leaves in params.items()}
+        if quant == "int8":
+            # quantized as loaded, before any cast or shard: the scales
+            # of the column-parallel linears move with their columns
+            params = bert.quantize_params_int8(params)
+            if self.model_axis is None:   # TP shards lay out their own
+                params = bert.int8_kernel_layout(params)
+        self.params = self.shards = None
+        if mesh is None:
+            self.params = bert.cast_params(params, compute_dtype)
+        elif self.model_axis is not None:
+            tp = mesh.shape[self.model_axis]
+            if spec.num_heads % tp:
+                # a tp that does not divide the heads would cut across
+                # them: fail loudly, as the JAX Encoder does
+                raise ValueError(
+                    f"model {spec.name!r} has {spec.num_heads} heads; "
+                    f"tensor-parallel degree {tp} must divide them")
+            trees = mesh.grid([data_axis, self.model_axis], shard_params_tp(
+                params, mesh, self.model_axis))
+            cast: dict = {}           # one cast per distinct tree
+            self.shards = np.empty(trees.shape, dtype=object)
+            for idx in np.ndindex(*trees.shape):
+                tree = trees[idx]
+                if id(tree) not in cast:
+                    cast[id(tree)] = bert.cast_params(tree, compute_dtype,
+                                                      biases=False)
+                self.shards[idx] = cast[id(tree)]
+        else:
+            placed: dict = {}         # the params once per distinct device
+            self.shards = np.empty(grid.shape, dtype=object)
+            for idx in np.ndindex(*grid.shape):
+                dev = grid[idx]
+                if str(dev) not in placed:
+                    placed[str(dev)] = bert.cast_params(
+                        {g: {k: v.to(dev) for k, v in leaves.items()}
+                         for g, leaves in params.items()}, compute_dtype)
+                self.shards[idx] = placed[str(dev)]
+        if self.batch_size % self._dp:
+            self.batch_size += self._dp - self.batch_size % self._dp
 
     @classmethod
-    def from_config(cls, model_cfg, device=None) -> "Encoder":
-        """Build from a :class:`sema_tpu_torch.config.ModelConfig`."""
+    def from_config(cls, model_cfg, device=None, mesh=None,
+                    data_axis: str = "data",
+                    model_axis: Optional[str] = None) -> "Encoder":
+        """Build from a :class:`sema_tpu_torch.config.ModelConfig`.
+        ``model_axis`` (from ``[mesh] model_axis``) turns on tensor
+        parallelism over that axis of ``mesh``."""
         spec = get_spec(model_cfg.name)
         params, wsource = load_params(spec, model_cfg.weights_path)
         tok, tsource = load_tokenizer(spec.vocab_size, spec.hf_repo,
@@ -74,7 +138,8 @@ class Encoder:
         enc = cls(spec, params, tok, max_length=model_cfg.max_length,
                   batch_size=model_cfg.batch_size,
                   compute_dtype=DTYPES[model_cfg.dtype], device=device,
-                  quant=model_cfg.quant)
+                  quant=model_cfg.quant, mesh=mesh, data_axis=data_axis,
+                  model_axis=model_axis)
         enc.weights_source = wsource
         enc.tokenizer_source = tsource
         return enc
@@ -99,12 +164,35 @@ class Encoder:
         return ids, mask
 
     def embed_ids(self, ids, mask) -> torch.Tensor:
-        """(batch, dim) f32 L2-normalized embeddings on the device."""
-        ids = torch.as_tensor(ids).to(self.device, non_blocking=True)
-        mask = torch.as_tensor(mask).to(self.device, non_blocking=True)
+        """(batch, dim) f32 L2-normalized embeddings on the device (the
+        mesh's first). On a mesh the batch is padded with all-PAD rows to
+        a multiple of the data-parallel degree and split over it."""
+        ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
+        if self.shards is None:
+            with torch.inference_mode():
+                return bert.embed(self.params,
+                                  ids.to(self.device, non_blocking=True),
+                                  mask.to(self.device, non_blocking=True),
+                                  self.spec, self.compute_dtype)
+        n = ids.shape[0]
+        pad = -n % self._dp
+        if pad:
+            ids = torch.cat([ids, ids.new_full((pad, ids.shape[1]),
+                                               self.tokenizer.pad_id)])
+            mask = torch.cat([mask, mask.new_zeros((pad, mask.shape[1]))])
+        outs = []
         with torch.inference_mode():
-            return bert.embed(self.params, ids, mask, self.spec,
-                              self.compute_dtype)
+            for row, i, m in zip(self.shards, ids.chunk(self._dp),
+                                 mask.chunk(self._dp)):
+                if self.model_axis is None:
+                    dev = row[0]["embeddings"]["word"].device
+                    out = bert.embed(row[0], i.to(dev), m.to(dev), self.spec,
+                                     self.compute_dtype)
+                else:
+                    out = bert.embed_tp(list(row), i, m, self.spec,
+                                        self.compute_dtype)
+                outs.append(out.to(self.device))
+        return torch.cat(outs)[:n]
 
     def _bucket_len(self, n: int) -> int:
         for b in self.BUCKETS:
@@ -170,6 +258,7 @@ class Encoder:
 
     def encode_query_device(self, text: str) -> torch.Tensor:
         """Single-query embedding left on the device, (dim,) f32. The
-        query is padded to ``max_length``, as in the JAX package."""
+        query is padded to ``max_length`` (and on a mesh to the
+        data-parallel degree in rows), as in the JAX package."""
         ids, mask = self.tokenize_batch([text], pad_to=1)
         return self.embed_ids(ids, mask)[0]

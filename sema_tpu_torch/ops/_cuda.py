@@ -140,6 +140,12 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def launch(entry, device, *args) -> int:
+    """``entry(*args, stream)``, a kernel entry point called with the
+    current stream of ``device`` while ``device`` is the current card: a
+    kernel launches in the current card's context, and a mesh's shards may
+    lie on several cards. Returns the entry point's ``cudaError_t``."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return entry(*args, ctypes.c_void_p(stream))

@@ -34,13 +34,14 @@ import torch
 
 from sema_tpu_torch.ops import _cuda
 from sema_tpu_torch.ops._cuda import KernelError
+from sema_tpu_torch.ops.attention import DTYPE_CODES as _DTYPE_CODES
+from sema_tpu_torch.ops.attention import heads_attention
 
 _P = ctypes.c_void_p
 _SIGNATURES = {"sema_encoder_layer": (
     [_P] * 19                  # x, 12 params, mask, 5 outs
     + [ctypes.c_int] * 6       # B, S, H, I, heads, dtype
     + [ctypes.c_float, ctypes.c_float, _P])}      # scale, eps, stream
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _WEIGHTS = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
 _BIASES = ("qkv_b", "attn_out_b", "ffn_in_b", "ffn_out_b")
 _LN = ("attn_ln_scale", "attn_ln_bias", "ffn_ln_scale", "ffn_ln_bias")
@@ -78,19 +79,14 @@ def layer_with_products(x: torch.Tensor, layer: dict,
     dt = x.dtype
     f32 = torch.float32
     acc = dt if dt == torch.bfloat16 else f32
-    hd = h // num_heads
 
     def bias(name, d):                   # the bias rounded to dt, then d
         return layer[name].to(dt).to(d)
 
     xf = x.reshape(b * s, h)
     qkv = (mm(xf, "qkv_w") + bias("qkv_b", f32)).to(dt)
-    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    scores = q.float() @ k.float().transpose(-1, -2)          # (b, n, s, s)
-    scores = scores * scale + mask_bias.float()[:, None, None, :]
-    probs = torch.softmax(scores.to(dt), dim=-1)
-    ctx = (probs.float() @ v.float()).to(dt)
-    ctx = ctx.permute(0, 2, 1, 3).reshape(b * s, h)
+    ctx = heads_attention(qkv.view(b, s, 3 * h), mask_bias, num_heads,
+                          scale).reshape(b * s, h)
 
     attn = mm(ctx, "attn_out_w").to(acc)
     attn = (attn + bias("attn_out_b", acc)).to(dt)
@@ -180,13 +176,13 @@ def fused_encoder_layer(x: torch.Tensor, layer: dict,
     up = torch.empty((m, inter), dtype=dt, device=x.device)
     out = torch.empty((b, s, h), dtype=dt, device=x.device)
     ptr = lambda t: t.data_ptr()
-    err = lib.sema_encoder_layer(
+    err = _cuda.launch(
+        lib.sema_encoder_layer, x.device,
         ptr(x), ptr(weights[0]), ptr(biases[0]), ptr(weights[1]),
         ptr(biases[1]), ptr(lns[0]), ptr(lns[1]), ptr(weights[2]),
         ptr(biases[2]), ptr(weights[3]), ptr(biases[3]), ptr(lns[2]),
         ptr(lns[3]), ptr(mask), ptr(qkv), ptr(ctx), ptr(h1), ptr(up),
-        ptr(out), b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps,
-        _cuda.stream_ptr(x.device))
+        ptr(out), b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps)
     _cuda.check(lib, err, "fused_encoder_layer")
     fused_encoder_layer.launches += 1
     return out

@@ -99,9 +99,9 @@ def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = lib.sema_qmm(x.data_ptr(), rows.data_ptr(), ws.data_ptr(),
-                       xq.data_ptr(), sx.data_ptr(), out.data_ptr(), m, k, n,
-                       _DTYPE_CODES[x.dtype], _cuda.stream_ptr(x.device))
+    err = _cuda.launch(lib.sema_qmm, x.device, x.data_ptr(), rows.data_ptr(),
+                       ws.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                       out.data_ptr(), m, k, n, _DTYPE_CODES[x.dtype])
     _cuda.check(lib, err, "qmm")
     return out
 
@@ -149,12 +149,12 @@ def fused_encoder_layer_int8(x: torch.Tensor, layer: dict,
     params = []
     for w, sc, bi in zip(rows, scales, biases):
         params += [ptr(w), ptr(sc), ptr(bi)]
-    err = lib.sema_encoder_layer_int8(
+    err = _cuda.launch(
+        lib.sema_encoder_layer_int8, dev,
         ptr(x), *params[:6], ptr(lns[0]), ptr(lns[1]), *params[6:],
         ptr(lns[2]), ptr(lns[3]), ptr(mask), ptr(qkv), ptr(ctx), ptr(h1),
         ptr(up), ptr(out), ptr(qa), ptr(sa), ptr(qh), ptr(sh), ptr(qu),
-        ptr(su), b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps,
-        _cuda.stream_ptr(dev))
+        ptr(su), b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps)
     _cuda.check(lib, err, "fused_encoder_layer_int8")
     fused_encoder_layer_int8.launches += 1
     return out

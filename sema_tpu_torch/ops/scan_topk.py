@@ -259,12 +259,13 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
     out_s = torch.empty((nq, k), dtype=f32, device=store.device)
     out_i = torch.empty((nq, k), dtype=i32, device=store.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.sema_scan_topk(
+    err = _cuda.launch(
+        lib.sema_scan_topk, store.device,
         store.data_ptr(), q.data_ptr(), ptr(valid), ptr(row_scale),
         ptr(tile_dev), tile_n, n, d, nq, k, _DTYPE_CODES[store.dtype],
         _query_block(k), rows, slab_words(d, store.element_size(), k),
         chunks, cand_s.data_ptr(), cand_i.data_ptr(), ptr(qscale),
-        out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_ptr(store.device))
+        out_s.data_ptr(), out_i.data_ptr())
     _cuda.check(lib, err, "scan_topk")
     return out_s, out_i
 

@@ -23,7 +23,8 @@ from sema_tpu_torch.tokenizer import HashTokenizer
 REPO = Path(__file__).resolve().parents[1]
 
 # A blocked jax, every module of the port imported, then the CLI's index
-# and query on the CPU with the default model (MiniLM-L6, random weights).
+# and query on the CPU with the default model (MiniLM-L6, random weights),
+# and the tensor-parallel encoder on a (2, 2) mesh of CPU shards.
 _ISOLATED = r"""
 import importlib, io, json, pkgutil, sys
 from contextlib import redirect_stdout
@@ -45,8 +46,18 @@ with redirect_stdout(out):
                      "--device", "cpu"]) == 0
 hits = [json.loads(l) for l in out.getvalue().splitlines()
         if l.startswith("{")]
+from sema_tpu_torch.models.encoder import Encoder
+from sema_tpu_torch.models.loader import random_params
+from sema_tpu_torch.models.registry import get_spec
+from sema_tpu_torch.parallel.mesh import make_mesh
+from sema_tpu_torch.tokenizer import HashTokenizer
+spec = get_spec("test-tiny")
+tp = Encoder(spec, random_params(spec), HashTokenizer(spec.vocab_size),
+             mesh=make_mesh([2, 2], ("data", "model"), devices=["cpu"] * 4),
+             model_axis="model")
 print(json.dumps({
     "modules": names, "hits": len(hits),
+    "tp_rows": tuple(tp.encode_texts(["a", "b", "c"]).shape),
     "sema_tpu": sorted(m for m in sys.modules
                        if m == "sema_tpu" or m.startswith("sema_tpu.")),
     "jax": sorted(m for m in sys.modules
@@ -70,7 +81,9 @@ def test_port_runs_with_jax_blocked_and_imports_no_sema_tpu(tmp_path):
     report = json.loads(proc.stdout.splitlines()[-1])
     assert "sema_tpu_torch.ops.scan_topk" in report["modules"]
     assert "sema_tpu_torch.cli" in report["modules"]
-    assert report["hits"] > 0
+    for name in ("parallel", "parallel.mesh", "models.tp", "ops.attention"):
+        assert f"sema_tpu_torch.{name}" in report["modules"]
+    assert report["hits"] > 0 and report["tp_rows"] == [3, 64]
     assert report["sema_tpu"] == [] and report["jax"] == []
 
 
