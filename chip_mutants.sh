@@ -5,9 +5,9 @@
 #     bash chip_mutants.sh k6_no_bias k7_next_heads_keys   # only these
 #
 # Each mutant is a copy of chip_smoke.py and sema_tpu_torch/ under
-# build/mut-<name>/ with one fault put into a CUDA source by sed (and,
-# where the fault spans both, into the Python wrapper beside it); the
-# phase that must catch it runs from the copy and must exit non-zero.
+# build/mut-<name>/ with one fault put by sed into a CUDA source or a
+# Python wrapper (or, where the fault spans both, into each); the phase
+# that must catch it runs from the copy and must exit non-zero.
 # A cli_mutant breaks K5 so that it cannot build or refuses its tensors,
 # and `python -m sema_tpu_torch query` on the int8 encoder must then exit
 # non-zero with the kernel's error, not answer from the substring scan.
@@ -20,9 +20,10 @@ ONLY=("$@")
 # true for every mutant when none is named on the command line
 chosen() { [ ${#ONLY[@]} -eq 0 ] || [[ " ${ONLY[*]} " == *" $1 "* ]]; }
 mutant() {
-  # name, CUDA source, sed expression, phases[, a second file under
-  # sema_tpu_torch/ and its sed expression]
-  local name=$1 file=csrc/$2 expr=$3 phases=$4 file2=${5:-} expr2=${6:-}
+  # name, CUDA source (or a path under sema_tpu_torch/), sed expression,
+  # phases[, a second file under sema_tpu_torch/ and its sed expression]
+  local name=$1 file=$2 expr=$3 phases=$4 file2=${5:-} expr2=${6:-}
+  [[ $file == */* ]] || file=csrc/$file
   chosen "$name" || return 0
   local dir=build/mut-$name
   rm -rf "$dir"
@@ -100,6 +101,20 @@ mutant k6_stride_of_x encoder_layer.cu \
 mutant k7_next_heads_keys encoder_layer.cu \
   's|in ? \*reinterpret_cast<const uint4\*>(base + r \* rs + H + v \* 8) : zero;|in ? *reinterpret_cast<const uint4*>(base + r * rs + H + ((head + 1) % (H / HD) - head) * HD + v * 8) : zero;|' \
   attention
+# K8: the threshold is the sample's k-th itself, without the one-ULP backoff
+mutant k8_no_backoff ops/scan_topk.py \
+  's/    return torch.nextafter(sample_kth, sample_kth.new_tensor(float("-inf")))/    return sample_kth/' \
+  scan_ab
+# K8: each query screens with the next query's threshold
+mutant k8_next_query_thr0 scan_topk.cu \
+  's/a.thr0\[q0 + qi\]/a.thr0[q0 + (qi + 1) % nqb]/' scan_ab
+# K9: the fast path whatever the lanes' survivor counts
+mutant k9_always_fast scan_topk.cu \
+  's/const bool fast = __all_sync(0xffffffffu, cnt <= 1);/const bool fast = true;/' \
+  scan_ab
+# K9: the highest column first among equal folded values
+mutant k9_highest_column scan_topk.cu \
+  's/(ov == bv \&\& oc < bc)/(ov == bv \&\& oc > bc)/' scan_ab
 cli_mutant() {
   local name=$1 file=$2 expr=$3 expect=$4
   chosen "$name" || return 0

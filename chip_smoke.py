@@ -133,6 +133,27 @@ Phases, one JSON line each:
                       ``bert._linear`` at gte-large's widest shard product
                       must sum in f32, and every (B, S) at which the path
                       launches K6 or K7 must be one ``attention`` holds.
+13. ``scan_ab``       the scan A/B paths, K8 (the warm-start scan) and K9
+                      (the fold-merge scan) beside K1, each call counted
+                      from 0 and checked against the count of calls made:
+                      at 1,048,576 x 384 bf16 without a mask, Q 256 and 1,
+                      k 10 (K8 warm 2,048, 4,096 and 8,192), 64 and 128
+                      (warm 2,048), K8 on unit rows (``scan_ab15``'s kind),
+                      K9 on normal rows (``scan_ab14``'s) with three planted
+                      ties that the first queries hit; K8 masked on a sealed
+                      bucket with 10% tombstones and TIE, with its warm
+                      sample all tombstoned, and on one-hot rows whose
+                      global k-th ties the sample's k-th
+                      (``one_hot_ties``). Every K8 and K9 result must equal
+                      K1's on the same inputs bit for bit; K1, K8 and K9
+                      against their plain versions under ``check_scan``.
+                      Kernel, plain and library (``torch.topk`` of the bf16
+                      product) times beside the bound, and the share of
+                      K9's merged spans that took the fast path. Then
+                      ``python -m sema_tpu_torch.tools.scan_ab15`` and
+                      ``scan_ab14`` (and ``scan_ab14 --small``) at their
+                      default shapes, which must exit 0 with ids identical
+                      through their kernels.
 
 Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises, so the script
@@ -223,6 +244,7 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
 def _wrappers() -> dict:
     from sema_tpu_torch import ops
     return {**{name: getattr(ops, name) for name in SCANS},
+            "scan_topk_warm": ops.scan_topk_warm, "fold_topk": ops.fold_topk,
             "encoder_layer": ops.fused_encoder_layer,
             "encoder_layer_int8": ops.fused_encoder_layer_int8,
             "attention_block": ops.fused_attention_block,
@@ -322,20 +344,25 @@ def plain_scans():
 TIE = [7] + list(range(100, 116))      # rows 100..115 duplicate row 7
 
 
-def check_scan(store, queries, valid, masked, got, want) -> float:
+def check_scan(store, queries, valid, masked, got, want,
+               relative=False) -> float:
     """Raise unless the kernel's (scores, ids) agree with the plain
-    version's: the same -inf slots (id 0), scores within 1e-5, and where
-    ids differ, the kernel's row scores within 1e-5 (relative, floor 1) of
-    the plain version's score in that slot. Both sum the same f32
-    products in another order (6.6e-7 apart at most when measured), so a
-    kernel that scored in bf16 would fail. Returns the max abs error."""
+    version's: the same -inf slots (id 0), scores within 1e-5 (relative,
+    floor 1, where ``relative``: rows and queries that are not unit
+    vectors), and where ids differ, the kernel's row scores within 1e-5
+    (relative, floor 1) of the plain version's score in that slot. Both
+    sum the same f32 products in another order (6.6e-7 apart at most when
+    measured on unit vectors), so a kernel that scored in bf16 would
+    fail. Returns the max abs error."""
     s_k, i_k = got
     s_p, i_p = want
     fin = torch.isfinite(s_p)
     check(torch.equal(torch.isfinite(s_k), fin), "-inf slots differ")
     check(not i_k[~fin].any(), "a -inf slot has an id other than 0")
-    err = float((s_k[fin] - s_p[fin]).abs().max()) if fin.any() else 0.0
-    check(err <= 1e-5, f"scores differ by {err}")
+    diff = (s_k[fin] - s_p[fin]).abs()
+    scale = s_p[fin].abs().clamp(min=1.0) if relative else 1.0
+    err = float(diff.max()) if fin.any() else 0.0
+    check(bool((diff <= 1e-5 * scale).all()), f"scores differ by {err}")
     differ = (i_k != i_p) & fin
     if differ.any():
         rows = store[i_k.long()].float()                        # (Q, k, d)
@@ -535,6 +562,244 @@ def phase_scan_more(gen):
     emit("scan_int8", cases=int8_cases)
     emit("scan_pruned", cases=pruned_cases)
     return int8_cases, pruned_cases
+
+
+# -- K8, K9: the scan A/B paths ---------------------------------------------------
+
+AB_N = 1 << 20                 # the A/B tools' store: 1,048,576 rows at D
+AB_WARM = (2048, 4096, 8192)   # scan_ab15's warm starts (k 10; k 64, 128: 2048)
+AB_SHAPES = ((256, 10), (1, 10), (256, 64), (1, 64), (256, 128), (1, 128))
+# K9's planted ties: an adjacent pair (two lanes of one span: the fast
+# path's tie order), a pair 32 rows apart (one lane: the slow path) and a
+# duplicate in another span (scan_ab14's 4096 = 100), each the query of
+# one of the first three queries, so the ties land in the top k
+FOLD_TIES = ((406_200, 406_201), (700_000, 700_032), (100, 4096))
+AB_TIE_N, AB_TIE_Q, AB_TIE_K = SEAL, 8, 10
+
+
+def ab_stores(gen):
+    """scan_ab15's kind of store (unit rows, bf16) and scan_ab14's
+    (normal rows, bf16, with FOLD_TIES), made on the card."""
+    warm = F.normalize(torch.randn(AB_N, D, generator=gen, device=DEV),
+                       dim=1).to(BF16)
+    fold = torch.randn(AB_N, D, generator=gen, device=DEV)
+    for a, b in FOLD_TIES:
+        fold[b] = fold[a]
+    return warm, fold.to(BF16)
+
+
+def ab_queries(warm, fold, nq, gen):
+    qw = F.normalize(torch.randn(nq, D, generator=gen, device=DEV), dim=1)
+    qf = torch.randn(nq, D, generator=gen, device=DEV)
+    for j, (a, _) in enumerate(FOLD_TIES[:nq]):
+        qf[j] = fold[a].float()
+    return qw, qf
+
+
+def one_hot_ties(warm_rows, gen):
+    """The JAX tie test (tests/test_pallas_topk.py:287-304) scaled up:
+    AB_TIE_N rows of zeros but for the first AB_TIE_Q columns, query c
+    one-hot on column c, so each score is one stored bf16 value exactly.
+    In column c, at scale 2^c / 256: the background under 0.4; inside the
+    warm sample 2 rows at 0.9 and 9 at 0.5, so the sample's k-th is 0.5;
+    outside it 3 rows at 0.95 and 4 at 0.5. The top 10 are the 0.95s, the
+    0.9s and the first five 0.5s, all inside the sample: the global k-th
+    equals the sample's, and a screen at the sample's k-th itself drops
+    five rows of the top 10. Query c + 1's threshold (about 2^c / 256)
+    lies above every score of query c."""
+    store = torch.zeros(AB_TIE_N, D, device=DEV)
+    for c in range(AB_TIE_Q):
+        s = 2.0 ** c / 256
+        col = torch.rand(AB_TIE_N, generator=gen, device=DEV) * 0.4 * s
+        pick = torch.randperm(warm_rows, generator=gen, device=DEV)[:11]
+        col[pick[:2]], col[pick[2:]] = 0.9 * s, 0.5 * s
+        pick = torch.randperm(AB_TIE_N - warm_rows, generator=gen,
+                              device=DEV)[:7] + warm_rows
+        col[pick[:3]], col[pick[3:]] = 0.95 * s, 0.5 * s
+        store[:, c] = col
+    q = torch.zeros(AB_TIE_Q, D, device=DEV)
+    q[:, :AB_TIE_Q] = torch.eye(AB_TIE_Q, device=DEV)
+    return store.to(BF16), q
+
+
+def ab_record(kernel, store, q, k, fn, plain, lib_q, err, **extra):
+    """Times of one kernel at one A/B shape, with its bound (no mask)."""
+    nq, n = q.shape[0], store.shape[0]
+    iters = 5 if nq > 1 else 20
+    ms, bound_by = bound(n * D * 2 + nq * D * 4 + nq * k * 8,
+                         2.0 * nq * n * D)
+    return {"kernel": kernel, "n": n, "d": D, "q": nq, "k": k, **extra,
+            "max_abs_err": err, "ms": device_ms(fn, iters),
+            "plain_ms": device_ms(plain, 2 if nq > 1 else 5),
+            "library_ms": device_ms(lambda: torch.topk(lib_q @ store.T, k),
+                                    iters),
+            "bound_ms": ms, "bound_by": bound_by}
+
+
+def run_tool(module: str, *argv) -> dict:
+    """``python -m sema_tpu_torch.tools.<module>`` on the card at its
+    default shapes: it must exit 0 with ids identical, through its
+    kernels. Returns its last line and what it printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"sema_tpu_torch.tools.{module}", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}: "
+          f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(last["ids_identical"] and all(last["launches"].values()),
+          f"{module}: {last}")
+    return {"tool": module, "seconds": time.perf_counter() - t0,
+            "last": last, "printed": (proc.stdout + proc.stderr)[-1500:]}
+
+
+def phase_scan_ab(gen):
+    """K8 and K9 on the scan A/B paths: every call of K1, K8 and K9 below
+    is the path's, counted from 0; then each K8 and K9 result against K1's
+    on the same inputs, bit for bit, K1 against its plain version, the
+    times, and the two tools on the card."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    scan_topk, fold_topk = scan_mod.scan_topk, scan_mod.fold_topk
+    warm_store, fold_store = ab_stores(gen)
+    live = torch.ones(AB_N, dtype=torch.bool, device=DEV)
+    queries = {nq: ab_queries(warm_store, fold_store, nq, gen)
+               for nq in sorted({nq for nq, _ in AB_SHAPES})}
+    # K8 more: a sealed bucket with tombstones and TIE, and with the
+    # whole sample tombstoned; the one-hot ties
+    tie_store, tie_q = one_hot_ties(AB_WARM[0], gen)
+    tomb = F.normalize(torch.randn(SEAL, D, generator=gen, device=DEV), dim=1)
+    tomb[TIE[1:]] = tomb[TIE[0]].clone()
+    tomb = tomb.to(BF16)
+    tomb_valid = torch.rand(SEAL, generator=gen, device=DEV) > 0.1
+    tomb_valid[TIE] = True
+    dead_sample = tomb_valid.clone()
+    dead_sample[:AB_WARM[0]] = False
+    tomb_q = F.normalize(torch.randn(256, D, generator=gen, device=DEV), dim=1)
+    tomb_q[0] = tomb[TIE[0]].float()
+
+    # the path: K1 cold beside each K8 and K9 call, counted from 0
+    reset_launch_counts()
+    calls = Counter()
+    runs, more_runs = [], []
+    for nq, k in AB_SHAPES:
+        qw, qf = queries[nq]
+        stats = torch.zeros(2, dtype=torch.int64, device=DEV)
+        run = {"nq": nq, "k": k,
+               "cold": scan_topk(warm_store, qw, live, k, masked=False),
+               "warm": {w: scan_topk(warm_store, qw, live, k, masked=False,
+                                     warm_rows=w)
+                        for w in (AB_WARM if k == 10 else AB_WARM[:1])},
+               "fold_cold": scan_topk(fold_store, qf, live, k, masked=False),
+               "fold": fold_topk(fold_store, qf, k, stats=stats),
+               "stats": stats}
+        calls["scan_topk"] += 2
+        calls["scan_topk_warm"] += len(run["warm"])
+        calls["fold_topk"] += 1
+        runs.append(run)
+    for name, store, q, valid, k, masked in (
+            ("tombstones", tomb, tomb_q[:1], tomb_valid, 16, True),
+            ("tombstones", tomb, tomb_q, tomb_valid, 16, True),
+            ("tombstones", tomb, tomb_q, tomb_valid, 128, True),
+            ("dead_sample", tomb, tomb_q, dead_sample, 10, True),
+            ("one_hot_ties", tie_store, tie_q, live[:AB_TIE_N], AB_TIE_K,
+             True),
+            ("one_hot_ties", tie_store, tie_q, live[:AB_TIE_N], AB_TIE_K,
+             False)):
+        more_runs.append({
+            "name": name, "store": store, "q": q, "valid": valid, "k": k,
+            "masked": masked,
+            "cold": scan_topk(store, q, valid, k, masked),
+            "warm": scan_topk(store, q, valid, k, masked,
+                              warm_rows=AB_WARM[0])})
+        calls["scan_topk"] += 1
+        calls["scan_topk_warm"] += 1
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(calls)
+    check(launches == want, f"scan_ab launches {launches}, want {want}")
+
+    def equal(got, ref, what):
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"{what}: not bit-equal to K1")
+
+    cases = []
+    for run in runs:
+        nq, k = run["nq"], run["k"]
+        qw, qf = queries[nq]
+        for w, got in run["warm"].items():
+            equal(got, run["cold"], f"K8 warm {w}, Q={nq}, k={k}")
+        equal(run["fold"], run["fold_cold"], f"K9, Q={nq}, k={k}")
+        for j, pair in enumerate(FOLD_TIES[:nq]):
+            check(run["fold"][1][j, :2].tolist() == list(pair),
+                  f"K9, Q={nq}, k={k}: the tie {pair} out of id order")
+        err_cold = check_scan(warm_store, qw, live, False, run["cold"],
+                              scan_mod.scan_topk_reference(
+                                  warm_store, qw, live, k, masked=False))
+        err_fold = check_scan(fold_store, qf, live, False, run["fold"],
+                              scan_mod.fold_topk_reference(fold_store, qf, k),
+                              relative=True)
+        w0 = AB_WARM[0]
+        err_warm = check_scan(warm_store, qw, live, False, run["warm"][w0],
+                              scan_mod.scan_topk_warm_reference(
+                                  warm_store, qw, live, k, w0, masked=False))
+        qb = qw.to(BF16)
+        cases.append(ab_record(
+            "K1", warm_store, qw, k,
+            lambda: scan_topk(warm_store, qw, live, k, masked=False),
+            lambda: scan_mod.scan_topk_reference(warm_store, qw, live, k,
+                                                 masked=False), qb, err_cold))
+        for w in run["warm"]:
+            cases.append(ab_record(
+                "K8", warm_store, qw, k,
+                lambda: scan_topk(warm_store, qw, live, k, masked=False,
+                                  warm_rows=w),
+                lambda: scan_mod.scan_topk_warm_reference(
+                    warm_store, qw, live, k, w, masked=False), qb, err_warm,
+                warm=w))
+        merged, fast = run["stats"].tolist()
+        cases.append(ab_record(
+            "K9", fold_store, qf, k, lambda: fold_topk(fold_store, qf, k),
+            lambda: scan_mod.fold_topk_reference(fold_store, qf, k),
+            qf.to(BF16), err_fold, spans_merged=merged,
+            fast_share=fast / max(merged, 1),
+            k1_ms=device_ms(lambda: scan_topk(fold_store, qf, live, k,
+                                              masked=False),
+                            5 if nq > 1 else 20)))
+        torch.cuda.empty_cache()
+    more_cases = []
+    for r in more_runs:
+        name, store, q, valid, k = (r[key] for key in ("name", "store", "q",
+                                                       "valid", "k"))
+        what = f"K8 {name}, Q={q.shape[0]}, k={k}, masked={r['masked']}"
+        equal(r["warm"], r["cold"], what)
+        plain = scan_mod.scan_topk_warm_reference(store, q, valid, k,
+                                                  AB_WARM[0], r["masked"])
+        err = check_scan(store, q, valid, r["masked"], r["warm"], plain)
+        check_scan(store, q, valid, r["masked"], r["cold"],
+                   scan_mod.scan_topk_reference(store, q, valid, k,
+                                                r["masked"]))
+        if name == "one_hot_ties":    # exact scores: the plain ids exactly
+            check(torch.equal(r["warm"][1], plain[1]), f"{what}: ids")
+        if name == "tombstones":
+            t = min(k, len(TIE))
+            check(r["warm"][1][0, :t].tolist() == TIE[:t],
+                  f"{what}: tied rows out of id order")
+        more_cases.append({"case": name, "n": store.shape[0], "d": D,
+                             "q": q.shape[0], "k": k,
+                             "masked": r["masked"], "warm": AB_WARM[0],
+                             "max_abs_err": err})
+    del warm_store, fold_store, runs, more_runs, queries, tomb, tie_store
+    torch.cuda.empty_cache()
+    tools = [run_tool("scan_ab15"), run_tool("scan_ab14"),
+             run_tool("scan_ab14", "--small")]
+    emit("scan_ab", launches=launches, cases=cases,
+         more_cases=more_cases, tools=tools)
+    pick = lambda kernel, **kw: next(
+        c for c in cases if c["kernel"] == kernel and c["q"] == 256
+        and c["k"] == 10 and all(c.get(a) == b for a, b in kw.items()))
+    return {"launches": launches, "K1": pick("K1"),
+            "K8": pick("K8", warm=AB_WARM[0]), "K9": pick("K9")}
 
 
 # -- K2 -----------------------------------------------------------------------
@@ -2010,6 +2275,8 @@ def main() -> int:
         attention_cases = phase_attention(gen)
     if run("scan_int8") or run("scan_pruned"):
         phase_scan_more(gen)
+    if run("scan_ab"):
+        scan_ab = phase_scan_ab(gen)
     (ROOT / "build").mkdir(exist_ok=True)
     paths = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
@@ -2049,7 +2316,7 @@ def main() -> int:
               if (c["model"], c["dtype"], c["b"], c["s"])
               == (IVF_MODEL, "bfloat16", 1, 256))
     int8_k, bf16_k = paths["int8"]["kernels"], paths["bfloat16"]["kernels"]
-    runs = [index_launches, query_launches] + [
+    runs = [index_launches, query_launches, scan_ab["launches"]] + [
         p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")]
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
@@ -2088,7 +2355,11 @@ def main() -> int:
               "sema_tpu/ops/fused_attention.py:216", [1, 256, GTE_D, 512],
               k6),
         entry("attention_qkv", "sema_tpu_torch/csrc/encoder_layer.cu",
-              "sema_tpu/ops/fused_attention.py:134", [256, 32, 3 * 512], k7)]
+              "sema_tpu/ops/fused_attention.py:134", [256, 32, 3 * 512], k7),
+        entry("scan_topk_warm", scan_src, "sema_tpu/ops/pallas_topk.py:280",
+              [AB_N, 256, 10], scan_ab["K8"]),
+        entry("fold_topk", scan_src, "tools/scan_ab14.py:164",
+              [AB_N, 256, 10], scan_ab["K9"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

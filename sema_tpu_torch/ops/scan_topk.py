@@ -1,9 +1,15 @@
-"""Exact top-k scans of ``queries @ store.T`` (K1, K4a, K3 and K4b of the port).
+"""Exact top-k scans of ``queries @ store.T`` (K1, K4a, K3, K4b, K8 and K9
+of the port).
 
-Four wrappers, one kernel source (``csrc/scan_topk.cu``), each replacing a
-TPU kernel of ``sema_tpu/ops/pallas_topk.py``:
+Six wrappers, one kernel source (``csrc/scan_topk.cu``), each replacing a
+TPU kernel of ``sema_tpu/ops/pallas_topk.py`` or ``tools/scan_ab14.py``:
 
 - :func:`scan_topk` (K1, ``pallas_topk``): a bf16/f16/f32 store;
+- :func:`scan_topk_warm` (K8, ``pallas_topk(warm_rows=)``): K1 with each
+  query's screen started one ULP below the k-th best of the store's first
+  ``warm_rows`` rows; ``scan_topk(warm_rows=)`` calls it;
+- :func:`fold_topk` (K9, ``tools/scan_ab14.py:fold_topk``): K1 without a
+  mask, merging each span of rows through a per-lane fold;
 - :func:`scan_topk_int8` (K4a, ``pallas_topk_int8``): an int8 store;
 - :func:`scan_topk_pruned` (K3, ``pallas_topk_pruned``): the tiles of an
   IVF probe of a bf16/f16/f32 store;
@@ -37,7 +43,9 @@ picks it on the host, and its range is checked there.
 Unlike the TPU kernels, N need not be a tile multiple (the kernel masks
 its own ragged edge) and k may reach 1024 (the store's largest k class).
 The int8 scores and ids equal the plain version's bit for bit: an i32 sum
-of d <= 1040 products of int8 values converts to f32 without loss.
+of d <= 1040 products of int8 values converts to f32 without loss. K8 and
+K9 compute K1's function: on the card their scores and ids equal K1's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -62,8 +70,16 @@ _SIGNATURES = {"sema_scan_topk": [
     _I, _I, _I, _I, _I,    # tile_n, n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
                            # slab, chunks
-    _P, _P, _P,            # candidates, query scales
-    _P, _P, _P]}           # outputs, stream
+    _P, _P, _P, _P,        # candidates, query scales, warm thresholds
+    _P, _P, _P],           # outputs, stream
+    "sema_fold_topk": [
+    _P, _P,                # store, queries
+    _I, _I, _I, _I,        # n, d, nq, k
+    _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
+                           # slab, chunks
+    _P, _P, _P, _P,        # candidates, outputs
+    _P, _P]}               # span counters, stream
+_FOLD_SPAN = 256        # rows each K9 merge takes (csrc/scan_topk.cu)
 
 
 def _select(scores: torch.Tensor, k: int):
@@ -83,13 +99,57 @@ def _select(scores: torch.Tensor, k: int):
     return top_s, top_i
 
 
+def _scores(store, queries, valid, masked):
+    """(Q, N) f32 scores, masked rows -inf."""
+    scores = queries.to(store.dtype).float() @ store.float().T
+    if masked:
+        scores = scores.masked_fill(~valid.bool()[None, :], float("-inf"))
+    return scores
+
+
 def scan_topk_reference(store: torch.Tensor, queries: torch.Tensor,
                         valid: torch.Tensor, k: int, masked: bool = True):
     """Plain PyTorch version of :func:`scan_topk` (same contract)."""
-    scores = queries.to(store.dtype).float() @ store.float().T   # (Q, N)
-    if masked:
-        scores = scores.masked_fill(~valid.bool()[None, :], float("-inf"))
-    return _select(scores, k)
+    return _select(_scores(store, queries, valid, masked), k)
+
+
+def _warm_rows(warm_rows: int, n: int, k: int) -> int:
+    """The warm-start sample's rows, ``warm_rows`` clamped to N; raises
+    ValueError when it holds fewer than k rows, as ``pallas_topk`` does
+    (``lax.top_k`` of the sample refuses)."""
+    w = min(warm_rows, n)
+    if k > w:
+        raise ValueError(f"k={k} exceeds the warm-start sample of {w} rows "
+                         f"(warm_rows={warm_rows}, N={n})")
+    return w
+
+
+def warm_threshold(sample_kth: torch.Tensor) -> torch.Tensor:
+    """K8's per-query threshold: one ULP below the sample's k-th best score
+    (``_warm_thr0``), so a score equal to it still passes the strict
+    screen. -inf (a sample with fewer than k live rows) stays -inf: a cold
+    start."""
+    return torch.nextafter(sample_kth, sample_kth.new_tensor(float("-inf")))
+
+
+def scan_topk_warm_reference(store: torch.Tensor, queries: torch.Tensor,
+                             valid: torch.Tensor, k: int, warm_rows: int,
+                             masked: bool = True):
+    """Plain PyTorch version of :func:`scan_topk_warm`. The threshold comes
+    from the sample's columns of the one (Q, N) product (a second product
+    of the sample might round differently), and the screen is applied:
+    scores at or below it are dropped before the selection."""
+    w = _warm_rows(warm_rows, store.shape[0], k)
+    scores = _scores(store, queries, valid, masked)
+    thr0 = warm_threshold(torch.topk(scores[:, :w], k, dim=1).values[:, -1])
+    return _select(scores.masked_fill(scores <= thr0[:, None],
+                                      float("-inf")), k)
+
+
+def fold_topk_reference(store: torch.Tensor, queries: torch.Tensor, k: int):
+    """Plain PyTorch version of :func:`fold_topk`: K1's without a mask,
+    the function the fold computes."""
+    return scan_topk_reference(store, queries, None, k, masked=False)
 
 
 def int8_dot(qi: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -154,24 +214,26 @@ def _query_bytes(d: int, itemsize: int) -> int:
     return d if itemsize == 1 else d * 4
 
 
-def slab_words(d: int, itemsize: int, k: int) -> int:
+def slab_words(d: int, itemsize: int, k: int, span: int = _TILE_ROWS) -> int:
     """32-bit words of each row that pass 1 stages at a time: the whole
-    row where shared memory holds 64 of them beside the queries and the
-    lists, else the most that fit, a multiple of 4 (0: nothing fits).
+    row where shared memory holds 64 of them beside the queries, the
+    scores of a merge's ``span`` rows (K9's is longer) and the lists,
+    else the most that fit, a multiple of 4 (0: nothing fits).
     ``itemsize`` 1 is an int8 store."""
     qb = _query_block(k)
     words = d * itemsize // 4
-    free = _SMEM_MAX - (qb * _query_bytes(d, itemsize) + qb * _TILE_ROWS * 4
+    free = _SMEM_MAX - (qb * _query_bytes(d, itemsize) + qb * span * 4
                         + qb * k * 8)
     return max(0, min(words, (free // (_TILE_ROWS * 4) - 1) // 4 * 4))
 
 
-def pass1_smem_bytes(d: int, itemsize: int, k: int) -> int:
+def pass1_smem_bytes(d: int, itemsize: int, k: int,
+                     span: int = _TILE_ROWS) -> int:
     """Dynamic shared memory of pass 1 (mirrors csrc/scan_topk.cu)."""
     qb = _query_block(k)
     return (qb * _query_bytes(d, itemsize)
-            + _TILE_ROWS * (slab_words(d, itemsize, k) + 1) * 4
-            + qb * _TILE_ROWS * 4 + qb * k * 8)
+            + _TILE_ROWS * (slab_words(d, itemsize, k, span) + 1) * 4
+            + qb * span * 4 + qb * k * 8)
 
 
 def chunk_plan(n: int, nq: int, k: int, sms: int):
@@ -186,7 +248,8 @@ def chunk_plan(n: int, nq: int, k: int, sms: int):
 
 def _check(store, queries, valid, k, masked, dtypes=(torch.bfloat16,
                                                      torch.float16,
-                                                     torch.float32)):
+                                                     torch.float32),
+           span=_TILE_ROWS):
     if store.device.type != "cuda":
         raise KernelError(f"the scan takes CPU or CUDA tensors, got "
                           f"{store.device}")
@@ -212,7 +275,7 @@ def _check(store, queries, valid, k, masked, dtypes=(torch.bfloat16,
                           "the store's device")
     if not 1 <= k <= K_MAX:
         raise KernelError(f"k={k} outside [1, {K_MAX}]")
-    if slab_words(d, store.element_size(), k) < 4:
+    if slab_words(d, store.element_size(), k, span) < 4:
         raise KernelError(f"d={d} at {store.dtype}, k={k}: the queries and "
                           "lists alone fill the scan's shared memory")
 
@@ -241,9 +304,12 @@ def _check_tiles(tile_ids, n_live: int, tile_n: int, n: int) -> np.ndarray:
 
 
 def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
-            qscale=None):
+            qscale=None, thr0=None, fold=False, stats=None):
     """Both passes on the current stream; returns (Q, k) scores and ids.
-    ``q`` is in the store dtype (int8 for an int8 store)."""
+    ``q`` is in the store dtype (int8 for an int8 store); ``thr0`` K8's
+    (Q,) thresholds; ``fold`` K9 (no mask, no tiles), whose ``stats``, a
+    (2,) int64 tensor or None, gain the spans merged and those merged on
+    the fast path."""
     lib = _cuda.library("scan_topk", _SIGNATURES)
     q = _cuda.aligned(q)
     d = store.shape[1]
@@ -259,28 +325,85 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
     out_s = torch.empty((nq, k), dtype=f32, device=store.device)
     out_i = torch.empty((nq, k), dtype=i32, device=store.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _cuda.launch(
-        lib.sema_scan_topk, store.device,
-        store.data_ptr(), q.data_ptr(), ptr(valid), ptr(row_scale),
-        ptr(tile_dev), tile_n, n, d, nq, k, _DTYPE_CODES[store.dtype],
-        _query_block(k), rows, slab_words(d, store.element_size(), k),
-        chunks, cand_s.data_ptr(), cand_i.data_ptr(), ptr(qscale),
-        out_s.data_ptr(), out_i.data_ptr())
-    _cuda.check(lib, err, "scan_topk")
+    plan = (_DTYPE_CODES[store.dtype], _query_block(k), rows,
+            slab_words(d, store.element_size(), k,
+                       _FOLD_SPAN if fold else _TILE_ROWS), chunks,
+            cand_s.data_ptr(), cand_i.data_ptr())
+    if fold:
+        err = _cuda.launch(
+            lib.sema_fold_topk, store.device, store.data_ptr(), q.data_ptr(),
+            n, d, nq, k, *plan, out_s.data_ptr(), out_i.data_ptr(),
+            ptr(stats))
+    else:
+        err = _cuda.launch(
+            lib.sema_scan_topk, store.device,
+            store.data_ptr(), q.data_ptr(), ptr(valid), ptr(row_scale),
+            ptr(tile_dev), tile_n, n, d, nq, k, *plan, ptr(qscale),
+            ptr(thr0), out_s.data_ptr(), out_i.data_ptr())
+    _cuda.check(lib, err, "fold_topk" if fold else "scan_topk")
     return out_s, out_i
 
 
 def scan_topk(store: torch.Tensor, queries: torch.Tensor,
-              valid: torch.Tensor, k: int, masked: bool = True):
+              valid: torch.Tensor, k: int, masked: bool = True,
+              warm_rows: int = 0):
     """K1: exact top-k of a bf16/f16/f32 store (see the module
-    docstring). CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    docstring); ``warm_rows > 0`` is K8, :func:`scan_topk_warm`. CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if warm_rows > 0:
+        return scan_topk_warm(store, queries, valid, k, warm_rows, masked)
     if store.device.type == "cpu":
         return scan_topk_reference(store, queries, valid, k, masked=masked)
     _check(store, queries, valid, k, masked)
     out = _launch(store, queries.to(store.dtype), valid if masked else None,
                   k)
     scan_topk.launches += 1
+    return out
+
+
+def scan_topk_warm(store: torch.Tensor, queries: torch.Tensor,
+                   valid: torch.Tensor, k: int, warm_rows: int,
+                   masked: bool = True):
+    """K8: K1's result, each query's screen started at one ULP below the
+    k-th best score of the first ``warm_rows`` rows (clamped to N;
+    ValueError when that is fewer than k rows). The threshold comes from
+    the kernel's own scores of those rows, both passes over
+    ``store[:w]``, inside this one call. CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    w = _warm_rows(warm_rows, store.shape[0], k)
+    if store.device.type == "cpu":
+        return scan_topk_warm_reference(store, queries, valid, k, w,
+                                        masked=masked)
+    _check(store, queries, valid, k, masked)
+    q = queries.to(store.dtype)
+    live = valid if masked else None
+    sample = _launch(store[:w], q, None if live is None else live[:w], k)
+    out = _launch(store, q, live, k, thr0=warm_threshold(sample[0][:, -1]))
+    scan_topk_warm.launches += 1
+    return out
+
+
+def fold_topk(store: torch.Tensor, queries: torch.Tensor, k: int,
+              stats: torch.Tensor = None):
+    """K9: K1's result without a mask (every row live), each span of rows
+    merged through the per-lane fold of scan A/B #14. The TPU version's
+    ``tile_n`` is its grid's tile and changes no result; this one takes
+    none, as :func:`scan_topk` takes none, and N need not be a multiple
+    of anything. ``stats``, a (2,) int64 CUDA tensor, gains the spans
+    merged and those that took the fast path. CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if store.device.type == "cpu":
+        return fold_topk_reference(store, queries, k)
+    _check(store, queries, None, k, False, span=_FOLD_SPAN)
+    if stats is not None and (stats.shape != (2,)
+                              or stats.dtype != torch.int64
+                              or stats.device != store.device):
+        raise KernelError("stats must be a (2,) int64 tensor on the "
+                          "store's device")
+    out = _launch(store, queries.to(store.dtype), None, k, fold=True,
+                  stats=stats)
+    fold_topk.launches += 1
     return out
 
 
@@ -334,5 +457,5 @@ def scan_topk_int8_pruned(qvals: torch.Tensor, scales: torch.Tensor,
 
 
 for _fn in (scan_topk, scan_topk_int8, scan_topk_pruned,
-            scan_topk_int8_pruned):
+            scan_topk_int8_pruned, scan_topk_warm, fold_topk):
     _fn.launches = 0

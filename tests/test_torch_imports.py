@@ -81,7 +81,8 @@ def test_port_runs_with_jax_blocked_and_imports_no_sema_tpu(tmp_path):
     report = json.loads(proc.stdout.splitlines()[-1])
     assert "sema_tpu_torch.ops.scan_topk" in report["modules"]
     assert "sema_tpu_torch.cli" in report["modules"]
-    for name in ("parallel", "parallel.mesh", "models.tp", "ops.attention"):
+    for name in ("parallel", "parallel.mesh", "models.tp", "ops.attention",
+                 "tools", "tools.scan_ab15", "tools.scan_ab14"):
         assert f"sema_tpu_torch.{name}" in report["modules"]
     assert report["hits"] > 0 and report["tp_rows"] == [3, 64]
     assert report["sema_tpu"] == [] and report["jax"] == []
