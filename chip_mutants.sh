@@ -51,15 +51,23 @@ mutant no_row_scale scan_topk.cu \
   's/__fmul_rn(__int2float_rn(iacc\[j\]), rscale)/__int2float_rn(iacc[j])/' \
   scan_int8
 # K3/K4b: the tile list is ignored, rows are read in order
-mutant tiles_ignored scan_topk.cu 's/phys0 = a.tile_ids == nullptr/phys0 = true/' \
+mutant tiles_ignored scan_topk.cu 's/return a.tile_ids == nullptr ? t0/return true ? t0/' \
   scan_int8
 # K2, S > 256: probs @ V reads the first key block over and over
 mutant long_rows_first_block encoder_layer.cu 's/load_keys(k0, true);/load_keys(0, true);/' \
   encoder_layer
 # K2, f32: the padding mask is dropped
 mutant f32_mask_dropped encoder_layer.cu \
-  's/s = __fadd_rn(__fmul_rn(s, scale), bias\[j\]);/s = __fmul_rn(s, scale);/' \
+  's/__fadd_rn(__fmul_rn(s\[i\]\[j\], scale), bj)/__fmul_rn(s[i][j], scale)/' \
   encoder_layer
+# K2 (and K5-K7), f32: every key and value tile is the next one (past S,
+# zeros), caught by K2's check and, separately, by K6's and K7's
+mutant f32_kv_next_tile encoder_layer.cu \
+  's/const int k0 = t \* kF32Keys;/const int k0 = (t + 1) * kF32Keys;/' \
+  encoder_layer
+mutant f32_kv_next_tile_k67 encoder_layer.cu \
+  's/const int k0 = t \* kF32Keys;/const int k0 = (t + 1) * kF32Keys;/' \
+  attention
 # K2, f16: the products read the f16 operands as bf16
 mutant f16_as_bf16 encoder_layer.cu 's/f32.f16.f16.f32/f32.bf16.bf16.f32/' \
   encoder_layer
@@ -101,6 +109,18 @@ mutant k6_stride_of_x encoder_layer.cu \
 mutant k7_next_heads_keys encoder_layer.cu \
   's|in ? \*reinterpret_cast<const uint4\*>(base + r \* rs + H + v \* 8) : zero;|in ? *reinterpret_cast<const uint4*>(base + r * rs + H + ((head + 1) % (H / HD) - head) * HD + v * 8) : zero;|' \
   attention
+# K1 (bf16/f16 pass 1 on the tensor cores): the first k-step of every slab
+# is never scored, caught by K1's check and, separately, by the A/B path's
+mutant mma_k_step_dropped scan_topk.cu \
+  's/      for (int kk = 0; kk < cn; kk += 16) {/      for (int kk = 16; kk < cn; kk += 16) {/' \
+  scan_topk
+mutant mma_k_step_dropped_ab scan_topk.cu \
+  's/      for (int kk = 0; kk < cn; kk += 16) {/      for (int kk = 16; kk < cn; kk += 16) {/' \
+  scan_ab
+# K1: no wait for the stage's cp.async copies before it is scored
+mutant cp_async_no_wait scan_topk.cu \
+  's|    cp_async_wait_all();  // this thread.s copies of stage g have landed||' \
+  scan_topk
 # K8: the threshold is the sample's k-th itself, without the one-ULP backoff
 mutant k8_no_backoff ops/scan_topk.py \
   's/    return torch.nextafter(sample_kth, sample_kth.new_tensor(float("-inf")))/    return sample_kth/' \

@@ -26,7 +26,8 @@ Phases, one JSON line each:
                       mask dropped, with the context zeroed and with the
                       keys' heads rotated, so the check sees attention.
                       K2 also in f32 (limit: the JAX package's f32
-                      parity bound, 5e-5 + 1e-4 |x|) and f16 (limits of
+                      parity bound, 5e-5 + 1e-4 |x|; with the time of its
+                      attention alone, K7 at the layer's shape) and f16 (limits of
                       its own, tighter than bf16's) at (256, 128), in bf16
                       at S = 384 and 512 (the key-block attention), and at
                       gte-large width (head dim 64, H = 1024) at every
@@ -56,6 +57,8 @@ Phases, one JSON line each:
                       the keys' heads rotated and (K6) with its bias
                       dropped. Library: ``F.scaled_dot_product_attention``
                       on the qkv viewed as heads (K6: after ``torch.addmm``).
+                      K6 in f32 also splits its time between the SIMT qkv
+                      GEMM and the attention (K7 alone at its shape).
 7. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
                       rows at d = 1024 and 384, Q in {1, 256}, k in
                       {16, 128}, masked rows and a 17-way tie; scores and
@@ -75,7 +78,11 @@ Phases, one JSON line each:
                       failure warning nor the query's substring fallback
                       may fire. The stored rows (per-row cosine >= 0.9999)
                       and the query's hits are held against the plain
-                      versions on a sample.
+                      versions on a sample. ``query --limit 1500``, above
+                      the scans' K_MAX, must launch no scan (the store's
+                      hierarchical route) and answer as with the plain
+                      versions (``wide_query``); K1 and K4a must still
+                      refuse k = 1,025 (``k_max_refusals``).
 10. ``int8_ivf_path``  BASELINE config 4 with IVF on top: gte-large (24
                       layers, 1024 wide, random weights from seed 0, written
                       once as a safetensors file that every process loads)
@@ -958,6 +965,10 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
     with torch.inference_mode():
         library_ms = device_ms(lambda: lib(x, src_key_padding_mask=pad),
                                iters)
+    share = {}
+    if dtype == F32:    # the f32 attention's share of the layer: K7 alone
+        share["attention_ms"] = attention_ms(b, s, h, heads, scale, bias,
+                                             gen, iters)
     return {"model": spec.name, "dtype": str(dtype).removeprefix("torch."),
             "b": b, "s": s, "head_dim": h // heads,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
@@ -967,7 +978,17 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
             "ms": device_ms(lambda: fused_encoder_layer(*args), iters),
             "plain_ms": device_ms(lambda: encoder_layer_reference(*args),
                                   iters),
-            "library_ms": library_ms, "bound_ms": ms, "bound_by": bound_by}
+            "library_ms": library_ms, "bound_ms": ms, "bound_by": bound_by,
+            **share}
+
+
+def attention_ms(b, s, h_out, heads, scale, bias, gen, iters) -> float:
+    """Device ms of K7 in f32 on a (b, s, 3 h_out) qkv: the attention that
+    K2's and K6's f32 routes run after their qkv GEMM, at their shape."""
+    from sema_tpu_torch.ops.attention import fused_attention_qkv
+    qkv = 1.5 * torch.randn(b, s, 3 * h_out, generator=gen, device=DEV)
+    return device_ms(lambda: fused_attention_qkv(qkv, bias, heads, scale),
+                     iters)
 
 
 def phase_layer(gen):
@@ -1293,6 +1314,13 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
                          else BF16_OPS_PER_S)
     with torch.inference_mode():
         library_ms = device_ms(lib, iters)
+    kernel_ms = device_ms(lambda: fn(*args), iters)
+    split = {}
+    if kind == "block" and dtype == F32:
+        # K6 f32 is the SIMT qkv GEMM, then K7's attention at its shape
+        split["attention_ms"] = attention_ms(b, s, h_out, n, scale, bias,
+                                             gen, iters)
+        split["gemm_ms"] = kernel_ms - split["attention_ms"]
     return {"kernel": "K6" if kind == "block" else "K7",
             "model": spec.name, "tp": tp, "h": h, "h_out": h_out,
             "heads": n, "head_dim": h // heads,
@@ -1304,12 +1332,12 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
                                   for name, out in broken.items()},
             "broken_passes": [name for name, out in broken.items()
                               if attention_close(out, want)[0]],
-            "ms": device_ms(lambda: fn(*args), iters),
+            "ms": kernel_ms,
             "plain_ms": device_ms(lambda: ref(*args), max(2, iters // 2)),
             "library_ms": library_ms,
             "library_call": ("torch.addmm + " if kind == "block" else "")
             + "F.scaled_dot_product_attention with its transposes",
-            "bound_ms": ms, "bound_by": bound_by}
+            "bound_ms": ms, "bound_by": bound_by, **split}
 
 
 def phase_attention(gen):
@@ -1412,6 +1440,62 @@ def run_cli(argv):
     return out.getvalue()
 
 
+WIDE_LIMIT = 1500              # a --limit above the scans' K_MAX
+
+
+def wide_query(n_chunks: int, hits: list, extra=()) -> dict:
+    """``query --limit WIDE_LIMIT``: above K_MAX the store takes the
+    hierarchical route (``ops/hier_topk.py``), on the card, and launches
+    no scan kernel. It must exit 0 with its hits equal, line for line, to
+    those of the same query with the scans' plain versions swapped in, and
+    its first hits must be the default query's (K1's), ids equal where
+    the scores are more than 1e-5 apart."""
+    argv = ["query", QUERY, "--json", "--limit", str(WIDE_LIMIT), *extra]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_cli(argv)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    with plain_scans():
+        plain = run_cli(argv)
+    got = [json.loads(line) for line in out.splitlines()]
+    check(len(got) == min(WIDE_LIMIT, n_chunks)
+          and all(math.isfinite(h["score"]) for h in got),
+          f"--limit {WIDE_LIMIT}: {len(got)} hits, or a score that is not "
+          "finite")
+    check(out == plain, f"--limit {WIDE_LIMIT}: the hits differ from the "
+          "plain versions'")
+    check(launches["encoder_layer"] > 0
+          and not any(launches[name] for name in SCANS),
+          f"--limit {WIDE_LIMIT} launches {launches}")
+    for h, w in zip(hits, got):
+        check(h["id"] == w["id"] or abs(h["score"] - w["score"]) <= 1e-5,
+              f"--limit {WIDE_LIMIT}: hit {w['id']} ({w['score']}) where "
+              f"K1 has {h['id']} ({h['score']})")
+    return {"limit": WIDE_LIMIT, "hits": len(got), "seconds": seconds,
+            "launches": launches}
+
+
+def k_max_refusals(b: dict, qvec) -> None:
+    """K1 and K4a on the card still refuse k above K_MAX with a
+    KernelError, and count no launch."""
+    from sema_tpu_torch.ops._cuda import KernelError
+    from sema_tpu_torch.ops.quant import quantize_rows_device
+    from sema_tpu_torch.ops.scan_topk import (K_MAX, scan_topk,
+                                              scan_topk_int8)
+    qvals, scales = quantize_rows_device(b["store"])
+    for fn, args in ((scan_topk, (b["store"], qvec, b["valid"])),
+                     (scan_topk_int8, (qvals, scales, qvec, b["valid"]))):
+        before = fn.launches
+        try:
+            fn(*args, K_MAX + 1)
+        except KernelError as e:
+            check(f"k={K_MAX + 1}" in str(e), str(e))
+        else:
+            raise RuntimeError(f"{fn.__name__} took k={K_MAX + 1}")
+        check(fn.launches == before, f"{fn.__name__} counted a refusal")
+
+
 def phase_main_path(work: Path, n_files: int, extra=()):
     from sema_tpu_torch import cli
     from sema_tpu_torch.ingest.hashing import HASH_NAME
@@ -1443,6 +1527,8 @@ def phase_main_path(work: Path, n_files: int, extra=()):
           and query_launches["scan_topk"] > 0
           and not any(query_launches[n] for n in SCANS[1:]),
           f"query launches {query_launches}")
+
+    wide = wide_query(n_chunks, hits, extra)
 
     again = run_cli(["index", str(tree), *extra])
     check("indexed 0 chunks" in again, again)
@@ -1508,6 +1594,7 @@ def phase_main_path(work: Path, n_files: int, extra=()):
         library_ms=device_ms(lambda: torch.topk(
             qvec.to(torch.bfloat16) @ b["store"].T, k), 50),
         bound_ms=ms, bound_by=bound_by)
+    k_max_refusals(b, qvec)
     mgr.close()
     emit("main_path", files=n_files, chunks=n_chunks, hash=HASH_NAME,
          index_s=index_s, chunks_per_s=n_chunks / index_s,
@@ -1517,7 +1604,7 @@ def phase_main_path(work: Path, n_files: int, extra=()):
          index_launches=index_launches, query_launches=query_launches,
          bucket_rows={str(s): n for s, n in sorted(counts.items())},
          bucket_batches={str(s): n for s, n in sorted(batches.items())},
-         stored_min_cosine=float(cos.min()), hits=len(hits))
+         stored_min_cosine=float(cos.min()), hits=len(hits), wide=wide)
     return index_launches, query_launches, k1
 
 

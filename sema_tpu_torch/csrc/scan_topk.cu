@@ -16,9 +16,11 @@
 // from one grid step to the next. Blocks on Hopper run in no order, so the
 // scan is two passes:
 //
-//   pass 1  grid (chunk of rows, block of queries). Each block streams its
-//           row range through shared memory 64 rows at a time (a row wider
-//           than shared memory allows goes in slabs of words), scores the
+//   pass 1  grid (block of queries, chunk of rows): the query blocks of a
+//           chunk are neighbours in the grid, so they run side by side and
+//           read its rows from L2 at about the same time. Each block streams
+//           its row range through shared memory 64 rows at a time (a row
+//           wider than shared memory allows goes in slabs), scores the
 //           rows against its queries and merges the scores into a
 //           per-query sorted list of k in shared memory. A score enters
 //           only if it beats the list's k-th entry (the TPU kernel's
@@ -32,12 +34,33 @@
 //           int8 scan's per-query scale multiplies the merged scores here,
 //           after the merge, as pallas_topk.py:432 does.
 //
-// Scoring. bf16/f16/f32 rows: f32 FMAs over the row's values against the
-// query cast to the store dtype, f32 accumulation. int8 rows: __dp4a over
-// packed words of the row and of the per-query quantized query, summed in
-// i32, converted once to f32 and multiplied once by the row's f32 scale:
-// the order of pallas_topk.py:219, exact (the i32 sum converts without
-// loss while d <= 1040), so the scores and ids equal the plain version's.
+// Scoring, by the store dtype.
+//   bf16, f16  the tensor cores: mma.sync m16n8k16, the store rows the A
+//           operand (row-major, d contiguous), the queries the B operand,
+//           both in the store dtype as the wrapper passes them and fed by
+//           ldmatrix from shared memory whose rows are padded by 16 bytes;
+//           f32 accumulators. The tiles (or slabs of their rows) come in by
+//           cp.async into two buffers: the next is in flight while this one
+//           is scored and merged. A block takes 64 queries for a batch at
+//           k <= 128 (8 warps: 4 groups of 16 rows x 2 of 32 queries), so a
+//           store is read once per 64 queries, else 8 (4 warps of 16 rows x
+//           8 queries). A bf16 or f16 product is exact in f32; the
+//           tensor cores add the 16 products of a k-step and the running
+//           sum in their own order, not the IEEE sequence of FMAs, so the
+//           scores may differ from a sequence of FMAs in the last bits.
+//           Before a tile's scores go to the merge, each scoring thread
+//           screens its own against its queries' k-th (the lists hold still
+//           until the merge) and flags a query that has a score above it;
+//           the merge skips an unflagged query, whose merge would insert
+//           nothing, so the survivors reach the merge in row order as ever.
+//   f32     f32 FMAs over the row's values against the query, one thread a
+//           row (TF32 would round the operands).
+//   int8    __dp4a over packed words of the row and of the per-query
+//           quantized query, summed in i32, converted once to f32 and
+//           multiplied once by the row's f32 scale: the order of
+//           pallas_topk.py:219, exact (the i32 sum converts without loss
+//           while d <= 1040), so the scores and ids equal the plain
+//           version's.
 // Masked rows score -inf.
 //
 // Row source. A whole store scans rows 0..n-1. A pruned scan (K3, K4b)
@@ -55,9 +78,11 @@
 // top-k (score >= the sample's k-th) still enters and the result is K1's.
 // The wrapper takes the sample's k-th from this kernel's own scores of
 // those rows (passes 1-2 over store[:w]): a row's score does not depend on
-// its chunk, its query block or its slab, since acc runs over the row's
-// words in order across slabs, so those are the very bits the full scan
-// computes. A score from another product (cuBLAS sums in another order)
+// its chunk, its query block, its slab or its place in a tile, since its
+// sum runs over the row's words (FMAs) or k-steps (mma: each element of an
+// accumulator tile sums its own row and query over d, 16 at a time, in the
+// same order wherever it sits) in order across slabs, so those are the
+// very bits the full scan computes. A score from another product (cuBLAS sums in another order)
 // could sit above the kernel's own score of a true top-k row. Pass 2
 // needs nothing: the chunk lists only hold scores above thr0, and -inf.
 //
@@ -79,16 +104,17 @@
 // What bounds it on the H100: at the CLI's Q=1 the single read of the rows
 // scanned (N*d*itemsize bytes at 3.35 TB/s: 60 us for a sealed 262,144-row
 // bf16 bucket at d=384, 80 us for an int8 one at d=1024); at Q=256 the
-// scoring, 2*Q*N*d operations, which the kernel does with scalar
-// FMAs (67 TFLOP/s peak) or dp4a where mma.sync or wgmma (IMMA for int8)
-// would reach the tensor cores. The chunking keeps about two blocks per SM
-// in flight whatever Q is; the merge costs next to nothing once the lists
-// fill, since few scores beat the k-th. Pass 2 walks a query's chunk lists
-// one after another in one warp, so it grows with chunks * k; fewer, longer
-// chunks make pass 1 slower by more than that (measured at 3,000 rows).
+// bytes still for bf16 (2*Q*N*d operations over 2*N*d bytes is Q = 256 a
+// byte, under the card's 295; 0.240 ms at 1M x 384), the rows read 4 times
+// from L2 (once per query block of 64); for f32 and int8 the scoring, with
+// scalar FMAs (67 TFLOP/s) or dp4a where IMMA would reach the tensor cores.
+// What the tensor-core route spends beyond the scoring goes to the merge:
+// each chunk restarts its lists, so the insertions grow with the chunks,
+// and the wrapper plans one wave of blocks (chunk_plan), two an SM where
+// shared memory holds two. Pass 2 walks a query's chunk lists one after
+// another in one warp, so it grows with chunks * k, and bounds a small
+// store's scan at Q=1.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -102,25 +128,10 @@ constexpr int kPass2Warps = 4;
 constexpr int kInt8 = 3;
 constexpr int kFoldSpan = 256;  // rows a K9 merge folds: 8 columns a lane
 
-// One 32-bit word of a row, unpacked to floats. 0 = bf16, 1 = f16, 2 = f32;
-// 3 = int8 is scored on packed words and only gives its width here.
+// One 32-bit word of a row on the SIMT route, unpacked to floats: 2 = f32;
+// 3 = int8 is scored on packed words and only gives its width here (bf16
+// and f16 rows take the tensor-core route).
 template <int DT> struct Elem;
-template <> struct Elem<0> {
-  static constexpr int kPerWord = 2;
-  __device__ __forceinline__ static void unpack(uint32_t w, float* x) {
-    x[0] = __uint_as_float(w << 16);
-    x[1] = __uint_as_float(w & 0xffff0000u);
-  }
-};
-template <> struct Elem<1> {
-  static constexpr int kPerWord = 2;
-  __device__ __forceinline__ static void unpack(uint32_t w, float* x) {
-    __half2 h = *reinterpret_cast<__half2*>(&w);
-    float2 f = __half22float2(h);
-    x[0] = f.x;
-    x[1] = f.y;
-  }
-};
 template <> struct Elem<2> {
   static constexpr int kPerWord = 1;
   __device__ __forceinline__ static void unpack(uint32_t w, float* x) {
@@ -244,9 +255,61 @@ struct ScanArgs {
   unsigned long long* fold_stats;  // K9: (spans merged, spans fast), or null
 };
 
-// FOLD: K9, merging spans of kFoldSpan rows by the fold; else one tile.
+// The physical row of the first row of the tile at logical row t0; a tile
+// never straddles two entries of tile_ids (tile_n and t0 are multiples of 64).
+__device__ __forceinline__ int tile_row0(const ScanArgs& a, int t0) {
+  return a.tile_ids == nullptr ? t0 : a.tile_ids[t0 / a.tile_n] * a.tile_n + t0 % a.tile_n;
+}
+
+// Merge the scores of a tile (or of K9's span) into the block's lists: one
+// warp per query, survivors in row order. sc holds a query's scores scs
+// floats apart; rows of them are live at [0, rows) (K9: the span's first
+// off + rows, from span0).
+// hit (the tensor-core route's screen, else null): a query whose flag is
+// 0 has no score above its list's k-th in the span, so its merge would
+// insert nothing and is skipped; a merged query's flag goes back to 0.
+template <bool FOLD>
+__device__ void merge_tile(const ScanArgs& a, const float* sc, int scs, float* ls, int* li,
+                           int* hit, int nqb, int q0, int rows, int phys0, int off,
+                           int span0, int warp, int lane, unsigned long long& n_merged,
+                           unsigned long long& n_fast) {
+  const int k = a.k;
+  for (int qi = warp; qi < nqb; qi += kThreads / 32) {
+    if (hit != nullptr) {
+      if (!hit[qi]) continue;
+      __syncwarp();  // every lane has read the flag
+      if (lane == 0) hit[qi] = 0;
+    }
+    float* qls = ls + qi * k;
+    int* qli = li + qi * k;
+    const float* qsc = sc + qi * scs;
+    if constexpr (FOLD) {
+      const int r = fold_merge(qsc, off + rows, qls, qli, k, span0, lane);
+      n_merged += r >= 0;
+      n_fast += r > 0;
+    } else {
+      const float warm = a.thr0 == nullptr ? -INFINITY : a.thr0[q0 + qi];
+      merge_rows(qsc, rows, qls, qli, k, warm, phys0, lane);
+    }
+  }
+}
+
+// Each block's lists out as its chunk's candidates.
+__device__ void write_candidates(const ScanArgs& a, const float* ls, const int* li, int nqb,
+                                 int q0, int chunk, int tid) {
+  for (int e = tid; e < nqb * a.k; e += kThreads) {
+    const int qi = e / a.k, j = e % a.k;
+    const size_t o = ((size_t)(q0 + qi) * a.n_chunks + chunk) * a.k + j;
+    a.cand_s[o] = ls[e];
+    a.cand_i[o] = li[e];
+  }
+}
+
+// f32 and int8 rows: scalar FFMAs or __dp4a, one thread per row of a tile
+// against QB / 4 queries. FOLD: K9, merging spans of kFoldSpan rows by the
+// fold; else one tile.
 template <int DT, int QB, bool FOLD>
-__global__ void __launch_bounds__(kThreads) scan_pass1(ScanArgs a) {
+__global__ void __launch_bounds__(kThreads) scan_pass1_simt(ScanArgs a) {
   constexpr int PW = Elem<DT>::kPerWord;
   constexpr int QPT = QB / kGroups;  // queries per thread
   constexpr int SPAN = FOLD ? kFoldSpan : kTileRows;  // rows a merge takes
@@ -263,8 +326,8 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(ScanArgs a) {
   int* li = reinterpret_cast<int*>(ls + QB * k);                    // [QB][k]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * QB;
+  const int chunk = blockIdx.y;
+  const int q0 = blockIdx.x * QB;
   const int nqb = min(QB, a.nq - q0);
   const int r_begin = chunk * a.rows_per_chunk;
   const int r_end = min(a.n, r_begin + a.rows_per_chunk);
@@ -296,11 +359,7 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(ScanArgs a) {
 
   for (int t0 = r_begin; t0 < r_end; t0 += kTileRows) {
     const int rows = min(kTileRows, r_end - t0);
-    // the physical row of the tile's first row; a tile never straddles two
-    // entries of tile_ids (tile_n and t0 are multiples of 64)
-    const int phys0 = a.tile_ids == nullptr
-                          ? t0
-                          : a.tile_ids[t0 / a.tile_n] * a.tile_n + t0 % a.tile_n;
+    const int phys0 = tile_row0(a, t0);
     // the span's first row and this tile's column in sc (K9 has no tiles)
     const int span0 = FOLD ? r_begin + (t0 - r_begin) / SPAN * SPAN : t0;
     const int off = t0 - span0;
@@ -371,32 +430,213 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(ScanArgs a) {
     // K9 merges once its span is full or the chunk ends
     if (FOLD && off + kTileRows < SPAN && t0 + kTileRows < r_end) continue;
 
-    // merge: one warp per query; survivors in row order
-    for (int qi = warp; qi < nqb; qi += kThreads / 32) {
-      float* qls = ls + qi * k;
-      int* qli = li + qi * k;
-      const float* qsc = sc + qi * SPAN;
-      if constexpr (FOLD) {
-        const int r = fold_merge(qsc, off + rows, qls, qli, k, span0, lane);
-        n_merged += r >= 0;
-        n_fast += r > 0;
-      } else {
-        const float warm = a.thr0 == nullptr ? -INFINITY : a.thr0[q0 + qi];
-        merge_rows(qsc, rows, qls, qli, k, warm, phys0, lane);
-      }
-    }
+    merge_tile<FOLD>(a, sc, SPAN, ls, li, nullptr, nqb, q0, rows, phys0, off, span0, warp,
+                     lane, n_merged, n_fast);
   }
   if (FOLD && a.fold_stats != nullptr && lane == 0 && n_merged > 0) {
     atomicAdd(a.fold_stats, n_merged);
     atomicAdd(a.fold_stats + 1, n_fast);
   }
   __syncthreads();
-  for (int e = tid; e < nqb * k; e += kThreads) {
-    const int qi = e / k, j = e % k;
-    const size_t o = ((size_t)(q0 + qi) * a.n_chunks + chunk) * k + j;
-    a.cand_s[o] = ls[e];
-    a.cand_i[o] = li[e];
+  write_candidates(a, ls, li, nqb, q0, chunk, tid);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+// d += a (16 rows x 16, row-major) * b (16 x 8 queries), f32 accumulators;
+// DT 0 bf16, 1 f16 operands
+template <int DT>
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (DT == 0)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 16 bytes from global to shared memory without the registers; zeros where
+// !fill (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// bf16 and f16 rows on the tensor cores (see the top of the file). Shared
+// memory: the queries [QB][dp + 8] in the store dtype, two stage buffers
+// [64][se + 8] (se = 2 slab_words elements of each row), the scores
+// [QB][SPAN + 4] f32, the lists, a screen flag per query. The padded
+// strides put the 8 rows of an ldmatrix on distinct banks, and a warp's
+// score stores too.
+template <int DT, int QB, bool FOLD>
+__global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
+  constexpr int SPAN = FOLD ? kFoldSpan : kTileRows;
+  constexpr int SCS = SPAN + 4;          // a query's scores, floats apart
+  constexpr int WQ = QB >= 32 ? 32 : 8;  // queries a warp scores
+  constexpr int NT = WQ / 8;             // its n8 tiles
+  constexpr int SCORERS = 4 * (QB / WQ); // warps that score: 4 row groups of 16
+  static_assert(QB % WQ == 0 && SCORERS <= kThreads / 32, "query block");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = a.d, k = a.k;
+  const int dp = (d + 15) / 16 * 16;  // staged width: whole k-steps, zeros past d
+  const int se = 2 * a.slab_words;    // elements of a row a stage holds
+  const int qstr = dp + 8, tstr = se + 8;
+  const int nslab = (dp + se - 1) / se;
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem);                 // [QB][qstr]
+  uint16_t* tiles = qs + QB * qstr;                                 // [2][64][tstr]
+  float* sc = reinterpret_cast<float*>(tiles + 2 * kTileRows * tstr);  // [QB][SCS]
+  float* ls = sc + QB * SCS;                                        // [QB][k]
+  int* li = reinterpret_cast<int*>(ls + QB * k);                    // [QB][k]
+  int* hit = li + QB * k;                                           // [QB]
+  const uint16_t* store = reinterpret_cast<const uint16_t*>(a.store);
+  const uint16_t* queries = reinterpret_cast<const uint16_t*>(a.queries);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = blockIdx.y;
+  const int q0 = blockIdx.x * QB;
+  const int nqb = min(QB, a.nq - q0);
+  const int r_begin = chunk * a.rows_per_chunk;
+  const int r_end = min(a.n, r_begin + a.rows_per_chunk);
+  const int n_stages = (r_end - r_begin + kTileRows - 1) / kTileRows * nslab;
+
+  for (int e = tid; e < QB * (dp / 8); e += kThreads) {
+    const int qi = e / (dp / 8), c = e % (dp / 8) * 8;
+    const bool in = qi < nqb && c < d;
+    cp_async16(qs + qi * qstr + c, in ? queries + (size_t)(q0 + qi) * d + c : queries, in);
   }
+  for (int e = tid; e < QB * k; e += kThreads) {
+    ls[e] = -INFINITY;
+    li[e] = 0;
+  }
+  for (int e = tid; e < QB; e += kThreads) hit[e] = 0;
+  // stage g: slab g % nslab of the chunk's tile g / nslab, into buffer g & 1;
+  // zeros past the tile's rows and past d; one group
+  auto load = [&](int g) {
+    const int t0 = r_begin + g / nslab * kTileRows, c0 = g % nslab * se;
+    const int rows = min(kTileRows, r_end - t0), phys0 = tile_row0(a, t0);
+    const int vec = min(se, dp - c0) / 8;  // 16-byte pieces of a row
+    uint16_t* buf = tiles + (g & 1) * kTileRows * tstr;
+    int r = tid / vec, v = tid % vec;
+    const int dr = kThreads / vec, dv = kThreads % vec;
+    while (r < kTileRows) {
+      const int c = c0 + v * 8;
+      const bool in = r < rows && c < d;
+      cp_async16(buf + r * tstr + v * 8, in ? store + (size_t)(phys0 + r) * d + c : store, in);
+      v += dv;
+      r += dr;
+      if (v >= vec) {
+        v -= vec;
+        ++r;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int rg = warp & 3, qg = warp >> 2;  // this warp's rows rg*16.., queries qg*WQ..
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[t][c] = 0.f;
+  unsigned long long n_merged = 0, n_fast = 0;  // K9's spans, this warp's
+
+  load(0);
+  for (int g = 0; g < n_stages; ++g) {
+    cp_async_wait_all();  // this thread's copies of stage g have landed
+    __syncthreads();      // everyone's have; everyone is done with stage g - 1
+    if (g + 1 < n_stages) load(g + 1);  // in flight while stage g is scored and merged
+    const int s = g % nslab, c0 = s * se, cn = min(se, dp - c0);
+    const uint16_t* buf = tiles + (g & 1) * kTileRows * tstr;
+    if (warp < SCORERS) {
+      const uint16_t* arow = buf + (rg * 16 + (lane & 15)) * tstr + (lane >> 4) * 8;
+      const uint16_t* brow = qs + (qg * WQ) * qstr + c0 + ((lane >> 3) & 1) * 8;
+      for (int kk = 0; kk < cn; kk += 16) {
+        uint32_t af[4];
+        ldmatrix_x4(af, arow + kk);
+        if constexpr (NT == 1) {
+          uint32_t bf[2];
+          ldmatrix_x2(bf, brow + (lane & 7) * qstr + kk);
+          mma16816<DT>(acc[0], af, bf[0], bf[1]);
+        } else {
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, brow + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * qstr + kk);
+            mma16816<DT>(acc[2 * np], af, bf[0], bf[1]);
+            mma16816<DT>(acc[2 * np + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    if (s != nslab - 1) continue;  // the tile's next slab
+
+    const int t0 = r_begin + g / nslab * kTileRows;
+    const int rows = min(kTileRows, r_end - t0), phys0 = tile_row0(a, t0);
+    // the span's first row and this tile's column in sc (K9 has no tiles)
+    const int span0 = FOLD ? r_begin + (t0 - r_begin) / SPAN * SPAN : t0;
+    const int off = t0 - span0;
+    if (warp < SCORERS) {
+      // accumulator (row lane/4 [+ 8], queries 2 (lane%4) [+ 1]) of each n8
+      // tile, into sc; the screen: does a score beat its query's k-th (the
+      // lists hold still until the merge below)
+      bool beat[NT][2] = {};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rg * 16 + (lane >> 2) + 8 * h;
+        const bool live = r < rows && (a.valid == nullptr || a.valid[phys0 + r]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qc = qg * WQ + t * 8 + (lane & 3) * 2 + c;
+            const float v = live ? acc[t][2 * h + c] : -INFINITY;
+            sc[qc * SCS + off + r] = v;
+            beat[t][c] |= v > ls[qc * k + k - 1];
+            acc[t][2 * h + c] = 0.f;
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (beat[t][c]) hit[qg * WQ + t * 8 + (lane & 3) * 2 + c] = 1;
+    }
+    __syncthreads();
+    // K9 merges once its span is full or the chunk ends
+    if (FOLD && off + kTileRows < SPAN && t0 + kTileRows < r_end) continue;
+    merge_tile<FOLD>(a, sc, SCS, ls, li, hit, nqb, q0, rows, phys0, off, span0, warp,
+                     lane, n_merged, n_fast);
+  }
+  if (FOLD && a.fold_stats != nullptr && lane == 0 && n_merged > 0) {
+    atomicAdd(a.fold_stats, n_merged);
+    atomicAdd(a.fold_stats + 1, n_fast);
+  }
+  __syncthreads();
+  write_candidates(a, ls, li, nqb, q0, chunk, tid);
 }
 
 __global__ void __launch_bounds__(kPass2Warps * 32)
@@ -442,52 +682,64 @@ scan_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
   }
 }
 
+// Pass 1 of one route: checks the layout the wrapper planned, sizes the
+// shared memory as the kernel carves it, grid (query blocks, chunks).
 template <int DT, int QB, bool FOLD>
 cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
   constexpr int SPAN = FOLD ? kFoldSpan : kTileRows;
-  if (a.slab_words < 4 || a.slab_words % 4) return cudaErrorInvalidValue;
+  constexpr bool MMA = DT == 0 || DT == 1;
   if (a.tile_ids != nullptr && (FOLD || a.tile_n < kTileRows || a.tile_n % kTileRows))
     return cudaErrorInvalidValue;
-  const size_t qwords = DT == kInt8 ? a.d / 4 : a.d;
-  const size_t smem = (size_t)QB * qwords * 4 + (size_t)kTileRows * (a.slab_words + 1) * 4 +
-                      (size_t)QB * SPAN * 4 + (size_t)QB * a.k * 8;
-  auto kern = scan_pass1<DT, QB, FOLD>;
+  size_t smem;
+  if constexpr (MMA) {
+    if (a.slab_words < 8 || a.slab_words % 8) return cudaErrorInvalidValue;
+    const size_t dp = (a.d + 15) / 16 * 16;
+    smem = (size_t)QB * (dp + 8) * 2 + (size_t)2 * kTileRows * (2 * a.slab_words + 8) * 2 +
+           (size_t)QB * (SPAN + 4) * 4 + (size_t)QB * a.k * 8 + (size_t)QB * 4;
+  } else {
+    if (a.slab_words < 4 || a.slab_words % 4) return cudaErrorInvalidValue;
+    const size_t qwords = DT == kInt8 ? a.d / 4 : a.d;
+    smem = (size_t)QB * qwords * 4 + (size_t)kTileRows * (a.slab_words + 1) * 4 +
+           (size_t)QB * SPAN * 4 + (size_t)QB * a.k * 8;
+  }
+  void (*kern)(ScanArgs);
+  if constexpr (MMA)
+    kern = scan_pass1_mma<DT, QB, FOLD>;
+  else
+    kern = scan_pass1_simt<DT, QB, FOLD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.n_chunks, (a.nq + QB - 1) / QB);
+  dim3 grid((a.nq + QB - 1) / QB, a.n_chunks);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int QB, bool FOLD>
-cudaError_t launch_pass1_dt(int dtype, const ScanArgs& a, cudaStream_t stream) {
-  switch (dtype) {
-    case 0: return launch_pass1<0, QB, FOLD>(a, stream);
-    case 1: return launch_pass1<1, QB, FOLD>(a, stream);
-    case 2: return launch_pass1<2, QB, FOLD>(a, stream);
-    case kInt8:
-      if constexpr (FOLD)
-        return cudaErrorInvalidValue;  // K9 scores bf16/f16/f32 rows only
-      else
-        return launch_pass1<kInt8, QB, false>(a, stream);
-    default: return cudaErrorInvalidValue;
+template <bool FOLD>
+cudaError_t launch_pass1_dt(int dtype, int qb, const ScanArgs& a, cudaStream_t st) {
+  // bf16/f16: the tensor-core route, query blocks of 64 or 8
+  if (dtype == 0 || dtype == 1) {
+    if (qb != 64 && qb != 8) return cudaErrorInvalidValue;
+    if (dtype == 0)
+      return qb == 64 ? launch_pass1<0, 64, FOLD>(a, st) : launch_pass1<0, 8, FOLD>(a, st);
+    return qb == 64 ? launch_pass1<1, 64, FOLD>(a, st) : launch_pass1<1, 8, FOLD>(a, st);
   }
+  // f32, int8: the SIMT route, query blocks of 16 or 4
+  if (qb != 16 && qb != 4) return cudaErrorInvalidValue;
+  if (dtype == 2)
+    return qb == 16 ? launch_pass1<2, 16, FOLD>(a, st) : launch_pass1<2, 4, FOLD>(a, st);
+  if (dtype == kInt8 && !FOLD)  // K9 scores bf16/f16/f32 rows only
+    return qb == 16 ? launch_pass1<kInt8, 16, false>(a, st)
+                    : launch_pass1<kInt8, 4, false>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 // Both passes on one stream.
 cudaError_t scan(const ScanArgs& a, int dtype, int qb, bool fold,
                  const float* qscale, float* out_s, int* out_i,
                  cudaStream_t st) {
-  cudaError_t e;
-  if (qb == 16)
-    e = fold ? launch_pass1_dt<16, true>(dtype, a, st)
-             : launch_pass1_dt<16, false>(dtype, a, st);
-  else if (qb == 4)
-    e = fold ? launch_pass1_dt<4, true>(dtype, a, st)
-             : launch_pass1_dt<4, false>(dtype, a, st);
-  else
-    e = cudaErrorInvalidValue;
+  cudaError_t e = fold ? launch_pass1_dt<true>(dtype, qb, a, st)
+                       : launch_pass1_dt<false>(dtype, qb, a, st);
   if (e != cudaSuccess) return e;
   const size_t smem2 = (size_t)kPass2Warps * a.k * 8;
   scan_pass2<<<(a.nq + kPass2Warps - 1) / kPass2Warps, kPass2Warps * 32, smem2,

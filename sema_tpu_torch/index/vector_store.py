@@ -28,6 +28,10 @@ consolidating tail, and the k-class ladder of the scan.
 Store modes (``vector_store.py:68-76, 749-792``):
 
 - ``store_dtype`` bf16/f16/f32: the buckets hold the rows; K1 scans them.
+  A k above the kernels' ``K_MAX`` (1,024) takes the hierarchical route
+  of ``ops/hier_topk.py`` instead, on any device, as the JAX package takes
+  its XLA route above its kernels' 128 (``int8_topk_scores`` for an int8
+  store).
 - ``store_dtype="int8"`` (BASELINE config 4): the disk keeps the bf16
   originals, the device holds symmetric per-row int8 values and f32
   scales quantized from them (``ops/quant.py``); K4a scans them for
@@ -80,8 +84,10 @@ from sema_tpu_torch.device import resolve_device
 from sema_tpu_torch.index import ivf_cache
 from sema_tpu_torch.ops.ivf import (cluster_layout, kmeans_cluster,
                                     select_tiles)
-from sema_tpu_torch.ops.quant import quantize_rows_device, rescore_exact
-from sema_tpu_torch.ops.scan_topk import (scan_topk, scan_topk_int8,
+from sema_tpu_torch.ops.hier_topk import batched_topk_scores_hier
+from sema_tpu_torch.ops.quant import (int8_topk_scores, quantize_rows_device,
+                                      rescore_exact)
+from sema_tpu_torch.ops.scan_topk import (K_MAX, scan_topk, scan_topk_int8,
                                           scan_topk_int8_pruned,
                                           scan_topk_pruned)
 from sema_tpu_torch.types import Chunk
@@ -763,7 +769,19 @@ class VectorStore:
     # -- search -----------------------------------------------------------------
 
     def _scan(self, b: dict, q: torch.Tensor, k: int):
-        """The exact scan of one bucket: K4a (int8) or K1."""
+        """The exact scan of one bucket: K4a (int8) or K1 up to their
+        ``K_MAX``; above it the hierarchical route, on the card as on the
+        CPU, as the JAX package takes it above its kernels' limit
+        (``vector_store.py:1554-1588``): ``int8_topk_scores`` for an int8
+        store, else ``batched_topk_scores_hier``. A dispatch by k, not a
+        fallback: a kernel that fails still raises. Both routes rank
+        equal scores by the lower row id and give -inf slots id 0."""
+        if k > K_MAX:
+            if self.quantized:
+                s, i = int8_topk_scores(*b["store"], q, b["valid"], k)
+            else:
+                s, i = batched_topk_scores_hier(b["store"], q, b["valid"], k)
+            return s, i.masked_fill(torch.isneginf(s), 0)
         if self.quantized:
             return scan_topk_int8(*b["store"], q, b["valid"], k)
         return scan_topk(b["store"], q, b["valid"], k,

@@ -10,7 +10,9 @@ Scoring math: score ~= (q_i8 . r_i8) * (s_q * s_r) where s_* = max|x|/127.
 
 :func:`quantize_rows` and :func:`rescore_exact` are the JAX package's numpy
 functions, unchanged. :func:`quantize_query` is its device function in
-torch: ``torch.round`` rounds half to even, as ``jnp.round`` does. None of
+torch: ``torch.round`` rounds half to even, as ``jnp.round`` does.
+:func:`int8_topk_scores` is its XLA scan, the store's route for a k above
+the scan kernels' limit, on the exact sums of :func:`int8_dot`. None of
 this is a kernel: the JAX package runs it outside Pallas too.
 """
 
@@ -20,6 +22,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from sema_tpu_torch.ops.hier_topk import hier_topk_scores
+from sema_tpu_torch.ops.topk import stable_topk
 
 
 def quantize_rows(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -47,10 +52,39 @@ def quantize_query(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return qi, scale
 
 
+def int8_dot(qi: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Exact (Q, N) i32 sums of int8 products, as f32 (rounded once, as
+    the kernel converts them). f32 products sum exactly while every
+    partial sum stays below 2^24, that is for d * 127^2 < 2^24; wider rows
+    sum in f64."""
+    d = qi.shape[1]
+    dt = torch.float32 if d * 127 * 127 < 2 ** 24 else torch.float64
+    return (qi.to(dt) @ rows.to(dt).T).float()
+
+
 def quantize_rows_device(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """An int8 bucket's rows from its bf16 rows, on their device
     (``vector_store.py:99-111``): :func:`quantize_query` of the f32 rows."""
     return quantize_query(x.float())
+
+
+def int8_topk_scores(store_q: torch.Tensor, store_scale: torch.Tensor,
+                     queries: torch.Tensor, valid: torch.Tensor, k: int,
+                     group: int = 128):
+    """The int8 store's route above the scan kernels' ``K_MAX``
+    (``sema_tpu/ops/quant.py:int8_topk_scores``): each query quantized
+    per row, the exact i32 sums of :func:`int8_dot` times the product of
+    the two scales, masked rows -inf, then the hierarchical selection
+    (groups of ``group``; N not a multiple of it, or under two groups, the
+    plain one). Approximate scores: the store re-scores the ids from the
+    originals."""
+    qi, qscale = quantize_query(queries.float())
+    s = int8_dot(qi, store_q) * (qscale[:, None] * store_scale[None, :])
+    s = s.masked_fill(~valid.bool()[None, :], float("-inf"))
+    n = s.shape[1]
+    if n % group or n < group * 2:
+        return stable_topk(s, min(k, n))
+    return hier_topk_scores(s, k, group=group)
 
 
 def rescore_exact(candidates_full: np.ndarray, query: np.ndarray,

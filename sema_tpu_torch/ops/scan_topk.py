@@ -41,7 +41,13 @@ given (the cluster-major bucket). ``tile_ids`` is a host array: the store
 picks it on the host, and its range is checked there.
 
 Unlike the TPU kernels, N need not be a tile multiple (the kernel masks
-its own ragged edge) and k may reach 1024 (the store's largest k class).
+its own ragged edge) and k may reach ``K_MAX`` = 1024 (the store's largest
+k class); above it the store takes the hierarchical route of
+``ops/hier_topk.py``, and a CUDA tensor given here raises. bf16/f16 rows
+are scored on the tensor cores (f32 accumulation in their own order), f32
+and int8 rows by scalar FMAs and ``__dp4a``; the block's queries and the
+staged slab of each row follow :func:`_query_block` and
+:func:`slab_words`.
 The int8 scores and ids equal the plain version's bit for bit: an i32 sum
 of d <= 1040 products of int8 values converts to f32 without loss. K8 and
 K9 compute K1's function: on the card their scores and ids equal K1's bit
@@ -57,11 +63,13 @@ import torch
 
 from sema_tpu_torch.ops import _cuda
 from sema_tpu_torch.ops._cuda import KernelError
-from sema_tpu_torch.ops.quant import quantize_query
+from sema_tpu_torch.ops.quant import int8_dot, quantize_query
 
 K_MAX = 1024
 _TILE_ROWS = 64         # rows per tile of pass 1 (csrc/scan_topk.cu)
 _SMEM_MAX = 232_448     # dynamic shared memory one block may use on Hopper
+_SM_SMEM = 233_472      # shared memory of one SM, of which the runtime
+_SMEM_RESERVED = 1_024  # keeps this much for each block
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2,
                 torch.int8: 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -152,16 +160,6 @@ def fold_topk_reference(store: torch.Tensor, queries: torch.Tensor, k: int):
     return scan_topk_reference(store, queries, None, k, masked=False)
 
 
-def int8_dot(qi: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Exact (Q, N) i32 sums of int8 products, as f32 (rounded once, as
-    the kernel converts them). f32 products sum exactly while every
-    partial sum stays below 2^24, that is for d * 127^2 < 2^24; wider rows
-    sum in f64."""
-    d = qi.shape[1]
-    dt = torch.float32 if d * 127 * 127 < 2 ** 24 else torch.float64
-    return (qi.to(dt) @ rows.to(dt).T).float()
-
-
 def scan_topk_int8_reference(qvals: torch.Tensor, scales: torch.Tensor,
                              queries: torch.Tensor, valid: torch.Tensor,
                              k: int):
@@ -205,43 +203,89 @@ def scan_topk_int8_pruned_reference(qvals, scales, queries, valid, tile_ids,
                                             queries, valid[rows], k), rows)
 
 
-def _query_block(k: int) -> int:
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _mma_slab_most(d: int, qb: int, k: int, span: int) -> int:
+    """The widest slab (elements, a multiple of 16) whose two stage
+    buffers fit the tensor-core route's shared memory beside ``qb``
+    staged queries, their scores, lists and screen flags; below 16
+    nothing fits."""
+    free = _SMEM_MAX - (qb * (_up(d, 16) + 8) * 2 + qb * (span + 4) * 4
+                        + qb * k * 8 + qb * 4)
+    return (free // (2 * _TILE_ROWS * 2) - 8) // 16 * 16
+
+
+def _query_block(d: int, itemsize: int, k: int, nq: int,
+                 span: int = _TILE_ROWS) -> int:
+    """Queries one block of pass 1 takes. bf16/f16 rows (itemsize 2, the
+    tensor-core route): 64 for a batch of more than 8 at k <= 128 where
+    slabs of at least 64 elements fit beside them, so that the store is
+    read once per 64 queries; else 8, one n8 tile of the mma. f32 and
+    int8 rows (the SIMT route): 16 at k <= 128, else 4."""
+    if itemsize == 2:
+        wide = nq > 8 and k <= 128 and _mma_slab_most(d, 64, k, span) >= 64
+        return 64 if wide else 8
     return 16 if k <= 128 else 4
 
 
 def _query_bytes(d: int, itemsize: int) -> int:
-    """Shared memory of one staged query: f32 values, or packed int8."""
+    """Shared memory of one staged query on the SIMT route: f32 values,
+    or packed int8."""
     return d if itemsize == 1 else d * 4
 
 
-def slab_words(d: int, itemsize: int, k: int, span: int = _TILE_ROWS) -> int:
-    """32-bit words of each row that pass 1 stages at a time: the whole
-    row where shared memory holds 64 of them beside the queries, the
-    scores of a merge's ``span`` rows (K9's is longer) and the lists,
-    else the most that fit, a multiple of 4 (0: nothing fits).
-    ``itemsize`` 1 is an int8 store."""
-    qb = _query_block(k)
+def slab_words(d: int, itemsize: int, k: int, nq: int,
+               span: int = _TILE_ROWS) -> int:
+    """32-bit words of each row that pass 1 stages at a time (0: nothing
+    fits), beside the queries, the scores of a merge's ``span`` rows (K9's
+    is longer) and the lists. ``itemsize`` 1 is an int8 store.
+
+    bf16/f16 (the tensor-core route, two stage buffers): the row, padded
+    with zeros to a multiple of 16 elements, in as few slabs as fit, of
+    equal width rounded up to 16 elements. f32/int8 (the SIMT route, one
+    buffer): the whole row where it fits, else the most that fit, a
+    multiple of 4."""
+    qb = _query_block(d, itemsize, k, nq, span)
+    if itemsize == 2:
+        dp, most = _up(d, 16), _mma_slab_most(d, qb, k, span)
+        if most < 16:
+            return 0
+        slabs = -(-dp // most)
+        return _up(-(-dp // slabs), 16) // 2
     words = d * itemsize // 4
     free = _SMEM_MAX - (qb * _query_bytes(d, itemsize) + qb * span * 4
                         + qb * k * 8)
     return max(0, min(words, (free // (_TILE_ROWS * 4) - 1) // 4 * 4))
 
 
-def pass1_smem_bytes(d: int, itemsize: int, k: int,
+def pass1_smem_bytes(d: int, itemsize: int, k: int, nq: int,
                      span: int = _TILE_ROWS) -> int:
     """Dynamic shared memory of pass 1 (mirrors csrc/scan_topk.cu)."""
-    qb = _query_block(k)
+    qb = _query_block(d, itemsize, k, nq, span)
+    words = slab_words(d, itemsize, k, nq, span)
+    if itemsize == 2:
+        return (qb * (_up(d, 16) + 8) * 2
+                + 2 * _TILE_ROWS * (2 * words + 8) * 2
+                + qb * (span + 4) * 4 + qb * k * 8 + qb * 4)
     return (qb * _query_bytes(d, itemsize)
-            + _TILE_ROWS * (slab_words(d, itemsize, k, span) + 1) * 4
+            + _TILE_ROWS * (words + 1) * 4
             + qb * span * 4 + qb * k * 8)
 
 
-def chunk_plan(n: int, nq: int, k: int, sms: int):
-    """(rows per chunk, chunks): split N so that about two blocks per SM
-    are in flight whatever Q is (Q=1 at query time)."""
-    q_blocks = -(-nq // _query_block(k))
+def chunk_plan(n: int, nq: int, qb: int, sms: int, smem: int):
+    """(rows per chunk, chunks) for ``nq`` queries in blocks of ``qb``:
+    split N so that the blocks of pass 1 (``smem`` bytes of shared memory
+    each) fill the card once and no more, two an SM where two fit, else
+    one, whatever Q is (Q=1 at query time): a second wave of a few blocks
+    would run alone, and shorter chunks only restart more lists. The grid
+    runs the query blocks of one chunk side by side, so that they read
+    its rows from L2 at about the same time."""
+    per_sm = 2 if 2 * (smem + _SMEM_RESERVED) <= _SM_SMEM else 1
+    q_blocks = -(-nq // qb)
     tiles = -(-n // _TILE_ROWS)
-    chunks = max(1, min(tiles, -(-2 * sms // q_blocks)))
+    chunks = max(1, min(tiles, per_sm * sms // q_blocks))
     rows = -(-tiles // chunks) * _TILE_ROWS
     return rows, -(-n // rows)
 
@@ -275,9 +319,10 @@ def _check(store, queries, valid, k, masked, dtypes=(torch.bfloat16,
                           "the store's device")
     if not 1 <= k <= K_MAX:
         raise KernelError(f"k={k} outside [1, {K_MAX}]")
-    if slab_words(d, store.element_size(), k, span) < 4:
-        raise KernelError(f"d={d} at {store.dtype}, k={k}: the queries and "
-                          "lists alone fill the scan's shared memory")
+    if slab_words(d, store.element_size(), k, queries.shape[0], span) < 4:
+        raise KernelError(f"d={d} at {store.dtype}, k={k}, Q="
+                          f"{queries.shape[0]}: the queries and lists alone "
+                          "fill the scan's shared memory")
 
 
 def _check_int8(qvals, scales, queries, valid, k):
@@ -318,16 +363,18 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
     tile_dev = (None if tiles is None
                 else torch.from_numpy(tiles).to(store.device))
     sms = torch.cuda.get_device_properties(store.device).multi_processor_count
-    rows, chunks = chunk_plan(n, nq, k, sms)
+    isz, span = store.element_size(), _FOLD_SPAN if fold else _TILE_ROWS
+    qb = _query_block(d, isz, k, nq, span)
+    rows, chunks = chunk_plan(n, nq, qb, sms,
+                              pass1_smem_bytes(d, isz, k, nq, span))
     f32, i32 = torch.float32, torch.int32
     cand_s = torch.empty((nq, chunks, k), dtype=f32, device=store.device)
     cand_i = torch.empty((nq, chunks, k), dtype=i32, device=store.device)
     out_s = torch.empty((nq, k), dtype=f32, device=store.device)
     out_i = torch.empty((nq, k), dtype=i32, device=store.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    plan = (_DTYPE_CODES[store.dtype], _query_block(k), rows,
-            slab_words(d, store.element_size(), k,
-                       _FOLD_SPAN if fold else _TILE_ROWS), chunks,
+    plan = (_DTYPE_CODES[store.dtype], qb, rows,
+            slab_words(d, isz, k, nq, span), chunks,
             cand_s.data_ptr(), cand_i.data_ptr())
     if fold:
         err = _cuda.launch(

@@ -82,14 +82,17 @@ def test_fold_equals_k1_without_mask():
 @pytest.mark.parametrize("d,itemsize,k", [(384, 2, 10), (384, 2, 128),
                                           (1024, 2, 128), (1024, 4, 1024)])
 def test_fold_span_fits_shared_memory(d, itemsize, k):
-    """K9's scores of a 256-row span leave room for the rows: bf16 at
-    d = 384 still stages whole rows and fits two blocks an SM."""
-    slab = scan_mod.slab_words(d, itemsize, k, span=256)
-    assert slab % 4 == 0 and slab >= 4
-    smem = scan_mod.pass1_smem_bytes(d, itemsize, k, span=256)
-    assert smem <= scan_mod._SMEM_MAX
-    if (d, itemsize) == (384, 2) and k <= 128:
-        assert slab == d * itemsize // 4 and 2 * smem <= 228 * 1024
+    """K9's scores of a 256-row span leave room for the rows, at the A/B
+    path's Q 256 and at one query: bf16 at d = 384 stages whole rows at
+    k 10, and one query's block fits two an SM."""
+    for nq in (1, 256):
+        slab = scan_mod.slab_words(d, itemsize, k, nq, span=256)
+        assert slab % 4 == 0 and slab >= 4
+        smem = scan_mod.pass1_smem_bytes(d, itemsize, k, nq, span=256)
+        assert smem <= scan_mod._SMEM_MAX
+        if (d, itemsize, k) == (384, 2, 10):
+            assert slab == d * itemsize // 4
+            assert nq > 1 or 2 * smem <= 228 * 1024
 
 
 def _meta(*shape, dtype=torch.float32):

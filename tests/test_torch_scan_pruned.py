@@ -189,7 +189,7 @@ def test_tile_list_checked_on_the_host(tiles, n_live, tile_n, match):
 def test_int8_rows_fit_shared_memory_whole(d, k):
     """int8 rows of every registered width go through pass 1 whole, and
     a staged query takes d bytes, not 4d."""
-    assert scan_mod.slab_words(d, 1, k) == d // 4
-    assert scan_mod.pass1_smem_bytes(d, 1, k) <= scan_mod._SMEM_MAX
-    assert (scan_mod.pass1_smem_bytes(d, 1, k)
-            < scan_mod.pass1_smem_bytes(d, 2, k))
+    assert scan_mod.slab_words(d, 1, k, 256) == d // 4
+    assert scan_mod.pass1_smem_bytes(d, 1, k, 256) <= scan_mod._SMEM_MAX
+    assert (scan_mod.pass1_smem_bytes(d, 1, k, 1)
+            < scan_mod.pass1_smem_bytes(d, 2, k, 1))

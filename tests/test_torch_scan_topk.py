@@ -144,18 +144,52 @@ def test_kernel_error_code_raises(monkeypatch):
 @pytest.mark.parametrize("n,nq,k", [(262_144, 1, 16), (262_144, 256, 128),
                                     (3_000, 1, 64), (100, 300, 1024)])
 def test_chunk_plan_covers_rows(n, nq, k):
-    rows, chunks = scan_mod.chunk_plan(n, nq, k, sms=132)
+    qb = scan_mod._query_block(384, 2, k, nq)
+    smem = scan_mod.pass1_smem_bytes(384, 2, k, nq)
+    rows, chunks = scan_mod.chunk_plan(n, nq, qb, sms=132, smem=smem)
     assert rows % 64 == 0 and (chunks - 1) * rows < n <= chunks * rows
-    assert chunks <= 2 * 132                   # about two blocks per SM
-    assert scan_mod.pass1_smem_bytes(384, 2, k) <= scan_mod._SMEM_MAX
+    per_sm = 2 if 2 * smem + 2048 <= 228 * 1024 else 1
+    q_blocks = -(-nq // qb)
+    assert chunks == 1 or chunks * q_blocks <= per_sm * 132   # one wave
+    assert smem <= scan_mod._SMEM_MAX
 
 
 @pytest.mark.parametrize("d,itemsize,k,whole", [
-    (384, 2, 128, True), (1024, 2, 128, True),      # bf16: whole rows
+    (384, 2, 128, True), (1024, 2, 128, False),     # bf16: gte in two slabs
     (768, 4, 128, False), (1024, 4, 1024, False),   # f32 e5/gte: slabs
 ])
 def test_slab_words_fit_shared_memory(d, itemsize, k, whole):
+    """One query's pass 1. The tensor-core route (itemsize 2) double-
+    buffers its slabs, so a gte-large bf16 row goes in two equal halves;
+    the SIMT route stages f32 rows of the wider models in slabs of the
+    most words that fit."""
     words = d * itemsize // 4
-    slab = scan_mod.slab_words(d, itemsize, k)
+    slab = scan_mod.slab_words(d, itemsize, k, 1)
     assert slab % 4 == 0 and 4 <= slab <= words and (slab == words) == whole
-    assert scan_mod.pass1_smem_bytes(d, itemsize, k) <= scan_mod._SMEM_MAX
+    if itemsize == 2:
+        assert slab % 8 == 0 and words % slab == 0   # equal whole k-steps
+    assert scan_mod.pass1_smem_bytes(d, itemsize, k, 1) <= scan_mod._SMEM_MAX
+
+
+@pytest.mark.parametrize("d,k,qb,whole", [(384, 10, 64, True),
+                                          (384, 128, 64, False),
+                                          (1024, 16, 64, False),
+                                          (1024, 128, 8, False),
+                                          (384, 1024, 8, True)])
+def test_batch_query_block(d, k, qb, whole):
+    """At Q 256 the tensor-core route takes 64 queries a block (the store
+    read 4 times, the query blocks of a chunk side by side in the grid)
+    wherever slabs of 64 elements still fit beside them, else 8; f32 and
+    int8 keep 16 (4 above k 128)."""
+    assert scan_mod._query_block(d, 2, k, 256) == qb
+    assert scan_mod._query_block(d, 2, k, 8) == 8
+    assert scan_mod._query_block(d, 4, k, 256) == (16 if k <= 128 else 4)
+    slab = scan_mod.slab_words(d, 2, k, 256)
+    assert slab >= 8 and (slab == d // 2) == whole
+    assert scan_mod.pass1_smem_bytes(d, 2, k, 256) <= scan_mod._SMEM_MAX
+    smem = scan_mod.pass1_smem_bytes(d, 2, k, 256)
+    rows, chunks = scan_mod.chunk_plan(1 << 20, 256, qb, sms=132, smem=smem)
+    q_blocks = 256 // qb
+    per_sm = 2 if 2 * smem + 2048 <= 228 * 1024 else 1
+    assert chunks * q_blocks <= per_sm * 132 < (chunks + 1) * q_blocks
+    assert (chunks - 1) * rows < 1 << 20 <= chunks * rows
