@@ -135,6 +135,28 @@ mutant k9_always_fast scan_topk.cu \
 # K9: the highest column first among equal folded values
 mutant k9_highest_column scan_topk.cu \
   's/(ov == bv \&\& oc < bc)/(ov == bv \&\& oc > bc)/' scan_ab
+# K2 and K5, the LayerNorm GEMMs: no cluster barrier before the LayerNorm,
+# so a block may read a peer's slice before the peer has written it
+mutant ln_no_cluster_barrier encoder_layer.cu \
+  's|  cluster.sync();  // every slice of the cluster is written||' encoder_layer
+mutant ln_no_cluster_barrier_int8 encoder_layer.cu \
+  's|  cluster.sync();  // every slice of the cluster is written||' \
+  encoder_layer_int8
+# K2 and K5: each block reads its own slice of a row c times over, not its
+# peers' slices in column order
+mutant ln_own_slice encoder_layer.cu \
+  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/' \
+  encoder_layer
+mutant ln_own_slice_int8 encoder_layer.cu \
+  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/' \
+  encoder_layer_int8
+# K2 and K5 (and K6's and qmm's GEMMs): the ring waits one stage short, so
+# a slab is read before its copies land
+mutant ring_wait_short encoder_layer.cu \
+  's/cp_async_wait<STAGES - 2>();/cp_async_wait<STAGES - 1>();/g' encoder_layer
+mutant ring_wait_short_int8 encoder_layer.cu \
+  's/cp_async_wait<STAGES - 2>();/cp_async_wait<STAGES - 1>();/g' \
+  encoder_layer_int8
 cli_mutant() {
   local name=$1 file=$2 expr=$3 expect=$4
   chosen "$name" || return 0
@@ -168,6 +190,6 @@ cli_mutant k5_build_fails csrc/encoder_layer.cu \
   "kernel build failed"
 # K5's wrapper refuses the tensors it is given
 cli_mutant k5_refuses ops/encoder_layer_int8.py \
-  's/    _check(x, layer, mask_bias, num_heads, quantized=True)/    raise KernelError("refused by the mutant")/' \
+  's/        _check(x, layer, mask_bias, num_heads, quantized=True)/        raise KernelError("refused by the mutant")/; s/        _check_operands(x, mask_bias, num_heads, operands, True)/        raise KernelError("refused by the mutant")/' \
   "refused by the mutant"
 exit $failed

@@ -33,7 +33,16 @@ Phases, one JSON line each:
                       gte-large width (head dim 64, H = 1024) at every
                       bucket shape of the index, (64, 256) and the query's
                       (1, 256). The mutants must fail at every shape,
-                      under the limit of its dtype.
+                      under the limit of its dtype. A case is timed as
+                      the Encoder calls the layer, with its operands
+                      gathered once (``layer_operands``; the output must
+                      equal a call without them). Each case also times
+                      its five launches apart (torch.profiler, by position
+                      in the layer), and one query (B = 1) also over
+                      copies of the weights that exceed L2 (``cold_ms``,
+                      as a 24-layer query reads them); the LayerNorm
+                      GEMMs' plan (``ln_gemm_plan``) must be the kernel's
+                      own and their traced grids the plan's.
 5. ``encoder_layer_int8``  K5 against its plain version: ``qmm`` (the row
                       quantization, the int8 GEMM and the rescale) bit-equal
                       at the four products of MiniLM and gte-large at M =
@@ -42,7 +51,8 @@ Phases, one JSON line each:
                       (64, 256), (256, 256), (2048, 32) and (32, 512), under
                       ``K5_LIMITS``, which must reject the plain version with
                       attention broken. Library: ``torch._int_mm`` of the
-                      four products alone.
+                      four products alone. Launch times, the cold time and
+                      the plans as K2's.
 6. ``attention``      K6 (the qkv projection + attention of one shard of
                       heads) and K7 (attention alone, from a qkv) against
                       their plain versions at the local widths of gte-large
@@ -162,6 +172,11 @@ Phases, one JSON line each:
                       default shapes, which must exit 0 with ids identical
                       through their kernels.
 
+``--parent-source FILE`` adds ``layer_bits``: K2, K5 and K6 at every
+case of K2_SHAPES, K5_SHAPES and K6_BS through this tree's kernels and
+through ``FILE`` (another revision's ``csrc/encoder_layer.cu``, built
+beside them), bit for bit, or where the outputs differ.
+
 Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises, so the script
 exits non-zero before the last line; without a card, or without the
@@ -178,6 +193,7 @@ has).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib
 import io
 import json
@@ -235,6 +251,102 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def short_name(key: str) -> str:
+    """A kernel's name as the profiler reports it, without its return
+    type, anonymous namespace and argument list: ``gemm_kernel<0, 2,
+    16>``. Two instantiations of one template keep their template
+    arguments apart."""
+    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0 and i > 0:
+            return name[:i].strip()
+    return name.strip()
+
+
+def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1) -> list:
+    """Device ms of each launch of ``fn()``, which runs ``layers`` layers
+    of ``per_call`` kernels of ``csrc/`` each, by position in the layer
+    (position ``i`` takes every ``per_call``-th kernel from ``i``): the
+    mean over the last ``iters`` of ``iters + 1`` calls of ``fn`` under
+    torch.profiler (the trace may miss a first kernel), with the kernel's
+    name, grid, block and dynamic shared memory as the trace records them.
+    PyTorch's own kernels (casts of the weights to the compute dtype) are
+    left out. A trace that misses more is taken again, twice at most, then
+    reported as ``[{"error": ...}]``."""
+    from torch.profiler import ProfilerActivity, profile
+    want = per_call * layers * iters
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters + 1):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                          and "at::native" not in e["name"]),
+                         key=lambda e: e["ts"])
+        if len(kernels) >= want:
+            break
+    else:
+        return [{"error": f"{len(kernels)} kernels traced for {iters + 1} "
+                          f"calls of {layers} x {per_call} launches"}]
+    kernels = kernels[-want:]
+    out = []
+    for i in range(per_call):
+        evs = kernels[i::per_call]
+        names = sorted({short_name(e["name"]) for e in evs})
+        args = evs[0].get("args", {})
+        out.append({"kernel": names[0] if len(names) == 1 else names,
+                    "ms": sum(e["dur"] for e in evs) / len(evs) / 1e3,
+                    "grid": args.get("grid"), "block": args.get("block"),
+                    "smem": args.get("shared memory")})
+    return out
+
+
+def weight_copies(layer: dict, names, total_bytes: float = 100e6) -> list:
+    """``layer`` and copies of it whose tensors ``names`` are clones, so
+    many that their weights together pass ``total_bytes`` (twice the
+    H100's 50 MB L2): a loop over the copies reads every layer's weights
+    from device memory, as the 24 layers of a gte-large query do, where a
+    loop over one layer finds them in L2."""
+    size = sum(layer[n].numel() * layer[n].element_size() for n in names)
+    return [layer] + [{**layer, **{n: layer[n].clone() for n in names}}
+                      for _ in range(math.ceil(total_bytes / size) - 1)]
+
+
+def layer_launches(fn, args, operands, names, per_call, iters) -> dict:
+    """A layer's launches, each timed apart by the profiler, with the
+    same layer over and over (``launches``: its weights stay in L2, as in
+    ``ms``); for one query (B = 1) also over a loop of ``weight_copies``
+    (``cold_ms`` by CUDA events and ``cold_launches``, per layer: each
+    layer's weights come from device memory, as on the path). Every call
+    takes its layer's operands, made once, as the Encoder's do
+    (``operands(layer)``)."""
+    x, layer, *rest = args
+    warm = operands(layer)
+    out = {"launches": launch_profile(lambda: fn(*args, operands=warm),
+                                      per_call)}
+    if x.shape[0] == 1:
+        copies = [(c, operands(c)) for c in weight_copies(layer, names)]
+        cycle = lambda: [fn(x, c, *rest, operands=o) for c, o in copies]
+        out.update(copies=len(copies),
+                   cold_ms=device_ms(cycle, max(2, iters // len(copies)))
+                   / len(copies),
+                   cold_launches=launch_profile(cycle, per_call, 2,
+                                                len(copies)))
+    return out
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
@@ -924,21 +1036,71 @@ def library_layer(layer, heads, eps, dtype):
     return mod
 
 
+def layer_inputs(spec, dtype, b, s, gen):
+    """(x, padding mask, mask bias, heads, scale) of a layer case: x
+    normal, random lengths (one query: 12 tokens, padded to s)."""
+    h, heads = spec.hidden_size, spec.num_heads
+    x = torch.randn(b, s, h, generator=gen, device=DEV).to(dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
+    lens[0] = s if b > 1 else min(12, s)
+    pad = torch.arange(s, device=DEV)[None, :] >= lens[:, None]
+    return x, pad, pad.float() * -1e9, heads, 1.0 / math.sqrt(h // heads)
+
+
+def ln_plans(spec, m, quantized) -> list:
+    """The launch plan of the layer's two LayerNorm GEMMs at M = m
+    (``ln_gemm_plan``), which must be the kernel's own (``sema_gemm_plan``),
+    with the clusters of it the card holds at once."""
+    from sema_tpu_torch.ops import _cuda
+    from sema_tpu_torch.ops.encoder_layer import ln_gemm_plan
+    lib = _cuda.library("encoder_layer", {"sema_gemm_plan": [ctypes.c_int] * 5
+                                          + [ctypes.POINTER(ctypes.c_int)]})
+    h = spec.hidden_size
+    plans = []
+    for gemm, k in (("out-proj + LN1", h),
+                    ("FFN-out + LN2", spec.intermediate_size)):
+        want = ln_gemm_plan(m, h, k, quantized)
+        got = (ctypes.c_int * 7)()
+        _cuda.check(lib, lib.sema_gemm_plan(m, h, k, 1, int(quantized), got),
+                    "sema_gemm_plan")
+        check(want is not None and tuple(got[:6]) == tuple(want),
+              f"{spec.name} M={m}: ln_gemm_plan {want}, the kernel's "
+              f"{list(got)}")
+        check(got[6] >= 1, f"{spec.name} M={m}: no cluster of {want} fits")
+        plans.append({"gemm": gemm, **want._asdict(),
+                      "max_active_clusters": got[6]})
+    return plans
+
+
+def check_ln_launches(launches, positions, plans, what):
+    """The traced grid of each LayerNorm GEMM (at ``positions`` of the
+    layer's launches) is its plan's: row blocks x the cluster's blocks.
+    Where the profiler gave no trace (``launch_profile``'s error), the
+    plans stand checked against the kernel's own alone."""
+    if "error" in launches[0]:
+        return
+    for i, plan in zip(positions, plans):
+        grid = launches[i].get("grid")
+        check(grid is not None and grid[1] == plan["cluster"]
+              and grid[0] * grid[1] == plan["blocks"],
+              f"{what}: launch {i} ran grid {grid}, plan {plan}")
+
+
 def layer_case(layer, spec, dtype, b, s, gen, iters):
     from sema_tpu_torch.models.bert import LN_EPS
     from sema_tpu_torch.ops.encoder_layer import (encoder_layer_reference,
-                                                  fused_encoder_layer)
-    h, heads, inter = spec.hidden_size, spec.num_heads, spec.intermediate_size
-    scale = 1.0 / math.sqrt(h // heads)
+                                                  fused_encoder_layer,
+                                                  layer_operands)
+    h, inter = spec.hidden_size, spec.intermediate_size
     close = {torch.float32: layer_close_f32,
              torch.float16: layer_close_f16}.get(dtype, layer_close)
-    x = torch.randn(b, s, h, generator=gen, device=DEV).to(dtype)
-    lens = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
-    lens[0] = s if b > 1 else min(12, s)   # one query: 12 tokens, padded
-    pad = torch.arange(s, device=DEV)[None, :] >= lens[:, None]
-    bias = pad.float() * -1e9
+    x, pad, bias, heads, scale = layer_inputs(spec, dtype, b, s, gen)
     args = (x, layer, bias, heads, scale, LN_EPS)
-    got = fused_encoder_layer(*args)
+    operands = layer_operands(layer, dtype)
+    got = fused_encoder_layer(*args, operands=operands)
+    check(torch.equal(got, fused_encoder_layer(*args)),
+          f"{spec.name} {dtype} ({b}, {s}): the layer differs without its "
+          "operands made beforehand (or is not finite)")
     want = encoder_layer_reference(*args)
     torch.cuda.synchronize()
     ok, cos, rel = close(got, want)
@@ -965,7 +1127,13 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
     with torch.inference_mode():
         library_ms = device_ms(lambda: lib(x, src_key_padding_mask=pad),
                                iters)
-    share = {}
+    share = layer_launches(fused_encoder_layer, args,
+                           lambda lay: layer_operands(lay, dtype),
+                           [n for n, _, _ in linears(spec)], 5, iters)
+    if dtype != F32:       # the f32 route's GEMMs are SIMT, one per row
+        share["ln_plans"] = ln_plans(spec, b * s, False)
+        check_ln_launches(share["launches"], (2, 4), share["ln_plans"],
+                          f"K2 {spec.name} {dtype} ({b}, {s})")
     if dtype == F32:    # the f32 attention's share of the layer: K7 alone
         share["attention_ms"] = attention_ms(b, s, h, heads, scale, bias,
                                              gen, iters)
@@ -975,7 +1143,8 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
             "max_rel_err": rel, "min_cosine": cos,
             "broken_min_cosine": {name: close(out, want)[1]
                                   for name, out in broken.items()},
-            "ms": device_ms(lambda: fused_encoder_layer(*args), iters),
+            "ms": device_ms(lambda: fused_encoder_layer(
+                *args, operands=operands), iters),
             "plain_ms": device_ms(lambda: encoder_layer_reference(*args),
                                   iters),
             "library_ms": library_ms, "bound_ms": ms, "bound_by": bound_by,
@@ -1114,18 +1283,18 @@ def qmm_case(spec, m, k, n, name, gen, iters):
 def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
     from sema_tpu_torch.models.bert import LN_EPS
     from sema_tpu_torch.ops.encoder_layer_int8 import (
-        encoder_layer_int8_reference, fused_encoder_layer_int8)
-    h, heads, inter = spec.hidden_size, spec.num_heads, spec.intermediate_size
-    scale = 1.0 / math.sqrt(h // heads)
+        encoder_layer_int8_reference, fused_encoder_layer_int8,
+        layer_operands)
+    h, inter = spec.hidden_size, spec.intermediate_size
     cos_min, rel_max = K5_LIMITS[dtype]
     close = lambda got, want: layer_close(got, want, cos_min, rel_max)
-    x = torch.randn(b, s, h, generator=gen, device=DEV).to(dtype)
-    lens = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
-    lens[0] = s if b > 1 else min(12, s)   # one query: 12 tokens, padded
-    pad = torch.arange(s, device=DEV)[None, :] >= lens[:, None]
-    bias = pad.float() * -1e9
+    x, pad, bias, heads, scale = layer_inputs(spec, dtype, b, s, gen)
     args = (x, layer, bias, heads, scale, LN_EPS)
-    got = fused_encoder_layer_int8(*args)
+    operands = layer_operands(layer, dtype)
+    got = fused_encoder_layer_int8(*args, operands=operands)
+    check(torch.equal(got, fused_encoder_layer_int8(*args)),
+          f"{spec.name} {dtype} ({b}, {s}): the int8 layer differs without "
+          "its operands made beforehand (or is not finite)")
     want = encoder_layer_int8_reference(*args)
     torch.cuda.synchronize()
     ok, cos, rel = close(got, want)
@@ -1137,6 +1306,13 @@ def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
     m = b * s
     isz = x.element_size()
     weights = 4 * h * h + 2 * h * inter
+    launches = layer_launches(fused_encoder_layer_int8, args,
+                              lambda lay: layer_operands(lay, dtype),
+                              [n + "_q" for n, _, _ in linears(spec)], 8,
+                              iters)
+    plans = ln_plans(spec, m, True)
+    check_ln_launches(launches["launches"], (4, 7), plans,
+                      f"K5 {spec.name} {dtype} ({b}, {s})")
     # int8 products at the int8 rate plus attention at the bf16 (f32) rate,
     # as int8-rate-equivalent operations
     attn_rate = F32_OPS_PER_S if dtype == F32 else BF16_OPS_PER_S
@@ -1154,13 +1330,15 @@ def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
                                   for name, out in broken.items()},
             "broken_passes": [name for name, out in broken.items()
                               if close(out, want)[0]],
-            "ms": device_ms(lambda: fused_encoder_layer_int8(*args), iters),
+            "ms": device_ms(lambda: fused_encoder_layer_int8(
+                *args, operands=operands), iters),
             "plain_ms": device_ms(
                 lambda: encoder_layer_int8_reference(*args),
                 max(2, iters // 3)),
             "library_ms": int_mm_ms(m, spec, gen, iters),
             "library_call": "torch._int_mm x4, the four products alone",
-            "bound_ms": ms, "bound_by": bound_by}
+            "bound_ms": ms, "bound_by": bound_by, "ln_plans": plans,
+            **launches}
 
 
 def phase_layer_int8(gen):
@@ -1366,6 +1544,111 @@ def phase_attention(gen):
     return cases
 
 
+# -- K2, K5 and K6 against another revision's source, bit for bit ------------
+
+
+def parent_library(source: Path):
+    """``csrc/encoder_layer.cu`` of another revision (``--parent-source``),
+    built with the port's nvcc flags into build/kernels/parent/ and bound
+    with the entry points of K2, K5 and K6."""
+    from sema_tpu_torch.ops import _cuda, attention, encoder_layer
+    from sema_tpu_torch.ops import encoder_layer_int8
+    out = _cuda.BUILD_DIR / "parent" / "libencoder_layer.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    done = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out),
+                           str(source)], capture_output=True, text=True)
+    check(done.returncode == 0, f"{source} does not build: {done.stdout}")
+    lib = ctypes.CDLL(str(out))
+    lib.sema_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sema_cuda_error_string.restype = ctypes.c_char_p
+    for module in (encoder_layer, encoder_layer_int8, attention):
+        for fn, argtypes in module._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def bits_case(what, fn, args, parent, iters) -> dict:
+    """``fn(*args)`` through this tree's kernels and through ``parent``'s
+    (the wrapper's library swapped): where their outputs differ, and the
+    ms of each by CUDA events (``ms``, ``parent_ms``), the means of three
+    turns each in the order this tree, parent, parent, this tree, this
+    tree, parent on the same card."""
+    as_parent = lambda: swapped("sema_tpu_torch.ops._cuda",
+                                {"library": lambda *a: parent})
+    got = fn(*args)
+    with as_parent():
+        want = fn(*args)
+    torch.cuda.synchronize()
+    diff = got.float() != want.float()
+    times = {"ms": [], "parent_ms": []}
+    for side in ("", "parent_", "parent_", "", "", "parent_"):
+        with as_parent() if side else ExitStack():
+            times[side + "ms"].append(device_ms(lambda: fn(*args), iters))
+    return {"case": what, "bit_equal": torch.equal(got, want),
+            "elements_differing": int(diff.sum()),
+            "rows_differing": int(diff.reshape(-1, got.shape[-1]).any(1).sum()),
+            "max_abs_diff": float((got.float() - want.float()).abs().max()),
+            **{key: sum(v) / len(v) for key, v in times.items()}}
+
+
+def phase_layer_bits(gen, source: Path):
+    """K2 at every K2_SHAPES case, K5 at every K5_SHAPES case and K6 at
+    every K6_BS shape of every K67_WIDTHS width and dtype against the same
+    wrappers with the library built from ``source``, on the same inputs:
+    each output bit for bit, or where it differs, and both timed in turns
+    in this run (the layers with their operands gathered once, as the
+    Encoder calls them; 50 calls a turn at one query, whose host time
+    varies most). Run once with the parent revision's source; not a phase
+    of the default run."""
+    from sema_tpu_torch.models.bert import LN_EPS
+    from sema_tpu_torch.models.registry import get_spec
+    from sema_tpu_torch.ops import encoder_layer, encoder_layer_int8
+    from sema_tpu_torch.ops.attention import fused_attention_block
+    parent = parent_library(source)
+    cases = []
+    for kernel, shapes, params, module, fn in (
+            ("K2", K2_SHAPES, lambda sp: layer_params(
+                sp.hidden_size, sp.intermediate_size, gen), encoder_layer,
+             encoder_layer.fused_encoder_layer),
+            ("K5", K5_SHAPES, lambda sp: int8_layer_params(sp, gen),
+             encoder_layer_int8, encoder_layer_int8.fused_encoder_layer_int8)):
+        for name in dict.fromkeys(m for m, _, _, _ in shapes):
+            spec = get_spec(name)
+            layer = params(spec)
+            for m, dt, b, s in shapes:
+                if m != name:
+                    continue
+                x, _, bias, heads, scale = layer_inputs(spec, dt, b, s, gen)
+                ops = module.layer_operands(layer, dt)
+                what = f"{kernel} {name} {str(dt).removeprefix('torch.')} " \
+                       f"({b}, {s})"
+                cases.append(bits_case(
+                    what, lambda *a, _o=ops: fn(*a, operands=_o),
+                    (x, layer, bias, heads, scale, LN_EPS), parent,
+                    iters=50 if b == 1 else 10))
+            del layer
+            torch.cuda.empty_cache()
+    for model, tp in K67_WIDTHS:
+        spec = get_spec(model)
+        h, heads = spec.hidden_size, spec.num_heads
+        h_out, n = h // tp, heads // tp
+        for dt in (BF16, F16, F32):
+            for b, s in K6_BS:
+                x = torch.randn(b, s, h, generator=gen, device=DEV).to(dt)
+                w = (1.5 / math.sqrt(h) * torch.randn(
+                    h, 3 * h_out, generator=gen, device=DEV)).to(dt)
+                qb = torch.randn(3 * h_out, generator=gen, device=DEV).to(dt)
+                bias = torch.zeros(b, s, device=DEV)
+                cases.append(bits_case(
+                    f"K6 {model} tp {tp} {str(dt).removeprefix('torch.')} "
+                    f"({b}, {s})", fused_attention_block,
+                    (x, w, qb, bias, n, 1.0 / math.sqrt(h // heads)),
+                    parent, iters=50 if b == 1 else 10))
+    emit("layer_bits", source=str(source), cases=cases)
+    return cases
+
+
 # -- main path ----------------------------------------------------------------
 
 _WORDS = ("request", "retry", "backoff", "socket", "parse", "token", "vector",
@@ -1394,7 +1677,9 @@ def make_tree(root: Path, n_files: int) -> Path:
 def query_device_time(search, n: int) -> dict:
     """Device time of ``n`` queries under torch.profiler: busy ms per
     query, the busy share of the wall time, and the kernels that take
-    the most of it (device ms per query)."""
+    the most of it (device ms per query, summed by ``short_name``: a
+    prefix of the profiler's key would merge one template's
+    instantiations, and a dict keyed by it kept only the last of them)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1406,10 +1691,11 @@ def query_device_time(search, n: int) -> dict:
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     check(events, "the profiler saw no device activity")
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    by_name = Counter()
+    for e in events:
+        by_name[short_name(e.key)] += e.self_device_time_total / 1e3 / n
     return {"busy_ms": busy_ms / n, "busy_share": busy_ms / wall_ms,
-            "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 / n
-                       for e in top}}
+            "top_ms": dict(by_name.most_common(10))}
 
 
 def bucket_batches(enc, texts):
@@ -2328,6 +2614,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--parent-source", type=Path, default=None,
+                    help="another revision's csrc/encoder_layer.cu: run the "
+                         "layer_bits phase against it")
     cli_args = ap.parse_args()
     phases = (None if cli_args.phases is None
               else set(cli_args.phases.split(",")))
@@ -2364,6 +2653,8 @@ def main() -> int:
         phase_scan_more(gen)
     if run("scan_ab"):
         scan_ab = phase_scan_ab(gen)
+    if cli_args.parent_source is not None:
+        phase_layer_bits(gen, cli_args.parent_source.resolve())
     (ROOT / "build").mkdir(exist_ok=True)
     paths = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:

@@ -30,18 +30,22 @@ Parameter tree: see :mod:`sema_tpu_torch.models.loader`.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
 from sema_tpu_torch.models.registry import EncoderSpec
 from sema_tpu_torch.ops.attention import (fused_attention_block,
                                           fused_attention_qkv)
-from sema_tpu_torch.ops.encoder_layer import (fused_encoder_layer,
-                                              layer_norm_f32)
+from sema_tpu_torch.ops.encoder_layer import fused_encoder_layer
+from sema_tpu_torch.ops.encoder_layer import \
+    layer_operands as layer_operands_float
+from sema_tpu_torch.ops.encoder_layer import layer_norm_f32
 from sema_tpu_torch.ops.encoder_layer_int8 import (LINEARS, column_major,
                                                    fused_encoder_layer_int8,
                                                    qmm)
+from sema_tpu_torch.ops.encoder_layer_int8 import \
+    layer_operands as layer_operands_int8
 from sema_tpu_torch.ops.quant import div127
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -124,20 +128,44 @@ def _embed_tokens(emb: Dict[str, torch.Tensor], input_ids: torch.Tensor,
     return layer_norm(x, emb["ln_scale"], emb["ln_bias"])
 
 
+def layer_views(params: Params) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's leaves, a dict of views into the stacked (L, ...)
+    params: what :func:`bert_forward` hands the layer kernel. An
+    ``Encoder`` makes them once; slicing 16 leaves again for each of
+    gte-large's 24 layers costs the host more than a query's layers
+    take on the card."""
+    leaves = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+    return [dict(zip(leaves, layer)) for layer in zip(*leaves.values())]
+
+
+def layer_operands(views: List[Dict[str, torch.Tensor]],
+                   compute_dtype) -> list:
+    """Each layer's operands as the layer kernel reads them
+    (``ops.encoder_layer.layer_operands`` or its int8 counterpart), checked
+    once, for a caller that runs the layers on the card many times."""
+    make = (layer_operands_int8 if views and "qkv_w_q" in views[0]
+            else layer_operands_float)
+    return [make(layer, compute_dtype) for layer in views]
+
+
 def bert_forward(params: Params, input_ids: torch.Tensor,
                  attention_mask: torch.Tensor, spec: EncoderSpec,
-                 compute_dtype=torch.float32) -> torch.Tensor:
-    """Token-level hidden states (batch, seq, hidden)."""
+                 compute_dtype=torch.float32,
+                 views: Optional[List[Dict[str, torch.Tensor]]] = None,
+                 operands: Optional[list] = None) -> torch.Tensor:
+    """Token-level hidden states (batch, seq, hidden). ``views``:
+    :func:`layer_views` of ``params``, and ``operands``: their
+    :func:`layer_operands`, each made once by the caller."""
     x = _embed_tokens(params["embeddings"], input_ids, compute_dtype)
     # additive mask: 0 where attended, -1e9 (f32) where padded
     mask_bias = (1.0 - attention_mask.float()) * -1e9
-    layers = params["layers"]
     scale = 1.0 / math.sqrt(spec.hidden_size // spec.num_heads)
-    fused = (fused_encoder_layer_int8 if "qkv_w_q" in layers
+    fused = (fused_encoder_layer_int8 if "qkv_w_q" in params["layers"]
              else fused_encoder_layer)
-    for i in range(spec.num_layers):
-        layer = {name: leaf[i] for name, leaf in layers.items()}
-        x = fused(x, layer, mask_bias, spec.num_heads, scale, LN_EPS)
+    views = layer_views(params) if views is None else views
+    for i, layer in enumerate(views[:spec.num_layers]):
+        extra = {} if operands is None else {"operands": operands[i]}
+        x = fused(x, layer, mask_bias, spec.num_heads, scale, LN_EPS, **extra)
     return x
 
 
@@ -272,11 +300,13 @@ def cls_pool_normalize(hidden: torch.Tensor,
 
 def embed(params: Params, input_ids: torch.Tensor,
           attention_mask: torch.Tensor, spec: EncoderSpec,
-          compute_dtype=torch.float32) -> torch.Tensor:
+          compute_dtype=torch.float32,
+          views: Optional[List[Dict[str, torch.Tensor]]] = None,
+          operands: Optional[list] = None) -> torch.Tensor:
     """Full sentence-embedding forward: encoder → pooling → L2.
     (batch, dim) f32."""
     hidden = bert_forward(params, input_ids, attention_mask, spec,
-                          compute_dtype)
+                          compute_dtype, views, operands)
     if spec.pooling == "cls":
         return cls_pool_normalize(hidden, attention_mask)
     return mean_pool_normalize(hidden, attention_mask)

@@ -91,6 +91,9 @@ class Encoder:
             if self.model_axis is None:   # TP shards lay out their own
                 params = bert.int8_kernel_layout(params)
         self.params = self.shards = None
+        # bert.layer_views(self.params) and, on the card, their
+        # bert.layer_operands: made at the first embed
+        self.views = self.operands = None
         if mesh is None:
             self.params = bert.cast_params(params, compute_dtype)
         elif self.model_axis is not None:
@@ -169,11 +172,18 @@ class Encoder:
         a multiple of the data-parallel degree and split over it."""
         ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
         if self.shards is None:
+            if self.views is None:
+                views = bert.layer_views(self.params)
+                if self.device.type == "cuda":
+                    self.operands = bert.layer_operands(views,
+                                                        self.compute_dtype)
+                self.views = views
             with torch.inference_mode():
                 return bert.embed(self.params,
                                   ids.to(self.device, non_blocking=True),
                                   mask.to(self.device, non_blocking=True),
-                                  self.spec, self.compute_dtype)
+                                  self.spec, self.compute_dtype, self.views,
+                                  self.operands)
         n = ids.shape[0]
         pad = -n % self._dp
         if pad:

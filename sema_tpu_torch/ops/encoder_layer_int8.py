@@ -31,13 +31,17 @@ alone is bit-equal between the two (``chip_smoke.py`` holds it so).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from sema_tpu_torch.ops import _cuda
 from sema_tpu_torch.ops._cuda import KernelError
-from sema_tpu_torch.ops.encoder_layer import (_BIASES, _DTYPE_CODES, _LN,
-                                              _check, layer_with_products)
+from sema_tpu_torch.ops.encoder_layer import (_DTYPE_CODES, _LN,
+                                              LayerOperands, _check,
+                                              _check_leaves, _check_operands,
+                                              gather_operands, in_dtype,
+                                              layer_with_products, scratch)
 from sema_tpu_torch.ops.quant import div127
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -108,9 +112,10 @@ def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
 
 def encoder_layer_int8_reference(x: torch.Tensor, layer: dict,
                                  mask_bias: torch.Tensor, num_heads: int,
-                                 scale: float,
-                                 ln_eps: float) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_encoder_layer_int8`."""
+                                 scale: float, ln_eps: float,
+                                 operands=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_encoder_layer_int8`
+    (``operands``, the kernels' gathered leaves, is not used)."""
     def mm(a, name):
         return qmm_reference(a, layer[name + "_q"], layer[name + "_s"])
 
@@ -118,43 +123,65 @@ def encoder_layer_int8_reference(x: torch.Tensor, layer: dict,
                                ln_eps, mm)
 
 
+# K5's leaves in the order sema_encoder_layer_int8 takes them
+_OPERANDS = ("qkv_w_q", "qkv_w_s", "qkv_b", "attn_out_w_q", "attn_out_w_s",
+             "attn_out_b", *_LN[:2], "ffn_in_w_q", "ffn_in_w_s", "ffn_in_b",
+             "ffn_out_w_q", "ffn_out_w_s", "ffn_out_b", *_LN[2:])
+
+
+def _prepare(dtype):
+    def prepare(name, t):
+        if name.endswith("_q"):
+            return _rows(t)
+        if name.endswith("_s"):
+            return _cuda.aligned(t)
+        return in_dtype(t, torch.float32 if name in _LN else dtype)
+    return prepare
+
+
+def layer_operands(layer: dict, dtype) -> LayerOperands:
+    """K5's operands of ``layer`` in compute dtype ``dtype``, every leaf
+    checked (as ``encoder_layer.layer_operands`` makes K2's)."""
+    h, inter = layer["attn_ln_scale"].shape[0], layer["ffn_in_w_q"].shape[-1]
+    _check_leaves(layer, h, inter, layer["qkv_w_q"].device, True)
+    return gather_operands(layer, _OPERANDS, _prepare(dtype), dtype, True)
+
+
 def fused_encoder_layer_int8(x: torch.Tensor, layer: dict,
                              mask_bias: torch.Tensor, num_heads: int,
-                             scale: float, ln_eps: float) -> torch.Tensor:
+                             scale: float, ln_eps: float,
+                             operands: Optional[LayerOperands] = None
+                             ) -> torch.Tensor:
     """One post-LN BERT layer with W8A8 linears (see the module
     docstring). CPU tensors run the plain version; CUDA tensors launch the
-    kernels or raise."""
+    kernels or raise. ``operands``: :func:`layer_operands` of ``layer``,
+    if the caller keeps them."""
     if x.device.type == "cpu":
         return encoder_layer_int8_reference(x, layer, mask_bias, num_heads,
                                             scale, ln_eps)
-    _check(x, layer, mask_bias, num_heads, quantized=True)
+    if operands is None:
+        _check(x, layer, mask_bias, num_heads, quantized=True)
+    else:
+        _check_operands(x, mask_bias, num_heads, operands, True)
     lib = _cuda.library("encoder_layer", _SIGNATURES)
+    if operands is None:
+        operands = gather_operands(layer, _OPERANDS, _prepare(x.dtype),
+                                   x.dtype, True)
     b, s, h = x.shape
-    inter = layer["ffn_in_w_q"].shape[-1]
-    dt, dev = x.dtype, x.device
-    x = _cuda.aligned(x)
-    rows = [_rows(layer[n + "_q"]) for n in LINEARS]
-    scales = [_cuda.aligned(layer[n + "_s"]) for n in LINEARS]
-    biases = [_cuda.aligned(layer[n].to(dt)) for n in _BIASES]
-    lns = [_cuda.aligned(layer[n].float()) for n in _LN]
-    mask = _cuda.aligned(mask_bias.float())
-    m = b * s
-    empty = lambda *shape, d=dt: torch.empty(shape, dtype=d, device=dev)
-    qkv, ctx, h1 = empty(m, 3 * h), empty(m, h), empty(m, h)
-    up, out = empty(m, inter), empty(b, s, h)
-    i8, f32 = torch.int8, torch.float32
-    qa, qh, qu = empty(m, h, d=i8), empty(m, h, d=i8), empty(m, inter, d=i8)
-    sa, sh, su = empty(m, d=f32), empty(m, d=f32), empty(m, d=f32)
-    ptr = lambda t: t.data_ptr()
-    params = []
-    for w, sc, bi in zip(rows, scales, biases):
-        params += [ptr(w), ptr(sc), ptr(bi)]
+    inter, dt, dev = operands.inter, x.dtype, x.device
+    m, isz = b * s, x.element_size()
+    # x, the mask and every operand stay referenced until the launch: a
+    # copy freed before it could hand its memory to the scratch below
+    x_ = _cuda.aligned(x)
+    mask = in_dtype(mask_bias, torch.float32)
+    out = torch.empty((b, s, h), dtype=dt, device=dev)
+    buf, (qkv, ctx, h1, up, qa, sa, qh, sh, qu, su) = scratch(dev, (
+        m * 3 * h * isz, m * h * isz, m * h * isz, m * inter * isz,
+        m * h, m * 4, m * h, m * 4, m * inter, m * 4))
     err = _cuda.launch(
-        lib.sema_encoder_layer_int8, dev,
-        ptr(x), *params[:6], ptr(lns[0]), ptr(lns[1]), *params[6:],
-        ptr(lns[2]), ptr(lns[3]), ptr(mask), ptr(qkv), ptr(ctx), ptr(h1),
-        ptr(up), ptr(out), ptr(qa), ptr(sa), ptr(qh), ptr(sh), ptr(qu),
-        ptr(su), b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps)
+        lib.sema_encoder_layer_int8, dev, x_.data_ptr(), *operands.ptrs,
+        mask.data_ptr(), qkv, ctx, h1, up, out.data_ptr(), qa, sa, qh, sh,
+        qu, su, b, s, h, inter, num_heads, _DTYPE_CODES[dt], scale, ln_eps)
     _cuda.check(lib, err, "fused_encoder_layer_int8")
     fused_encoder_layer_int8.launches += 1
     return out

@@ -12,8 +12,12 @@ import pytest
 import torch
 
 from sema_tpu.ops.fused_attention import fused_encoder_layer as jax_layer
+from sema_tpu_torch.models.encoder import Encoder
+from sema_tpu_torch.models.registry import ENCODERS
 from sema_tpu_torch.ops._cuda import KernelError
-from sema_tpu_torch.ops.encoder_layer import fused_encoder_layer
+from sema_tpu_torch.ops.encoder_layer import (LN_SLICE, MAX_CLUSTER,
+                                              fused_encoder_layer,
+                                              ln_gemm_plan)
 
 layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
 LN_EPS = 1e-12
@@ -225,3 +229,82 @@ def test_check_args_raises_on_a_misshapen_weight_or_mask():
                          heads)
     with pytest.raises(KernelError, match="mask_bias"):
         layer_mod._check_args(x, layer, mask[:, :16], heads)
+
+
+# -- the LayerNorm GEMMs' launch plan (ln_gemm_plan mirrors the kernel's) ----
+
+H100_BLOCK_SMEM = 232_448        # the most shared memory a block may take
+
+
+def _path_rows(spec, batch_size=256):
+    """Every M the paths launch the layer at: one query (max_length rows)
+    and a full index batch of each sequence bucket (Encoder.encode_texts:
+    batch_size * max_length // S sequences of S)."""
+    length = spec.default_max_length
+    buckets = sorted({min(b, length) for b in Encoder.BUCKETS})
+    return [length] + [batch_size * max(1, length // s) * s for s in buckets]
+
+
+@pytest.mark.parametrize("name", sorted(ENCODERS))
+def test_ln_gemm_plan_at_every_width_and_path_shape(name):
+    spec = ENCODERS[name]
+    h = spec.hidden_size
+    for m in _path_rows(spec):
+        for k in (h, spec.intermediate_size):
+            plan = ln_gemm_plan(m, h, k, quantized=False)
+            assert plan.cluster <= MAX_CLUSTER
+            assert plan.cluster == (h // LN_SLICE if h >= LN_SLICE else 1)
+            assert plan.cluster * plan.slice == h
+            assert plan.bm in (16, 32, 64)
+            assert plan.blocks == -(-m // plan.bm) * plan.cluster
+            assert plan.smem <= H100_BLOCK_SMEM
+            assert plan.slabs == -(-k // 64)
+    if name == "gte-large":           # one query fills the card
+        assert ln_gemm_plan(256, h, h, quantized=False).blocks >= 128
+        assert ln_gemm_plan(65_536, h, h, quantized=False).bm == 64
+
+
+@pytest.mark.parametrize("h", [32, 64, 96, 128, 192, 256, 384, 640, 768,
+                               1024, 1152, 2048])
+def test_wrapper_refuses_what_the_plan_refuses(h):
+    """H a multiple of 128 up to 1,024 takes a cluster of H / 128, an H
+    under 128 one block of an H-column slice; the wrapper raises
+    KernelError for every other H, and for an H its head dims refuse."""
+    plan = ln_gemm_plan(256, h, 4 * h, quantized=False)
+    if h % LN_SLICE == 0 and h <= LN_SLICE * MAX_CLUSTER:
+        assert (plan.cluster, plan.slice) == (h // LN_SLICE, LN_SLICE)
+    elif h < LN_SLICE:
+        assert (plan.cluster, plan.slice) == (1, h)
+    else:
+        assert plan is None
+    args = _meta_args(h=h, heads=h // 64 if h % 64 == 0 else h // 32,
+                      inter=2 * h)
+    if h % 64 == 0 and plan is not None:
+        layer_mod._check_args(*args)
+    else:
+        with pytest.raises(KernelError):
+            layer_mod._check_args(*args)
+
+
+def test_layer_operands_in_the_entry_points_order():
+    """An Encoder gathers each layer's leaves once (``layer_operands``):
+    in sema_encoder_layer's order, the leaves themselves where they are
+    already in the compute dtype (LayerNorms in f32), copies where not."""
+    layer = {n: torch.from_numpy(v) for n, v in _layer(64, 128, 0).items()}
+    for name in layer_mod._OPERANDS:
+        if name not in layer_mod._LN and name != "qkv_b":
+            layer[name] = layer[name].to(torch.bfloat16)
+    ops = layer_mod.layer_operands(layer, torch.bfloat16)
+    assert (ops.h, ops.inter, ops.quantized) == (64, 128, False)
+    for name, t, ptr in zip(layer_mod._OPERANDS, ops.tensors, ops.ptrs):
+        want = torch.float32 if name in layer_mod._LN else torch.bfloat16
+        assert t.dtype == want and t.data_ptr() == ptr
+        assert (t is layer[name]) == (name != "qkv_b")   # the f32 bias: cast
+        torch.testing.assert_close(t.float(), layer[name].to(want).float())
+    with pytest.raises(KernelError, match="qkv_w"):
+        layer_mod.layer_operands({**layer, "qkv_w": layer["attn_out_w"]},
+                                 torch.bfloat16)
+    x = torch.empty((1, 32, 64), dtype=torch.float16, device="meta")
+    with pytest.raises(KernelError, match="operands made for"):
+        fused_encoder_layer(x, layer, torch.empty((1, 32), device="meta"), 2,
+                            0.17, LN_EPS, operands=ops)

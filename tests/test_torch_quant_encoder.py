@@ -22,8 +22,10 @@ from sema_tpu_torch.config import ModelConfig
 from sema_tpu_torch.models import bert
 from sema_tpu_torch.models.encoder import Encoder
 from sema_tpu_torch.models.loader import params_from_jax
-from sema_tpu_torch.models.registry import get_spec
+from sema_tpu_torch.models.registry import ENCODERS, get_spec
 from sema_tpu_torch.ops._cuda import KernelError
+from sema_tpu_torch.ops.encoder_layer import (LN_SLICE, MAX_CLUSTER,
+                                              ln_gemm_plan)
 from sema_tpu_torch.ops.encoder_layer_int8 import (column_major,
                                                    fused_encoder_layer_int8,
                                                    qmm, qmm_reference)
@@ -287,3 +289,85 @@ def test_check_args_of_the_int8_layer():
             ({"qkv_w_s": meta(64)}, "qkv_w_s")):
         with pytest.raises(KernelError, match=match):
             layer_mod._check_args(*_meta_int8_args(**change), quantized=True)
+
+
+# -- K5's LayerNorm GEMMs: the int8 launch plan -------------------------------
+
+H100_BLOCK_SMEM = 232_448        # the most shared memory a block may take
+
+
+def _path_rows(spec, batch_size=256):
+    """Every M the paths launch the layer at: one query (max_length rows)
+    and a full index batch of each sequence bucket."""
+    length = spec.default_max_length
+    buckets = sorted({min(b, length) for b in Encoder.BUCKETS})
+    return [length] + [batch_size * max(1, length // s) * s for s in buckets]
+
+
+@pytest.mark.parametrize("name", sorted(ENCODERS))
+def test_int8_ln_gemm_plan_at_every_width_and_path_shape(name):
+    spec = ENCODERS[name]
+    h = spec.hidden_size
+    for m in _path_rows(spec):
+        for k in (h, spec.intermediate_size):
+            plan = ln_gemm_plan(m, h, k, quantized=True)
+            assert plan.cluster <= MAX_CLUSTER
+            assert plan.cluster == (h // LN_SLICE if h >= LN_SLICE else 1)
+            assert plan.blocks == -(-m // plan.bm) * plan.cluster
+            assert plan.smem <= H100_BLOCK_SMEM
+            assert plan.slabs == -(-k // 128)      # int8 slabs of 128
+    if name == "gte-large":           # one W8A8 query fills the card
+        assert ln_gemm_plan(256, h, 4 * h, quantized=True).blocks >= 128
+
+
+@pytest.mark.parametrize("h", [64, 128, 192, 320, 384, 768, 1024, 1280])
+def test_int8_wrapper_refuses_what_the_plan_refuses(h):
+    plan = ln_gemm_plan(256, h, 2 * h, quantized=True)
+    args = _meta_int8_args(h=h, heads=h // 64, inter=2 * h)
+    if plan is not None:
+        assert plan.cluster == max(1, h // LN_SLICE)
+        importlib.import_module("sema_tpu_torch.ops.encoder_layer")._check_args(
+            *args, quantized=True)
+    else:
+        assert h % LN_SLICE and h > LN_SLICE or h > LN_SLICE * MAX_CLUSTER
+        with pytest.raises(KernelError, match="LayerNorm GEMM"):
+            importlib.import_module(
+                "sema_tpu_torch.ops.encoder_layer")._check_args(
+                    *args, quantized=True)
+
+
+def test_int8_layer_operands_in_the_entry_points_order():
+    """K5's gathered leaves: the int8 values as (out, in) rows (the leaf
+    itself when it is already column-major, else a copy), the scales, the
+    biases in the compute dtype and the LayerNorms in f32."""
+    h, inter = 64, 128
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    layer = {"qkv_b": f(3 * h).to(torch.bfloat16),
+             "attn_out_b": f(h).to(torch.bfloat16),
+             "ffn_in_b": f(inter).to(torch.bfloat16),
+             "ffn_out_b": f(h).to(torch.bfloat16),
+             **{n: f(h) for n in ("attn_ln_scale", "attn_ln_bias",
+                                  "ffn_ln_scale", "ffn_ln_bias")}}
+    for name, (k, n) in {"qkv_w": (h, 3 * h), "attn_out_w": (h, h),
+                         "ffn_in_w": (h, inter),
+                         "ffn_out_w": (inter, h)}.items():
+        q, s = bert.quantize_linear(f(k, n))
+        layer[name + "_q"] = column_major(q) if name != "qkv_w" else q
+        layer[name + "_s"] = s
+    ops = int8_mod.layer_operands(layer, torch.bfloat16)
+    assert (ops.h, ops.inter, ops.quantized) == (h, inter, True)
+    for name, t, ptr in zip(int8_mod._OPERANDS, ops.tensors, ops.ptrs):
+        assert t.data_ptr() == ptr
+        if name.endswith("_q"):
+            torch.testing.assert_close(t, layer[name].t(), rtol=0, atol=0)
+            # a view of the leaf where it is already column-major
+            assert t.is_contiguous() and ((t.data_ptr()
+                                           == layer[name].data_ptr())
+                                          == (name != "qkv_w_q"))
+        else:
+            assert t is layer[name]
+    with pytest.raises(KernelError, match="f32"):
+        int8_mod.layer_operands(
+            {**layer, "ffn_out_w_s": layer["ffn_out_w_s"].to(torch.bfloat16)},
+            torch.bfloat16)
