@@ -12,9 +12,13 @@
 # and `python -m sema_tpu_torch query` on the int8 encoder must then exit
 # non-zero with the kernel's error, not answer from the substring scan.
 # Prints one line per mutant, "caught" or "MISSED", and exits non-zero if
-# any mutant was missed or left its source unchanged.
+# any mutant was missed or left its source unchanged. The kernels of the
+# unchanged sources are built once and copied into each mutant's tree
+# (a library's name carries its source's hash, so a mutated source is
+# rebuilt there).
 set -u
 cd "$(dirname "$0")"
+python3 -c 'from sema_tpu_torch.ops import _cuda; _cuda.build()' || exit 1
 failed=0
 ONLY=("$@")
 # true for every mutant when none is named on the command line
@@ -27,8 +31,9 @@ mutant() {
   chosen "$name" || return 0
   local dir=build/mut-$name
   rm -rf "$dir"
-  mkdir -p "$dir"
+  mkdir -p "$dir/build"
   cp -r chip_smoke.py sema_tpu_torch "$dir"/
+  cp -r build/kernels "$dir/build/"
   sed -i "$expr" "$dir/sema_tpu_torch/$file"
   [ -z "$file2" ] || sed -i "$expr2" "$dir/sema_tpu_torch/$file2"
   if cmp -s "$dir/sema_tpu_torch/$file" "sema_tpu_torch/$file" || { [ -n "$file2" ] \
@@ -48,7 +53,36 @@ mutant() {
 }
 # K4a/K4b: the row's scale never multiplies its i32 dot
 mutant no_row_scale scan_topk.cu \
-  's/__fmul_rn(__int2float_rn(iacc\[j\]), rscale)/__int2float_rn(iacc[j])/' \
+  's/__fmul_rn(__int2float_rn(acc\[t\]\[2 \* h + c\]), rs)/__int2float_rn(acc[t][2 * h + c])/' \
+  scan_int8
+# K4a/K4b on the tensor cores: the row's scale applied before the i32 sum
+# is converted to f32 (the product rounded back to an integer)
+mutant int8_scale_before_convert scan_topk.cu \
+  's/v = __fmul_rn(__int2float_rn(acc\[t\]\[2 \* h + c\]), rs);/v = __int2float_rn(__float2int_rn(acc[t][2 * h + c] * rs));/' \
+  scan_int8
+# K4a/K4b: the first k-step (32 int8 values) of every slab never scored
+mutant int8_k_step_dropped scan_topk.cu \
+  's/      for (int kk = 0; kk < cn; kk += 16) {/      for (int kk = 16; kk < cn; kk += 16) {/' \
+  scan_int8
+# K4a/K4b: each query's B fragment read from the next query's row
+mutant int8_next_query_b scan_topk.cu \
+  's/ldmatrix_x2(bf, brow + (lane \& 7) \* qstr + kk);/ldmatrix_x2(bf, brow + ((lane + 1) \& 7) * qstr + kk);/; s/(np \* 16 + (lane \& 7) + ((lane >> 4) << 3))/(np * 16 + ((lane + 1) \& 7) + ((lane >> 4) << 3))/' \
+  scan_int8
+# K4a/K4b: no wait for the stage's cp.async copies before it is scored
+mutant int8_cp_async_no_wait scan_topk.cu \
+  's|cp_async_wait<NS - 2>();  // stage g.s have; the next may still fly|;|' \
+  scan_int8
+# pass 2 (all six scans) and K4's merge_ranked: the row id left out of the
+# order, so tied scores collide (the ties TIE and SPREAD_TIE)
+mutant pass2_id_dropped scan_topk.cu \
+  's/  return s1 > s2 || (s1 == s2 \&\& i1 < i2);/  return s1 > s2;/' scan_int8
+# pass 2: warp 1's run of chunk lists never merged (K1's cases)
+mutant pass2_run_dropped scan_topk.cu \
+  's/  for (int c = c0; c < c1; ++c) {/  for (int c = c0; c < (warp == 1 ? c0 : c1); ++c) {/' \
+  scan_topk
+# pass 2: each run ends one chunk late, so a chunk's list merges twice
+mutant pass2_run_boundary_off_by_one scan_topk.cu \
+  's/  const int c1 = run_start(warp + 1, n_chunks, W);/  const int c1 = min(n_chunks, run_start(warp + 1, n_chunks, W) + 1);/' \
   scan_int8
 # K3/K4b: the tile list is ignored, rows are read in order
 mutant tiles_ignored scan_topk.cu 's/return a.tile_ids == nullptr ? t0/return true ? t0/' \
@@ -119,7 +153,7 @@ mutant mma_k_step_dropped_ab scan_topk.cu \
   scan_ab
 # K1: no wait for the stage's cp.async copies before it is scored
 mutant cp_async_no_wait scan_topk.cu \
-  's|    cp_async_wait_all();  // this thread.s copies of stage g have landed||' \
+  's|cp_async_wait_all();  // this thread.s copies of stage g have landed|;|' \
   scan_topk
 # K8: the threshold is the sample's k-th itself, without the one-ULP backoff
 mutant k8_no_backoff ops/scan_topk.py \
@@ -162,8 +196,9 @@ cli_mutant() {
   chosen "$name" || return 0
   local dir=build/mut-$name
   rm -rf "$dir"
-  mkdir -p "$dir"
+  mkdir -p "$dir/build"
   cp -r chip_smoke.py sema_tpu_torch "$dir"/
+  cp -r build/kernels "$dir/build/"
   sed -i "$expr" "$dir/sema_tpu_torch/$file"
   if cmp -s "$dir/sema_tpu_torch/$file" "sema_tpu_torch/$file"; then
     echo "mutant $name: the fault did not apply"

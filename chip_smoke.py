@@ -71,14 +71,19 @@ Phases, one JSON line each:
                       GEMM and the attention (K7 alone at its shape).
 7. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
                       rows at d = 1024 and 384, Q in {1, 256}, k in
-                      {16, 128}, masked rows and a 17-way tie; scores and
-                      ids bit-equal. Library: ``torch._int_mm`` + scales +
+                      {16, 128}, masked rows, a 17-way tie in one tile
+                      (TIE) and one spread over 17 tiles (SPREAD_TIE,
+                      across chunks and pass 2's runs); scores and ids
+                      bit-equal. Library: ``torch._int_mm`` + scales +
                       ``torch.topk`` (one query padded to the 17 rows
-                      ``_int_mm`` needs).
+                      ``_int_mm`` needs). Each case also gives pass 1's
+                      and pass 2's device ms apart (``scan_passes``).
 8. ``scan_pruned``    K3 (bf16) and K4b (int8) over 40 of a 128-tile probe
-                      budget of the same stores (tiles of 512): K4b
-                      bit-equal, K3 under K1's limits. Library:
-                      ``index_select`` of the tiles + the product + topk.
+                      budget of the same stores (tiles of 512, SPREAD_TIE's
+                      among them): K4b bit-equal, K3 under K1's limits,
+                      both ties in row order. Library: ``index_select`` of
+                      the tiles + the product + topk. Pass 1 and pass 2
+                      apart, as for ``scan_int8``.
 9. ``main_path``      ``index`` then ``query`` of a generated tree of source
                       files through the CLI (MiniLM-L6, bf16, random weights
                       from seed 0, on the card). The launch counts are set
@@ -172,10 +177,16 @@ Phases, one JSON line each:
                       default shapes, which must exit 0 with ids identical
                       through their kernels.
 
-``--parent-source FILE`` adds ``layer_bits``: K2, K5 and K6 at every
-case of K2_SHAPES, K5_SHAPES and K6_BS through this tree's kernels and
-through ``FILE`` (another revision's ``csrc/encoder_layer.cu``, built
-beside them), bit for bit, or where the outputs differ.
+``--parent-source DIR`` (another revision's tree, e.g. ``git archive REV
+| tar -x -C build/parent``; its two kernel sources are built beside this
+tree's) adds two phases, each output bit for bit against the parent's,
+or where they differ, and both timed in turns in the same run:
+``layer_bits``: K2, K5 and K6 at every case of K2_SHAPES, K5_SHAPES and
+K6_BS; ``scan_bits``: K1, K3, K4a, K4b, K8 and K9 at every case of the
+phases ``scan_topk``, ``scan_int8``, ``scan_pruned`` and ``scan_ab`` and
+at the paths' shapes (PATH_SCANS), through the parent's own
+``ops/scan_topk.py`` over its ``csrc/scan_topk.cu``; the scan cases must
+be bit-equal. With ``--phases``, name them to run them.
 
 Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises, so the script
@@ -270,7 +281,8 @@ def short_name(key: str) -> str:
     return name.strip()
 
 
-def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1) -> list:
+def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1,
+                   keep=lambda name: "at::native" not in name) -> list:
     """Device ms of each launch of ``fn()``, which runs ``layers`` layers
     of ``per_call`` kernels of ``csrc/`` each, by position in the layer
     (position ``i`` takes every ``per_call``-th kernel from ``i``): the
@@ -278,8 +290,9 @@ def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1) -> list:
     torch.profiler (the trace may miss a first kernel), with the kernel's
     name, grid, block and dynamic shared memory as the trace records them.
     PyTorch's own kernels (casts of the weights to the compute dtype) are
-    left out. A trace that misses more is taken again, twice at most, then
-    reported as ``[{"error": ...}]``."""
+    left out (``keep``: the kernels to count, by name). A trace that
+    misses more is taken again, twice at most, then reported as
+    ``[{"error": ...}]``."""
     from torch.profiler import ProfilerActivity, profile
     want = per_call * layers * iters
     for _ in range(3):
@@ -295,7 +308,7 @@ def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1) -> list:
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
         kernels = sorted((e for e in events if e.get("cat") == "kernel"
-                          and "at::native" not in e["name"]),
+                          and keep(e["name"])),
                          key=lambda e: e["ts"])
         if len(kernels) >= want:
             break
@@ -313,6 +326,19 @@ def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1) -> list:
                     "grid": args.get("grid"), "block": args.get("block"),
                     "smem": args.get("shared memory")})
     return out
+
+
+def scan_passes(fn) -> dict:
+    """Device ms of each of a scan call's two launches (pass 1, pass 2)
+    by ``launch_profile``, with pass 1's kernel and grid."""
+    got = launch_profile(fn, 2, iters=10, keep=lambda n: "scan_pass" in n)
+    if "error" in got[0]:
+        return got[0]
+    p1, p2 = got
+    return {"pass1_ms": p1["ms"], "pass2_ms": p2["ms"],
+            "pass1": p1["kernel"], "pass1_grid": p1["grid"],
+            "pass1_smem": p1["smem"], "pass2_grid": p2["grid"],
+            "pass2_block": p2["block"]}
 
 
 def weight_copies(layer: dict, names, total_bytes: float = 100e6) -> list:
@@ -496,8 +522,9 @@ def check_scan(store, queries, valid, masked, got, want,
     return err
 
 
-def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
-    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+def k1_inputs(n, nq, d, dtype, gen):
+    """A K1 case's unit rows with TIE, queries (query 0 on TIE) and
+    tombstones."""
     store = F.normalize(torch.randn(n, d, generator=gen, device=DEV), dim=1)
     store[TIE[1:]] = store[TIE[0]].clone()
     store = store.to(dtype)
@@ -505,6 +532,12 @@ def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
     q[0] = store[TIE[0]].float()
     valid = torch.rand(n, generator=gen, device=DEV) > 0.1
     valid[TIE] = True
+    return store, q, valid
+
+
+def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
+    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+    store, q, valid = k1_inputs(n, nq, d, dtype, gen)
     got = scan_topk(store, q, valid, k, masked)
     want = scan_topk_reference(store, q, valid, k, masked)
     torch.cuda.synchronize()
@@ -526,18 +559,18 @@ def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
         "bound_ms": ms, "bound_by": bound_by}
 
 
+# phase scan_topk's cases: (n, Q, k, masked, d, dtype)
+K1_CASES = tuple((n, nq, k, masked, D, torch.bfloat16)
+                 for n in (262_144, 3_000) for nq in (1, 256)
+                 for k in (16, 64, 128) for masked in (True, False)) + tuple(
+    (3_000, nq, 64, True, d, torch.float32)
+    for d in (768, 1024) for nq in (1, 256))
+
+
 def phase_scan(gen):
-    cases = []
-    for n in (262_144, 3_000):
-        for nq in (1, 256):
-            for k in (16, 64, 128):
-                for masked in (True, False):
-                    cases.append(scan_case(n, nq, k, masked, gen,
-                                           iters=10 if n > 10_000 else 30))
-    for d in (768, 1024):
-        for nq in (1, 256):
-            cases.append(scan_case(3_000, nq, 64, True, gen, 30, d=d,
-                                   dtype=torch.float32))
+    cases = [scan_case(n, nq, k, masked, gen, 10 if n > 10_000 else 30,
+                       d=d, dtype=dt)
+             for n, nq, k, masked, d, dt in K1_CASES]
     emit("scan_topk", cases=cases)
 
 
@@ -546,24 +579,31 @@ def phase_scan(gen):
 IVF_TILE = 512                 # VectorStore.IVF_TILE on device buckets
 PROBE_BUDGET = SEAL // IVF_TILE // 4    # a sealed bucket's tile budget
 PROBE_LIVE = 40                # live tiles of the probes below
+# 17 rows equal to row 1,000, one in each of 17 tiles spread over a sealed
+# bucket: a tie that crosses chunks, and pass 2's runs
+SPREAD_TIE = [1_000 + j * (SEAL // 17) for j in range(17)]
 
 
 def scan_store(d, gen):
-    """A sealed bucket's worth of unit rows with the 17-way tie, as bf16
-    rows and as the int8 store quantizes them; tombstones; a tile list of
-    PROBE_LIVE live tiles (tile 0, which holds the tie, among them) padded
-    to the budget as ops/ivf.py:select_tiles pads it."""
+    """A sealed bucket's worth of unit rows with the 17-way tie TIE and
+    SPREAD_TIE, as bf16 rows and as the int8 store quantizes them;
+    tombstones; a tile list of PROBE_LIVE live tiles (tile 0, which holds
+    TIE, and SPREAD_TIE's tiles among them) padded to the budget as
+    ops/ivf.py:select_tiles pads it."""
     from sema_tpu_torch.ops.quant import quantize_rows_device
     rows = F.normalize(torch.randn(SEAL, d, generator=gen, device=DEV), dim=1)
     rows[TIE[1:]] = rows[TIE[0]].clone()
+    rows[SPREAD_TIE[1:]] = rows[SPREAD_TIE[0]].clone()
     bf = rows.to(BF16)
     del rows
     qvals, scales = quantize_rows_device(bf)
     valid = torch.rand(SEAL, generator=gen, device=DEV) > 0.1
-    valid[TIE] = True
-    others = torch.randperm(SEAL // IVF_TILE - 1, generator=gen,
-                            device=DEV)[:PROBE_LIVE - 1] + 1
-    live = sorted([0] + others.tolist())
+    valid[TIE + SPREAD_TIE] = True
+    fixed = {0} | {r // IVF_TILE for r in SPREAD_TIE}
+    others = [t for t in (torch.randperm(SEAL // IVF_TILE - 1, generator=gen,
+                                         device=DEV) + 1).tolist()
+              if t not in fixed][:PROBE_LIVE - len(fixed)]
+    live = sorted(fixed | set(others))
     tiles = np.full(PROBE_BUDGET, live[-1], dtype=np.int32)
     tiles[:PROBE_LIVE] = live
     rows_idx = (torch.as_tensor(live, device=DEV)[:, None] * IVF_TILE
@@ -600,24 +640,37 @@ def int8_library(qvals, scales, valid, queries, k, idx=None):
     return fn, None
 
 
+def more_queries(data, nq, gen):
+    """Unit queries: query 0 on TIE, query 1 on SPREAD_TIE."""
+    q = F.normalize(torch.randn(nq, data["d"], generator=gen, device=DEV),
+                    dim=1)
+    q[0] = data["bf16"][TIE[0]].float()
+    if nq > 1:
+        q[1] = data["bf16"][SPREAD_TIE[0]].float()
+    return q
+
+
+def more_args(kind, data, q, k):
+    """(wrapper name, args) of a K4a ("int8"), K3 ("pruned") or K4b
+    ("int8_pruned") call on scan_store's data."""
+    if kind == "int8":
+        return "scan_topk_int8", (data["qvals"], data["scales"], q,
+                                  data["valid"], k)
+    store = ((data["qvals"], data["scales"]) if kind == "int8_pruned"
+             else (data["bf16"],))
+    return f"scan_topk_{kind}", (*store, q, data["valid"], data["tiles"],
+                                 PROBE_LIVE, k, IVF_TILE)
+
+
 def scan_more_case(kind, data, nq, k, gen, iters):
     """One case of K4a ("int8"), K3 ("pruned") or K4b ("int8_pruned")
     against its plain version, with times and bound."""
     scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
     d, valid, tiles = data["d"], data["valid"], data["tiles"]
-    q = F.normalize(torch.randn(nq, d, generator=gen, device=DEV), dim=1)
-    q[0] = data["bf16"][TIE[0]].float()
-    if kind == "int8":
-        args = (data["qvals"], data["scales"], q, valid, k)
-        fn, ref = scan_mod.scan_topk_int8, scan_mod.scan_topk_int8_reference
-        rows = SEAL
-    else:
-        store = ((data["qvals"], data["scales"]) if kind == "int8_pruned"
-                 else (data["bf16"],))
-        args = (*store, q, valid, tiles, PROBE_LIVE, k, IVF_TILE)
-        fn = getattr(scan_mod, f"scan_topk_{kind}")
-        ref = getattr(scan_mod, f"scan_topk_{kind}_reference")
-        rows = PROBE_LIVE * IVF_TILE
+    q = more_queries(data, nq, gen)
+    name, args = more_args(kind, data, q, k)
+    fn, ref = getattr(scan_mod, name), getattr(scan_mod, f"{name}_reference")
+    rows = SEAL if kind == "int8" else PROBE_LIVE * IVF_TILE
     got, want = fn(*args), ref(*args)
     torch.cuda.synchronize()
     if kind == "pruned":
@@ -630,6 +683,8 @@ def scan_more_case(kind, data, nq, k, gen, iters):
     t = min(k, len(TIE))
     check(got[1][0, :t].tolist() == TIE[:t], f"{kind}: tied rows out of id "
           "order")
+    check(nq == 1 or got[1][1, :t].tolist() == SPREAD_TIE[:t],
+          f"{kind}: the tie across chunks out of id order")
     if kind != "int8":
         live_tiles = set(tiles[:PROBE_LIVE].tolist())
         fin = torch.isfinite(got[0])
@@ -658,7 +713,8 @@ def scan_more_case(kind, data, nq, k, gen, iters):
            "max_abs_err": err, "ms": device_ms(lambda: fn(*args), iters),
            "plain_ms": device_ms(lambda: ref(*args), max(2, iters // 3)),
            "library_ms": None if lib is None else device_ms(lib, iters),
-           "bound_ms": ms, "bound_by": bound_by}
+           "bound_ms": ms, "bound_by": bound_by,
+           "passes": scan_passes(lambda: fn(*args))}
     if note:
         out["library_note"] = note
     return out
@@ -1544,68 +1600,98 @@ def phase_attention(gen):
     return cases
 
 
-# -- K2, K5 and K6 against another revision's source, bit for bit ------------
+# -- the kernels against another revision's, bit for bit ---------------------
 
 
-def parent_library(source: Path):
-    """``csrc/encoder_layer.cu`` of another revision (``--parent-source``),
-    built with the port's nvcc flags into build/kernels/parent/ and bound
-    with the entry points of K2, K5 and K6."""
-    from sema_tpu_torch.ops import _cuda, attention, encoder_layer
-    from sema_tpu_torch.ops import encoder_layer_int8
-    out = _cuda.BUILD_DIR / "parent" / "libencoder_layer.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    done = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out),
-                           str(source)], capture_output=True, text=True)
-    check(done.returncode == 0, f"{source} does not build: {done.stdout}")
-    lib = ctypes.CDLL(str(out))
-    lib.sema_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.sema_cuda_error_string.restype = ctypes.c_char_p
-    for module in (encoder_layer, encoder_layer_int8, attention):
+def parent_libraries(root: Path, names) -> dict:
+    """The kernel sources ``names`` (of ``csrc/encoder_layer.cu`` and
+    ``csrc/scan_topk.cu``) of another revision's tree ``root``
+    (``--parent-source``), built with the port's nvcc flags into
+    build/kernels/parent/, one nvcc each, started together, and loaded:
+    {source name: library}. The libraries are bound by the
+    modules that call them (``bind``)."""
+    from sema_tpu_torch.ops import _cuda
+    out_dir = _cuda.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        src = root / "sema_tpu_torch" / "csrc" / f"{name}.cu"
+        out = out_dir / f"lib{name}.so"
+        procs[name] = (out, src, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, src, proc) in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"{src} does not build: {log}")
+        lib = ctypes.CDLL(str(out))
+        lib.sema_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sema_cuda_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def bind(lib, modules) -> None:
+    """Set the argument types of each entry point the ``modules`` call."""
+    for module in modules:
         for fn, argtypes in module._SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-    return lib
 
 
-def bits_case(what, fn, args, parent, iters) -> dict:
-    """``fn(*args)`` through this tree's kernels and through ``parent``'s
-    (the wrapper's library swapped): where their outputs differ, and the
-    ms of each by CUDA events (``ms``, ``parent_ms``), the means of three
-    turns each in the order this tree, parent, parent, this tree, this
-    tree, parent on the same card."""
-    as_parent = lambda: swapped("sema_tpu_torch.ops._cuda",
-                                {"library": lambda *a: parent})
-    got = fn(*args)
-    with as_parent():
-        want = fn(*args)
+def in_library(fn, lib):
+    """``fn`` run with ``_cuda.library`` giving ``lib``: this tree's
+    wrappers over another build of the same entry points."""
+    def run(*args):
+        with swapped("sema_tpu_torch.ops._cuda", {"library": lambda *a: lib}):
+            return fn(*args)
+    return run
+
+
+def bits_case(what, fn, parent_fn, args, iters) -> dict:
+    """``fn(*args)`` through this tree's kernels and ``parent_fn(*args)``
+    through the parent's: where their outputs (a tensor or a tuple of
+    them) differ, and the ms of each by CUDA events (``ms``,
+    ``parent_ms``), the means of three turns each in the order this tree,
+    parent, parent, this tree, this tree, parent on the same card."""
+    got, want = fn(*args), parent_fn(*args)
     torch.cuda.synchronize()
-    diff = got.float() != want.float()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    diff = [g.float() != w.float() for g, w in zip(got, want)]
+    both = [torch.isfinite(g.float()) & torch.isfinite(w.float())
+            for g, w in zip(got, want)]
+    gaps = [(g.float() - w.float()).abs()[f] for g, w, f in
+            zip(got, want, both)]
     times = {"ms": [], "parent_ms": []}
     for side in ("", "parent_", "parent_", "", "", "parent_"):
-        with as_parent() if side else ExitStack():
-            times[side + "ms"].append(device_ms(lambda: fn(*args), iters))
-    return {"case": what, "bit_equal": torch.equal(got, want),
-            "elements_differing": int(diff.sum()),
-            "rows_differing": int(diff.reshape(-1, got.shape[-1]).any(1).sum()),
-            "max_abs_diff": float((got.float() - want.float()).abs().max()),
+        f = parent_fn if side else fn
+        times[side + "ms"].append(device_ms(lambda: f(*args), iters))
+    return {"case": what,
+            "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+            "elements_differing": sum(int(d.sum()) for d in diff),
+            "rows_differing": int(torch.stack(
+                [d.reshape(-1, d.shape[-1]).any(1) for d in diff]).any(0)
+                .sum()),
+            "max_abs_diff": max((float(g.max()) for g in gaps if g.numel()),
+                                default=0.0),
             **{key: sum(v) / len(v) for key, v in times.items()}}
 
 
-def phase_layer_bits(gen, source: Path):
+def phase_layer_bits(gen, parent):
     """K2 at every K2_SHAPES case, K5 at every K5_SHAPES case and K6 at
     every K6_BS shape of every K67_WIDTHS width and dtype against the same
-    wrappers with the library built from ``source``, on the same inputs:
-    each output bit for bit, or where it differs, and both timed in turns
-    in this run (the layers with their operands gathered once, as the
-    Encoder calls them; 50 calls a turn at one query, whose host time
-    varies most). Run once with the parent revision's source; not a phase
-    of the default run."""
+    wrappers with ``parent``, another revision's ``encoder_layer``
+    library, on the same inputs: each output bit for bit, or where it
+    differs, and both timed in turns in this run (the layers with their
+    operands gathered once, as the Encoder calls them; 50 calls a turn at
+    one query, whose host time varies most). Run with ``--parent-source``;
+    not a phase of the default run."""
     from sema_tpu_torch.models.bert import LN_EPS
     from sema_tpu_torch.models.registry import get_spec
-    from sema_tpu_torch.ops import encoder_layer, encoder_layer_int8
+    from sema_tpu_torch.ops import attention, encoder_layer, encoder_layer_int8
     from sema_tpu_torch.ops.attention import fused_attention_block
-    parent = parent_library(source)
+    bind(parent, (encoder_layer, encoder_layer_int8, attention))
     cases = []
     for kernel, shapes, params, module, fn in (
             ("K2", K2_SHAPES, lambda sp: layer_params(
@@ -1623,9 +1709,10 @@ def phase_layer_bits(gen, source: Path):
                 ops = module.layer_operands(layer, dt)
                 what = f"{kernel} {name} {str(dt).removeprefix('torch.')} " \
                        f"({b}, {s})"
+                run = lambda *a, _o=ops: fn(*a, operands=_o)
                 cases.append(bits_case(
-                    what, lambda *a, _o=ops: fn(*a, operands=_o),
-                    (x, layer, bias, heads, scale, LN_EPS), parent,
+                    what, run, in_library(run, parent),
+                    (x, layer, bias, heads, scale, LN_EPS),
                     iters=50 if b == 1 else 10))
             del layer
             torch.cuda.empty_cache()
@@ -1643,9 +1730,141 @@ def phase_layer_bits(gen, source: Path):
                 cases.append(bits_case(
                     f"K6 {model} tp {tp} {str(dt).removeprefix('torch.')} "
                     f"({b}, {s})", fused_attention_block,
+                    in_library(fused_attention_block, parent),
                     (x, w, qb, bias, n, 1.0 / math.sqrt(h // heads)),
-                    parent, iters=50 if b == 1 else 10))
-    emit("layer_bits", source=str(source), cases=cases)
+                    iters=50 if b == 1 else 10))
+    emit("layer_bits", cases=cases)
+    return cases
+
+
+def parent_scans(root: Path, lib):
+    """The scan wrappers of another revision's tree ``root``
+    (``sema_tpu_torch/ops/scan_topk.py``, loaded as a module of its own,
+    so that its own plan and entry points drive its kernels) over
+    ``lib``, its ``scan_topk`` library."""
+    import importlib.util
+    from types import SimpleNamespace
+    from sema_tpu_torch.ops import _cuda
+    spec = importlib.util.spec_from_file_location(
+        "parent_scan_topk", root / "sema_tpu_torch" / "ops" / "scan_topk.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    bind(lib, (mod,))
+    mod._cuda = SimpleNamespace(library=lambda *a: lib, aligned=_cuda.aligned,
+                                launch=_cuda.launch, check=_cuda.check)
+    return mod
+
+
+# the paths' scan shapes: (what, kernel, rows or live tiles, d, k); a
+# bucket's probe of 61 tiles of 512 (int8, k 128) or 62 (bf16, k 64), the
+# tail's 3,600 rows, and the main path's MiniLM store
+PATH_SCANS = (("K4b int8 IVF probe", "int8_pruned", 61, GTE_D, 128),
+              ("K4a int8 tail", "int8", 3_600, GTE_D, 128),
+              ("K3 bf16 IVF probe", "pruned", 62, GTE_D, 64),
+              ("K1 bf16 tail", "bf16", 3_600, GTE_D, 64),
+              ("K1 main path", "bf16", 3_600, D, 64))
+
+
+def phase_scan_bits(gen, root: Path, lib):
+    """K1, K3, K4a, K4b, K8 and K9 at every case of the phases scan_topk,
+    scan_int8, scan_pruned and scan_ab, at the paths' shapes (PATH_SCANS),
+    and K1, K4a and K4b at k = K_MAX, through this tree's wrappers and kernels and through
+    another revision's (``parent_scans``), on the same inputs: scores and
+    ids bit for bit, and both timed in turns in this run (``bits_case``).
+    Run with ``--parent-source``; not a phase of the default run."""
+    ours = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    theirs = parent_scans(root, lib)
+    k_max = ours.K_MAX
+    cases = []
+
+    def add(kernel, what, name, args, nq, **kw):
+        iters = 20 if nq == 1 else 5
+        case = bits_case(f"{kernel} {what}",
+                         lambda *a: getattr(ours, name)(*a, **kw),
+                         lambda *a: getattr(theirs, name)(*a, **kw),
+                         args, iters)
+        cases.append({"kernel": kernel, "q": nq, **case})
+
+    for n, nq, k, masked, d, dt in K1_CASES:
+        store, q, valid = k1_inputs(n, nq, d, dt, gen)
+        add("K1", f"({n}, {d}) {str(dt).removeprefix('torch.')}, Q {nq}, "
+            f"k {k}, masked {masked}", "scan_topk", (store, q, valid, k,
+                                                     masked), nq)
+    del store, q, valid
+    for d in (GTE_D, D):
+        data = scan_store(d, gen)
+        for nq in (1, 256):
+            q = more_queries(data, nq, gen)
+            for k in (16, 128):
+                for kind, kernel in (("int8", "K4a"), ("pruned", "K3"),
+                                     ("int8_pruned", "K4b")):
+                    name, args = more_args(kind, data, q, k)
+                    add(kernel, f"d {d}, Q {nq}, k {k}", name, args, nq)
+        if d == GTE_D:      # k_max, and the paths' shapes, on the same rows
+            for nq in (1, 256):
+                q = more_queries(data, nq, gen)
+                for kind, kernel in (("int8", "K4a"), ("int8_pruned", "K4b")):
+                    name, args = more_args(kind, data, q, k_max)
+                    add(kernel, f"d {d}, Q {nq}, k {k_max}", name, args, nq)
+            q = more_queries(data, 1, gen)
+            live = np.sort(np.random.default_rng(0).choice(
+                SEAL // IVF_TILE, size=62, replace=False)).astype(np.int32)
+            for what, kind, size, _, k in PATH_SCANS[:4]:
+                if kind in ("pruned", "int8_pruned"):
+                    store = ((data["qvals"], data["scales"])
+                             if kind == "int8_pruned" else (data["bf16"],))
+                    name = f"scan_topk_{kind}"
+                    args = (*store, q, data["valid"], live, size, k,
+                            IVF_TILE)
+                elif kind == "int8":
+                    name = "scan_topk_int8"
+                    args = (data["qvals"][:size], data["scales"][:size], q,
+                            data["valid"][:size], k)
+                else:
+                    name = "scan_topk"
+                    args = (data["bf16"][:size], q, data["valid"][:size], k,
+                            False)
+                add(what.split()[0], f"path: {what}", name, args, 1)
+        del data
+        torch.cuda.empty_cache()
+    store, q, valid = k1_inputs(3_600, 1, D, BF16, gen)
+    add("K1", f"path: {PATH_SCANS[4][0]}", "scan_topk",
+        (store, q, valid, 64, False), 1)
+    store, q, valid = k1_inputs(SEAL, 256, D, BF16, gen)
+    for nq in (1, 256):
+        add("K1", f"({SEAL}, {D}) bfloat16, Q {nq}, k {k_max}", "scan_topk",
+            (store, q[:nq], valid, k_max, True), nq)
+    del store, q, valid
+    # scan_ab's shapes and its K8 cases
+    warm_store, fold_store = ab_stores(gen)
+    live = torch.ones(AB_N, dtype=torch.bool, device=DEV)
+    for nq, k in AB_SHAPES:
+        qw, qf = ab_queries(warm_store, fold_store, nq, gen)
+        add("K1", f"A/B ({AB_N}, {D}), Q {nq}, k {k}", "scan_topk",
+            (warm_store, qw, live, k, False), nq)
+        for w in (AB_WARM if k == 10 else AB_WARM[:1]):
+            add("K8", f"A/B warm {w}, Q {nq}, k {k}", "scan_topk",
+                (warm_store, qw, live, k, False), nq, warm_rows=w)
+        add("K9", f"A/B ({AB_N}, {D}), Q {nq}, k {k}", "fold_topk",
+            (fold_store, qf, k), nq)
+    del warm_store, fold_store
+    torch.cuda.empty_cache()
+    tie_store, tie_q = one_hot_ties(AB_WARM[0], gen)
+    add("K8", "one-hot ties", "scan_topk",
+        (tie_store, tie_q, live[:AB_TIE_N], AB_TIE_K, True), AB_TIE_Q,
+        warm_rows=AB_WARM[0])
+    tomb, tomb_q, tomb_valid = k1_inputs(SEAL, 256, D, BF16, gen)
+    for nq, k in ((1, 16), (256, 16), (256, 128)):
+        add("K8", f"tombstones, Q {nq}, k {k}", "scan_topk",
+            (tomb, tomb_q[:nq], tomb_valid, k, True), nq,
+            warm_rows=AB_WARM[0])
+    torch.cuda.empty_cache()
+    differ = [c["case"] for c in cases if not c["bit_equal"]]
+    check(not differ, f"scan_bits: not bit-equal to the parent's kernels: "
+          f"{differ}")
+    slower = [(c["case"], c["ms"] / c["parent_ms"]) for c in cases
+              if c["ms"] > 1.05 * c["parent_ms"]]
+    emit("scan_bits", cases=cases, slower_than_parent_by_5pc=slower)
     return cases
 
 
@@ -2044,6 +2263,7 @@ def path_scan_times(store, qvec, k) -> dict:
               "from the plain version's")
         f["ms"] = device_ms(lambda: fn(*args), 50)
         f["plain_ms"] = device_ms(lambda: ref(*args), 20)
+        f["passes"] = scan_passes(lambda: fn(*args))
         f["bound_ms"], f["bound_by"] = f.pop("bound")
         if f.get("library_note") is None:
             f.pop("library_note", None)
@@ -2615,8 +2835,9 @@ def main() -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--parent-source", type=Path, default=None,
-                    help="another revision's csrc/encoder_layer.cu: run the "
-                         "layer_bits phase against it")
+                    help="another revision's tree (e.g. `git archive REV | "
+                         "tar -x -C build/parent`): run the layer_bits and "
+                         "scan_bits phases against its kernels")
     cli_args = ap.parse_args()
     phases = (None if cli_args.phases is None
               else set(cli_args.phases.split(",")))
@@ -2654,7 +2875,15 @@ def main() -> int:
     if run("scan_ab"):
         scan_ab = phase_scan_ab(gen)
     if cli_args.parent_source is not None:
-        phase_layer_bits(gen, cli_args.parent_source.resolve())
+        root = cli_args.parent_source.resolve()
+        parent = parent_libraries(root, [
+            name for name, phase in (("encoder_layer", "layer_bits"),
+                                     ("scan_topk", "scan_bits"))
+            if run(phase)])
+        if run("layer_bits"):
+            phase_layer_bits(gen, parent["encoder_layer"])
+        if run("scan_bits"):
+            phase_scan_bits(gen, root, parent["scan_topk"])
     (ROOT / "build").mkdir(exist_ok=True)
     paths = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:

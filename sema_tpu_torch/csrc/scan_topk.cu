@@ -26,20 +26,50 @@
 //           only if it beats the list's k-th entry (the TPU kernel's
 //           threshold screen), and it goes in after equal scores, so equal
 //           scores keep the row scanned first. The lists go out as
-//           (Q, chunks, k) candidates.
-//   pass 2  one warp per query merges its chunks' lists, chunk by chunk in
-//           scan order, under the same rule; a list is left at its first
-//           32 entries that do not beat the k-th. Slots with no row are
-//           -inf with id 0, as the TPU kernels' zeroed ids leave them. An
-//           int8 scan's per-query scale multiplies the merged scores here,
-//           after the merge, as pallas_topk.py:432 does.
+//           (Q, chunks, k) candidates. bf16, f16 and f32 rows merge a
+//           tile's survivors one at a time (merge_rows); int8 rows merge
+//           three or more at once (merge_ranked), each survivor taking its
+//           rank.
+//   pass 2  one block of W warps a query (W = min(32, chunks, 4096 / k),
+//           the wrapper's pass2_warps). Warp w merges the chunk lists of
+//           its run, chunks [w C / W, (w + 1) C / W), in order into a list
+//           of k; then the runs' lists merge pairwise in a tree, warps i
+//           .. i + 2s - 1 merging list i + s into list i at step s. A merge
+//           (merge_lists) places each entry of either sorted list at its
+//           index plus the entries of the other list that come before it,
+//           by binary search: no dependent chain of loads, no insertion
+//           one entry at a time. Slots with no row are -inf with id 0, as
+//           the TPU kernels' zeroed ids leave them. An int8 scan's
+//           per-query scale multiplies the merged scores here, after the
+//           merge, as pallas_topk.py:432 does.
+//
+// Why any merge order gives the sequential result. Rows are scanned in
+// increasing row id: K1, K4a, K8 and K9 scan rows 0..n-1 in order, K3 and
+// K4b tiles whose ids ops/ivf.py:select_tiles sorts (the wrapper refuses
+// a list that is not strictly increasing), and a chunk is a range of that
+// order. A score enters a list only if it beats the k-th, after equal
+// scores, and -inf never enters. So the sequential merge of all chunks,
+// which the TPU kernel performs, returns exactly the k best rows under
+// the total order "higher score first, then lower row id" (before()),
+// and so does any merge that ranks entries under that order: each row
+// appears once, so the ranks of finite entries are distinct. The runs,
+// the tree and merge_ranked rank by before(), score and id: the result,
+// ids and scores, is the sequential merge's bit for bit.
 //
 // Scoring, by the store dtype.
-//   bf16, f16  the tensor cores: mma.sync m16n8k16, the store rows the A
-//           operand (row-major, d contiguous), the queries the B operand,
-//           both in the store dtype as the wrapper passes them and fed by
-//           ldmatrix from shared memory whose rows are padded by 16 bytes;
-//           f32 accumulators. The tiles (or slabs of their rows) come in by
+//   bf16, f16, int8  the tensor cores: mma.sync m16n8k16 (bf16, f16; f32
+//           accumulators) or m16n8k32 s8.s8.s32 (int8; i32 accumulators),
+//           the store rows the A operand (row-major, d contiguous), the
+//           queries the B operand, both in the store dtype (an int8
+//           scan's f32 queries quantized per row by quantize_queries, its
+//           first launch) and fed by ldmatrix from shared memory whose
+//           rows are padded by 16 bytes.
+//           An int8 row is addressed as pairs of values: a 16 x 32 int8
+//           tile is a 16 x 16 tile of 16-bit pairs, and the fragments of
+//           m16n8k32 hold, register for register, the pairs that the
+//           m16n8k16 fragments hold, so ldmatrix's addressing is the bf16
+//           route's; rows are zero past d up to the k-step (32 int8 values,
+//           16 bf16). The tiles (or slabs of their rows) come in by
 //           cp.async into two buffers: the next is in flight while this one
 //           is scored and merged. A block takes 64 queries for a batch at
 //           k <= 128 (8 warps: 4 groups of 16 rows x 2 of 32 queries), so a
@@ -48,6 +78,11 @@
 //           tensor cores add the 16 products of a k-step and the running
 //           sum in their own order, not the IEEE sequence of FMAs, so the
 //           scores may differ from a sequence of FMAs in the last bits.
+//           An int8 row's i32 sum is exact in any order (d <= 1040: each
+//           product is at most 127^2), is converted once to f32 and
+//           multiplied once by the row's f32 scale (__fmul_rn(__int2float_rn
+//           (sum), scale)), the order of pallas_topk.py:219, so the int8
+//           scores and ids equal the plain version's bit for bit.
 //           Before a tile's scores go to the merge, each scoring thread
 //           screens its own against its queries' k-th (the lists hold still
 //           until the merge) and flags a query that has a score above it;
@@ -55,12 +90,6 @@
 //           nothing, so the survivors reach the merge in row order as ever.
 //   f32     f32 FMAs over the row's values against the query, one thread a
 //           row (TF32 would round the operands).
-//   int8    __dp4a over packed words of the row and of the per-query
-//           quantized query, summed in i32, converted once to f32 and
-//           multiplied once by the row's f32 scale: the order of
-//           pallas_topk.py:219, exact (the i32 sum converts without loss
-//           while d <= 1040), so the scores and ids equal the plain
-//           version's.
 // Masked rows score -inf.
 //
 // Row source. A whole store scans rows 0..n-1. A pruned scan (K3, K4b)
@@ -103,17 +132,19 @@
 //
 // What bounds it on the H100: at the CLI's Q=1 the single read of the rows
 // scanned (N*d*itemsize bytes at 3.35 TB/s: 60 us for a sealed 262,144-row
-// bf16 bucket at d=384, 80 us for an int8 one at d=1024); at Q=256 the
-// bytes still for bf16 (2*Q*N*d operations over 2*N*d bytes is Q = 256 a
-// byte, under the card's 295; 0.240 ms at 1M x 384), the rows read 4 times
-// from L2 (once per query block of 64); for f32 and int8 the scoring, with
-// scalar FMAs (67 TFLOP/s) or dp4a where IMMA would reach the tensor cores.
-// What the tensor-core route spends beyond the scoring goes to the merge:
-// each chunk restarts its lists, so the insertions grow with the chunks,
-// and the wrapper plans one wave of blocks (chunk_plan), two an SM where
-// shared memory holds two. Pass 2 walks a query's chunk lists one after
-// another in one warp, so it grows with chunks * k, and bounds a small
-// store's scan at Q=1.
+// bf16 bucket at d=384, 80 us for an int8 one at d=1024, 10 us for an int8
+// IVF probe of 61 tiles of 512), and at small stores the host's launch of
+// the call; at Q=256 the bytes still for bf16 and int8 (2*Q*N*d operations
+// over N*d*itemsize bytes is Q = 256 a byte for bf16, under the card's
+// 295, and 512 for int8, under its 590; 0.240 ms at 1M x 384 bf16), the
+// rows read 4 times from L2 (once per query block of 64); for f32 the
+// scoring, with scalar FMAs (67 TFLOP/s). What the tensor-core route
+// spends beyond the scoring goes to the merge: each chunk restarts its
+// lists, so the insertions grow with the chunks, and the wrapper plans
+// one wave of blocks (chunk_plan), two an SM where shared memory holds
+// two; at one query block an int8 scan takes fewer, longer chunks, so that
+// at most a quarter of its rows become candidates. Pass 2 grows with
+// chunks * k / W for its runs and k log k for each of log W tree steps.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -124,23 +155,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileRows = 64;
 constexpr int kGroups = kThreads / kTileRows;  // query groups per tile row
-constexpr int kPass2Warps = 4;
 constexpr int kInt8 = 3;
-constexpr int kFoldSpan = 256;  // rows a K9 merge folds: 8 columns a lane
-
-// One 32-bit word of a row on the SIMT route, unpacked to floats: 2 = f32;
-// 3 = int8 is scored on packed words and only gives its width here (bf16
-// and f16 rows take the tensor-core route).
-template <int DT> struct Elem;
-template <> struct Elem<2> {
-  static constexpr int kPerWord = 1;
-  __device__ __forceinline__ static void unpack(uint32_t w, float* x) {
-    x[0] = __uint_as_float(w);
-  }
-};
-template <> struct Elem<kInt8> {
-  static constexpr int kPerWord = 4;
-};
+constexpr int kFoldSpan = 256;      // rows a K9 merge folds: 8 columns a lane
+constexpr int kPass2MaxWarps = 32;  // warps of a pass-2 block
+constexpr int kPass2Slots = 4096;   // warps * k of a pass-2 block: 96 KB of lists
 
 // Insert (v, id) into one query's list of k entries, sorted by score
 // descending, after every entry >= v. Called by a whole warp with the same
@@ -238,10 +256,166 @@ __device__ int fold_merge(const float* qsc, int rows, float* qls, int* qli,
   return 1;
 }
 
+// The order of every list: (s1, i1) comes before (s2, i2) if its score is
+// higher, or equal with a lower row id (see the top of the file).
+__device__ __forceinline__ bool before(float s1, int i1, float s2, int i2) {
+  return s1 > s2 || (s1 == s2 && i1 < i2);
+}
+
+// The entries of a sorted list (ls, li; its first n) that come before
+// (v, id): a binary search.
+__device__ __forceinline__ int count_before(const float* ls, const int* li, int n, float v,
+                                            int id) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (before(ls[mid], li[mid], v, id))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The finite entries of a sorted list of n: its tail is -inf.
+__device__ __forceinline__ int count_finite(const float* ls, int n) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ls[mid] != -INFINITY)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// (os, oi) = the first k entries of the union of the sorted lists a and b
+// (k entries each) under before(): a finite entry goes to its index in its
+// own list plus the entries of the other list that come before it. The
+// finite entries' ids are distinct (rows of disjoint ranges), so their
+// slots are distinct and cover 0 .. fa + fb - 1; the slots past them are
+// -inf with id 0. Called by nthr threads, t the caller's index among them;
+// o is neither a nor b, and every slot of o is written once.
+__device__ void merge_lists(const float* as, const int* ai, const float* bs, const int* bi,
+                            float* os, int* oi, int k, int t, int nthr) {
+  const int fa = count_finite(as, k), fb = count_finite(bs, k);
+  for (int j = min(k, fa + fb) + t; j < k; j += nthr) {
+    os[j] = -INFINITY;
+    oi[j] = 0;
+  }
+  for (int j = t; j < fa; j += nthr) {
+    const int p = j + count_before(bs, bi, fb, as[j], ai[j]);
+    if (p < k) {
+      os[p] = as[j];
+      oi[p] = ai[j];
+    }
+  }
+  for (int j = t; j < fb; j += nthr) {
+    const int p = j + count_before(as, ai, fa, bs[j], bi[j]);
+    if (p < k) {
+      os[p] = bs[j];
+      oi[p] = bi[j];
+    }
+  }
+}
+
+// The int8 route's merge of a tile's scores (qsc[0, rows), rows row0 + c)
+// into one query's sorted list, all survivors at once: a score above the
+// list's k-th takes the slot of its rank under before() among the list's
+// entries (all of earlier rows) and the tile's other survivors (no other
+// score of the tile can come before it); the list's entries keep their
+// order in the slots left, each moved up by the survivors placed below it.
+// That is the list which inserting the survivors one by one in row order
+// gives, and what merge_rows gives; a tile of at most kRankedMin survivors
+// goes through merge_rows, whose insertions then cost less. taken:
+// (k + 31) / 32 words of scratch, the slots the survivors take. Called by
+// a whole warp; k <= 1024, rows <= 64.
+constexpr int kRankedMin = 2;
+__device__ void merge_ranked(const float* qsc, int rows, float* qls, int* qli, int k,
+                             int row0, int lane, unsigned* taken) {
+  const float kth = qls[k - 1];
+  float v[2];
+  unsigned surv[2];  // the tile's survivors, columns h * 32 + bit
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = lane + 32 * h;
+    v[h] = c < rows ? qsc[c] : -INFINITY;
+    surv[h] = __ballot_sync(0xffffffffu, v[h] > kth);
+  }
+  if (__popc(surv[0]) + __popc(surv[1]) <= kRankedMin) {
+    merge_rows(qsc, rows, qls, qli, k, -INFINITY, row0, lane);
+    return;
+  }
+  const int words = (k + 31) / 32;
+  if (lane < words) taken[lane] = 0u;
+  // each score's rank among the tile's scores: the scores of columns j and
+  // j + 32 from lane j, compared by every lane with its own two
+  int rank[2] = {0, 0};
+#pragma unroll 4
+  for (int j = 0; j < 32; ++j) {
+    const float a0 = __shfl_sync(0xffffffffu, v[0], j);
+    const float a1 = __shfl_sync(0xffffffffu, v[1], j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rank[h] += before(a0, j, v[h], lane + 32 * h) + before(a1, j + 32, v[h], lane + 32 * h);
+  }
+  __syncwarp();
+  int pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pos[h] = k;
+    if (v[h] > kth) {
+      const int r = rank[h] + count_before(qls, qli, k, v[h], row0 + lane + 32 * h);
+      pos[h] = r;
+      if (r < k) atomicOr(&taken[r >> 5], 1u << (r & 31));
+    }
+  }
+  __syncwarp();
+  // taken slots below each word of slots: an exclusive scan of its popcounts
+  const unsigned own = lane < words ? taken[lane] : 0u;
+  int incl = __popc(own);
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  const int excl = incl - __popc(own);
+  const unsigned busy = __ballot_sync(0xffffffffu, own != 0u);
+  // from the top word down to the lowest with a taken slot: free slot p
+  // takes entry p - (taken slots below p), which lies at or below p, so
+  // every entry is read before its slot is written
+  for (int w = words - 1; busy != 0u && w >= __ffs(busy) - 1; --w) {
+    const unsigned bits = __shfl_sync(0xffffffffu, own, w);
+    const int below = __shfl_sync(0xffffffffu, excl, w) + __popc(bits & ((1u << lane) - 1u));
+    const int p = w * 32 + lane;
+    const bool mv = p < k && !((bits >> lane) & 1u);
+    float s = 0.f;
+    int id = 0;
+    if (mv) {
+      s = qls[p - below];
+      id = qli[p - below];
+    }
+    __syncwarp();
+    if (mv) {
+      qls[p] = s;
+      qli[p] = id;
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (pos[h] < k) {
+      qls[pos[h]] = v[h];
+      qli[pos[h]] = row0 + lane + 32 * h;
+    }
+  __syncwarp();
+}
+
 // The row source and scoring inputs of one scan.
 struct ScanArgs {
   const uint32_t* store;    // (physical rows, d) in the store dtype
-  const uint32_t* queries;  // (nq, d) in the store dtype, or packed int8
+  const uint32_t* queries;  // (nq, d) in the store dtype, int8 quantized
   const uint8_t* valid;     // (physical rows,) or null: every row live
   const float* row_scale;   // (physical rows,) f32, int8 only
   const int* tile_ids;      // (>= n / tile_n,) or null: rows in order
@@ -268,11 +442,12 @@ __device__ __forceinline__ int tile_row0(const ScanArgs& a, int t0) {
 // hit (the tensor-core route's screen, else null): a query whose flag is
 // 0 has no score above its list's k-th in the span, so its merge would
 // insert nothing and is skipped; a merged query's flag goes back to 0.
-template <bool FOLD>
+// RANKED: the int8 route, merge_ranked (taken: 32 words a warp).
+template <bool FOLD, bool RANKED>
 __device__ void merge_tile(const ScanArgs& a, const float* sc, int scs, float* ls, int* li,
-                           int* hit, int nqb, int q0, int rows, int phys0, int off,
-                           int span0, int warp, int lane, unsigned long long& n_merged,
-                           unsigned long long& n_fast) {
+                           int* hit, unsigned* taken, int nqb, int q0, int rows, int phys0,
+                           int off, int span0, int warp, int lane,
+                           unsigned long long& n_merged, unsigned long long& n_fast) {
   const int k = a.k;
   for (int qi = warp; qi < nqb; qi += kThreads / 32) {
     if (hit != nullptr) {
@@ -287,6 +462,8 @@ __device__ void merge_tile(const ScanArgs& a, const float* sc, int scs, float* l
       const int r = fold_merge(qsc, off + rows, qls, qli, k, span0, lane);
       n_merged += r >= 0;
       n_fast += r > 0;
+    } else if constexpr (RANKED) {
+      merge_ranked(qsc, rows, qls, qli, k, phys0, lane, taken + warp * 32);
     } else {
       const float warm = a.thr0 == nullptr ? -INFINITY : a.thr0[q0 + qi];
       merge_rows(qsc, rows, qls, qli, k, warm, phys0, lane);
@@ -305,22 +482,18 @@ __device__ void write_candidates(const ScanArgs& a, const float* ls, const int* 
   }
 }
 
-// f32 and int8 rows: scalar FFMAs or __dp4a, one thread per row of a tile
-// against QB / 4 queries. FOLD: K9, merging spans of kFoldSpan rows by the
-// fold; else one tile.
-template <int DT, int QB, bool FOLD>
+// f32 rows: scalar FFMAs, one thread per row of a tile against QB / 4
+// queries. FOLD: K9, merging spans of kFoldSpan rows by the fold; else one
+// tile.
+template <int QB, bool FOLD>
 __global__ void __launch_bounds__(kThreads) scan_pass1_simt(ScanArgs a) {
-  constexpr int PW = Elem<DT>::kPerWord;
   constexpr int QPT = QB / kGroups;  // queries per thread
   constexpr int SPAN = FOLD ? kFoldSpan : kTileRows;  // rows a merge takes
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = a.d, k = a.k;
-  const int words = d / PW;                    // 32-bit words per row
-  const int qwords = DT == kInt8 ? words : d;  // per staged query
   const int stride = a.slab_words + 1;  // odd stride: a column read hits 32 banks
-  float* qs = reinterpret_cast<float*>(smem);  // [QB][qwords], floats or packed int8
-  const uint32_t* qw = reinterpret_cast<const uint32_t*>(qs);
-  uint32_t* tile = reinterpret_cast<uint32_t*>(qs + QB * qwords);    // [64][stride]
+  float* qs = reinterpret_cast<float*>(smem);                       // [QB][d]
+  uint32_t* tile = reinterpret_cast<uint32_t*>(qs + QB * d);        // [64][stride]
   float* sc = reinterpret_cast<float*>(tile + kTileRows * stride);  // [QB][SPAN]
   float* ls = sc + QB * SPAN;                                       // [QB][k]
   int* li = reinterpret_cast<int*>(ls + QB * k);                    // [QB][k]
@@ -332,17 +505,9 @@ __global__ void __launch_bounds__(kThreads) scan_pass1_simt(ScanArgs a) {
   const int r_begin = chunk * a.rows_per_chunk;
   const int r_end = min(a.n, r_begin + a.rows_per_chunk);
 
-  for (int e = tid; e < QB * words; e += kThreads) {
-    const int qi = e / words, w = e % words;
-    const uint32_t v = qi < nqb ? a.queries[(size_t)(q0 + qi) * words + w] : 0u;
-    if constexpr (DT == kInt8) {
-      reinterpret_cast<uint32_t*>(qs)[qi * words + w] = v;
-    } else {
-      float x[2] = {0.f, 0.f};
-      Elem<DT>::unpack(v, x);
-#pragma unroll
-      for (int p = 0; p < PW; ++p) qs[qi * d + w * PW + p] = x[p];
-    }
+  for (int e = tid; e < QB * d; e += kThreads) {
+    const int qi = e / d, w = e % d;
+    qs[e] = qi < nqb ? __uint_as_float(a.queries[(size_t)(q0 + qi) * d + w]) : 0.f;
   }
   for (int e = tid; e < QB * k; e += kThreads) {
     ls[e] = -INFINITY;
@@ -350,7 +515,7 @@ __global__ void __launch_bounds__(kThreads) scan_pass1_simt(ScanArgs a) {
   }
 
   const uint4* sv = reinterpret_cast<const uint4*>(a.store);
-  const int vec_per_row = words / 4;
+  const int vec_per_row = d / 4;
   const int row = tid % kTileRows, grp = tid / kTileRows;
   int n_active = 0;  // how many of this thread's queries are real
 #pragma unroll
@@ -364,14 +529,10 @@ __global__ void __launch_bounds__(kThreads) scan_pass1_simt(ScanArgs a) {
     const int span0 = FOLD ? r_begin + (t0 - r_begin) / SPAN * SPAN : t0;
     const int off = t0 - span0;
     float acc[QPT];
-    int iacc[QPT];
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      acc[j] = 0.f;
-      iacc[j] = 0;
-    }
-    for (int w0 = 0; w0 < words; w0 += a.slab_words) {
-      const int wn = min(a.slab_words, words - w0);
+    for (int j = 0; j < QPT; ++j) acc[j] = 0.f;
+    for (int w0 = 0; w0 < d; w0 += a.slab_words) {
+      const int wn = min(a.slab_words, d - w0);
       const int vec = wn / 4;
       if (w0 > 0) __syncthreads();  // every thread is done with the last slab
       for (int e = tid; e < kTileRows * vec; e += kThreads) {
@@ -387,51 +548,26 @@ __global__ void __launch_bounds__(kThreads) scan_pass1_simt(ScanArgs a) {
       __syncthreads();
 
       const uint32_t* trow = tile + row * stride;
-      if constexpr (DT == kInt8) {
-        const uint32_t* qslab = qw + w0;
+      const float* qslab = qs + w0;
+      // wn is a multiple of 4; without the unroll this loop ran slower on
+      // the H100 than the whole-row loop it replaced (chip_smoke.py, Q=256)
 #pragma unroll 4
-        for (int w = 0; w < wn; ++w) {
-          const int x = static_cast<int>(trow[w]);
+      for (int w = 0; w < wn; ++w) {
+        const float x = __uint_as_float(trow[w]);
 #pragma unroll
-          for (int j = 0; j < QPT; ++j)
-            if (j < n_active)
-              iacc[j] = __dp4a(x, static_cast<int>(qslab[(grp + j * kGroups) * words + w]),
-                               iacc[j]);
-        }
-      } else {
-        const float* qslab = qs + w0 * PW;
-        // wn is a multiple of 4; without the unroll this loop ran slower on
-        // the H100 than the whole-row loop it replaced (chip_smoke.py, Q=256)
-#pragma unroll 4
-        for (int w = 0; w < wn; ++w) {
-          float x[2];
-          Elem<DT>::unpack(trow[w], x);
-#pragma unroll
-          for (int j = 0; j < QPT; ++j) {
-            if (j < n_active) {
-              const float* qrow = qslab + (grp + j * kGroups) * d + w * PW;
-#pragma unroll
-              for (int p = 0; p < PW; ++p) acc[j] = fmaf(x[p], qrow[p], acc[j]);
-            }
-          }
-        }
+        for (int j = 0; j < QPT; ++j)
+          if (j < n_active) acc[j] = fmaf(x, qslab[(grp + j * kGroups) * d + w], acc[j]);
       }
     }
-    const int prow = phys0 + row;
-    const bool live = row < rows && (a.valid == nullptr || a.valid[prow]);
-    float rscale = 0.f;
-    if (DT == kInt8 && live) rscale = a.row_scale[prow];
+    const bool live = row < rows && (a.valid == nullptr || a.valid[phys0 + row]);
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const float s = DT == kInt8 ? __fmul_rn(__int2float_rn(iacc[j]), rscale) : acc[j];
-      sc[(grp + j * kGroups) * SPAN + off + row] = live ? s : -INFINITY;
-    }
+    for (int j = 0; j < QPT; ++j) sc[(grp + j * kGroups) * SPAN + off + row] = live ? acc[j] : -INFINITY;
     __syncthreads();
     // K9 merges once its span is full or the chunk ends
     if (FOLD && off + kTileRows < SPAN && t0 + kTileRows < r_end) continue;
 
-    merge_tile<FOLD>(a, sc, SPAN, ls, li, nullptr, nqb, q0, rows, phys0, off, span0, warp,
-                     lane, n_merged, n_fast);
+    merge_tile<FOLD, false>(a, sc, SPAN, ls, li, nullptr, nullptr, nqb, q0, rows, phys0, off,
+                            span0, warp, lane, n_merged, n_fast);
   }
   if (FOLD && a.fold_stats != nullptr && lane == 0 && n_merged > 0) {
     atomicAdd(a.fold_stats, n_merged);
@@ -472,6 +608,22 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// d += a (16 rows x 32, row-major) * b (32 x 8 queries), int8 operands,
+// i32 accumulators: the same registers as mma16816's, read as int8 quads
+template <int DT>
+__device__ __forceinline__ void mma16816(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <int DT> struct Acc {
+  using T = float;
+};
+template <> struct Acc<kInt8> {
+  using T = int;
+};
 // 16 bytes from global to shared memory without the registers; zeros where
 // !fill (src is then not read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
@@ -485,33 +637,63 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the first `bytes` (0-16) of 16 from global to shared memory, zeros after
+__device__ __forceinline__ void cp_async16n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// the first `bytes` (0-4) of 4, zeros after
+__device__ __forceinline__ void cp_async4n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 
-// bf16 and f16 rows on the tensor cores (see the top of the file). Shared
-// memory: the queries [QB][dp + 8] in the store dtype, two stage buffers
-// [64][se + 8] (se = 2 slab_words elements of each row), the scores
-// [QB][SPAN + 4] f32, the lists, a screen flag per query. The padded
-// strides put the 8 rows of an ldmatrix on distinct banks, and a warp's
-// score stores too.
+// bf16, f16 and int8 rows on the tensor cores (see the top of the file).
+// Widths here are in 16-bit units: an int8 row of d values is d / 2 pairs.
+// Shared memory: the queries [QB][dp + 8], NS stage buffers [64][se + 8]
+// (se = 2 slab_words units of each row), the scores [QB][SPAN + 4] f32, the
+// lists, a screen flag per query, and for int8 the slots merge_ranked's
+// survivors take ([8][32] words) and each stage's row scales and valid
+// flags ([NS][64] f32, [NS][64] bytes). The padded strides put the 8 rows of
+// an ldmatrix on distinct banks, and a warp's score stores too.
+// int8 at small Q (QB 8) keeps two stages in flight (NS = 3) where the
+// others keep one, and int8 brings a tile's row scales and valid flags in
+// with its last slab, so that no global load waits between the scoring
+// and the merge: at one query a block's time a tile is the latency of its
+// copies.
 template <int DT, int QB, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
+  constexpr bool I8 = DT == kInt8;
   constexpr int SPAN = FOLD ? kFoldSpan : kTileRows;
   constexpr int SCS = SPAN + 4;          // a query's scores, floats apart
   constexpr int WQ = QB >= 32 ? 32 : 8;  // queries a warp scores
   constexpr int NT = WQ / 8;             // its n8 tiles
   constexpr int SCORERS = 4 * (QB / WQ); // warps that score: 4 row groups of 16
   static_assert(QB % WQ == 0 && SCORERS <= kThreads / 32, "query block");
+  static_assert(!(I8 && FOLD), "K9 scores bf16/f16/f32 rows");
+  constexpr int NS = I8 && QB == 8 ? 3 : 2;  // stage buffers
   extern __shared__ __align__(16) unsigned char smem[];
-  const int d = a.d, k = a.k;
+  const int d = I8 ? a.d / 2 : a.d, k = a.k;
   const int dp = (d + 15) / 16 * 16;  // staged width: whole k-steps, zeros past d
-  const int se = 2 * a.slab_words;    // elements of a row a stage holds
+  const int se = 2 * a.slab_words;    // units of a row a stage holds
   const int qstr = dp + 8, tstr = se + 8;
   const int nslab = (dp + se - 1) / se;
   uint16_t* qs = reinterpret_cast<uint16_t*>(smem);                 // [QB][qstr]
-  uint16_t* tiles = qs + QB * qstr;                                 // [2][64][tstr]
-  float* sc = reinterpret_cast<float*>(tiles + 2 * kTileRows * tstr);  // [QB][SCS]
+  uint16_t* tiles = qs + QB * qstr;                                 // [NS][64][tstr]
+  float* sc = reinterpret_cast<float*>(tiles + NS * kTileRows * tstr);  // [QB][SCS]
   float* ls = sc + QB * SCS;                                        // [QB][k]
   int* li = reinterpret_cast<int*>(ls + QB * k);                    // [QB][k]
   int* hit = li + QB * k;                                           // [QB]
+  unsigned* taken = reinterpret_cast<unsigned*>(hit + QB);          // [8][32], int8
+  float* st_scale = reinterpret_cast<float*>(taken + kThreads);      // [NS][64], int8
+  uint8_t* st_valid = reinterpret_cast<uint8_t*>(st_scale + NS * kTileRows);  // [NS][64]
   const uint16_t* store = reinterpret_cast<const uint16_t*>(a.store);
   const uint16_t* queries = reinterpret_cast<const uint16_t*>(a.queries);
 
@@ -533,13 +715,21 @@ __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
     li[e] = 0;
   }
   for (int e = tid; e < QB; e += kThreads) hit[e] = 0;
-  // stage g: slab g % nslab of the chunk's tile g / nslab, into buffer g & 1;
-  // zeros past the tile's rows and past d; one group
+  // stage g: slab g % nslab of the chunk's tile g / nslab, into buffer
+  // g % NS; zeros past the tile's rows and past d; int8: with the tile's
+  // last slab its row scales and valid flags; one group
   auto load = [&](int g) {
     const int t0 = r_begin + g / nslab * kTileRows, c0 = g % nslab * se;
     const int rows = min(kTileRows, r_end - t0), phys0 = tile_row0(a, t0);
     const int vec = min(se, dp - c0) / 8;  // 16-byte pieces of a row
-    uint16_t* buf = tiles + (g & 1) * kTileRows * tstr;
+    uint16_t* buf = tiles + (g % NS) * kTileRows * tstr;
+    if (I8 && g % nslab == nslab - 1 && tid < 32) {
+      const int r = (tid & 15) * 4, n = max(0, min(4, rows - r));  // rows of 4
+      if (tid < 16)
+        cp_async16n(st_scale + (g % NS) * kTileRows + r, a.row_scale + phys0 + (n ? r : 0), n * 4);
+      else if (a.valid != nullptr)
+        cp_async4n(st_valid + (g % NS) * kTileRows + r, a.valid + phys0 + (n ? r : 0), n);
+    }
     int r = tid / vec, v = tid % vec;
     const int dr = kThreads / vec, dv = kThreads % vec;
     while (r < kTileRows) {
@@ -557,20 +747,32 @@ __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
   };
 
   const int rg = warp & 3, qg = warp >> 2;  // this warp's rows rg*16.., queries qg*WQ..
-  float acc[NT][4];
+  typename Acc<DT>::T acc[NT][4];
 #pragma unroll
   for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[t][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[t][c] = 0;
   unsigned long long n_merged = 0, n_fast = 0;  // K9's spans, this warp's
 
   load(0);
+  if constexpr (NS == 3) {
+    if (1 < n_stages)
+      load(1);
+    else
+      cp_async_commit();  // an empty group: one group a stage
+  }
   for (int g = 0; g < n_stages; ++g) {
-    cp_async_wait_all();  // this thread's copies of stage g have landed
+    if constexpr (NS == 2)
+      cp_async_wait_all();  // this thread's copies of stage g have landed
+    else
+      cp_async_wait<NS - 2>();  // stage g's have; the next may still fly
     __syncthreads();      // everyone's have; everyone is done with stage g - 1
-    if (g + 1 < n_stages) load(g + 1);  // in flight while stage g is scored and merged
+    if (g + NS - 1 < n_stages)
+      load(g + NS - 1);  // in flight while stage g is scored and merged
+    else if (NS > 2)
+      cp_async_commit();
     const int s = g % nslab, c0 = s * se, cn = min(se, dp - c0);
-    const uint16_t* buf = tiles + (g & 1) * kTileRows * tstr;
+    const uint16_t* buf = tiles + (g % NS) * kTileRows * tstr;
     if (warp < SCORERS) {
       const uint16_t* arow = buf + (rg * 16 + (lane & 15)) * tstr + (lane >> 4) * 8;
       const uint16_t* brow = qs + (qg * WQ) * qstr + c0 + ((lane >> 3) & 1) * 8;
@@ -607,16 +809,29 @@ __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = rg * 16 + (lane >> 2) + 8 * h;
-        const bool live = r < rows && (a.valid == nullptr || a.valid[phys0 + r]);
+        bool live;
+        float rs = 0.f;  // int8: the row's scale, staged with the tile
+        if constexpr (I8) {
+          live = r < rows && (a.valid == nullptr || st_valid[(g % NS) * kTileRows + r]);
+          rs = st_scale[(g % NS) * kTileRows + r];
+        } else {
+          live = r < rows && (a.valid == nullptr || a.valid[phys0 + r]);
+        }
 #pragma unroll
         for (int t = 0; t < NT; ++t)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int qc = qg * WQ + t * 8 + (lane & 3) * 2 + c;
-            const float v = live ? acc[t][2 * h + c] : -INFINITY;
+            float v = -INFINITY;
+            if (live) {
+              if constexpr (I8)
+                v = __fmul_rn(__int2float_rn(acc[t][2 * h + c]), rs);
+              else
+                v = acc[t][2 * h + c];
+            }
             sc[qc * SCS + off + r] = v;
             beat[t][c] |= v > ls[qc * k + k - 1];
-            acc[t][2 * h + c] = 0.f;
+            acc[t][2 * h + c] = 0;
           }
       }
 #pragma unroll
@@ -628,8 +843,8 @@ __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
     __syncthreads();
     // K9 merges once its span is full or the chunk ends
     if (FOLD && off + kTileRows < SPAN && t0 + kTileRows < r_end) continue;
-    merge_tile<FOLD>(a, sc, SCS, ls, li, hit, nqb, q0, rows, phys0, off, span0, warp,
-                     lane, n_merged, n_fast);
+    merge_tile<FOLD, I8>(a, sc, SCS, ls, li, hit, taken, nqb, q0, rows, phys0, off, span0,
+                         warp, lane, n_merged, n_fast);
   }
   if (FOLD && a.fold_stats != nullptr && lane == 0 && n_merged > 0) {
     atomicAdd(a.fold_stats, n_merged);
@@ -639,47 +854,111 @@ __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
   write_candidates(a, ls, li, nqb, q0, chunk, tid);
 }
 
-__global__ void __launch_bounds__(kPass2Warps * 32)
-scan_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
-           int nq, int n_chunks, int k, const float* __restrict__ qscale,
-           float* __restrict__ out_s, int* __restrict__ out_i) {
+// Warp w of a pass-2 block of W merges the chunks [run_start(w),
+// run_start(w + 1)) of its query.
+__device__ __forceinline__ int run_start(int w, int n_chunks, int W) {
+  return (int)((long long)w * n_chunks / W);
+}
+
+// Pass 2 (see the top of the file): one block a query, W = blockDim.x / 32
+// warps. Shared memory: three lists of k a warp, [3][W][k] scores then
+// [3][W][k] ids: slot 0 the warp's list, slot 1 a chunk list staged from
+// the candidates, slot 2 a merge's output.
+__global__ void __launch_bounds__(kPass2MaxWarps * 32)
+scan_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i, int n_chunks,
+           int k, const float* __restrict__ qscale, float* __restrict__ out_s,
+           int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* ls = reinterpret_cast<float*>(smem) + warp * k;
-  int* li = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) +
-                                   kPass2Warps * k) + warp * k;
-  const int q = blockIdx.x * kPass2Warps + warp;
-  if (q >= nq) return;  // no block-wide barrier below
+  const int q = blockIdx.x;
+  float* lists_s = reinterpret_cast<float*>(smem);
+  int* lists_i = reinterpret_cast<int*>(lists_s + 3 * W * k);
+  auto S = [&](int slot, int w) { return lists_s + (slot * W + w) * k; };
+  auto I = [&](int slot, int w) { return lists_i + (slot * W + w) * k; };
+
+  // the run: each chunk list merged into the warp's list in turn
+  float* rs = S(0, warp);
+  int* ri = I(0, warp);
   for (int j = lane; j < k; j += 32) {
-    ls[j] = -INFINITY;
-    li[j] = 0;
+    rs[j] = -INFINITY;
+    ri[j] = 0;
   }
   __syncwarp();
-  for (int c = 0; c < n_chunks; ++c) {
-    const float* cs = cand_s + ((size_t)q * n_chunks + c) * k;
-    const int* ci = cand_i + ((size_t)q * n_chunks + c) * k;
-    for (int base = 0; base < k; base += 32) {
-      const bool in = base + lane < k;
-      const float s = in ? cs[base + lane] : -INFINITY;
-      const int id = in ? ci[base + lane] : 0;
-      unsigned m = __ballot_sync(0xffffffffu, s > ls[k - 1]);
-      if (!m) break;  // the list is sorted: nothing later beats the k-th
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const float v = __shfl_sync(0xffffffffu, s, src);
-        const int vid = __shfl_sync(0xffffffffu, id, src);
-        if (v > ls[k - 1]) warp_insert(ls, li, k, v, vid, lane);
-      }
+  const float* qcs = cand_s + (size_t)q * n_chunks * k;
+  const int* qci = cand_i + (size_t)q * n_chunks * k;
+  const int c0 = run_start(warp, n_chunks, W);
+  const int c1 = run_start(warp + 1, n_chunks, W);
+  for (int c = c0; c < c1; ++c) {
+    const float* cs = qcs + (size_t)c * k;
+    const int* ci = qci + (size_t)c * k;
+    // a chunk list is sorted: if its first entry does not come before the
+    // run's k-th, none of it enters
+    if (!before(cs[0], ci[0], rs[k - 1], ri[k - 1])) continue;
+    float* bs = S(1, warp);
+    int* bi = I(1, warp);
+    for (int j = lane; j < k; j += 32) {
+      bs[j] = cs[j];
+      bi[j] = ci[j];
     }
+    __syncwarp();
+    merge_lists(rs, ri, bs, bi, S(2, warp), I(2, warp), k, lane, 32);
+    __syncwarp();
+    for (int j = lane; j < k; j += 32) {
+      rs[j] = S(2, warp)[j];
+      ri[j] = I(2, warp)[j];
+    }
+    __syncwarp();
   }
-  const float qs = qscale == nullptr ? 1.f : qscale[q];
-  for (int j = lane; j < k; j += 32) {
-    const float s = ls[j];
+  // the runs' lists, pairwise: at step s list i (a multiple of 2s) takes
+  // list i + s, merged by the warps i .. i + 2s - 1 that exist
+  for (int s = 1; s < W; s <<= 1) {
+    __syncthreads();
+    const int i = warp / (2 * s) * (2 * s);
+    const bool pair = i + s < W;
+    const int t = (warp - i) * 32 + lane, nthr = (min(i + 2 * s, W) - i) * 32;
+    if (pair) merge_lists(S(0, i), I(0, i), S(0, i + s), I(0, i + s), S(2, i), I(2, i), k, t, nthr);
+    __syncthreads();
+    if (pair)
+      for (int j = t; j < k; j += nthr) {
+        S(0, i)[j] = S(2, i)[j];
+        I(0, i)[j] = I(2, i)[j];
+      }
+  }
+  __syncthreads();
+  const float qsc = qscale == nullptr ? 1.f : qscale[q];
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const float s = S(0, 0)[j];
     const bool empty = s == -INFINITY;
-    out_s[(size_t)q * k + j] = empty || qscale == nullptr ? s : __fmul_rn(s, qs);
-    out_i[(size_t)q * k + j] = empty ? 0 : li[j];
+    out_s[(size_t)q * k + j] = empty || qscale == nullptr ? s : __fmul_rn(s, qsc);
+    out_i[(size_t)q * k + j] = empty ? 0 : I(0, 0)[j];
   }
+}
+
+// An int8 scan's queries, quantized per row as ops/quant.py:quantize_query
+// does, in one launch: scale = amax |q| / 127 (IEEE division), qi =
+// round-half-even(q / scale) clamped to [-127, 127] (a zero row: scale 0,
+// values 0). One block a query.
+__global__ void __launch_bounds__(256)
+quantize_queries(const float* __restrict__ q, int d, int8_t* __restrict__ qi,
+                 float* __restrict__ qscale) {
+  __shared__ float part[8];
+  const float* row = q + (size_t)blockIdx.x * d;
+  float m = 0.f;
+  for (int j = threadIdx.x; j < d; j += 256) m = fmaxf(m, fabsf(row[j]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = part[0];
+#pragma unroll
+  for (int w = 1; w < 8; ++w) m = fmaxf(m, part[w]);
+  const float scale = __fdiv_rn(m, 127.f);
+  const float safe = scale > 0.f ? scale : 1.f;
+  for (int j = threadIdx.x; j < d; j += 256)
+    qi[(size_t)blockIdx.x * d + j] =
+        static_cast<int8_t>(max(-127, min(127, __float2int_rn(__fdiv_rn(row[j], safe)))));
+  if (threadIdx.x == 0) qscale[blockIdx.x] = scale;
 }
 
 // Pass 1 of one route: checks the layout the wrapper planned, sizes the
@@ -687,26 +966,28 @@ scan_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
 template <int DT, int QB, bool FOLD>
 cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
   constexpr int SPAN = FOLD ? kFoldSpan : kTileRows;
-  constexpr bool MMA = DT == 0 || DT == 1;
+  constexpr bool MMA = DT != 2;
   if (a.tile_ids != nullptr && (FOLD || a.tile_n < kTileRows || a.tile_n % kTileRows))
     return cudaErrorInvalidValue;
   size_t smem;
   if constexpr (MMA) {
     if (a.slab_words < 8 || a.slab_words % 8) return cudaErrorInvalidValue;
-    const size_t dp = (a.d + 15) / 16 * 16;
-    smem = (size_t)QB * (dp + 8) * 2 + (size_t)2 * kTileRows * (2 * a.slab_words + 8) * 2 +
-           (size_t)QB * (SPAN + 4) * 4 + (size_t)QB * a.k * 8 + (size_t)QB * 4;
+    const size_t d = DT == kInt8 ? a.d / 2 : a.d;  // 16-bit units
+    const size_t dp = (d + 15) / 16 * 16;
+    const size_t ns = DT == kInt8 && QB == 8 ? 3 : 2;  // scan_pass1_mma's NS
+    smem = (size_t)QB * (dp + 8) * 2 + ns * kTileRows * (2 * a.slab_words + 8) * 2 +
+           (size_t)QB * (SPAN + 4) * 4 + (size_t)QB * a.k * 8 + (size_t)QB * 4 +
+           (DT == kInt8 ? (size_t)kThreads * 4 + (size_t)3 * kTileRows * 5 : 0);
   } else {
     if (a.slab_words < 4 || a.slab_words % 4) return cudaErrorInvalidValue;
-    const size_t qwords = DT == kInt8 ? a.d / 4 : a.d;
-    smem = (size_t)QB * qwords * 4 + (size_t)kTileRows * (a.slab_words + 1) * 4 +
+    smem = (size_t)QB * a.d * 4 + (size_t)kTileRows * (a.slab_words + 1) * 4 +
            (size_t)QB * SPAN * 4 + (size_t)QB * a.k * 8;
   }
   void (*kern)(ScanArgs);
   if constexpr (MMA)
     kern = scan_pass1_mma<DT, QB, FOLD>;
   else
-    kern = scan_pass1_simt<DT, QB, FOLD>;
+    kern = scan_pass1_simt<QB, FOLD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -717,60 +998,74 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
 
 template <bool FOLD>
 cudaError_t launch_pass1_dt(int dtype, int qb, const ScanArgs& a, cudaStream_t st) {
-  // bf16/f16: the tensor-core route, query blocks of 64 or 8
-  if (dtype == 0 || dtype == 1) {
+  // bf16/f16/int8: the tensor-core route, query blocks of 64 or 8
+  if (dtype == 0 || dtype == 1 || dtype == kInt8) {
     if (qb != 64 && qb != 8) return cudaErrorInvalidValue;
     if (dtype == 0)
       return qb == 64 ? launch_pass1<0, 64, FOLD>(a, st) : launch_pass1<0, 8, FOLD>(a, st);
-    return qb == 64 ? launch_pass1<1, 64, FOLD>(a, st) : launch_pass1<1, 8, FOLD>(a, st);
+    if (dtype == 1)
+      return qb == 64 ? launch_pass1<1, 64, FOLD>(a, st) : launch_pass1<1, 8, FOLD>(a, st);
+    if (FOLD) return cudaErrorInvalidValue;  // K9 scores bf16/f16/f32 rows only
+    return qb == 64 ? launch_pass1<kInt8, 64, false>(a, st)
+                    : launch_pass1<kInt8, 8, false>(a, st);
   }
-  // f32, int8: the SIMT route, query blocks of 16 or 4
-  if (qb != 16 && qb != 4) return cudaErrorInvalidValue;
-  if (dtype == 2)
-    return qb == 16 ? launch_pass1<2, 16, FOLD>(a, st) : launch_pass1<2, 4, FOLD>(a, st);
-  if (dtype == kInt8 && !FOLD)  // K9 scores bf16/f16/f32 rows only
-    return qb == 16 ? launch_pass1<kInt8, 16, false>(a, st)
-                    : launch_pass1<kInt8, 4, false>(a, st);
-  return cudaErrorInvalidValue;
+  // f32: the SIMT route, query blocks of 16 or 4
+  if (dtype != 2 || (qb != 16 && qb != 4)) return cudaErrorInvalidValue;
+  return qb == 16 ? launch_pass1<2, 16, FOLD>(a, st) : launch_pass1<2, 4, FOLD>(a, st);
 }
 
-// Both passes on one stream.
-cudaError_t scan(const ScanArgs& a, int dtype, int qb, bool fold,
-                 const float* qscale, float* out_s, int* out_i,
+// Both passes on one stream; pass 2 with warps2 warps a query. An int8
+// scan quantizes its f32 queries (fq) into a.queries and qscale first.
+cudaError_t scan(const ScanArgs& a, int dtype, int qb, int warps2, bool fold,
+                 const float* fq, float* qscale, float* out_s, int* out_i,
                  cudaStream_t st) {
-  cudaError_t e = fold ? launch_pass1_dt<true>(dtype, qb, a, st)
-                       : launch_pass1_dt<false>(dtype, qb, a, st);
+  if (warps2 < 1 || warps2 > kPass2MaxWarps || warps2 > a.n_chunks ||
+      warps2 * a.k > kPass2Slots)
+    return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (dtype == kInt8) {
+    quantize_queries<<<a.nq, 256, 0, st>>>(
+        fq, a.d, reinterpret_cast<int8_t*>(const_cast<uint32_t*>(a.queries)), qscale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  e = fold ? launch_pass1_dt<true>(dtype, qb, a, st)
+           : launch_pass1_dt<false>(dtype, qb, a, st);
   if (e != cudaSuccess) return e;
-  const size_t smem2 = (size_t)kPass2Warps * a.k * 8;
-  scan_pass2<<<(a.nq + kPass2Warps - 1) / kPass2Warps, kPass2Warps * 32, smem2,
-               st>>>(a.cand_s, a.cand_i, a.nq, a.n_chunks, a.k, qscale, out_s,
-                     out_i);
+  const size_t smem2 = (size_t)3 * warps2 * a.k * 8;
+  e = cudaFuncSetAttribute(scan_pass2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem2);
+  if (e != cudaSuccess) return e;
+  scan_pass2<<<a.nq, warps2 * 32, smem2, st>>>(a.cand_s, a.cand_i, a.n_chunks, a.k, qscale,
+                                                out_s, out_i);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 bf16, 1 f16, 2 f32, 3 int8 (row_scale and qscale then given).
-// tile_ids null: scan rows 0..n-1; else n = live tiles * tile_n logical
-// rows through the tile list. thr0 null: K1, K3, K4a, K4b; else K8's
-// per-query warm-start thresholds.
-extern "C" int sema_scan_topk(const void* store, const void* queries,
+// dtype: 0 bf16, 1 f16, 2 f32 (queries in the store dtype), 3 int8
+// (queries f32, quantized here into qbuf, (nq, d) int8, and qscale, (nq,)
+// f32; row_scale given). tile_ids null: scan rows 0..n-1; else n = live
+// tiles * tile_n logical rows through the tile list. thr0 null: K1, K3,
+// K4a, K4b; else K8's per-query warm-start thresholds (bf16/f16/f32 only).
+extern "C" int sema_scan_topk(const void* store, const void* queries, void* qbuf,
                               const uint8_t* valid, const float* row_scale,
                               const int* tile_ids, int tile_n, int n, int d,
                               int nq, int k, int dtype, int qb,
                               int rows_per_chunk, int slab_words, int n_chunks,
-                              float* cand_s, int* cand_i, const float* qscale,
-                              const float* thr0, float* out_s, int* out_i,
-                              void* stream) {
-  if (dtype == kInt8 && (row_scale == nullptr || qscale == nullptr))
+                              int pass2_warps, float* cand_s, int* cand_i,
+                              float* qscale, const float* thr0,
+                              float* out_s, int* out_i, void* stream) {
+  const bool i8 = dtype == kInt8;
+  if (i8 && (row_scale == nullptr || qbuf == nullptr || qscale == nullptr || thr0 != nullptr))
     return cudaErrorInvalidValue;
   const ScanArgs a{static_cast<const uint32_t*>(store),
-                   static_cast<const uint32_t*>(queries),
+                   static_cast<const uint32_t*>(i8 ? qbuf : queries),
                    valid, row_scale, tile_ids, tile_n, n, d, nq, k,
                    rows_per_chunk, slab_words, n_chunks, cand_s, cand_i,
                    thr0, nullptr};
-  return scan(a, dtype, qb, false, qscale, out_s, out_i,
-              static_cast<cudaStream_t>(stream));
+  return scan(a, dtype, qb, pass2_warps, false, static_cast<const float*>(queries),
+              i8 ? qscale : nullptr, out_s, out_i, static_cast<cudaStream_t>(stream));
 }
 
 // K9: rows 0..n-1 of a bf16/f16/f32 store, every row live. stats null, or
@@ -778,15 +1073,15 @@ extern "C" int sema_scan_topk(const void* store, const void* queries,
 extern "C" int sema_fold_topk(const void* store, const void* queries, int n,
                               int d, int nq, int k, int dtype, int qb,
                               int rows_per_chunk, int slab_words, int n_chunks,
-                              float* cand_s, int* cand_i, float* out_s,
-                              int* out_i, unsigned long long* stats,
-                              void* stream) {
+                              int pass2_warps, float* cand_s, int* cand_i,
+                              float* out_s, int* out_i,
+                              unsigned long long* stats, void* stream) {
   const ScanArgs a{static_cast<const uint32_t*>(store),
                    static_cast<const uint32_t*>(queries),
                    nullptr, nullptr, nullptr, 0, n, d, nq, k,
                    rows_per_chunk, slab_words, n_chunks, cand_s, cand_i,
                    nullptr, stats};
-  return scan(a, dtype, qb, true, nullptr, out_s, out_i,
+  return scan(a, dtype, qb, pass2_warps, true, nullptr, nullptr, out_s, out_i,
               static_cast<cudaStream_t>(stream));
 }
 

@@ -25,13 +25,15 @@ Contract (``pallas_topk.py:309-344, 407-433, 520-594``):
 - bf16/f16/f32 scores are ``queries.astype(store.dtype) @ store.T`` with
   f32 accumulation; int8 scores are ``(qi . row_i8)`` summed in i32, cast
   to f32 and multiplied by the row's f32 scale, where ``qi`` is the query
-  quantized per row (:func:`sema_tpu_torch.ops.quant.quantize_query`), and
-  the query's scale multiplies the merged scores;
+  quantized per row (:func:`sema_tpu_torch.ops.quant.quantize_query`; on
+  the card the scan's first launch quantizes with the same arithmetic),
+  and the query's scale multiplies the merged scores;
 - rows whose ``valid`` entry is False score -inf (``masked=False`` skips
   the mask of K1: every row is live);
 - each query's k best rows, ranked by score descending; equal scores put
   the row scanned first first, which is the lower row id (a pruned scan's
-  tile ids come sorted from ``ops/ivf.py:select_tiles``);
+  tile ids come sorted from ``ops/ivf.py:select_tiles``, and the card's
+  wrappers refuse live ids that are not strictly increasing);
 - slots past the live rows are -inf with id 0;
 - returns (Q, k) f32 scores and (Q, k) int32 ids.
 
@@ -44,19 +46,22 @@ Unlike the TPU kernels, N need not be a tile multiple (the kernel masks
 its own ragged edge) and k may reach ``K_MAX`` = 1024 (the store's largest
 k class); above it the store takes the hierarchical route of
 ``ops/hier_topk.py``, and a CUDA tensor given here raises. bf16/f16 rows
-are scored on the tensor cores (f32 accumulation in their own order), f32
-and int8 rows by scalar FMAs and ``__dp4a``; the block's queries and the
-staged slab of each row follow :func:`_query_block` and
-:func:`slab_words`.
+are scored on the tensor cores (f32 accumulation in their own order),
+int8 rows on the tensor cores too (i32 accumulation), f32 rows by scalar
+FMAs; the block's queries, the staged slab of each row and the chunks
+follow :func:`_query_block`, :func:`slab_words` and :func:`chunk_plan`,
+and pass 2's warps :func:`pass2_warps` (its plain version is
+:func:`scan_pass2_reference`).
 The int8 scores and ids equal the plain version's bit for bit: an i32 sum
-of d <= 1040 products of int8 values converts to f32 without loss. K8 and
-K9 compute K1's function: on the card their scores and ids equal K1's bit
-for bit.
+of d <= 1040 products of int8 values is exact in any order and converts
+to f32 without loss. K8 and K9 compute K1's function: on the card their
+scores and ids equal K1's bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -74,20 +79,24 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2,
                 torch.int8: 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"sema_scan_topk": [
-    _P, _P, _P, _P, _P,    # store, queries, valid, row scales, tile ids
+    _P, _P, _P,            # store, queries, int8 queries (scratch)
+    _P, _P, _P,            # valid, row scales, tile ids
     _I, _I, _I, _I, _I,    # tile_n, n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
-                           # slab, chunks
+    _I,                    # slab, chunks, pass-2 warps
     _P, _P, _P, _P,        # candidates, query scales, warm thresholds
     _P, _P, _P],           # outputs, stream
     "sema_fold_topk": [
     _P, _P,                # store, queries
     _I, _I, _I, _I,        # n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
-                           # slab, chunks
+    _I,                    # slab, chunks, pass-2 warps
     _P, _P, _P, _P,        # candidates, outputs
     _P, _P]}               # span counters, stream
 _FOLD_SPAN = 256        # rows each K9 merge takes (csrc/scan_topk.cu)
+_RANKED_SLOTS = 1_024   # the int8 route's merge_ranked slots: 8 warps x 32 words
+_PASS2_MAX_WARPS = 32   # warps of a pass-2 block
+_PASS2_SLOTS = 4_096    # warps x k of a pass-2 block: three lists each, 96 KB
 
 
 def _select(scores: torch.Tensor, k: int):
@@ -207,33 +216,48 @@ def _up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _mma_slab_most(d: int, qb: int, k: int, span: int) -> int:
-    """The widest slab (elements, a multiple of 16) whose two stage
+def _stages(itemsize: int, qb: int) -> int:
+    """Stage buffers of the tensor-core route: int8 rows in blocks of 8
+    queries keep two stages in flight, the others one."""
+    return 3 if itemsize == 1 and qb == 8 else 2
+
+
+def _int8_extra(itemsize: int) -> int:
+    """Shared memory only the int8 route takes: merge_ranked's slots and
+    each stage's row scales (f32) and valid flags (bytes)."""
+    return _RANKED_SLOTS + 3 * _TILE_ROWS * 5 if itemsize == 1 else 0
+
+
+def _mma_slab_most(d: int, qb: int, k: int, span: int,
+                   itemsize: int = 2) -> int:
+    """The widest slab (16-bit units, a multiple of 16) whose stage
     buffers fit the tensor-core route's shared memory beside ``qb``
-    staged queries, their scores, lists and screen flags; below 16
-    nothing fits."""
+    staged queries of ``d`` units, their scores, lists and screen flags,
+    and what the int8 route (``itemsize`` 1) adds; below 16 nothing
+    fits."""
     free = _SMEM_MAX - (qb * (_up(d, 16) + 8) * 2 + qb * (span + 4) * 4
-                        + qb * k * 8 + qb * 4)
-    return (free // (2 * _TILE_ROWS * 2) - 8) // 16 * 16
+                        + qb * k * 8 + qb * 4 + _int8_extra(itemsize))
+    return (free // (_stages(itemsize, qb) * _TILE_ROWS * 2) - 8) // 16 * 16
+
+
+def _units(d: int, itemsize: int) -> int:
+    """A row's width in the tensor-core route's 16-bit units: an int8
+    row of d values is d / 2 pairs."""
+    return d * itemsize // 2
 
 
 def _query_block(d: int, itemsize: int, k: int, nq: int,
                  span: int = _TILE_ROWS) -> int:
-    """Queries one block of pass 1 takes. bf16/f16 rows (itemsize 2, the
-    tensor-core route): 64 for a batch of more than 8 at k <= 128 where
-    slabs of at least 64 elements fit beside them, so that the store is
-    read once per 64 queries; else 8, one n8 tile of the mma. f32 and
-    int8 rows (the SIMT route): 16 at k <= 128, else 4."""
-    if itemsize == 2:
-        wide = nq > 8 and k <= 128 and _mma_slab_most(d, 64, k, span) >= 64
+    """Queries one block of pass 1 takes. bf16/f16 and int8 rows
+    (itemsize 2 and 1, the tensor-core route): 64 for a batch of more
+    than 8 at k <= 128 where slabs of at least 64 units fit beside them,
+    so that the store is read once per 64 queries; else 8, one n8 tile
+    of the mma. f32 rows (the SIMT route): 16 at k <= 128, else 4."""
+    if itemsize in (1, 2):
+        wide = nq > 8 and k <= 128 and _mma_slab_most(
+            _units(d, itemsize), 64, k, span, itemsize) >= 64
         return 64 if wide else 8
     return 16 if k <= 128 else 4
-
-
-def _query_bytes(d: int, itemsize: int) -> int:
-    """Shared memory of one staged query on the SIMT route: f32 values,
-    or packed int8."""
-    return d if itemsize == 1 else d * 4
 
 
 def slab_words(d: int, itemsize: int, k: int, nq: int,
@@ -242,22 +266,21 @@ def slab_words(d: int, itemsize: int, k: int, nq: int,
     fits), beside the queries, the scores of a merge's ``span`` rows (K9's
     is longer) and the lists. ``itemsize`` 1 is an int8 store.
 
-    bf16/f16 (the tensor-core route, two stage buffers): the row, padded
-    with zeros to a multiple of 16 elements, in as few slabs as fit, of
-    equal width rounded up to 16 elements. f32/int8 (the SIMT route, one
-    buffer): the whole row where it fits, else the most that fit, a
-    multiple of 4."""
+    bf16/f16/int8 (the tensor-core route, two or three stage buffers):
+    the row, padded with zeros to a multiple of 16 units (16 values; 32
+    for int8), in as few slabs as fit, of equal width rounded up to 16
+    units. f32 (the SIMT route, one buffer): the whole row where it
+    fits, else the most that fit, a multiple of 4."""
     qb = _query_block(d, itemsize, k, nq, span)
-    if itemsize == 2:
-        dp, most = _up(d, 16), _mma_slab_most(d, qb, k, span)
+    if itemsize in (1, 2):
+        du = _units(d, itemsize)
+        dp, most = _up(du, 16), _mma_slab_most(du, qb, k, span, itemsize)
         if most < 16:
             return 0
         slabs = -(-dp // most)
         return _up(-(-dp // slabs), 16) // 2
-    words = d * itemsize // 4
-    free = _SMEM_MAX - (qb * _query_bytes(d, itemsize) + qb * span * 4
-                        + qb * k * 8)
-    return max(0, min(words, (free // (_TILE_ROWS * 4) - 1) // 4 * 4))
+    free = _SMEM_MAX - (qb * d * 4 + qb * span * 4 + qb * k * 8)
+    return max(0, min(d, (free // (_TILE_ROWS * 4) - 1) // 4 * 4))
 
 
 def pass1_smem_bytes(d: int, itemsize: int, k: int, nq: int,
@@ -265,29 +288,113 @@ def pass1_smem_bytes(d: int, itemsize: int, k: int, nq: int,
     """Dynamic shared memory of pass 1 (mirrors csrc/scan_topk.cu)."""
     qb = _query_block(d, itemsize, k, nq, span)
     words = slab_words(d, itemsize, k, nq, span)
-    if itemsize == 2:
-        return (qb * (_up(d, 16) + 8) * 2
-                + 2 * _TILE_ROWS * (2 * words + 8) * 2
-                + qb * (span + 4) * 4 + qb * k * 8 + qb * 4)
-    return (qb * _query_bytes(d, itemsize)
-            + _TILE_ROWS * (words + 1) * 4
+    if itemsize in (1, 2):
+        return (qb * (_up(_units(d, itemsize), 16) + 8) * 2
+                + _stages(itemsize, qb) * _TILE_ROWS * (2 * words + 8) * 2
+                + qb * (span + 4) * 4 + qb * k * 8 + qb * 4
+                + _int8_extra(itemsize))
+    return (qb * d * 4 + _TILE_ROWS * (words + 1) * 4
             + qb * span * 4 + qb * k * 8)
 
 
-def chunk_plan(n: int, nq: int, qb: int, sms: int, smem: int):
+def chunk_plan(n: int, nq: int, qb: int, sms: int, smem: int,
+               select_k: int = 0):
     """(rows per chunk, chunks) for ``nq`` queries in blocks of ``qb``:
     split N so that the blocks of pass 1 (``smem`` bytes of shared memory
     each) fill the card once and no more, two an SM where two fit, else
     one, whatever Q is (Q=1 at query time): a second wave of a few blocks
     would run alone, and shorter chunks only restart more lists. The grid
     runs the query blocks of one chunk side by side, so that they read
-    its rows from L2 at about the same time."""
+    its rows from L2 at about the same time.
+
+    ``select_k``, the int8 route's k (0 for the others): with one query
+    block, at most N / (4 k) chunks, so that at most a quarter of the
+    rows scanned become pass 2's candidates. At one gte-large query the
+    one-wave plan cut an IVF probe of 64 tiles into 256 chunks of 128
+    rows: at k 128 every live row was a candidate, pass 1 inserted each
+    one and pass 2 merged them all (0.38 of K4b's 0.50 device ms on an
+    H100, by chip_smoke.py's profile of the path). Longer chunks leave pass 1 a real
+    selection, which merge_ranked makes in one step a tile, and a block
+    of 512 rows still streams its 512 KB at about the rate a share of
+    the card's memory gives it. The bf16/f16/f32 routes keep the
+    one-wave plan."""
     per_sm = 2 if 2 * (smem + _SMEM_RESERVED) <= _SM_SMEM else 1
     q_blocks = -(-nq // qb)
     tiles = -(-n // _TILE_ROWS)
     chunks = max(1, min(tiles, per_sm * sms // q_blocks))
+    if select_k and q_blocks == 1:
+        chunks = max(1, min(chunks, n // (4 * select_k)))
     rows = -(-tiles // chunks) * _TILE_ROWS
     return rows, -(-n // rows)
+
+
+def pass2_warps(chunks: int, k: int) -> int:
+    """Warps of pass 2's block for one query: min(32, chunks, 4096 / k).
+    Each merges a run of consecutive chunk lists (``run_bounds``), then
+    the runs' lists merge in a tree; a warp's three lists of k take 24 k
+    bytes of shared memory, 96 KB for the block at most."""
+    return max(1, min(_PASS2_MAX_WARPS, chunks, _PASS2_SLOTS // k))
+
+
+def run_bounds(chunks: int, warps: int) -> list:
+    """The runs of pass 2: warp w merges chunks [b[w], b[w + 1])."""
+    return [w * chunks // warps for w in range(warps + 1)]
+
+
+def _before(s1, i1, s2, i2):
+    """The order of every list: a higher score first, then a lower id."""
+    return (s1 > s2) | ((s1 == s2) & (i1 < i2))
+
+
+def merge_lists_reference(a_s, a_i, b_s, b_i):
+    """Plain version of the kernel's ``merge_lists``: the first k entries
+    of the union of two (Q, k) lists sorted by ``_before``, each finite
+    entry placed at its index plus the entries of the other list that
+    come before it; the slots past the finite entries are -inf, id 0."""
+    nq, k = a_s.shape
+    out_s = a_s.new_full((nq, k), float("-inf"))
+    out_i = a_i.new_zeros((nq, k))
+    index = torch.arange(k, device=a_s.device)[None, :]
+    row = torch.arange(nq, device=a_s.device)[:, None].expand(nq, k)
+    for xs, xi, ys, yi in ((a_s, a_i, b_s, b_i), (b_s, b_i, a_s, a_i)):
+        ahead = _before(ys[:, None, :], yi[:, None, :], xs[:, :, None],
+                        xi[:, :, None]).sum(-1)
+        pos = index + ahead
+        keep = ~torch.isneginf(xs) & (pos < k)
+        out_s[row[keep], pos[keep]] = xs[keep]
+        out_i[row[keep], pos[keep]] = xi[keep]
+    return out_s, out_i
+
+
+def scan_pass2_reference(cand_s: torch.Tensor, cand_i: torch.Tensor,
+                         qscale: torch.Tensor = None, runs=None):
+    """Plain version of pass 2 (``scan_pass2``): (Q, chunks, k) candidate
+    lists, each sorted by ``_before`` with -inf (id 0) past its rows, in
+    scan order, and the int8 scans' per-query scales (Q,) or None → the
+    merged (Q, k) scores and ids, scaled after the merge (-inf slots stay
+    -inf, id 0). ``runs`` splits the chunks as the kernel's warps do
+    (default ``run_bounds(chunks, pass2_warps(chunks, k))``): each run's
+    lists merged in order, then the runs' lists pairwise in a tree, list
+    i taking list i + s at step s."""
+    nq, chunks, k = cand_s.shape
+    if runs is None:
+        runs = run_bounds(chunks, pass2_warps(chunks, k))
+    lists = []
+    for c0, c1 in zip(runs[:-1], runs[1:]):
+        s = cand_s.new_full((nq, k), float("-inf"))
+        i = cand_i.new_zeros((nq, k))
+        for c in range(c0, c1):
+            s, i = merge_lists_reference(s, i, cand_s[:, c], cand_i[:, c])
+        lists.append((s, i))
+    step = 1
+    while step < len(lists):
+        for a in range(0, len(lists) - step, 2 * step):
+            lists[a] = merge_lists_reference(*lists[a], *lists[a + step])
+        step *= 2
+    s, i = lists[0]
+    if qscale is not None:
+        s = torch.where(torch.isneginf(s), s, s * qscale[:, None])
+    return s, i.masked_fill(torch.isneginf(s), 0)
 
 
 def _check(store, queries, valid, k, masked, dtypes=(torch.bfloat16,
@@ -341,52 +448,79 @@ def _check_tiles(tile_ids, n_live: int, tile_n: int, n: int) -> np.ndarray:
     if tile_n % _TILE_ROWS or tile_n < _TILE_ROWS:
         raise KernelError(f"tile_n={tile_n} must be a multiple of "
                           f"{_TILE_ROWS}")
-    live = tiles[:n_live]
-    if live.min() < 0 or (int(live.max()) + 1) * tile_n > n:
+    live = tiles[:n_live].astype(np.int64)
+    if (live[1:] <= live[:-1]).any():
+        raise KernelError("live tile ids must be strictly increasing, as "
+                          "ops/ivf.py:select_tiles gives them: equal "
+                          "scores keep the lower row id")
+    if live[0] < 0 or (int(live[-1]) + 1) * tile_n > n:
         raise KernelError(f"tile ids outside the store's {n // tile_n} "
                           "whole tiles")
-    return np.ascontiguousarray(live, dtype=np.int32)
+    return live.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(n: int, nq: int, d: int, isz: int, k: int, span: int,
+          sms: int) -> tuple:
+    """(query block, rows per chunk, words per slab, chunks, pass-2
+    warps) of one scan shape: a pure function of it, planned once."""
+    qb = _query_block(d, isz, k, nq, span)
+    rows, chunks = chunk_plan(n, nq, qb, sms,
+                              pass1_smem_bytes(d, isz, k, nq, span),
+                              select_k=k if isz == 1 else 0)
+    return (qb, rows, slab_words(d, isz, k, nq, span), chunks,
+            pass2_warps(chunks, k))
 
 
 def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
-            qscale=None, thr0=None, fold=False, stats=None):
+            thr0=None, fold=False, stats=None):
     """Both passes on the current stream; returns (Q, k) scores and ids.
-    ``q`` is in the store dtype (int8 for an int8 store); ``thr0`` K8's
-    (Q,) thresholds; ``fold`` K9 (no mask, no tiles), whose ``stats``, a
-    (2,) int64 tensor or None, gain the spans merged and those merged on
-    the fast path."""
+    ``q`` is in the store dtype, f32 for an int8 store (the kernel
+    quantizes it per row and scales the merged scores by the query's
+    scale); ``thr0`` K8's (Q,) thresholds; ``fold`` K9 (no mask, no
+    tiles), whose ``stats``, a (2,) int64 tensor or None, gain the spans
+    merged and those merged on the fast path."""
     lib = _cuda.library("scan_topk", _SIGNATURES)
     q = _cuda.aligned(q)
+    dev = store.device
     d = store.shape[1]
     nq = q.shape[0]
     n = store.shape[0] if tiles is None else len(tiles) * tile_n
+    # pinned, so that the copy does not wait for the work already queued
     tile_dev = (None if tiles is None
-                else torch.from_numpy(tiles).to(store.device))
-    sms = torch.cuda.get_device_properties(store.device).multi_processor_count
+                else torch.from_numpy(tiles).pin_memory().to(
+                    dev, non_blocking=True))
     isz, span = store.element_size(), _FOLD_SPAN if fold else _TILE_ROWS
-    qb = _query_block(d, isz, k, nq, span)
-    rows, chunks = chunk_plan(n, nq, qb, sms,
-                              pass1_smem_bytes(d, isz, k, nq, span))
+    qb, rows, words, chunks, warps2 = _plan(n, nq, d, isz, k, span,
+                                            _sm_count(dev.index or 0))
     f32, i32 = torch.float32, torch.int32
-    cand_s = torch.empty((nq, chunks, k), dtype=f32, device=store.device)
-    cand_i = torch.empty((nq, chunks, k), dtype=i32, device=store.device)
-    out_s = torch.empty((nq, k), dtype=f32, device=store.device)
-    out_i = torch.empty((nq, k), dtype=i32, device=store.device)
+    cand_s = torch.empty((nq, chunks, k), dtype=f32, device=dev)
+    cand_i = torch.empty((nq, chunks, k), dtype=i32, device=dev)
+    out_s = torch.empty((nq, k), dtype=f32, device=dev)
+    out_i = torch.empty((nq, k), dtype=i32, device=dev)
+    qbuf = qscale = None
+    if isz == 1:
+        qbuf = torch.empty((nq, d), dtype=torch.int8, device=dev)
+        qscale = torch.empty((nq,), dtype=f32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    plan = (_DTYPE_CODES[store.dtype], qb, rows,
-            slab_words(d, isz, k, nq, span), chunks,
+    plan = (_DTYPE_CODES[store.dtype], qb, rows, words, chunks, warps2,
             cand_s.data_ptr(), cand_i.data_ptr())
     if fold:
         err = _cuda.launch(
-            lib.sema_fold_topk, store.device, store.data_ptr(), q.data_ptr(),
+            lib.sema_fold_topk, dev, store.data_ptr(), q.data_ptr(),
             n, d, nq, k, *plan, out_s.data_ptr(), out_i.data_ptr(),
             ptr(stats))
     else:
         err = _cuda.launch(
-            lib.sema_scan_topk, store.device,
-            store.data_ptr(), q.data_ptr(), ptr(valid), ptr(row_scale),
-            ptr(tile_dev), tile_n, n, d, nq, k, *plan, ptr(qscale),
-            ptr(thr0), out_s.data_ptr(), out_i.data_ptr())
+            lib.sema_scan_topk, dev,
+            store.data_ptr(), q.data_ptr(), ptr(qbuf), ptr(valid),
+            ptr(row_scale), ptr(tile_dev), tile_n, n, d, nq, k, *plan,
+            ptr(qscale), ptr(thr0), out_s.data_ptr(), out_i.data_ptr())
     _cuda.check(lib, err, "fold_topk" if fold else "scan_topk")
     return out_s, out_i
 
@@ -462,8 +596,8 @@ def scan_topk_int8(qvals: torch.Tensor, scales: torch.Tensor,
     if qvals.device.type == "cpu":
         return scan_topk_int8_reference(qvals, scales, queries, valid, k)
     _check_int8(qvals, scales, queries, valid, k)
-    qi, qscale = quantize_query(queries.float())
-    out = _launch(qvals, qi, valid, k, row_scale=scales, qscale=qscale)
+    out = _launch(qvals, queries.float(), _cuda.aligned(valid), k,
+                  row_scale=_cuda.aligned(scales))
     scan_topk_int8.launches += 1
     return out
 
@@ -496,9 +630,8 @@ def scan_topk_int8_pruned(qvals: torch.Tensor, scales: torch.Tensor,
             qvals, scales, queries, valid, tile_ids, n_live, k, tile_n)
     _check_int8(qvals, scales, queries, valid, k)
     tiles = _check_tiles(tile_ids, n_live, tile_n, qvals.shape[0])
-    qi, qscale = quantize_query(queries.float())
-    out = _launch(qvals, qi, valid, k, row_scale=scales, tiles=tiles,
-                  tile_n=tile_n, qscale=qscale)
+    out = _launch(qvals, queries.float(), _cuda.aligned(valid), k,
+                  row_scale=_cuda.aligned(scales), tiles=tiles, tile_n=tile_n)
     scan_topk_int8_pruned.launches += 1
     return out
 

@@ -179,6 +179,8 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch, name):
     ([0, 1], 2, 100, "multiple of 64"),
     ([0, 2], 2, 128, "outside"),
     ([-1, 0], 2, 128, "outside"),
+    ([1, 0], 2, 128, "strictly increasing"),
+    ([1, 1], 2, 128, "strictly increasing"),
 ])
 def test_tile_list_checked_on_the_host(tiles, n_live, tile_n, match):
     with pytest.raises(KernelError, match=match):
@@ -187,9 +189,13 @@ def test_tile_list_checked_on_the_host(tiles, n_live, tile_n, match):
 
 @pytest.mark.parametrize("d,k", [(384, 128), (1024, 128), (1024, 1024)])
 def test_int8_rows_fit_shared_memory_whole(d, k):
-    """int8 rows of every registered width go through pass 1 whole, and
-    a staged query takes d bytes, not 4d."""
-    assert scan_mod.slab_words(d, 1, k, 256) == d // 4
-    assert scan_mod.pass1_smem_bytes(d, 1, k, 256) <= scan_mod._SMEM_MAX
-    assert (scan_mod.pass1_smem_bytes(d, 1, k, 1)
-            < scan_mod.pass1_smem_bytes(d, 2, k, 1))
+    """int8 rows of every registered width go through pass 1 whole at one
+    query and k <= 128 (in three stage buffers), else in equal slabs of
+    whole k-steps (32 values); shared memory fits either way."""
+    words = d // 4
+    for nq in (1, 256):
+        slab = scan_mod.slab_words(d, 1, k, nq)
+        slabs = -(-words // slab)
+        assert slab % 8 == 0 and (slabs - 1) * slab < words <= slabs * slab
+        assert scan_mod.pass1_smem_bytes(d, 1, k, nq) <= scan_mod._SMEM_MAX
+    assert (scan_mod.slab_words(d, 1, k, 1) == words) == (k <= 128)
