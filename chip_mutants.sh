@@ -3,6 +3,7 @@
 #
 #     bash chip_mutants.sh        # from the repository root; needs one card
 #     bash chip_mutants.sh k6_no_bias k7_next_heads_keys   # only these
+#     MUTANT_JOBS=4 bash chip_mutants.sh ...   # four mutants' phases at once
 #
 # Each mutant is a copy of chip_smoke.py and sema_tpu_torch/ under
 # build/mut-<name>/ with one fault put by sed into a CUDA source or a
@@ -11,8 +12,10 @@
 # A cli_mutant breaks K5 so that it cannot build or refuses its tensors,
 # and `python -m sema_tpu_torch query` on the int8 encoder must then exit
 # non-zero with the kernel's error, not answer from the substring scan.
-# Prints one line per mutant, "caught" or "MISSED", and exits non-zero if
-# any mutant was missed or left its source unchanged. The kernels of the
+# Prints one line per mutant, "caught" or "MISSED" (once every mutant's
+# phase has ended), and exits non-zero if any mutant was missed or left
+# its source unchanged. MUTANT_JOBS phases run at once on the card
+# (default 1). The kernels of the
 # unchanged sources are built once and copied into each mutant's tree
 # (a library's name carries its source's hash, so a mutated source is
 # rebuilt there).
@@ -20,6 +23,8 @@ set -u
 cd "$(dirname "$0")"
 python3 -c 'from sema_tpu_torch.ops import _cuda; _cuda.build()' || exit 1
 failed=0
+JOBS=${MUTANT_JOBS:-1}
+checked=()   # the mutants' directories, each with its verdict once checked
 ONLY=("$@")
 # true for every mutant when none is named on the command line
 chosen() { [ ${#ONLY[@]} -eq 0 ] || [[ " ${ONLY[*]} " == *" $1 "* ]]; }
@@ -42,13 +47,20 @@ mutant() {
     failed=1
     return
   fi
+  check_mutant "$dir" "$name" "$phases" &
+  checked+=("$dir")
+  while [ "$(jobs -rp | wc -l)" -ge "$JOBS" ]; do wait -n; done
+}
+# the phases from the mutant's tree, which must fail; the verdict into
+# $dir/verdict
+check_mutant() {
+  local dir=$1 name=$2 phases=$3
   if (cd "$dir" && python3 chip_smoke.py --phases "$phases" \
         > out.txt 2> err.txt); then
-    echo "mutant $name: MISSED by phase $phases"
-    failed=1
+    echo "mutant $name: MISSED by phase $phases" > "$dir/verdict"
   else
     echo "mutant $name: caught, $(grep -o 'RuntimeError: .*' \
-      "$dir/err.txt" | head -1 | cut -c15-200)"
+      "$dir/err.txt" | head -1 | cut -c15-200)" > "$dir/verdict"
   fi
 }
 # K4a/K4b: the row's scale never multiplies its i32 dot
@@ -87,9 +99,43 @@ mutant pass2_run_boundary_off_by_one scan_topk.cu \
 # K3/K4b: the tile list is ignored, rows are read in order
 mutant tiles_ignored scan_topk.cu 's/return a.tile_ids == nullptr ? t0/return true ? t0/' \
   scan_int8
-# K2, S > 256: probs @ V reads the first key block over and over
-mutant long_rows_first_block encoder_layer.cu 's/load_keys(k0, true);/load_keys(0, true);/' \
+# K2 (and K5-K7), S <= 512: probs @ V reads the first value tile over and
+# over
+mutant values_first_tile encoder_layer.cu \
+  's/const int k0 = (i < nt ? i : i - nt) \* KT;/const int k0 = (i < nt ? i : 0) * KT;/' \
   encoder_layer
+# K7, S > 512 (the three-pass kernel, at S = 640): probs @ V reads the first
+# key block over and over
+mutant long_rows_first_block encoder_layer.cu 's/load_keys(k0, true);/load_keys(0, true);/' \
+  attention
+# K7 (and K2, K5, K6) at S = 512: the second key tile is never scored
+mutant attn_second_key_tile_skipped encoder_layer.cu \
+  's|if (!active) continue;  // keys: no arithmetic past S|if (!active \|\| j == 1) continue;|' \
+  attention
+# K7 (and K2, K5, K6) past 256 keys: the scores of every key tile past the
+# fourth are truncated to the compute dtype, not rounded to nearest (caught
+# by rounding_probe)
+mutant attn_late_scores_truncated encoder_layer.cu \
+  's/const uint32_t pair = Ty<DT>::pack(sv\[2 \* h\], sv\[2 \* h + 1\]);/const uint32_t pair = j < 4 ? Ty<DT>::pack(sv[2 * h], sv[2 * h + 1]) : DT == DT_BF16 ? Ty<DT>::pack(__bfloat162float(__float2bfloat16_rz(sv[2 * h])), __bfloat162float(__float2bfloat16_rz(sv[2 * h + 1]))) : Ty<DT>::pack(__half2float(__float2half_rz(sv[2 * h])), __half2float(__float2half_rz(sv[2 * h + 1])));/' \
+  attention
+# K7 (and K2, K5, K6): the mask bias is dropped from every key tile but the
+# first (keys past S then score as zeros)
+mutant attn_mask_dropped_later_tiles encoder_layer.cu \
+  's/const float2 bb = \*reinterpret_cast<const float2\*>(bias_j + t \* 8);/const float2 bb = j > 0 ? make_float2(0.f, 0.f) : *reinterpret_cast<const float2*>(bias_j + t * 8);/' \
+  attention
+# K6's wgmma GEMM: the consumers wait on the full barrier with the wrong
+# phase parity, so a slab is read before (or long after) its bytes land
+mutant wgmma_wrong_parity encoder_layer.cu \
+  's|mbar_wait(full + s, ph);  // the slab.s bytes have landed|mbar_wait(full + s, ph ^ 1);|' \
+  attention
+# K6's wgmma GEMM: the last slab of K is never loaded nor multiplied
+mutant wgmma_last_slab_dropped encoder_layer.cu \
+  's|const int nk = (K + kWgBK - 1) / kWgBK;  // slabs of K|const int nk = (K + kWgBK - 1) / kWgBK - 1;|' \
+  attention
+# K6's wgmma GEMM: the epilogue drops the bias
+mutant wgmma_no_bias encoder_layer.cu \
+  's/Ty<DT>::pack(acc\[4 \* j + 2 \* h\] + bb.x, acc\[4 \* j + 2 \* h + 1\] + bb.y);/Ty<DT>::pack(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);/' \
+  attention
 # K2, f32: the padding mask is dropped
 mutant f32_mask_dropped encoder_layer.cu \
   's/__fadd_rn(__fmul_rn(s\[i\]\[j\], scale), bj)/__fmul_rn(s[i][j], scale)/' \
@@ -105,10 +151,10 @@ mutant f32_kv_next_tile_k67 encoder_layer.cu \
 # K2, f16: the products read the f16 operands as bf16
 mutant f16_as_bf16 encoder_layer.cu 's/f32.f16.f16.f32/f32.bf16.bf16.f32/' \
   encoder_layer
-# K2, head dim 64 at buckets of 32 and 64 keys (gte-large's short buckets
-# only): half of each head's context is never written
+# K2, head dim 64 at rows of 32 keys (gte-large's shortest bucket only):
+# half of each head's context is never written
 mutant hd64_short_half_context encoder_layer.cu \
-  's|constexpr int NO = HD / 8;   // n8 tiles of context|constexpr int NO = (HD == 64 \&\& SP <= 64) ? 4 : HD / 8;|' \
+  's|constexpr int NO = HD / 8;   // n8 tiles of context|constexpr int NO = (HD == 64 \&\& KT <= 32) ? 4 : HD / 8;|' \
   encoder_layer
 # K2, f16: every result rounds to bf16's precision before it is stored
 mutant f16_rounded_as_bf16 encoder_layer.cu \
@@ -125,9 +171,10 @@ mutant k5_scale_by_column encoder_layer.cu 's/sa\[row\]/sa[col % M]/g' \
 mutant k5_no_weight_scale encoder_layer.cu \
   's/return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), ws);/return __fmul_rn(__int2float_rn(acc), sx);/' \
   encoder_layer_int8
-# K5 at S > 256: probs @ V reads the first key block over and over
-mutant k5_long_rows_first_block encoder_layer.cu \
-  's/load_keys(k0, true);/load_keys(0, true);/' encoder_layer_int8
+# K5 at S = 512: probs @ V reads the first value tile over and over
+mutant k5_values_first_tile encoder_layer.cu \
+  's/const int k0 = (i < nt ? i : i - nt) \* KT;/const int k0 = (i < nt ? i : 0) * KT;/' \
+  encoder_layer_int8
 # K6: the qkv GEMM's epilogue drops the bias (K2's qkv GEMM shares it)
 mutant k6_no_bias encoder_layer.cu \
   's/store2<DT>(out + (size_t)row \* N + col, v0 + b0, v1 + b1);/store2<DT>(out + (size_t)row * N + col, v0, v1);/' \
@@ -139,9 +186,9 @@ mutant k6_stride_of_x encoder_layer.cu \
   's/return attention_any<DT>(qkv, mask_bias, ctx, B, S, H_out, 3 \* H_out, num_heads, scale,/return attention_any<DT>(qkv, mask_bias, ctx, B, S, H_out, 3 * H, num_heads, scale,/' \
   attention ops/attention.py \
   's/qkv = torch.empty((b \* s, h3), dtype=dt, device=x.device)/qkv = torch.empty((b * s, 3 * h), dtype=dt, device=x.device)/'
-# K7 (and K2) at S <= 256: each head scores against the next head's keys
+# K7 (and K2) at S <= 512: each head scores against the next head's keys
 mutant k7_next_heads_keys encoder_layer.cu \
-  's|in ? \*reinterpret_cast<const uint4\*>(base + r \* rs + H + v \* 8) : zero;|in ? *reinterpret_cast<const uint4*>(base + r * rs + H + ((head + 1) % (H / HD) - head) * HD + v * 8) : zero;|' \
+  's|(i < nt ? H : 2 \* H)|(i < nt ? H + ((head + 1) % (H / HD) - head) * HD : 2 * H)|' \
   attention
 # K1 (bf16/f16 pass 1 on the tensor cores): the first k-step of every slab
 # is never scored, caught by K1's check and, separately, by the A/B path's
@@ -191,6 +238,11 @@ mutant ring_wait_short encoder_layer.cu \
 mutant ring_wait_short_int8 encoder_layer.cu \
   's/cp_async_wait<STAGES - 2>();/cp_async_wait<STAGES - 1>();/g' \
   encoder_layer_int8
+wait
+for dir in "${checked[@]}"; do
+  cat "$dir/verdict"
+  ! grep -q MISSED "$dir/verdict" || failed=1
+done
 cli_mutant() {
   local name=$1 file=$2 expr=$3 expect=$4
   chosen "$name" || return 0

@@ -59,16 +59,27 @@ Phases, one JSON line each:
                       at tp 2 and 4 (512 and 256 wide, head dim 64) and of
                       MiniLM at tp 2 and 4 (192 and 96, head dim 32), in
                       bf16, f16 and f32: K6 at (B, S) (1, 256), (64, 256)
-                      and (256, 192), K7 at (256, 32), (128, 128) and (32,
-                      512) (the key-block route), then both at the
-                      tp_path's batches. Limits: ``K67_LIMITS``, K2's
+                      and (256, 192), K7 at (256, 32), (128, 128), (32,
+                      512) and (16, 640) (the three-pass route), then both
+                      at the tp_path's batches (K6 at the TP index batch
+                      in f16 too). Limits: ``K67_LIMITS``, K2's
                       widened for what attention alone returns; they must
                       reject the plain version with the mask dropped, with
                       the keys' heads rotated and (K6) with its bias
-                      dropped. Library: ``F.scaled_dot_product_attention``
-                      on the qkv viewed as heads (K6: after ``torch.addmm``).
-                      K6 in f32 also splits its time between the SIMT qkv
-                      GEMM and the attention (K7 alone at its shape).
+                      dropped; ``rounding_probe`` (K7 at (4, 512) on scores
+                      a fraction of a bf16 ulp apart) must reject the plain
+                      version with its scores unrounded. Library:
+                      ``F.scaled_dot_product_attention`` on the qkv viewed
+                      as heads (K6: after ``torch.addmm``). K6 in bf16 and
+                      f16 splits its device ms between its two launches
+                      (the qkv GEMM, then the attention; torch.profiler)
+                      beside ``addmm`` and SDPA alone, and checks the qkv
+                      GEMM's plan (``ops/encoder_layer.py:qkv_gemm_plan``:
+                      ``wgmma`` at index batches, the ring GEMM at one
+                      query) against the kernel's own (``sema_qkv_plan``)
+                      and its traced grid; in f32 it splits its time
+                      between the SIMT qkv GEMM and the attention (K7
+                      alone at its shape).
 7. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
                       rows at d = 1024 and 384, Q in {1, 256}, k in
                       {16, 128}, masked rows, a 17-way tie in one tile
@@ -181,8 +192,9 @@ Phases, one JSON line each:
 | tar -x -C build/parent``; its two kernel sources are built beside this
 tree's) adds two phases, each output bit for bit against the parent's,
 or where they differ, and both timed in turns in the same run:
-``layer_bits``: K2, K5 and K6 at every case of K2_SHAPES, K5_SHAPES and
-K6_BS; ``scan_bits``: K1, K3, K4a, K4b, K8 and K9 at every case of the
+``layer_bits``: K2, K5, K6 and K7 at every case of K2_SHAPES, K5_SHAPES,
+K6_BS and K7_BS, and K6 and K7 at the tp_path's batches (K67_PATH);
+``scan_bits``: K1, K3, K4a, K4b, K8 and K9 at every case of the
 phases ``scan_topk``, ``scan_int8``, ``scan_pruned`` and ``scan_ab`` and
 at the paths' shapes (PATH_SCANS), through the parent's own
 ``ops/scan_topk.py`` over its ``csrc/scan_topk.cu``; the scan cases must
@@ -1438,7 +1450,8 @@ def phase_layer_int8(gen):
 K67_WIDTHS = (("gte-large", 2), ("gte-large", 4), ("minilm-l6", 2),
               ("minilm-l6", 4))
 K6_BS = ((1, 256), (64, 256), (256, 192))
-K7_BS = ((256, 32), (128, 128), (32, 512))      # 512: the key-block route
+# 512: the longest row of the one-pass route; 640: the three-pass route
+K7_BS = ((256, 32), (128, 128), (32, 512), (16, 640))
 # the tp_path's own (B, S) of gte-large at tp 2, bf16, beyond those of
 # K6_BS and K7_BS: a full index batch of each sequence bucket
 # (``Encoder.encode_texts``: batch_size * max_length // S rows) through K6
@@ -1550,7 +1563,18 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
         library_ms = device_ms(lib, iters)
     kernel_ms = device_ms(lambda: fn(*args), iters)
     split = {}
-    if kind == "block" and dtype == F32:
+    if kind == "block" and dtype != F32:
+        plan = qkv_plan(b * s, 3 * h_out, h)
+        split = {"plan": plan, **block_split(lambda: fn(*args), x, w, qb,
+                                             bias, n, scale, iters)}
+        grid = split.get("gemm_grid")   # None where the trace missed
+        if grid is not None:
+            check(("wgmma" in str(split["gemm_kernel"]))
+                  == (plan["route"] == "wgmma")
+                  and grid[0] * grid[1] == plan["grid"],
+                  f"K6 {spec.name} tp {tp} ({b}, {s}): the qkv GEMM ran "
+                  f"{split['gemm_kernel']} on grid {grid}, plan {plan}")
+    elif kind == "block":
         # K6 f32 is the SIMT qkv GEMM, then K7's attention at its shape
         split["attention_ms"] = attention_ms(b, s, h_out, n, scale, bias,
                                              gen, iters)
@@ -1574,6 +1598,103 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
             "bound_ms": ms, "bound_by": bound_by, **split}
 
 
+def qkv_plan(m, n, k) -> dict:
+    """K6's qkv GEMM plan for (m, k) @ (k, n) on this card
+    (``qkv_gemm_plan`` of the clusters the kernel reports the card holds),
+    which must be the kernel's own (``sema_qkv_plan``) and fit a block's
+    shared memory."""
+    from sema_tpu_torch.ops import _cuda
+    from sema_tpu_torch.ops.encoder_layer import SMEM_MAX, qkv_gemm_plan
+    lib = _cuda.library("encoder_layer", {"sema_qkv_plan": [ctypes.c_int] * 3
+                                          + [ctypes.POINTER(ctypes.c_int)]})
+    got = (ctypes.c_int * 8)()
+    _cuda.check(lib, lib.sema_qkv_plan(m, n, k, got), "sema_qkv_plan")
+    want = qkv_gemm_plan(m, n, k, got[7])
+    check(tuple(got[:7]) == (int(want.route == "wgmma"), *want[1:])
+          and want.smem <= SMEM_MAX,
+          f"M={m} N={n} K={k}: qkv_gemm_plan {want}, the kernel's "
+          f"{list(got)}")
+    return {**want._asdict(), "clusters_at_once": got[7]}
+
+
+def block_split(run, x, w, qb, bias, heads, scale, iters) -> dict:
+    """K6's two launches apart (the qkv GEMM, then the attention), device
+    ms by the profiler with each kernel's name and the GEMM's grid, and
+    the library's two calls alone by CUDA events: ``torch.addmm``, then
+    SDPA on its output."""
+    got = launch_profile(run, 2)
+    if "error" in got[0]:
+        return {"split_error": got[0]["error"]}
+    gemm, attn = got
+    b, s, h = x.shape
+    addmm = lambda: torch.addmm(qb, x.view(b * s, h), w)
+    qkv = addmm().view(b, s, -1)
+    with torch.inference_mode():
+        addmm_ms = device_ms(addmm, iters)
+        sdpa_ms = device_ms(lambda: sdpa(qkv, bias, heads, scale), iters)
+    return {"gemm_ms": gemm["ms"], "gemm_kernel": gemm["kernel"],
+            "gemm_grid": gemm["grid"], "gemm_block": gemm["block"],
+            "attention_ms": attn["ms"], "attention_kernel": attn["kernel"],
+            "addmm_ms": addmm_ms, "sdpa_ms": sdpa_ms}
+
+
+def unrounded_attention(qkv, bias, heads, scale):
+    """``heads_attention`` with the scores left in f32 before the softmax
+    (the probabilities still rounded to qkv's dtype): what a kernel that
+    does not round its scores returns."""
+    b, s, h3 = qkv.shape
+    q, k, v = qkv.reshape(b, s, 3, heads, h3 // 3 // heads).permute(
+        2, 0, 3, 1, 4)
+    scores = q.float() @ k.float().transpose(-1, -2) * scale \
+        + bias.float()[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+    ctx = (probs.float() @ v.float()).to(qkv.dtype)
+    return ctx.permute(0, 2, 1, 3).reshape(b, s, h3 // 3)
+
+
+ROUNDING_PROBE = (4, 512)      # K7's (B, S) of the probe below
+
+
+def rounding_probe(gen) -> dict:
+    """K7 in bf16 at gte-large tp 2 on a qkv whose scaled scores lie a
+    fraction of a bf16 ulp apart: q = (16, 1, 0, ...), key j = (16, t_j,
+    0, ...) with t_j in [0, 2) (exact in bf16), so a score is 32 + t_j / 8
+    (scale 1/8), which rounds to 32 or 32.25; the values are random. The
+    kernel must pass ``attention_close`` against its plain version, and
+    the plain version with its scores left unrounded must fail it: every
+    probability moves by up to 13% without the rounding, where the other
+    cases' scores (about 2) move theirs by 0.4%, under what the limits
+    see."""
+    from sema_tpu_torch.models.registry import get_spec
+    from sema_tpu_torch.ops.attention import (attention_qkv_reference,
+                                              fused_attention_qkv)
+    spec = get_spec(IVF_MODEL)
+    b, s = ROUNDING_PROBE
+    h_out, n = spec.hidden_size // 2, spec.num_heads // 2
+    hd = h_out // n
+    qkv = torch.zeros(b, s, 3, n, hd, device=DEV)
+    qkv[:, :, 0, :, 0] = 16.0
+    qkv[:, :, 0, :, 1] = 1.0
+    qkv[:, :, 1, :, 0] = 16.0
+    qkv[:, :, 1, :, 1] = torch.randint(0, 128, (b, s, n), generator=gen,
+                                       device=DEV) / 64.0
+    qkv[:, :, 2] = torch.randn(b, s, n, hd, generator=gen, device=DEV)
+    qkv = qkv.reshape(b, s, 3 * h_out).to(BF16)
+    bias = torch.zeros(b, s, device=DEV)
+    scale = 1.0 / math.sqrt(hd)
+    got = fused_attention_qkv(qkv, bias, n, scale)
+    want = attention_qkv_reference(qkv, bias, n, scale)
+    unrounded = unrounded_attention(qkv, bias, n, scale)
+    torch.cuda.synchronize()
+    ok, cos, rel = attention_close(got, want)
+    bad, bad_cos, _ = attention_close(unrounded, want)
+    return {"kernel": "K7", "model": spec.name, "tp": 2, "dtype": "bfloat16",
+            "b": b, "s": s, "probe": "scores a fraction of an ulp apart",
+            "ok": ok, "min_cosine": cos, "max_rel_err": rel,
+            "broken_min_cosine": {"scores_unrounded": bad_cos},
+            "broken_passes": ["scores_unrounded"] if bad else []}
+
+
 def phase_attention(gen):
     """K6 and K7 at the local widths of K67_WIDTHS, in bf16, f16 and f32,
     K6 at K6_BS and K7 at K7_BS, then both at the tp_path's batches
@@ -1589,6 +1710,9 @@ def phase_attention(gen):
     spec = get_spec(IVF_MODEL)
     cases += [attention_case(kind, spec, 2, BF16, b, s, gen, iters=10)
               for kind, b, s in K67_PATH]
+    cases += [attention_case(kind, spec, 2, F16, b, s, gen, iters=10)
+              for kind, b, s in K67_PATH if kind == "block"]
+    cases.append(rounding_probe(gen))
     emit("attention", cases=cases)
     bad = ([f"{c['kernel']} {c['model']} tp {c['tp']} {c['dtype']} "
             f"({c['b']}, {c['s']}): cosine {c['min_cosine']}, relative "
@@ -1679,10 +1803,12 @@ def bits_case(what, fn, parent_fn, args, iters) -> dict:
 
 
 def phase_layer_bits(gen, parent):
-    """K2 at every K2_SHAPES case, K5 at every K5_SHAPES case and K6 at
-    every K6_BS shape of every K67_WIDTHS width and dtype against the same
-    wrappers with ``parent``, another revision's ``encoder_layer``
-    library, on the same inputs: each output bit for bit, or where it
+    """K2 at every K2_SHAPES case, K5 at every K5_SHAPES case, K6 at
+    every K6_BS shape and K7 at every K7_BS shape of every K67_WIDTHS width
+    and dtype, and both at the tp_path's (K67_PATH, gte-large tp 2, bf16),
+    against the same wrappers with ``parent``, another revision's
+    ``encoder_layer`` library, on the same inputs (K6's and K7's rows
+    padded past random lengths): each output bit for bit, or where it
     differs, and both timed in turns in this run (the layers with their
     operands gathered once, as the Encoder calls them; 50 calls a turn at
     one query, whose host time varies most). Run with ``--parent-source``;
@@ -1690,7 +1816,8 @@ def phase_layer_bits(gen, parent):
     from sema_tpu_torch.models.bert import LN_EPS
     from sema_tpu_torch.models.registry import get_spec
     from sema_tpu_torch.ops import attention, encoder_layer, encoder_layer_int8
-    from sema_tpu_torch.ops.attention import fused_attention_block
+    from sema_tpu_torch.ops.attention import (fused_attention_block,
+                                              fused_attention_qkv)
     bind(parent, (encoder_layer, encoder_layer_int8, attention))
     cases = []
     for kernel, shapes, params, module, fn in (
@@ -1716,22 +1843,41 @@ def phase_layer_bits(gen, parent):
                     iters=50 if b == 1 else 10))
             del layer
             torch.cuda.empty_cache()
+    def k67_shapes(model, tp, dt):
+        shapes = [("K6", b, s) for b, s in K6_BS] + [("K7", b, s)
+                                                     for b, s in K7_BS]
+        if (model, tp, dt) == (IVF_MODEL, 2, BF16):   # the tp_path's own
+            shapes += [("K6" if kind == "block" else "K7", b, s)
+                       for kind, b, s in K67_PATH]
+        return dict.fromkeys(shapes)
+
     for model, tp in K67_WIDTHS:
         spec = get_spec(model)
         h, heads = spec.hidden_size, spec.num_heads
         h_out, n = h // tp, heads // tp
         for dt in (BF16, F16, F32):
-            for b, s in K6_BS:
-                x = torch.randn(b, s, h, generator=gen, device=DEV).to(dt)
-                w = (1.5 / math.sqrt(h) * torch.randn(
-                    h, 3 * h_out, generator=gen, device=DEV)).to(dt)
-                qb = torch.randn(3 * h_out, generator=gen, device=DEV).to(dt)
-                bias = torch.zeros(b, s, device=DEV)
+            for kernel, b, s in k67_shapes(model, tp, dt):
+                lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                     device=DEV)
+                lens[0] = s
+                bias = (torch.arange(s, device=DEV)[None, :]
+                        >= lens[:, None]).float() * -1e9
+                if kernel == "K6":
+                    x = torch.randn(b, s, h, generator=gen, device=DEV).to(dt)
+                    w = (1.5 / math.sqrt(h) * torch.randn(
+                        h, 3 * h_out, generator=gen, device=DEV)).to(dt)
+                    qb = torch.randn(3 * h_out, generator=gen,
+                                     device=DEV).to(dt)
+                    fn, args = fused_attention_block, (x, w, qb, bias)
+                else:
+                    qkv = (1.5 * torch.randn(b, s, 3 * h_out, generator=gen,
+                                             device=DEV)).to(dt)
+                    fn, args = fused_attention_qkv, (qkv, bias)
                 cases.append(bits_case(
-                    f"K6 {model} tp {tp} {str(dt).removeprefix('torch.')} "
-                    f"({b}, {s})", fused_attention_block,
-                    in_library(fused_attention_block, parent),
-                    (x, w, qb, bias, n, 1.0 / math.sqrt(h // heads)),
+                    f"{kernel} {model} tp {tp} "
+                    f"{str(dt).removeprefix('torch.')} ({b}, {s})", fn,
+                    in_library(fn, parent),
+                    (*args, n, 1.0 / math.sqrt(h // heads)),
                     iters=50 if b == 1 else 10))
     emit("layer_bits", cases=cases)
     return cases

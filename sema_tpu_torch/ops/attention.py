@@ -14,10 +14,16 @@ heads / tp; at tp = 1 H_out = H. Both run on the tensor-parallel encoder
 K2, whose qkv GEMM and attention are the same kernels.
 
 On a CUDA tensor each wrapper launches the kernels of
-``csrc/encoder_layer.cu`` (K7: the attention; K6: K2's qkv GEMM with its
-bias epilogue at N = 3·H_out, K = H, into a (B·S, 3·H_out) scratch, then
-the attention) or raises :class:`~sema_tpu_torch.ops._cuda.KernelError`;
-on a CPU tensor it runs its plain version. There is no other path.
+``csrc/encoder_layer.cu`` or raises
+:class:`~sema_tpu_torch.ops._cuda.KernelError`; on a CPU tensor it runs
+its plain version. There is no other path. K7 is the attention: up to
+512 keys one kernel that streams each key and value tile through shared
+memory once, beyond that three passes over the key blocks. K6 is the qkv
+product with its bias epilogue at N = 3·H_out, K = H, into a (B·S,
+3·H_out) scratch, then the attention; the product runs on ``wgmma``, fed
+by TMA, in clusters of two blocks that share the weight's slabs, where
+the batch fills the card, else on K2's ring GEMM (one query), as
+:func:`~sema_tpu_torch.ops.encoder_layer.qkv_gemm_plan` mirrors.
 
 Numerics (``fused_attention.py:58-81, 168-172``): scores are f32 sums of
 products of the compute-dtype operands, times ``scale``, plus the f32
@@ -26,7 +32,7 @@ probabilities are in the compute dtype and the context an f32 sum rounded
 once. K6's projection adds the bias rounded to x's dtype, in f32, to the
 f32 product and rounds once. The kernels take bf16, f16 and f32, head dim
 32 or 64 (so H_out a multiple of 32: MiniLM's 96 at tp = 4 as well), H a
-multiple of 32 and any S >= 1 (rows longer than 256 in key blocks).
+multiple of 32 and any S >= 1 (rows longer than 512 in key blocks).
 """
 
 from __future__ import annotations

@@ -112,6 +112,64 @@ def ln_gemm_plan(m: int, h: int, k: int,
                       max(ring, ln_bytes), -(-k // slab))
 
 
+# K6's qkv GEMM on wgmma (``gemm_wgmma_kernel``), as csrc/encoder_layer.cu
+# has it
+WG_BM, WG_BK = 128, 64              # a tile's rows; K of a slab
+WG_MIN_TILES = 128                  # tiles from which K6's plan takes wgmma
+WG_CLUSTER = 2                      # row tiles of a cluster, sharing W's slabs
+SMEM_MAX = 232_448                  # dynamic shared memory a block may use
+
+
+class QkvGemmPlan(NamedTuple):
+    """K6's qkv GEMM launch: ``route`` "wgmma" (the persistent TMA and
+    wgmma kernel) or "ring" (K2's ring GEMM), tiles of ``bm`` x ``bn``, a
+    ring of ``stages`` slabs of K, ``tiles`` tiles on ``grid`` blocks, each
+    with ``smem`` bytes of dynamic shared memory."""
+    route: str
+    bm: int
+    bn: int
+    stages: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def wg_stages(bn: int) -> int:
+    """The TMA stages of a wgmma GEMM block of tiles ``bn`` wide: as many
+    as fit, beside the output tile's staging (128 x bn, 16-bit), in the 227
+    KB a block may use: 3 of 48 KB at bn 256, 6 of 32 KB at bn 128."""
+    return ((SMEM_MAX - 1024 - 128 - WG_BM * bn * 2)
+            // ((WG_BM + bn) * WG_BK * 2))
+
+
+@functools.lru_cache(maxsize=256)
+def qkv_gemm_plan(m: int, n: int, k: int, clusters: int) -> QkvGemmPlan:
+    """K6's qkv GEMM, (m, k) @ (k, n), on a card that holds ``clusters``
+    clusters of the wgmma kernel at once: the wgmma kernel where its tiles
+    of 128 x bn, counted in whole clusters of WG_CLUSTER row tiles, number
+    WG_MIN_TILES or more (one an SM) and n and k are multiples of 8 (TMA's
+    row strides), with bn of 128 or 256, whichever pads n less (256 on a
+    tie), on a persistent grid of min(cluster tiles, ``clusters``)
+    clusters; else K2's ring GEMM (``gemm_plan`` in the source): BM 64, or
+    32 where 64 leaves the grid under FILL_BLOCKS blocks. One gte-large
+    query at tp 2 (m = 256, n = 1,536) is 12 tiles: the ring."""
+    bn = 128 if -(-n // 128) * 128 < -(-n // 256) * 256 else 256
+    cluster_tiles = -(-m // (WG_CLUSTER * WG_BM)) * -(-n // bn)
+    if (n % 8 == 0 and k % 8 == 0 and clusters > 0
+            and cluster_tiles * WG_CLUSTER >= WG_MIN_TILES):
+        stages = wg_stages(bn)
+        smem = (stages * (WG_BM + bn) * WG_BK * 2 + WG_BM * bn * 2
+                + 1024 + 128)
+        return QkvGemmPlan("wgmma", WG_BM, bn, stages,
+                           cluster_tiles * WG_CLUSTER,
+                           min(cluster_tiles, clusters) * WG_CLUSTER, smem)
+    cols = -(-n // BN)
+    bm = 64 if -(-m // 64) * cols >= FILL_BLOCKS else 32
+    blocks = -(-m // bm) * cols
+    return QkvGemmPlan("ring", bm, BN, gemm_stages(bm), blocks, blocks,
+                       gemm_stages(bm) * (bm * A_STRIDE + BK * B_STRIDE) * 2)
+
+
 def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                    eps: float) -> torch.Tensor:
     """LayerNorm over the last axis with f32 statistics; returns f32."""

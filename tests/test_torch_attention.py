@@ -20,6 +20,7 @@ from sema_tpu_torch.ops.attention import (check_block_args,
                                           check_qkv_args,
                                           fused_attention_block,
                                           fused_attention_qkv)
+from sema_tpu_torch.ops.encoder_layer import SMEM_MAX, qkv_gemm_plan
 
 attn_mod = importlib.import_module("sema_tpu_torch.ops.attention")
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -54,6 +55,12 @@ CASES = [
     (128, 2, 1, 3, 64, torch.bfloat16),
     (128, 4, 2, 2, 192, torch.bfloat16),
     (128, 4, 4, 3, 8, torch.bfloat16),
+    # rows past 256 keys, the tiles whose scores the kernel keeps in shared
+    # memory: a ragged one and the longest of the one-pass kernel
+    (128, 2, 1, 2, 300, torch.float32),
+    (128, 2, 1, 2, 300, torch.bfloat16),
+    (128, 2, 1, 2, 512, torch.float32),
+    (128, 2, 1, 2, 512, torch.bfloat16),
 ]
 
 
@@ -143,3 +150,39 @@ def test_check_args_take_local_widths_and_refuse_the_rest():
                     (_meta(2, 32, 384), _meta(384, 288), _meta(96))):
         with pytest.raises(KernelError, match="fused_attention_block"):
             check_block_args(x, w, b, mask, 3)
+
+
+# K6's qkv GEMM plan at (B·S, 3·H_out, H) on a card that holds 66 clusters
+# of two blocks at once: the index batches of gte-large and MiniLM at tp 2
+# and 4 take wgmma, one query the ring GEMM; (route, BM, BN, stages, tiles,
+# grid)
+PLANS = [
+    ((65_536, 1536, 1024), ("wgmma", 128, 256, 3, 3072, 132)),
+    ((16_384, 1536, 1024), ("wgmma", 128, 256, 3, 768, 132)),
+    ((49_152, 768, 1024), ("wgmma", 128, 256, 3, 1152, 132)),
+    ((16_384, 576, 384), ("wgmma", 128, 128, 6, 640, 132)),
+    ((49_152, 288, 384), ("wgmma", 128, 128, 6, 1152, 132)),
+    ((8_320, 1536, 1024), ("wgmma", 128, 256, 3, 396, 132)),  # ragged M
+    ((256, 1536, 1024), ("ring", 32, 128, 4, 96, 96)),
+    ((256, 288, 384), ("ring", 32, 128, 4, 24, 24)),
+    ((16_384, 1536, 1020), ("ring", 64, 128, 3, 3072, 3072)),  # K % 8
+    ((5_376, 288, 384), ("ring", 32, 128, 4, 504, 504)),   # 126 tiles
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_qkv_gemm_plan_routes_by_shape(shape, want):
+    plan = qkv_gemm_plan(*shape, 66)
+    assert tuple(plan)[:6] == want
+    assert plan.smem <= SMEM_MAX
+
+
+def test_qkv_gemm_plan_grid_is_persistent_only_on_wgmma():
+    small = qkv_gemm_plan(16_384, 1536, 1024, 4)
+    assert small.route == "wgmma" and small.grid == 8
+    assert small.tiles == qkv_gemm_plan(16_384, 1536, 1024, 66).tiles
+    few = qkv_gemm_plan(16_384, 128, 1024, 66)     # 64 cluster tiles
+    assert few.route == "wgmma" and few.grid == few.tiles == 128
+    assert qkv_gemm_plan(16_384, 1536, 1024, 0).route == "ring"
+    ring = qkv_gemm_plan(256, 1536, 1024, 4)
+    assert ring.route == "ring" and ring.grid == ring.tiles
