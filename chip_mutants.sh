@@ -238,6 +238,25 @@ mutant ring_wait_short encoder_layer.cu \
 mutant ring_wait_short_int8 encoder_layer.cu \
   's/cp_async_wait<STAGES - 2>();/cp_async_wait<STAGES - 1>();/g' \
   encoder_layer_int8
+# HBM spill, the union probe: every cluster's span in the union view one
+# spill tile late, so that a probe stages the wrong tiles
+mutant spill_union_offset_tile index/vector_store.py \
+  's/            starts.append(np.asarray(iv\["starts"\]\[:c\], np.int64) + v)/            starts.append(np.asarray(iv["starts"][:c], np.int64) + v + t)/' \
+  spill_path
+# the union probe: a stage's rowmap without its bucket's row offset
+mutant spill_rowmap_no_offset index/vector_store.py \
+  's/            rowmap\[s0:s1\] = np.clip(rm, 0, rows - 1) + b\["row_offset"\]/            rowmap[s0:s1] = np.clip(rm, 0, rows - 1)/' \
+  spill_path
+# the streamed scan and the probe: one pinned host buffer per shape, filled
+# again while the copy of the rows it held may still be on its way
+mutant spill_pinned_reused index/vector_store.py \
+  's/        return torch.empty(shape, dtype=dtype,/        return self.__dict__.setdefault((tuple(shape), dtype), torch.empty(shape, dtype=dtype,/; s/                           pin_memory=self.device.type == "cuda")/                           pin_memory=self.device.type == "cuda"))/' \
+  spill_path
+# the routing: a spilled bucket streams where the union probe served it,
+# and not where it did not
+mutant spill_stream_served index/vector_store.py \
+  's/                if id(b) not in served:/                if id(b) in served:/' \
+  spill_path
 wait
 for dir in "${checked[@]}"; do
   cat "$dir/verdict"

@@ -149,7 +149,37 @@ Phases, one JSON line each:
 11. ``bf16_ivf_path`` the same with ``store_dtype = "bfloat16"`` and float
                       linears (``quant = "none"``): K2 24 times a query, K3
                       once per sealed bucket and K1 once; no serve.
-12. ``tp_path``       the tensor-parallel encoder: gte-large at full width
+12. ``spill_path``    the HBM spill: both stores of the IVF paths (filled
+                      and indexed here when those phases did not run)
+                      reopened through ``cli.make_index_manager`` with
+                      ``[index] hbm_budget_mb = 640``, which leaves one
+                      sealed bucket on the card (``device_residency``: 3
+                      host buckets, 786,432 spilled rows). The first query
+                      builds the three spill layouts (k-means on the
+                      card, cluster-major blobs written; timed). 20 warm
+                      queries on the IVF route (k 10) launch exactly the
+                      encoder's 24 layers, the device bucket's K3/K4b at
+                      tile 512, one or two K3/K4b over the staged probe at
+                      tile 128 and the tail's K1/K4a, no K1 over a slice;
+                      their hits equal the plain versions'; the first and
+                      last row of a cluster of each spilled bucket come
+                      back first; recall@10 against ``exact=True`` over
+                      100 perturbed stored rows (not gated). 5 queries
+                      with ``exact=True`` launch K1 once per spilled slice
+                      of 262,144 rows; the bf16 store's hits and scores
+                      equal bit for bit those of the store reopened with
+                      no budget, the int8 store's those of the plain
+                      versions. Then a real OOM: the bf16 store built with
+                      no budget beside a ballast tensor that leaves 1.25
+                      GiB free must spill each bucket whose upload raises
+                      ``OutOfMemoryError``, and with the ballast freed
+                      answer as before; a ``KernelError`` from a bucket
+                      build must raise out of ``search``. Prints the first
+                      query's seconds, the p50s, MiB staged, the host fill
+                      per slice, the card's pinned host-to-device rate
+                      and the exact route's bound from it, each spilled
+                      launch's device ms and the busy share.
+13. ``tp_path``       the tensor-parallel encoder: gte-large at full width
                       and depth over a (data 1, model 2) mesh whose two
                       shards lie on the card, behind an ``IndexManager``
                       with an exact bf16 store: the tree indexed (K6 for
@@ -166,7 +196,7 @@ Phases, one JSON line each:
                       ``bert._linear`` at gte-large's widest shard product
                       must sum in f32, and every (B, S) at which the path
                       launches K6 or K7 must be one ``attention`` holds.
-13. ``scan_ab``       the scan A/B paths, K8 (the warm-start scan) and K9
+14. ``scan_ab``       the scan A/B paths, K8 (the warm-start scan) and K9
                       (the fold-merge scan) beside K1, each call counted
                       from 0 and checked against the count of calls made:
                       at 1,048,576 x 384 bf16 without a mask, Q 256 and 1,
@@ -223,6 +253,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2576,7 +2607,613 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
     if requests is not None:
         phase_serve(tree, requests, device)
     return {"query_launches": query_launches,
-            "index_launches": index_launches, "kernels": kernels}
+            "index_launches": index_launches, "kernels": kernels,
+            "recall_at_10_mean": float(recall.mean())}
+
+
+# -- spill (the stores past a device budget: HBM spill, spilled-IVF probe) ---
+
+SPILL_BUDGET_MB = 640          # [index] hbm_budget_mb: one sealed bucket fits
+SPILL_WARM = 20                # warm queries on the IVF route
+SPILL_QUERIES = (QUERY, "parse the socket token stream",
+                 "vector index of each file", "request timeout handling",
+                 "token parser for the request body")   # the exact route's
+SPILL_SLICE = 262_144          # VectorStore.SPILL_SLICE_ROWS
+SPILL_TILE = 128               # VectorStore.IVF_SPILL_TILE
+BLOB_ROOM = 4 << 30            # bytes the spill layouts may write
+SPILL_SPLIT_TURNS = 20         # IVF probes a staging mode, in turns
+
+
+class ScanRecorder:
+    """The store's scan wrappers, each call recorded as (name, rows of the
+    tensor it scans, tile_n or None) with its arguments, then made
+    through the wrapper, which counts its launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextmanager
+    def recording(self):
+        store_mod = importlib.import_module(
+            "sema_tpu_torch.index.vector_store")
+        wrap = {}
+        for name in SCANS:
+            def call(*a, _fn=getattr(store_mod, name), _name=name, **k):
+                tile_n = a[-1] if "pruned" in _name else None
+                self.calls.append((_name, a[0].shape[0], tile_n, a))
+                return _fn(*a, **k)
+            wrap[name] = call
+        with swapped("sema_tpu_torch.index.vector_store", wrap):
+            yield self
+
+    def shapes(self) -> Counter:
+        return Counter((n, r, t) for n, r, t, _ in self.calls)
+
+
+@contextmanager
+def spill_counters():
+    """Host seconds and rows of each slice fill (on the prefetch thread)
+    and the bytes each search copies to the card, through the store's
+    ``_fill_rows_range`` and ``_upload``."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    stats = {"fills": [], "staged_bytes": 0}
+    fill, upload = VectorStore._fill_rows_range, VectorStore._upload
+
+    def timed_fill(self, seg_range, lo, hi, *a):
+        t0 = time.perf_counter()
+        fill(self, seg_range, lo, hi, *a)
+        stats["fills"].append(((time.perf_counter() - t0) * 1e3, hi - lo))
+
+    def counted_upload(self, *host):
+        stats["staged_bytes"] += sum(t.numel() * t.element_size()
+                                     for t in host)
+        return upload(self, *host)
+    VectorStore._fill_rows_range = timed_fill
+    VectorStore._upload = counted_upload
+    try:
+        yield stats
+    finally:
+        VectorStore._fill_rows_range = fill
+        VectorStore._upload = upload
+
+
+def pinned_rate() -> float:
+    """The card's own pinned host-to-device rate, bytes a second: one
+    copy of SPILL_SLICE bf16 rows at GTE_D (512 MiB) from pinned memory,
+    timed by CUDA events over 5 copies after one."""
+    n = SPILL_SLICE * GTE_D * 2
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device=DEV)
+    ms = device_ms(lambda: dev.copy_(host, non_blocking=True), 5)
+    del host, dev
+    return n / (ms / 1e3)
+
+
+@contextmanager
+def stalled_uploads(ms: float = 300.0):
+    """Each of the store's uploads queued behind ``ms`` of sleep on the
+    current stream, so that the host fills the next slice or stage while
+    the copy of the last one still waits: a pinned buffer filled again
+    before its copy has read it hands the scan other rows."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    upload = VectorStore._upload
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    cycles = int(10 ** 7 * ms / start.elapsed_time(end))
+
+    def stalled(self, *host):
+        torch.cuda._sleep(cycles)
+        return upload(self, *host)
+    VectorStore._upload = stalled
+    try:
+        yield
+    finally:
+        VectorStore._upload = upload
+
+
+def set_budget(home: Path, budget_mb: float) -> None:
+    from sema_tpu_torch.config import ConfigManager
+    manager = ConfigManager(home)
+    config = manager.load_config()
+    config.index.hbm_budget_mb = budget_mb
+    manager.save_config(config)
+
+
+def open_manager(device: str, metrics=None):
+    from sema_tpu_torch import cli
+    args = cli.build_parser().parse_args(["query", QUERY])
+    return cli.make_index_manager(cli.load_config(args), device,
+                                  metrics=metrics)
+
+
+def spill_prepare(work: Path, tree: Path, store_dtype: str, gen, weights,
+                  device: str) -> Path:
+    """The data dir of ``*_ivf_path`` for ``store_dtype``, filled and
+    indexed as that phase does when the phase did not run before."""
+    home, data = work / f"home-{store_dtype}", work / f"data-{store_dtype}"
+    os.environ["SEMA_TPU_HOME"] = str(home)
+    os.environ["SEMA_TPU_DATA"] = str(data)
+    if not (data / "vector_index" / "manifest.json").exists():
+        write_config(home, store_dtype, weights)
+        fill_store(data, store_dtype, 4 * SEAL, gen)
+        run_cli(["index", str(tree), "--device", device])
+    return home
+
+
+def planted_rows(b: dict) -> list:
+    """Rows of a spilled bucket that open and close a cluster's span in
+    its blob: a probe whose spans are off by a tile misses one of them."""
+    iv = b["ivf_spill"]
+    starts, c = iv["starts"], len(iv["centroids"])
+    sizes = np.diff(starts[:c + 1])
+    big = int(np.argmax(sizes))
+    span = iv["perm"][int(starts[big]):int(starts[big + 1])]
+    span = span[span < b["rows"]]
+    return [b["row_offset"] + int(span[0]), b["row_offset"] + int(span[-1])]
+
+
+def spill_launch_ms(fn, n_scans: int) -> list:
+    """Device ms of each scan call of ``fn()`` in order (its pass 1 and
+    pass 2 summed), by the profiler."""
+    got = launch_profile(fn, 2 * n_scans, iters=3,
+                         keep=lambda n: "scan_pass" in n)
+    if "error" in got[0]:
+        return got
+    return [got[2 * i]["ms"] + got[2 * i + 1]["ms"] for i in range(n_scans)]
+
+
+def split_specs(live: np.ndarray, b_eff: int) -> tuple:
+    """(live tiles, staging tiles) of each stage where the JAX package
+    stages a probe of ``live`` tiles in a buffer of ``b_eff``: from 16 live
+    tiles up in two halves, the first on the staging grid
+    (``sema_tpu/index/vector_store.py:133-149, 1880-1899``)."""
+    if len(live) < 16:
+        return ((live, b_eff),)
+    half = b_eff // 2
+    if half >= 64:
+        b1 = half // 64 * 64
+    else:
+        b1 = 1
+        while b1 * 2 <= half:
+            b1 *= 2
+    n1 = min(len(live) // 2, b1)
+    return ((live[:n1], b1), (live[n1:], b_eff - b1))
+
+
+def split_dispatch(self, spill_bs, q, q_host, k_scan, window):
+    """``VectorStore._ivf_spill_dispatch`` staging as the JAX package
+    stages (:func:`split_specs`), the second half gathered while the first
+    is copied: the store's route with the split, to time against its
+    own."""
+    from sema_tpu_torch.index.vector_store import _stage_tiles
+    from sema_tpu_torch.ops.ivf import select_tiles
+    if k_scan > 128:
+        return None
+    view = self._spill_union_view(spill_bs)
+    budget = max(2, view["n_tiles"] // self.IVF_BUDGET_DIV)
+    sel = select_tiles(view["centroids"], view["starts"], q_host,
+                       self.ivf_nprobe, self._spill_tile(), budget)
+    if sel is None:
+        return None
+    tiles, n_live = sel
+    return [self._ivf_spill_stage(spill_bs, view, lt, be, q, k_scan, window)
+            for lt, be in split_specs(tiles[:n_live],
+                                      _stage_tiles(n_live, budget))]
+
+
+def spill_kernel_case(name, args, k, staged: bool) -> dict:
+    """One of the spill path's new launch shapes against its plain
+    version, with its time, the plain version's, the library call's and
+    the bound. ``args`` are the wrapper's arguments as the path gave
+    them."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    fn = getattr(scan_mod, name)
+    ref = getattr(scan_mod, f"{name}_reference")
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    if name == "scan_topk_int8_pruned":
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{name} at tile 128 differs from its plain version")
+        fin = torch.isfinite(want[0])
+        err = (float((got[0][fin] - want[0][fin]).abs().max())
+               if fin.any() else 0.0)
+    else:
+        # the slice's or the staged rows' own scores within 1e-5, the
+        # -inf slots and no row twice (the path scans masked), and the
+        # ids as the plain version ranks them
+        check(torch.equal(got[1], want[1]),
+              f"{name} on the spill path: ids differ from the plain "
+              "version's")
+        err = check_scan(args[0], args[1], args[2], True, got, want)
+    store, q = args[0], args[2] if name == "scan_topk_int8_pruned" else args[1]
+    rows, d = store.shape
+    if name == "scan_topk_int8_pruned":
+        qv, sc = args[0], args[1]
+        lib, note = int8_library(qv, sc, args[3], q, k)
+        lib_ms = None if lib is None else device_ms(lib, 20)
+        bnd = bound(rows * (d + 5) + d * 4 + k * 8 + 4 * args[5],
+                    2.0 * rows * d, INT8_OPS_PER_S)
+    else:
+        lib_ms = device_ms(lambda: torch.topk(q.to(store.dtype) @ store.T,
+                                              k), 20)
+        bnd = bound(rows * (2 * d + 1) + d * 4 + k * 8
+                    + (4 * args[4] if staged else 0), 2.0 * rows * d)
+    return {"max_abs_err": err, "ms": device_ms(lambda: fn(*args), 50),
+            "plain_ms": device_ms(lambda: ref(*args), 20),
+            "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "rows": rows, "k": k}
+
+
+def spill_store(work: Path, tree: Path, store_dtype: str, gen, weights,
+                device: str, device_recall) -> dict:
+    """One store of the IVF paths reopened under ``hbm_budget_mb =
+    SPILL_BUDGET_MB``: three of its four sealed buckets spill; the first
+    query builds their spill layouts; SPILL_WARM queries take the union
+    probe; the exact route streams the spilled buckets through K1."""
+    from sema_tpu_torch.index.vector_store import _host_np, _stage_tiles
+    from sema_tpu_torch.models.registry import get_spec
+    from sema_tpu_torch.ops.ivf import select_tiles
+    from sema_tpu_torch.utils.metrics import Metrics
+    int8 = store_dtype == "int8"
+    name = f"spill {store_dtype}"
+    home = spill_prepare(work, tree, store_dtype, gen, weights, device)
+    check(shutil.disk_usage(work).free >= BLOB_ROOM,
+          f"{name}: {shutil.disk_usage(work).free} bytes free for the "
+          "spill layouts' blobs")
+    set_budget(home, SPILL_BUDGET_MB)
+    layer_k = "encoder_layer_int8" if int8 else "encoder_layer"
+    pruned, tail_scan = (("scan_topk_int8_pruned", "scan_topk_int8") if int8
+                         else ("scan_topk_pruned", "scan_topk"))
+    layers = get_spec(IVF_MODEL).num_layers
+    mgr = open_manager(device, Metrics())
+    store, enc = mgr.vector_store, mgr.encoder
+    rec = ScanRecorder()
+    out = {"launches": Counter(), "stage_launches": 0, "slice_launches": 0}
+    with spill_counters() as stats:
+        # the first query: the bucket build, three spill layouts (k-means
+        # on the card, blobs written) and the probe
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        mgr.search(QUERY, 10)
+        torch.cuda.synchronize()
+        out["first_query_s"] = time.perf_counter() - t0
+        res = store.device_residency()
+        buckets = store.device_buckets()
+        spilled = [b for b in buckets if b.get("host_resident")]
+        # the tree's tail: one bucket, more after int8_ivf_path's serve
+        # re-indexed files
+        tails = buckets[4:]
+        check(res["host_buckets"] == 3 and res["spilled_rows"] == 3 * SEAL
+              and [bool(b.get("host_resident")) for b in buckets]
+              == [False, True, True, True] + [False] * len(tails)
+              and tails and not any(b["sealed"] for b in tails)
+              and buckets[0]["ivf"] is not None
+              and all(b["ivf_spill"] is not None for b in spilled),
+              f"{name}: residency {res}, buckets "
+              f"{[(b['rows'], bool(b.get('host_resident'))) for b in buckets]}")
+        out.update(residency=res, tail_buckets=len(tails))
+
+        # the IVF route: launches counted exactly, query by query
+        qvec = enc.encode_query_device(QUERY)[None, :]
+        view = store._spill_union_view(spilled)
+        t = store._spill_tile()
+        tiles, n_live = select_tiles(
+            view["centroids"], view["starts"], qvec.cpu().numpy(),
+            store.ivf_nprobe, t, max(2, view["n_tiles"] // store.IVF_BUDGET_DIV))
+        want_shapes = Counter([(pruned, SEAL, store.IVF_TILE)]
+                              + [(tail_scan, b["rows"], None) for b in tails])
+        for _ in range(3):
+            mgr.search(QUERY, 10)
+        lat, staged = [], []
+        for _ in range(SPILL_WARM):
+            reset_launch_counts()
+            rec.calls.clear()
+            stats["staged_bytes"] = 0
+            t0 = time.perf_counter()
+            with rec.recording():
+                mgr.search(QUERY, 10)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            staged.append(stats["staged_bytes"])
+            c = launch_counts()
+            out["launches"].update(c)
+            want = dict.fromkeys(c, 0)
+            want.update({layer_k: layers, pruned: 2,
+                         tail_scan: len(tails)})
+            shapes = rec.shapes()
+            stage_shapes = {k: v for k, v in shapes.items()
+                            if k[0] == pruned and k[2] == SPILL_TILE}
+            check(c == want and sum(stage_shapes.values()) == 1
+                  and all(shapes[k] == v for k, v in want_shapes.items())
+                  and sum(shapes.values()) == 2 + len(tails),
+                  f"{name}: IVF route launches {c}, want {want}; shapes "
+                  f"{dict(shapes)}")
+            out["stage_launches"] += 1
+        stage_args = [a for n, _, tn, a in rec.calls
+                      if n == pruned and tn == SPILL_TILE]
+        rec.calls.clear()
+        lat.sort()
+        out.update(ivf_p50_ms=lat[len(lat) // 2], ivf_max_ms=lat[-1],
+                   live_tiles=int(n_live),
+                   ivf_staged_mib=float(np.median(staged)) / 2 ** 20)
+        out["ivf_device"] = query_device_time(lambda: mgr.search(QUERY, 10),
+                                              SPILL_WARM)
+        tail_names = [f"tail{i}" for i in range(len(tails))]
+        out["ivf_launch_ms"] = dict(zip(
+            ["stage", "device_bucket"] + tail_names,
+            spill_launch_ms(lambda: store.search_batch(qvec, 10),
+                            2 + len(tails))))
+
+        # the kernels' hits against the plain versions', same tiles
+        got = store.search_batch(qvec, 10)
+        with plain_scans():
+            plain = store.search_batch(qvec, 10)
+        check(np.array_equal(got[1], plain[1]), f"{name}: the union probe's "
+              f"hits {got[1]} differ from the plain versions' {plain[1]}")
+        # the JAX package's split (a probe of 16 live tiles or more staged
+        # in two halves, the second gathered while the first is copied)
+        # against the port's one buffer, in turns: the IVF route (one
+        # query's search_batch, the same answer both ways), and the
+        # store's own stage alone (each probe's candidates fetched, the
+        # same top 10 both ways)
+        from sema_tpu_torch.index.vector_store import VectorStore
+        own = VectorStore._ivf_spill_dispatch
+        budget = max(2, view["n_tiles"] // store.IVF_BUDGET_DIV)
+        live = tiles[:n_live]
+        b_eff = _stage_tiles(int(n_live), budget)
+        q_stage, k_stage = stage_args[0][2 if int8 else 1], stage_args[0][-2]
+        modes = {"one_buffer": ((live, b_eff),),
+                 "split": split_specs(live, b_eff)}
+        check(len(modes["split"]) == 2, f"{name}: {n_live} live tiles")
+        route_ms, stage_ms = {m: [] for m in modes}, {m: [] for m in modes}
+        tops = {}
+        for turn in range(SPILL_SPLIT_TURNS):
+            for mode in sorted(modes, reverse=bool(turn % 2)):
+                VectorStore._ivf_spill_dispatch = (split_dispatch
+                                                   if mode == "split"
+                                                   else own)
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    one = store.search_batch(qvec, 10)
+                    route_ms[mode].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    VectorStore._ivf_spill_dispatch = own
+                check(np.array_equal(one[0], got[0])
+                      and np.array_equal(one[1], got[1]),
+                      f"{name}: the probe staged as {mode} answers {one}, "
+                      f"not {got}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                window = []
+                entries = [store._ivf_spill_stage(spilled, view, lt, be,
+                                                  q_stage, k_stage, window)
+                           for lt, be in modes[mode]]
+                cand = [(float(sc), int(e[3][ix]))
+                        for e in entries
+                        for sc, ix in zip(_host_np(e[0])[0],
+                                          _host_np(e[1])[0])
+                        if np.isfinite(sc)]
+                stage_ms[mode].append((time.perf_counter() - t0) * 1e3)
+                tops[mode] = sorted(cand, key=lambda c: (-c[0], c[1]))[:10]
+        check(tops["split"] == tops["one_buffer"], f"{name}: the probe "
+              f"staged in two halves gives {tops['split']}, in one buffer "
+              f"{tops['one_buffer']}")
+        out["split_turns"] = SPILL_SPLIT_TURNS
+        for m in modes:
+            out[f"ivf_{m}_route_p50_ms"] = float(np.median(route_ms[m]))
+            out[f"ivf_{m}_stage_p50_ms"] = float(np.median(stage_ms[m]))
+        # rows that open and close a cluster of each spilled bucket come
+        # back first through the union probe
+        for b in spilled:
+            for row in planted_rows(b):
+                q = torch.from_numpy(store.rows_at(np.array([row])))
+                top = store.search_batch(q, 10)[1][0][0]
+                check(int(top) == row, f"{name}: planted row {row} came "
+                      f"back as {top}")
+
+        # recall@10 of the IVF route against exact=True
+        rng = np.random.default_rng(1)
+        picks = rng.choice(4 * SEAL, size=100, replace=False)
+        qs = store.rows_at(picks) + (QNOISE / math.sqrt(GTE_D)) * \
+            rng.standard_normal((100, GTE_D)).astype(np.float32)
+        qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+        exact_ids = store.search_batch(qs, 10, exact=True)[1]
+        recall = [len(set(store.search_batch(q[None], 10)[1][0].tolist())
+                      & set(e.tolist())) / 10
+                  for q, e in zip(qs, exact_ids)]
+        out.update(recall_at_10_mean=float(np.mean(recall)),
+                   recall_at_10_min=float(np.min(recall)),
+                   device_resident_recall_at_10=device_recall)
+
+        # the exact route: the three spilled buckets stream a slice each
+        qvs = torch.stack([enc.encode_query_device(s) for s in SPILL_QUERIES])
+        dev_rows = buckets[0]["store"][0] if int8 else buckets[0]["store"]
+        exact_scan = "scan_topk_int8" if int8 else "scan_topk"
+        answers, lat = [], []
+        stats["fills"].clear()
+        for qv in qvs:
+            reset_launch_counts()
+            rec.calls.clear()
+            stats["staged_bytes"] = 0
+            t0 = time.perf_counter()
+            with rec.recording():
+                answers.append(store.search_batch(qv[None], 10, exact=True))
+            lat.append((time.perf_counter() - t0) * 1e3)
+            c = launch_counts()
+            out["launches"].update(c)
+            want = dict.fromkeys(c, 0)
+            want.update({"scan_topk": 3 + (0 if int8 else 1 + len(tails))})
+            if int8:
+                want["scan_topk_int8"] = 1 + len(tails)
+            # K1 over a staged slice: not over the device bucket's rows
+            slices = [a for n, r, _, a in rec.calls
+                      if n == "scan_topk" and r == SPILL_SLICE
+                      and a[0].data_ptr() != dev_rows.data_ptr()]
+            out["slice_launches"] += len(slices)
+            check(c == want and len(slices) == 3
+                  and stats["staged_bytes"] == 3 * SPILL_SLICE * (
+                      GTE_D * 2 + 1),
+                  f"{name}: exact route launches {c}, want {want}; shapes "
+                  f"{dict(rec.shapes())}; staged {stats['staged_bytes']}")
+        slice_args = slices[0]
+        rec.calls.clear()
+        fills = [ms for ms, rows in stats["fills"] if rows == SPILL_SLICE]
+        lat.sort()
+        out.update(exact_p50_ms=lat[len(lat) // 2], exact_max_ms=lat[-1],
+                   exact_staged_mib=3 * SPILL_SLICE * (GTE_D * 2 + 1)
+                   / 2 ** 20,
+                   fill_ms_per_slice=float(np.median(fills)),
+                   fill_ms_max=float(max(fills)), slices_filled=len(fills))
+        out["exact_launch_ms"] = dict(zip(
+            ["device_bucket", "slice1", "slice2", "slice3"] + tail_names,
+            spill_launch_ms(lambda: store.search_batch(
+                qvs[:1], 10, exact=True), 4 + len(tails))))
+        out["exact_device"] = query_device_time(
+            lambda: store.search_batch(qvs[:1], 10, exact=True), 3)
+        if int8:
+            with plain_scans():
+                plain = [store.search_batch(qv[None], 10, exact=True)
+                         for qv in qvs]
+            for (gs, gi), (ps, pi) in zip(answers, plain):
+                check(np.array_equal(gi, pi) and np.array_equal(gs, ps),
+                      f"{name}: exact hits {gi} differ from the plain "
+                      f"versions' {pi}")
+        # no pinned buffer is filled again before its copy has read it:
+        # with every upload stalled on the stream, the next slice's or
+        # stage's fill runs while the copy waits, and the answers stay
+        row = planted_rows(spilled[0])[0]
+        qrow = torch.from_numpy(store.rows_at(np.array([row])))
+        with stalled_uploads():
+            st_exact = store.search_batch(qvs[:1], 10, exact=True)
+            st_row = int(store.search_batch(qrow, 10, exact=True)[1][0][0])
+            st_ivf = store.search_batch(qvec, 10)
+        check(np.array_equal(st_exact[0], answers[0][0])
+              and np.array_equal(st_exact[1], answers[0][1])
+              and st_row == row and np.array_equal(st_ivf[0], got[0])
+              and np.array_equal(st_ivf[1], got[1]),
+              f"{name}: with the uploads stalled the exact route answers "
+              f"{st_exact[1]} (not {answers[0][1]}), row {row} comes back "
+              f"as {st_row}, the probe answers {st_ivf[1]} (not {got[1]})")
+        out["answers"] = answers
+        out["kernels"] = {
+            "slice": {**spill_kernel_case("scan_topk", slice_args,
+                                          slice_args[3], False),
+                      "launches": out["slice_launches"]},
+            "stage": {**spill_kernel_case(pruned, stage_args[0],
+                                          stage_args[0][-2], True),
+                      "launches": out["stage_launches"]}}
+    mgr.close()
+    del store, buckets, spilled, mgr, enc
+    torch.cuda.empty_cache()
+    if not int8:
+        # the same store with no budget, every bucket on the card: the
+        # exact route's hits and scores bit for bit
+        set_budget(home, 0.0)
+        mgr = open_manager(device)
+        check(not any(b.get("host_resident")
+                      for b in mgr.vector_store.device_buckets()),
+              f"{name}: a bucket spilled with no budget")
+        for qv, (gs, gi) in zip(qvs, out["answers"]):
+            ws, wi = mgr.vector_store.search_batch(qv[None], 10, exact=True)
+            check(np.array_equal(gi, wi) and np.array_equal(gs, ws),
+                  f"{name}: exact route {gi} {gs} against the store on the "
+                  f"card {wi} {ws}")
+        mgr.close()
+        del mgr
+        torch.cuda.empty_cache()
+        out["query_vectors"] = qvs
+    return out
+
+
+def spill_oom(work: Path, qvs, answers) -> dict:
+    """A real OOM: the bf16 store opened with no budget while a ballast
+    tensor leaves the card less free memory than its four sealed buckets
+    need (each takes its rows and, while it is permuted, a second copy).
+    At least one bucket's upload must raise OutOfMemoryError and become a
+    host bucket; with the ballast freed, the exact route must answer as
+    before. A KernelError in a bucket build must still raise."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    from sema_tpu_torch.ops._cuda import KernelError
+    data = work / "data-bfloat16"
+    store = VectorStore(data, GTE_D, IVF_MODEL, store_dtype="bfloat16",
+                        ivf=True, device=DEV)
+    check(store._owner, "spill oom: the store is not its data dir's owner")
+    ooms = []
+    build = store._build_bucket
+
+    def watched(seg_range, row_offset):
+        try:
+            return build(seg_range, row_offset)
+        except torch.cuda.OutOfMemoryError:
+            ooms.append(tuple(seg_range))
+            raise
+    store._build_bucket = watched
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(DEV)[0]
+    leave = 5 * SEAL * GTE_D * 2 // 2        # 1.25 GiB: one bucket's build
+    ballast = torch.empty(free - leave, dtype=torch.uint8, device=DEV)
+    buckets = store.device_buckets()
+    res = store.device_residency()
+    del ballast
+    torch.cuda.empty_cache()
+    host = [b["seg_range"] for b in buckets if b.get("host_resident")]
+    check(ooms and set(ooms) <= set(host) and res["host_buckets"] >= 1,
+          f"spill oom: OutOfMemoryError in {ooms}, host buckets {host}, "
+          f"residency {res}")
+    for qv, (gs, gi) in zip(qvs, answers):
+        ws, wi = store.search_batch(qv[None], 10, exact=True)
+        check(np.array_equal(gi, wi) and np.array_equal(gs, ws),
+              f"spill oom: exact route {wi} {ws} against {gi} {gs}")
+    store.close()
+
+    def refusing(seg_range, row_offset):
+        raise KernelError("scan_topk: CUDA error 700 (an illegal memory "
+                          "access was encountered)")
+    other = VectorStore(data, GTE_D, IVF_MODEL, store_dtype="bfloat16",
+                        ivf=True, device=DEV)
+    other._build_bucket = refusing
+    try:
+        other.search(qvs[0], 10)
+    except KernelError:
+        refused = True
+    else:
+        refused = False
+    other.close()
+    check(refused, "spill oom: a KernelError in a bucket build did not "
+          "raise out of search")
+    return {"oom_buckets": [list(r) for r in ooms], "host_buckets": len(host),
+            "residency": res, "kernel_error_raised": refused}
+
+
+def phase_spill_path(work: Path, tree: Path, gen, weights, paths: dict,
+                     device: str = "cuda") -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    os.environ.pop("SEMA_TPU_HBM_BUDGET_MB", None)
+    rate = pinned_rate()
+    stores = {}
+    for store_dtype in ("int8", "bfloat16"):
+        recall = paths.get(store_dtype, {}).get("recall_at_10_mean")
+        stores[store_dtype] = spill_store(work, tree, store_dtype, gen,
+                                          weights, device, recall)
+    bf = stores["bfloat16"]
+    oom = spill_oom(work, bf.pop("query_vectors"), bf["answers"])
+    for s in stores.values():
+        s.pop("answers")
+        s["exact_bound_ms"] = s["exact_staged_mib"] * 2 ** 20 / rate * 1e3
+        s["upload_ms_per_slice"] = SPILL_SLICE * GTE_D * 2 / rate * 1e3
+    emit("spill_path", nvidia_smi=smi, budget_mb=SPILL_BUDGET_MB,
+         pinned_h2d_gb_s=rate / 1e9,
+         **{s: {k: v for k, v in r.items() if k not in ("kernels",
+                                                          "launches")}
+            for s, r in stores.items()}, oom=oom)
+    return stores
 
 
 # -- serve (the int8 deployment behind its HTTP daemon) -----------------------
@@ -3051,6 +3688,13 @@ def main() -> int:
                          seconds=time.perf_counter() - t0)
                 paths[store_dtype] = phase_ivf_path(work, tree, store_dtype,
                                                     4 * SEAL, gen, weights)
+        if run("spill_path"):
+            if weights is None:
+                t0 = time.perf_counter()
+                weights = write_weights(work / "gte-weights")
+                emit("weights", model=IVF_MODEL,
+                     seconds=time.perf_counter() - t0)
+            spill = phase_spill_path(work, tree, gen, weights, paths)
         if run("tp_path"):
             if weights is None:
                 t0 = time.perf_counter()
@@ -3071,8 +3715,9 @@ def main() -> int:
     int8_k, bf16_k = paths["int8"]["kernels"], paths["bfloat16"]["kernels"]
     runs = [index_launches, query_launches, scan_ab["launches"]] + [
         p[key] for p in [*paths.values(), *tp_runs]
-        for key in ("index_launches", "query_launches")]
-    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+        for key in ("index_launches", "query_launches")] + [
+        dict(s["launches"]) for s in spill.values()]
+    launches = {name: sum(r.get(name, 0) for r in runs) for name in runs[0]}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
 
@@ -3113,6 +3758,20 @@ def main() -> int:
               [AB_N, 256, 10], scan_ab["K8"]),
         entry("fold_topk", scan_src, "tools/scan_ab14.py:164",
               [AB_N, 256, 10], scan_ab["K9"])]
+    # the spill path's new launch shapes: K1 over a streamed slice, K3 and
+    # K4b over a staged probe at tiles of 128 rows, each with its launches
+    # at that shape
+    for dtype, case, name, replaces in (
+            ("bfloat16", "slice", "scan_topk", "pallas_topk.py:280"),
+            ("int8", "slice", "scan_topk", "pallas_topk.py:280"),
+            ("bfloat16", "stage", "scan_topk_pruned", "pallas_topk.py:544"),
+            ("int8", "stage", "scan_topk_int8_pruned",
+             "pallas_topk.py:580")):
+        f = spill[dtype]["kernels"][case]
+        kernels.append({**entry(name, scan_src, f"sema_tpu/ops/{replaces}",
+                                [f["rows"], 1, f["k"]], f),
+                        "name": f"{name}:spill_{case}_{dtype}",
+                        "launches": f["launches"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

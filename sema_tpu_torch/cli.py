@@ -19,8 +19,10 @@ when a kernel does not build, launch or take its tensors
 (:class:`~sema_tpu_torch.ops._cuda.KernelError`); ``serve`` does so
 before it takes traffic, from its warm-up query. ``[mesh] shape`` (with
 ``model_axis``) runs the encoder data- and tensor-parallel over a mesh
-(:func:`config_mesh`); the store stays single-shard. The TUI, ``bench``
-and ``doctor`` are not ported yet.
+(:func:`config_mesh`); the store stays single-shard. ``[index]
+hbm_budget_mb`` caps the store's device buckets: past it, sealed buckets
+stay on the host and stream (``VectorStore``'s HBM spill). The TUI,
+``bench`` and ``doctor`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -205,6 +207,7 @@ def make_index_manager(config: Config, device: str, metrics=None):
     return IndexManager(data_dir(), encoder,
                         store_dtype=config.index.store_dtype,
                         metrics=metrics, rescore_k=config.index.rescore_k,
+                        hbm_budget_mb=config.index.hbm_budget_mb,
                         ivf=config.index.ivf,
                         ivf_nprobe=config.index.ivf_nprobe,
                         ivf_min_recall=config.index.ivf_min_recall)

@@ -106,7 +106,7 @@ def save_layout(dir: Path, key: str,
         "n_pad": int(perm.shape[0]),
         "centroids_shape": list(centroids.shape),
         "starts_shape": list(starts.shape),
-        "vectors_dtype": (str(np.dtype(vectors.dtype))
+        "vectors_dtype": (_dtype_name(vectors.dtype)
                           if vectors is not None else None),
         "vectors_dim": (int(vectors.shape[1])
                         if vectors is not None else None),
@@ -208,9 +208,16 @@ def load_layout(dir: Path, key: str, need_vectors: bool = False
 
 def _np_dtype(name: str):
     if name == "bfloat16":
-        import ml_dtypes
-        return ml_dtypes.bfloat16
+        # the port holds bf16 rows as their uint16 bit patterns
+        return np.uint16
     return np.dtype(name)
+
+
+def _dtype_name(dtype) -> str:
+    """A blob's dtype as the header names it: the port's uint16 bit
+    patterns are bf16 rows, named as the JAX package names its own."""
+    dtype = np.dtype(dtype)
+    return "bfloat16" if dtype == np.uint16 else str(dtype)
 
 
 def sweep_stale(dir: Path, live_seg_names: set, keep_any: bool,

@@ -41,15 +41,15 @@ class IndexManager:
     def __init__(self, data_dir: Path | str, encoder,
                  store_dtype: str = "bfloat16",
                  metrics: Optional[Metrics] = None, rescore_k: int = 100,
-                 ivf: bool = False, ivf_nprobe: int = 32,
-                 ivf_min_recall: float = 0.0):
+                 hbm_budget_mb: float = 0.0, ivf: bool = False,
+                 ivf_nprobe: int = 32, ivf_min_recall: float = 0.0):
         self.encoder = encoder
         self.metrics = metrics or null_metrics()
         self.vector_store = VectorStore(
             data_dir, dim=encoder.spec.dim, model=encoder.spec.name,
             store_dtype=store_dtype, device=encoder.device,
-            rescore_k=rescore_k, ivf=ivf, ivf_nprobe=ivf_nprobe,
-            ivf_min_recall=ivf_min_recall)
+            rescore_k=rescore_k, hbm_budget_mb=hbm_budget_mb, ivf=ivf,
+            ivf_nprobe=ivf_nprobe, ivf_min_recall=ivf_min_recall)
         self.text_index = make_text_index(data_dir)
 
     # -- indexing ------------------------------------------------------------

@@ -159,6 +159,23 @@ REPLACEMENTS = {
          '            h.update(block)\n    if xxhash is None:\n'
          '        return "b2:" + h.hexdigest()\n    return'),
     ],
+    # a bf16 blob is held as its uint16 bit patterns (no ml_dtypes) and
+    # named "bfloat16" in the header, so that either package reads the
+    # other's spilled-bucket blobs
+    "index/ivf_cache.py": [
+        ('        "vectors_dtype": (str(np.dtype(vectors.dtype))',
+         '        "vectors_dtype": (_dtype_name(vectors.dtype)'),
+        ('    if name == "bfloat16":\n        import ml_dtypes\n'
+         '        return ml_dtypes.bfloat16\n    return np.dtype(name)\n',
+         '    if name == "bfloat16":\n'
+         '        # the port holds bf16 rows as their uint16 bit patterns\n'
+         '        return np.uint16\n    return np.dtype(name)\n\n\n'
+         'def _dtype_name(dtype) -> str:\n'
+         '    """A blob\'s dtype as the header names it: the port\'s uint16 bit\n'
+         '    patterns are bf16 rows, named as the JAX package names its own."""\n'
+         '    dtype = np.dtype(dtype)\n'
+         '    return "bfloat16" if dtype == np.uint16 else str(dtype)\n'),
+    ],
     "utils/metrics.py": [
         ("``jax.profiler`` trace", "``torch.profiler`` trace"),
         ("a jax.profiler trace (view in XProf/Perfetto)",
