@@ -81,6 +81,7 @@ mutant int8_next_query_b scan_topk.cu \
   's/ldmatrix_x2(bf, brow + (lane \& 7) \* qstr + kk);/ldmatrix_x2(bf, brow + ((lane + 1) \& 7) * qstr + kk);/; s/(np \* 16 + (lane \& 7) + ((lane >> 4) << 3))/(np * 16 + ((lane + 1) \& 7) + ((lane >> 4) << 3))/' \
   scan_int8
 # K4a/K4b: no wait for the stage's cp.async copies before it is scored
+# (scan_int8's late_copies: rows in mapped host memory, each copy late)
 mutant int8_cp_async_no_wait scan_topk.cu \
   's|cp_async_wait<NS - 2>();  // stage g.s have; the next may still fly|;|' \
   scan_int8
@@ -257,6 +258,25 @@ mutant spill_pinned_reused index/vector_store.py \
 mutant spill_stream_served index/vector_store.py \
   's/                if id(b) not in served:/                if id(b) in served:/' \
   spill_path
+# the device append: the new rows written one row early, over the tail's
+# last live row
+mutant append_row0_minus_one index/vector_store.py \
+  's/            b\["arena"\]\[row0:row1\].copy_(vals)/            b["arena"][row0 - 1:row1 - 1].copy_(vals)/' \
+  append_path
+# the device append: the new rows' flags never written, so they stay
+# invalid
+mutant append_mask_unwritten index/vector_store.py \
+  's/        b\["arena_valid"\]\[row0:row1\].copy_(mask)/        pass/' \
+  append_path
+# the device rows read but never dropped, by the append or the build
+mutant append_pending_kept index/vector_store.py \
+  's/        pend = \[self._pending_dev.pop(s.name, None) for s in segs\]/        pend = [self._pending_dev.get(s.name) for s in segs]/; s/^        self._pending_dev.clear()$/        pass/' \
+  append_path
+# an append of several segments writes each one's device rows into
+# another's range
+mutant append_pendings_swapped index/vector_store.py \
+  's/            vals = pend\[0\] if len(pend) == 1 else torch.cat(pend)/            vals = pend[0] if len(pend) == 1 else torch.cat(pend[::-1])/' \
+  append_path
 wait
 for dir in "${checked[@]}"; do
   cat "$dir/verdict"

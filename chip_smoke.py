@@ -85,7 +85,10 @@ Phases, one JSON line each:
                       {16, 128}, masked rows, a 17-way tie in one tile
                       (TIE) and one spread over 17 tiles (SPREAD_TIE,
                       across chunks and pass 2's runs); scores and ids
-                      bit-equal. Library: ``torch._int_mm`` + scales +
+                      bit-equal; then K4a and K4b at d = 1024, Q 1, k
+                      128 over the int8 rows in mapped pinned host memory
+                      (``late_copies``: every copy of pass 1 crosses
+                      PCIe), still bit-equal. Library: ``torch._int_mm`` + scales +
                       ``torch.topk`` (one query padded to the 17 rows
                       ``_int_mm`` needs). Each case also gives pass 1's
                       and pass 2's device ms apart (``scan_passes``).
@@ -142,7 +145,10 @@ Phases, one JSON line each:
                       few keyword ones) with no error and no status but
                       200, every exact answer id for id the in-process
                       ``IndexManager.search``'s; three rewritten files are
-                      found after the next re-index tick; SIGTERM stops it
+                      found after the next re-index tick, and ``/healthz``
+                      still shows one unsealed tail bucket and no new
+                      bucket (the tick's rows went into the tail's spare
+                      rows); SIGTERM stops it
                       with exit code 0 and no traceback. Prints qps,
                       p50/p99 ms, recall@10 of the IVF answers and
                       ``/healthz``'s batcher stats.
@@ -179,7 +185,47 @@ Phases, one JSON line each:
                       per slice, the card's pinned host-to-device rate
                       and the exact route's bound from it, each spilled
                       launch's device ms and the busy share.
-13. ``tp_path``       the tensor-parallel encoder: gte-large at full width
+13. ``append_path``   the store's in-place device append, through
+                      ``IndexManager`` as ``serve --reindex-interval``
+                      drives it. The main path's store (MiniLM-L6, bf16,
+                      the tree's 3,600 chunks; indexed here when
+                      ``main_path`` did not run) takes 12 rounds of 3
+                      rewritten files (the last in index slices of 10, so
+                      several segments meet in one append), each round's
+                      build then a query for an appended chunk's text.
+                      Each round: the index stashed one segment of device
+                      rows a slice, none left after the build; one
+                      unsealed tail, grown in place while it had room
+                      (``n_pad`` kept; a rebuilt tail holds
+                      ``_pad_rows(2 * rows)``); no row copied from the
+                      host (``h2d_bytes``: every ``Tensor.to`` to the
+                      card); one K1 launch a query; the chunk found first.
+                      Then a tombstone between an append and its build
+                      must hide its rows; a search launched before an
+                      append and build and finished after them answers as
+                      before the append, plain and with the stream held
+                      300 ms before its scan (the append then queued in
+                      under half of that); the tail's live rows and mask
+                      bit-equal to the same rows built from disk by a
+                      second store; K1 on the tail under ``check_scan``
+                      and the store's hits equal to the plain scans'.
+                      Then one append each into the int8 IVF store of
+                      ``int8_ivf_path`` (gte-large W8A8; filled and
+                      indexed here when that phase did not run) with no
+                      budget and under ``SPILL_BUDGET_MB`` (three sealed
+                      buckets on the host, which must stay the same
+                      objects; the tail on the card): the same round
+                      checks, one K4a and 24 K5 launches a query, int8
+                      values and scales bit-equal to a rebuild, hits and
+                      rescored scores equal to the plain versions'. Every
+                      number is printed before the failed checks fail the
+                      phase, so it also runs on a revision without the
+                      arena (step 0). Prints each round's index and append
+                      ms, MiB of rows and masks copied to the card, the
+                      buckets, the tail's rows and capacity, the query p50
+                      after rounds 1, 8 and 12, the residency (the
+                      arena's device bytes) and the card's power limit.
+14. ``tp_path``       the tensor-parallel encoder: gte-large at full width
                       and depth over a (data 1, model 2) mesh whose two
                       shards lie on the card, behind an ``IndexManager``
                       with an exact bf16 store: the tree indexed (K6 for
@@ -196,7 +242,7 @@ Phases, one JSON line each:
                       ``bert._linear`` at gte-large's widest shard product
                       must sum in f32, and every (B, S) at which the path
                       launches K6 or K7 must be one ``attention`` holds.
-14. ``scan_ab``       the scan A/B paths, K8 (the warm-start scan) and K9
+15. ``scan_ab``       the scan A/B paths, K8 (the warm-start scan) and K9
                       (the fold-merge scan) beside K1, each call counted
                       from 0 and checked against the count of calls made:
                       at 1,048,576 x 384 bf16 without a mask, Q 256 and 1,
@@ -284,6 +330,14 @@ SCANS = ("scan_topk", "scan_topk_int8", "scan_topk_pruned",
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def check(ok, what="check failed") -> None:
@@ -763,8 +817,47 @@ def scan_more_case(kind, data, nq, k, gen, iters):
     return out
 
 
+def host_mapped(t: torch.Tensor):
+    """(a CUDA tensor over a copy of int8 ``t`` in pinned host memory,
+    that memory): a kernel reads the rows across PCIe, so each of its
+    copies lands microseconds late."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+
+    class Mapped:
+        __cuda_array_interface__ = {"shape": tuple(t.shape), "typestr": "|i1",
+                                    "data": (host.data_ptr(), False),
+                                    "strides": None, "version": 2}
+    mapped = torch.as_tensor(Mapped(), device=DEV)
+    check(mapped.data_ptr() == host.data_ptr(), "the mapped rows moved")
+    return mapped, host
+
+
+def late_copies_case(kind, data, gen) -> dict:
+    """K4a ("int8") or K4b ("int8_pruned") at one query, where pass 1
+    keeps three stages in flight, over int8 rows in mapped host memory
+    (``host_mapped``): a stage scored before its copies have landed reads
+    the rows of an earlier stage. Scores and ids must equal the plain
+    version's on the same rows on the card, bit for bit."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    q = more_queries(data, 1, gen)
+    mapped, host = host_mapped(data["qvals"])
+    name, args = more_args(kind, dict(data, qvals=mapped), q, 128)
+    _, ref_args = more_args(kind, data, q, 128)
+    got = getattr(scan_mod, name)(*args)
+    torch.cuda.synchronize()
+    want = getattr(scan_mod, f"{name}_reference")(*ref_args)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{kind} over rows in host memory (d={data['d']}, Q=1, k=128): "
+          "not bit-equal to the plain version")
+    ms = device_ms(lambda: getattr(scan_mod, name)(*args), 3)
+    del mapped, host
+    return {"kernel": {"int8": "K4a", "int8_pruned": "K4b"}[kind],
+            "d": data["d"], "q": 1, "k": 128, "ms": ms}
+
+
 def phase_scan_more(gen):
-    int8_cases, pruned_cases = [], []
+    int8_cases, pruned_cases, late = [], [], []
     for d in (GTE_D, D):
         data = scan_store(d, gen)
         for nq in (1, 256):
@@ -775,9 +868,12 @@ def phase_scan_more(gen):
                 for kind in ("pruned", "int8_pruned"):
                     pruned_cases.append(scan_more_case(kind, data, nq, k,
                                                        gen, iters))
+        if d == GTE_D:
+            late = [late_copies_case(kind, data, gen)
+                    for kind in ("int8", "int8_pruned")]
         del data
         torch.cuda.empty_cache()
-    emit("scan_int8", cases=int8_cases)
+    emit("scan_int8", cases=int8_cases, late_copies=late)
     emit("scan_pruned", cases=pruned_cases)
     return int8_cases, pruned_cases
 
@@ -2052,21 +2148,25 @@ _WORDS = ("request", "retry", "backoff", "socket", "parse", "token", "vector",
           "handler", "batch", "encode", "decode", "offset", "window")
 
 
+def module_text(rng) -> str:
+    """One Python-like source of about 7 KB (40 functions) from ``rng``."""
+    lines = []
+    for i in range(40):
+        w = rng.choice(_WORDS, size=6)
+        lines.append(f"def {w[0]}_{w[1]}_{i}(self, {w[2]}, {w[3]}=None):")
+        lines.append(f"    # {' '.join(rng.choice(_WORDS, size=9))}")
+        lines.append(f"    return self.{w[4]}({w[2]}, {w[5]}={w[3]})")
+        lines.append("")
+    return "\n".join(lines)
+
+
 def make_tree(root: Path, n_files: int) -> Path:
     """``n_files`` Python-like sources of about 7 KB each, from seed 0."""
-    import numpy as np
     rng = np.random.default_rng(0)
     for f in range(n_files):
         d = root / f"pkg{f % 16:02d}"
         d.mkdir(parents=True, exist_ok=True)
-        lines = []
-        for i in range(40):
-            w = rng.choice(_WORDS, size=6)
-            lines.append(f"def {w[0]}_{w[1]}_{i}(self, {w[2]}, {w[3]}=None):")
-            lines.append(f"    # {' '.join(rng.choice(_WORDS, size=9))}")
-            lines.append(f"    return self.{w[4]}({w[2]}, {w[5]}={w[3]})")
-            lines.append("")
-        (d / f"mod{f:04d}.py").write_text("\n".join(lines))
+        (d / f"mod{f:04d}.py").write_text(module_text(rng))
     return root
 
 
@@ -2689,6 +2789,17 @@ def pinned_rate() -> float:
     return n / (ms / 1e3)
 
 
+def stall_cycles(ms: float) -> int:
+    """The ``torch.cuda._sleep`` cycles that hold the stream ``ms``."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    return int(10 ** 7 * ms / start.elapsed_time(end))
+
+
 @contextmanager
 def stalled_uploads(ms: float = 300.0):
     """Each of the store's uploads queued behind ``ms`` of sleep on the
@@ -2697,13 +2808,7 @@ def stalled_uploads(ms: float = 300.0):
     before its copy has read it hands the scan other rows."""
     from sema_tpu_torch.index.vector_store import VectorStore
     upload = VectorStore._upload
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(1000)
-    start.record()
-    torch.cuda._sleep(10 ** 7)
-    end.record()
-    end.synchronize()
-    cycles = int(10 ** 7 * ms / start.elapsed_time(end))
+    cycles = stall_cycles(ms)
 
     def stalled(self, *host):
         torch.cuda._sleep(cycles)
@@ -3191,10 +3296,7 @@ def spill_oom(work: Path, qvs, answers) -> dict:
 
 def phase_spill_path(work: Path, tree: Path, gen, weights, paths: dict,
                      device: str = "cuda") -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     os.environ.pop("SEMA_TPU_HBM_BUDGET_MB", None)
     rate = pinned_rate()
     stores = {}
@@ -3325,6 +3427,7 @@ def phase_serve(tree: Path, plan: dict, device: str = "cuda") -> None:
                   if not exact and not q.startswith("'")]
         lat = sorted(a[4] * 1e3 for a in answers)
         health = http_get(f"{base}/healthz")[1]
+        residency_before = store_residency(base)
 
         # three files rewritten while serving: found after the next tick
         changed = sorted(tree.rglob("*.py"))[:3]
@@ -3346,6 +3449,12 @@ def phase_serve(tree: Path, plan: dict, device: str = "cuda") -> None:
             body = http_get(search_url(base, found[path], exact=True))[1]
             check(body["results"][0]["file_path"] == path, f"serve: the "
                   f"text of {path} finds {body['results'][0]['file_path']}")
+        # the tick's rows went into the tail's spare rows: no new bucket
+        residency_after = store_residency(base)
+        check(residency_after["buckets"] == residency_before["buckets"]
+              and residency_after.get("tail_buckets") == 1,
+              f"serve: residency {residency_before} before the re-index "
+              f"tick, {residency_after} after it")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
     finally:
@@ -3364,7 +3473,384 @@ def phase_serve(tree: Path, plan: dict, device: str = "cuda") -> None:
          p50_ms=lat[len(lat) // 2], p99_ms=lat[int(0.99 * (len(lat) - 1))],
          max_ms=lat[-1], ivf_recall_at_10_mean=float(np.mean(recall)),
          ivf_recall_at_10_min=float(np.min(recall)),
-         reindex_found_s=reindex_s, healthz=health, exit_code=rc)
+         reindex_found_s=reindex_s, healthz=health,
+         residency_before=residency_before, residency_after=residency_after,
+         exit_code=rc)
+
+
+def store_residency(base: str) -> dict:
+    """``/healthz``'s store residency, once the store is not busy."""
+    for _ in range(100):
+        store = http_get(f"{base}/healthz")[1]["store"]
+        if not store["busy"]:
+            return store
+        time.sleep(0.1)
+    raise RuntimeError(f"serve: the store stayed busy: {store}")
+
+
+# -- the store's in-place device append (serve-time re-index) ----------------
+
+APPEND_ROUNDS = 12             # re-index rounds on the main path's store
+APPEND_FILES = 3               # files rewritten a round
+APPEND_P50_AFTER = (1, 8, 12)  # rounds after which the query p50 is taken
+APPEND_STALL_MS = 300.0        # the stream held before a snapshot's scan
+
+
+@contextmanager
+def h2d_bytes():
+    """Bytes that ``Tensor.to`` copies from the host to the card while
+    open (every upload of the store goes through it), 2-d tensors (rows)
+    apart from the rest (masks)."""
+    stats = {"rows": 0, "other": 0}
+    to = torch.Tensor.to
+
+    def counted(self, *a, **k):
+        out = to(self, *a, **k)
+        if self.device.type == "cpu" and out.device.type == "cuda":
+            stats["rows" if self.dim() == 2 else "other"] += (
+                self.numel() * self.element_size())
+        return out
+    torch.Tensor.to = counted
+    try:
+        yield stats
+    finally:
+        torch.Tensor.to = to
+
+
+def rewrite(files, seed: int) -> None:
+    rng = np.random.default_rng(seed)
+    for f in files:
+        f.write_text(module_text(rng))
+
+
+def launch_delta(fn) -> tuple:
+    """(fn(), the wrappers' launches during the call)."""
+    before = launch_counts()
+    out = fn()
+    return out, {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def pending_rows(store) -> int:
+    return len(getattr(store, "_pending_dev", {}))
+
+
+def append_round(mgr, files, seed: int, name: str, fails: list,
+                 prev: dict) -> tuple:
+    """One re-index round: ``files`` rewritten from ``seed`` and indexed
+    through ``IndexManager``, the buckets built (the append, its host to
+    card bytes counted), then one query for the text of an appended
+    chunk, its launches counted. The checks of the arena go to
+    ``fails``: no device rows pending after the build; one unsealed tail,
+    grown in place while it had room (its ``n_pad`` kept), else rebuilt
+    at ``_pad_rows(2 * rows)``; no row uploaded; the appended chunk found
+    first."""
+    store = mgr.vector_store
+    rewrite(files, seed)
+    n_segs = len(store.segments)
+    t0 = time.perf_counter()
+    n = mgr.process_and_index_files(files)
+    torch.cuda.synchronize()
+    index_ms = (time.perf_counter() - t0) * 1e3
+    stashed, new_segs = pending_rows(store), len(store.segments) - n_segs
+    with h2d_bytes() as up:
+        t0 = time.perf_counter()
+        buckets = store.device_buckets()
+        torch.cuda.synchronize()
+        append_ms = (time.perf_counter() - t0) * 1e3
+    tail = buckets[-1]
+    added = store.total_rows - prev["total"]
+    where = f"{name} round {seed}"
+    if stashed != new_segs or not new_segs:
+        fails.append(f"{where}: {stashed} segments of device rows stashed "
+                     f"by the index, want {new_segs}")
+    if pending_rows(store):
+        fails.append(f"{where}: {pending_rows(store)} device rows still "
+                     "pending after the build")
+    unsealed = [b for b in buckets if not b["sealed"]]
+    if len(unsealed) != 1 or unsealed[0] is not tail:
+        fails.append(f"{where}: {len(unsealed)} unsealed buckets "
+                     f"{[(b['rows'], b['n_pad']) for b in unsealed]}")
+    if prev["rows"] + added <= prev["n_pad"]:
+        if not (len(buckets) == prev["buckets"]
+                and tail["row_offset"] == prev["row_offset"]
+                and tail["n_pad"] == prev["n_pad"]
+                and tail["rows"] == prev["rows"] + added):
+            fails.append(f"{where}: {added} rows did not land in the tail's "
+                         f"room ({prev['rows']} of {prev['n_pad']}): "
+                         f"{len(buckets)} buckets, tail {tail['rows']} of "
+                         f"{tail['n_pad']}")
+    elif tail["n_pad"] != store._pad_rows(2 * tail["rows"]):
+        fails.append(f"{where}: a rebuilt tail of {tail['rows']} rows holds "
+                     f"{tail['n_pad']}, want {store._pad_rows(2 * tail['rows'])}")
+    if up["rows"]:
+        fails.append(f"{where}: {up['rows']} bytes of rows uploaded")
+    text = store.chunk_at(store.total_rows - 1).content
+    hits, launches = launch_delta(lambda: mgr.search(text, 10))
+    if not hits or str(hits[0][0].file_path) not in {str(f) for f in files}:
+        fails.append(f"{where}: an appended chunk's text finds "
+                     f"{hits[0][0].file_path if hits else None}")
+    return {"round": seed, "chunks": n, "index_ms": index_ms,
+            "append_ms": append_ms, "rows_uploaded_mib": up["rows"] / 2 ** 20,
+            "masks_uploaded_mib": up["other"] / 2 ** 20,
+            "segments": new_segs, "buckets": len(buckets),
+            "tail_rows": tail["rows"], "tail_n_pad": tail["n_pad"],
+            "query_launches": launches}, tail_state(buckets, store)
+
+
+def tail_state(buckets, store) -> dict:
+    """What the next round's checks compare with: the store's rows, the
+    bucket count and the tail's rows, capacity and offset."""
+    tail = buckets[-1]
+    return {"total": store.total_rows, "buckets": len(buckets),
+            "rows": tail["rows"], "n_pad": tail["n_pad"],
+            "row_offset": tail["row_offset"]}
+
+
+def query_p50(mgr, n: int = 20) -> float:
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        mgr.search(QUERY, 10)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return sorted(lat)[n // 2]
+
+
+def rebuilt_equal(store, tail: dict) -> dict:
+    """The tail's live rows and mask against the same rows built from the
+    segment files by a second store opened on the directory: bf16 rows,
+    int8 values and scales, bit for bit."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    ref = VectorStore(store.dir.parent, store.dim, store.model,
+                      store_dtype=store.store_dtype, device=store.device,
+                      ivf=store.ivf)
+    rb = ref._build_bucket(tail["seg_range"], tail["row_offset"])
+    n = tail["rows"]
+    parts = (tail["store"] if isinstance(tail["store"], tuple)
+             else (tail["store"],))
+    want = rb["store"] if isinstance(rb["store"], tuple) else (rb["store"],)
+    return {"rows": n, "store": all(torch.equal(a[:n], b[:n])
+                                    for a, b in zip(parts, want)),
+            "valid": torch.equal(tail["valid"][:n], rb["valid"][:n])}
+
+
+def append_snapshot(mgr, f: Path, seed: int, stall_ms: float, name: str,
+                    fails: list) -> dict:
+    """A search in flight across an append returns its snapshot's answer:
+    the rows of a rewritten file encoded first, then the search launched
+    (behind ``stall_ms`` of sleep on the stream when given), the rows
+    appended and the buckets built, and only then the search finished.
+    The query is the first new row, which tops any search once appended,
+    so the answer must be the one from before the append. With the stall,
+    the append must also be queued without waiting for the stream."""
+    import inspect
+    from sema_tpu_torch.ingest.chunker import process_files
+    store, enc = mgr.vector_store, mgr.encoder
+    rewrite([f], seed)
+    chunks = process_files([f])
+    kw = ({"return_device": True} if "return_device" in inspect.signature(
+        enc.encode_texts).parameters else {})
+    emb = enc.encode_texts([c.content for c in chunks],
+                           out_dtype=store.torch_dtype, **kw)
+    host = emb.host if kw else emb
+    q = host[:1].float().to(store.device)
+    before = store.search_batch(q, 10)
+    cycles = stall_cycles(stall_ms) if stall_ms else 0
+    torch.cuda.synchronize()
+    first = store.total_rows
+    if cycles:
+        torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    handle = store.search_batch_async(q, 10)
+    store.add_chunks(chunks, emb)
+    store.device_buckets()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    got = store.search_batch_finish(handle, q)
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    after = store.search_batch(q, 10)
+    where = f"{name} snapshot (stall {stall_ms:g} ms)"
+    if not (np.array_equal(got[1], before[1])
+            and np.array_equal(got[0], before[0])):
+        fails.append(f"{where}: the search in flight answers {got[1][0]}, "
+                     f"before the append {before[1][0]}")
+    if after[1][0][0] != first:
+        fails.append(f"{where}: row {first} is not first after the append: "
+                     f"{after[1][0]}")
+    if cycles and not (queued_ms < stall_ms / 2 <= finish_ms):
+        fails.append(f"{where}: the append waited for the stream (queued "
+                     f"in {queued_ms:.1f} ms, finished in {finish_ms:.1f})")
+    if pending_rows(store):
+        fails.append(f"{where}: device rows still pending")
+    return {"stall_ms": stall_ms, "chunks": len(chunks),
+            "queued_ms": queued_ms, "finish_ms": finish_ms}
+
+
+def append_main(work: Path, tree: Path, device: str, files: list,
+                fails: list, driven: Counter) -> dict:
+    """The main path's store (MiniLM-L6, bf16, the tree's chunks), through
+    ``IndexManager``: APPEND_ROUNDS rounds, a tombstone between an
+    append and its build, two snapshots, the tail against the rows
+    rebuilt from disk, and the hits against the plain scan."""
+    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+    os.environ["SEMA_TPU_HOME"] = str(work / "home")
+    os.environ["SEMA_TPU_DATA"] = str(work / "data")
+    if not (work / "data" / "vector_index" / "manifest.json").exists():
+        run_cli(["index", str(tree), "--device", device])
+    mgr = open_manager(device)
+    store = mgr.vector_store
+    name = "main store"
+    reset_launch_counts()
+    mgr.search(QUERY, 10)                      # the device copy goes live
+    buckets = store.device_buckets()
+    first = buckets[-1]
+    if first["n_pad"] != store._pad_rows(2 * first["rows"]):
+        fails.append(f"{name}: the first tail of {first['rows']} rows holds "
+                     f"{first['n_pad']}, want "
+                     f"{store._pad_rows(2 * first['rows'])}")
+    prev = tail_state(buckets, store)
+    rounds, p50 = [], {}
+    for r in range(1, APPEND_ROUNDS + 1):
+        if r == APPEND_ROUNDS:
+            # the last round's chunks in slices of 10: several segments,
+            # each with its device rows, in one append
+            os.environ["SEMA_TPU_INDEX_BATCH"] = "10"
+        rec, prev = append_round(mgr, files[(r - 1) * APPEND_FILES:
+                                            r * APPEND_FILES], r, name,
+                                 fails, prev)
+        os.environ.pop("SEMA_TPU_INDEX_BATCH", None)
+        k1 = rec["query_launches"]["scan_topk"]
+        if k1 != 1:
+            fails.append(f"{name} round {r}: {k1} K1 launches a query")
+        rounds.append(rec)
+        if r in APPEND_P50_AFTER:
+            p50[str(r)] = query_p50(mgr)
+    extra = files[APPEND_ROUNDS * APPEND_FILES:]
+
+    # a tombstone between the append and the build
+    f = extra[0]
+    rewrite([f], 100)
+    mgr.process_and_index_files([f])
+    seg = store.segments[-1]
+    lo = store.total_rows - seg.rows
+    store.remove_file_chunks(f)
+    tail = store.device_buckets()[-1]
+    dead_live = int(tail["valid"][lo - tail["row_offset"]:].sum())
+    hits = mgr.search(store.chunk_at(lo).content, 10)
+    tomb = {"rows": seg.rows, "valid_after": dead_live,
+            "hits_from_file": sum(str(c.file_path) == str(f)
+                                  for c, _ in hits)}
+    if dead_live or tomb["hits_from_file"]:
+        fails.append(f"{name}: a tombstone between the append and the build "
+                     f"was not honoured: {tomb}")
+    snaps = [append_snapshot(mgr, extra[1], 101, 0.0, name, fails),
+             append_snapshot(mgr, extra[2], 102, APPEND_STALL_MS, name,
+                             fails)]
+    driven.update(launch_counts())
+
+    buckets = store.device_buckets()
+    tail = buckets[-1]
+    residency = store.device_residency()
+    equal = rebuilt_equal(store, tail)
+    if not (equal["store"] and equal["valid"]):
+        fails.append(f"{name}: the tail's live rows differ from the rows "
+                     f"rebuilt from disk: {equal}")
+    qvec = mgr.encoder.encode_query_device(QUERY)[None, :]
+    masked = not tail["all_valid"]
+    k = min(64, tail["rows"])
+    scan_err = check_scan(tail["store"], qvec, tail["valid"], masked,
+                          scan_topk(tail["store"], qvec, tail["valid"], k,
+                                    masked),
+                          scan_topk_reference(tail["store"], qvec,
+                                              tail["valid"], k, masked))
+    got = store.search_batch(qvec, 50)
+    with plain_scans():
+        plain = store.search_batch(qvec, 50)
+    if not np.array_equal(got[1], plain[1]):
+        fails.append(f"{name}: the hits differ from the plain scan's")
+    mgr.close()
+    return {"rounds": rounds, "query_p50_ms": p50,
+            "tail_rows": tail["rows"], "tail_n_pad": tail["n_pad"],
+            "buckets": len(buckets), "residency": residency,
+            "tombstone": tomb, "snapshots": snaps, "rebuilt_equal": equal,
+            "scan_max_abs_err": scan_err}
+
+
+def append_int8(work: Path, tree: Path, gen, weights, device: str,
+                files: list, seed: int, budget_mb: float, name: str,
+                fails: list, driven: Counter) -> dict:
+    """One append into the int8 IVF store of ``int8_ivf_path`` (gte-large
+    W8A8), reopened with ``hbm_budget_mb = budget_mb``: 0, every bucket
+    on the card; SPILL_BUDGET_MB, three sealed buckets spilled, which
+    must stay as they were. Then the tail against the rows rebuilt from
+    disk (int8 values and scales) and the hits against the plain
+    versions'."""
+    from sema_tpu_torch.models.registry import get_spec
+    home = spill_prepare(work, tree, "int8", gen, weights, device)
+    set_budget(home, budget_mb)
+    mgr = open_manager(device)
+    store = mgr.vector_store
+    reset_launch_counts()
+    mgr.search(QUERY, 10)
+    before = store.device_buckets()
+    spilled = [b for b in before if b.get("host_resident")]
+    rec, _ = append_round(mgr, files, seed, name, fails,
+                          tail_state(before, store))
+    driven.update(launch_counts())
+    after = store.device_buckets()
+    tail = after[-1]
+    sealed = sum(1 for b in after if b["sealed"])
+    got_l = rec["query_launches"]
+    if (got_l["scan_topk_int8"] != 1 or got_l["scan_topk"]
+            or got_l["encoder_layer_int8"] != get_spec(IVF_MODEL).num_layers):
+        fails.append(f"{name}: query launches {got_l}")
+    if tail.get("host_resident"):
+        fails.append(f"{name}: the tail is not on the card")
+    still = [b for b in after if b.get("host_resident")]
+    if len(still) != len(spilled) or any(a is not b
+                                         for a, b in zip(spilled, still)):
+        fails.append(f"{name}: the spilled buckets changed")
+    equal = rebuilt_equal(store, tail)
+    if not (equal["store"] and equal["valid"]):
+        fails.append(f"{name}: the tail's int8 rows or scales differ from "
+                     f"those rebuilt from disk: {equal}")
+    qvec = mgr.encoder.encode_query_device(QUERY)[None, :]
+    got = store.search_batch(qvec, 10)
+    with plain_scans():
+        plain = store.search_batch(qvec, 10)
+    if not (np.array_equal(got[1], plain[1])
+            and np.array_equal(got[0], plain[0])):
+        fails.append(f"{name}: the hits differ from the plain versions'")
+    residency = store.device_residency()
+    mgr.close()
+    return {"round": rec, "sealed_buckets": sealed, "spilled_buckets": len(spilled),
+            "residency": residency, "rebuilt_equal": equal}
+
+
+def phase_append_path(work: Path, tree: Path, gen, weights,
+                      device: str = "cuda") -> dict:
+    """The store's in-place device append, driven through
+    ``IndexManager`` as ``serve --reindex-interval`` drives it: rows
+    encoded on the card, stashed by ``add_chunks`` and written into the
+    spare rows of the unsealed tail (``append_main``, then one append
+    into the int8 IVF store with every bucket on the card and one with
+    three sealed buckets spilled, ``append_int8``). Every round's numbers
+    are emitted before the checks fail the phase, so the phase also runs
+    on a revision without the arena (step 0) and says what it misses
+    there."""
+    smi = smi_line()
+    files = sorted(tree.rglob("*.py"))[3:]     # serve rewrites the first 3
+    n = APPEND_ROUNDS * APPEND_FILES
+    fails, driven = [], Counter()
+    main = append_main(work, tree, device, files[:n + 3], fails, driven)
+    int8 = append_int8(work, tree, gen, weights, device,
+                       files[n + 3:n + 6], 200, 0, "int8 store", fails,
+                       driven)
+    spill = append_int8(work, tree, gen, weights, device,
+                        files[n + 6:n + 9], 201, SPILL_BUDGET_MB,
+                        "spilled int8 store", fails, driven)
+    emit("append_path", nvidia_smi=smi, **main, int8=int8, spill=spill,
+         launches=dict(driven), failed=fails)
+    check(not fails, "append_path: " + "; ".join(fails[:6]))
+    return {"launches": dict(driven)}
 
 
 # -- the tensor-parallel encoder (K6, K7) -------------------------------------
@@ -3632,10 +4118,7 @@ def main() -> int:
     from sema_tpu_torch.ops import _cuda       # fails without the repo
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
@@ -3695,6 +4178,13 @@ def main() -> int:
                 emit("weights", model=IVF_MODEL,
                      seconds=time.perf_counter() - t0)
             spill = phase_spill_path(work, tree, gen, weights, paths)
+        if run("append_path"):
+            if weights is None:
+                t0 = time.perf_counter()
+                weights = write_weights(work / "gte-weights")
+                emit("weights", model=IVF_MODEL,
+                     seconds=time.perf_counter() - t0)
+            append = phase_append_path(work, tree, gen, weights)
         if run("tp_path"):
             if weights is None:
                 t0 = time.perf_counter()
@@ -3716,7 +4206,7 @@ def main() -> int:
     runs = [index_launches, query_launches, scan_ab["launches"]] + [
         p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")] + [
-        dict(s["launches"]) for s in spill.values()]
+        dict(s["launches"]) for s in spill.values()] + [append["launches"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in runs[0]}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

@@ -9,6 +9,9 @@
   tensors), which propagates;
 - the file hash is recorded only after its chunks are indexed, so a crash
   mid-index retries that file next run;
+- once the store holds a live device copy (it has served a search), each
+  slice's embeddings stay on the device too (``return_device``), and the
+  store writes them into its tail's spare rows with no upload;
 - search dispatch: queries starting with ``'`` hit the BM25 text index
   (prefix stripped; empty rest → no results), everything else is
   semantic; a failed semantic query degrades to a substring scan with a
@@ -123,6 +126,14 @@ class IndexManager:
         if batch < 1:
             batch = self.INDEX_BATCH
         total = len(chunks)
+        # an encoder-like object may not take return_device (a stub): ask
+        # its signature once, not per slice
+        try:
+            import inspect
+            has_return_device = "return_device" in inspect.signature(
+                self.encoder.encode_texts).parameters
+        except (TypeError, ValueError):
+            has_return_device = False
         for off in range(0, total, batch):
             part = chunks[off:off + batch]
             try:
@@ -132,10 +143,16 @@ class IndexManager:
                          progress("embedding", off + done, total))
                         if progress else None)
                     # fetched at the store's dtype: the cast happens on
-                    # the device and the copy back is narrower
+                    # the device and the copy back is narrower. With a
+                    # live device copy the rows also stay on the device
+                    # for the store's append; asked per slice, since the
+                    # first search can land in the middle of a build
+                    kw = ({"return_device":
+                           self.vector_store.device_copy_live()}
+                          if has_return_device else {})
                     embeddings = self.encoder.encode_texts(
                         [c.content for c in part], progress=emb_progress,
-                        out_dtype=self.vector_store.torch_dtype)
+                        out_dtype=self.vector_store.torch_dtype, **kw)
                 with self.metrics.timer("vector_write"):
                     self.vector_store.add_chunks(part, embeddings)
             except KernelError:

@@ -21,14 +21,20 @@ its shard's device with the params replicated there) and, with
 tensor parallelism, ``models/tp.py``; each layer runs
 ``bert.encoder_layer_tp``, K6 and K7). The two compose over a (data,
 model) mesh; other axes of the mesh repeat the same work, so it runs once.
-One process drives every shard, and a device may hold several. The
-device-resident ``return_device`` result is not ported yet.
+One process drives every shard, and a device may hold several.
+
+``encode_texts(return_device=True)`` returns an :class:`EncodedBatch`:
+the host rows and the same rows left on the device, in order, for the
+vector store's in-place append (``VectorStore.add_chunks``). The JAX
+package holds its batch outputs on the device up to ``HOLD_MB`` and
+drains them in bulk; here each batch is copied out as soon as it is
+launched, so there is nothing to drain and no hold budget.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +48,14 @@ from sema_tpu_torch.tokenizer import load_tokenizer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+
+
+class EncodedBatch(NamedTuple):
+    """Both placements of one ``encode_texts(return_device=True)`` result
+    (``sema_tpu/models/encoder.py:43-49``): ``host`` for the disk segment,
+    ``device`` for the vector store's append."""
+    host: torch.Tensor
+    device: torch.Tensor
 
 
 class Encoder:
@@ -211,20 +225,33 @@ class Encoder:
         return self.max_length
 
     def encode_texts(self, texts: Sequence[str], progress=None,
-                     out_dtype=torch.float32) -> torch.Tensor:
+                     out_dtype=torch.float32, return_device: bool = False):
         """Embed any number of texts: a (len(texts), dim) CPU tensor of
         ``out_dtype`` (f32 by default; the index build passes the store's
         dtype so the cast happens on the device and the copy back is
         narrower). Output order matches input order: embeddings do not
         depend on padding. ``progress(done, total)`` is called after each
-        launched batch; (n, n) only once the results are on the host."""
+        launched batch; (n, n) only once the results are on the host.
+
+        ``return_device=True`` returns an :class:`EncodedBatch`: the same
+        host tensor, and an in-order (n, dim) tensor of ``out_dtype`` on
+        the encoder's device (a mesh's first), assembled from the kept
+        batch outputs by a ``cat`` and an ``index_select`` by the inverse
+        of the bucketing order, both enqueued. The device rows stay
+        resident until the caller drops them: a mode for bounded batches
+        (a re-index's changed files), which ``IndexManager`` takes only
+        once the store holds a live device copy."""
         n = len(texts)
         dim = self.spec.dim
         out = torch.empty((n, dim), dtype=out_dtype)
         if n == 0:
+            if return_device:
+                return EncodedBatch(out, torch.empty(
+                    (0, dim), dtype=out_dtype, device=self.device))
             return out
         pin = self.device.type == "cuda"
         held = []          # (host copy in flight, row indices)
+        kept = []          # return_device: the batch outputs, in order
         submitted = 0
         SB = 8 * self.batch_size   # super-batch: bucketing granularity
         for soff in range(0, n, SB):
@@ -251,6 +278,8 @@ class Encoder:
                                        pin_memory=pin)
                     host.copy_(emb, non_blocking=pin)
                     held.append((host, [soff + i for i in part]))
+                    if return_device:
+                        kept.append(emb)
                     submitted += len(part)
                     if progress is not None and submitted < n:
                         progress(submitted, n)
@@ -260,7 +289,14 @@ class Encoder:
             out[idxs] = host
         if progress is not None:
             progress(n, n)
-        return out
+        if not return_device:
+            return out
+        order = torch.as_tensor([i for _, idxs in held for i in idxs])
+        inverse = torch.empty_like(order)
+        inverse[order] = torch.arange(n)
+        device = torch.cat(kept).index_select(
+            0, inverse.to(self.device, non_blocking=pin))
+        return EncodedBatch(out, device)
 
     def encode_query(self, text: str) -> np.ndarray:
         """Single-query embedding, (dim,) f32 numpy."""

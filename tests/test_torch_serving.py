@@ -393,7 +393,11 @@ def test_bucket_snapshot_survives_tombstones_and_appends(store):
     store.add_chunks(*chunks_and_vecs(10, path="g.txt", seed=3))
     now = store.device_buckets()
     assert torch.equal(snap[0]["valid"], valid) and valid.all()
-    assert not now[0]["valid"].any() and len(now) == 2
+    # the 10 rows went into the tail's spare rows: one bucket, whose mask
+    # is new; the snapshot's views still end at its 300 rows
+    assert len(now) == 1 and now[0]["rows"] == 310
+    assert not now[0]["valid"][:300].any() and now[0]["valid"][300:].all()
+    assert snap[0]["store"].shape[0] == snap[0]["valid"].shape[0] == 300
     assert now[0] is not snap[0]
 
 
@@ -418,7 +422,9 @@ def test_device_residency(store):
     after = store.device_residency()
     assert after["buckets"] == 1 and after["host_buckets"] == 0
     assert after["spilled_rows"] == 0
-    assert after["device_bytes"] == 300 * DIM * 2 + 300   # bf16 + mask
+    # the 300-row tail's arena: _pad_rows(600) = 1,024 bf16 rows + flags
+    assert after["tail_buckets"] == 1
+    assert after["device_bytes"] == 1024 * DIM * 2 + 1024
     hold = threading.Thread(target=lambda: (store._lock.acquire(),
                                             time.sleep(0.5),
                                             store._lock.release()))

@@ -399,8 +399,9 @@ def test_device_residency_stats(tmp_path, spill_env):
     cs, v = chunks_and_vecs(128, seed=110)
     store.add_chunks(cs, v)
     r0 = store.device_residency()
-    assert r0 == {"buckets": 0, "host_buckets": 0, "spilled_rows": 0,
-                  "device_bytes": 0, "busy": False}  # nothing built yet
+    assert r0 == {"buckets": 0, "tail_buckets": 0, "host_buckets": 0,
+                  "spilled_rows": 0, "device_bytes": 0,
+                  "busy": False}                       # nothing built yet
     store.search(v[0], k=1)                     # builds (and spills)
     r1 = store.device_residency()
     assert r1["buckets"] == 1 and r1["host_buckets"] == 1
@@ -410,30 +411,34 @@ def test_device_residency_stats(tmp_path, spill_env):
     store.device_buckets()
     r2 = store.device_residency()   # the tail: rows, mask, on the device
     assert r2["buckets"] == 2 and r2["spilled_rows"] == 128
-    assert r2["device_bytes"] == 8 * 32 * 4 + 8
+    # the 8-row tail's arena holds _pad_rows(16) = 128 rows and flags
+    assert r2["tail_buckets"] == 1
+    assert r2["device_bytes"] == 128 * 32 * 4 + 128
 
 
 def test_consolidation_respects_budget(tmp_path, monkeypatch):
-    """The merge of a fragmented tail obeys the spill policy: a merged
-    bucket of SEAL_ROWS rows or more, over the budget, stays on the
-    host. The port has no arena extension (each append is its own
-    bucket), so three 100-row appends already pass MAX_TAIL_BUCKETS = 2
-    and merge into 300 rows, sealed at SEAL_ROWS = 256."""
+    """A sealing bulk append over the budget stays on the host and
+    freezes the unsealed buckets before it: two 60-row appends share the
+    first tail's arena (pad 128), a 40-row one overflows it into a second
+    tail, then a 300-row append seals (SEAL_ROWS = 256) and spills, and
+    both tails are sealed where they are, still on the device (only the
+    last bucket ever grows or merges)."""
     monkeypatch.setattr(VectorStore, "SEAL_ROWS", 256)
     monkeypatch.setattr(VectorStore, "SPILL_SLICE_ROWS", 96)
     monkeypatch.setattr(VectorStore, "MAX_TAIL_BUCKETS", 2)
     monkeypatch.setenv("SEMA_TPU_HBM_BUDGET_MB", "0.000001")
     store = make_store(tmp_path)
     all_vecs = []
-    for i in range(5):
-        cs, v = chunks_and_vecs(100, path=f"f{i}.txt", seed=120 + i)
+    for i, n in enumerate((60, 60, 40, 300)):
+        cs, v = chunks_and_vecs(n, path=f"f{i}.txt", seed=120 + i)
         store.add_chunks(cs, v)
         all_vecs.append(v)
         store.device_buckets()
     buckets = store.device_buckets()
-    sealed = [b for b in buckets if b["sealed"]]
-    assert sealed and all(b.get("host_resident") for b in sealed)
-    assert sealed[0]["rows"] == 300
+    assert [(b["rows"], b["n_pad"], b["sealed"], bool(b.get("host_resident")))
+            for b in buckets] == [(120, 128, True, False),
+                                  (40, 128, True, False),
+                                  (300, 300, True, True)]
 
     mat = np.concatenate(all_vecs)
     q = mat[377]
