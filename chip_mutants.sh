@@ -11,7 +11,11 @@
 # that must catch it runs from the copy and must exit non-zero.
 # A cli_mutant breaks K5 so that it cannot build or refuses its tensors,
 # and `python -m sema_tpu_torch query` on the int8 encoder must then exit
-# non-zero with the kernel's error, not answer from the substring scan.
+# non-zero with the kernel's error, not answer from the substring scan;
+# or it breaks K2's build, and the TUI (`python -m sema_tpu_torch DIR`
+# under a pty) must exit non-zero with the kernel's error and never show
+# "Indexing failed". The doctor_* mutants put the fault of a mutant above
+# again and must fail the doctor's self-test (phase doctor_path).
 # Prints one line per mutant, "caught" or "MISSED" (once every mutant's
 # phase has ended), and exits non-zero if any mutant was missed or left
 # its source unchanged. MUTANT_JOBS phases run at once on the card
@@ -25,6 +29,7 @@ python3 -c 'from sema_tpu_torch.ops import _cuda; _cuda.build()' || exit 1
 failed=0
 JOBS=${MUTANT_JOBS:-1}
 checked=()   # the mutants' directories, each with its verdict once checked
+declare -A FILE EXPR FILE2 EXPR2   # each mutant's fault, by name
 ONLY=("$@")
 # true for every mutant when none is named on the command line
 chosen() { [ ${#ONLY[@]} -eq 0 ] || [[ " ${ONLY[*]} " == *" $1 "* ]]; }
@@ -32,6 +37,7 @@ mutant() {
   # name, CUDA source (or a path under sema_tpu_torch/), sed expression,
   # phases[, a second file under sema_tpu_torch/ and its sed expression]
   local name=$1 file=$2 expr=$3 phases=$4 file2=${5:-} expr2=${6:-}
+  FILE[$name]=$file EXPR[$name]=$expr FILE2[$name]=$file2 EXPR2[$name]=$expr2
   [[ $file == */* ]] || file=csrc/$file
   chosen "$name" || return 0
   local dir=build/mut-$name
@@ -277,13 +283,48 @@ mutant append_pending_kept index/vector_store.py \
 mutant append_pendings_swapped index/vector_store.py \
   's/            vals = pend\[0\] if len(pend) == 1 else torch.cat(pend)/            vals = pend[0] if len(pend) == 1 else torch.cat(pend[::-1])/' \
   append_path
+# the doctor's self-test (planted winners at k = 1, the encoder against f32
+# on the CPU) against the faults of kernels it launches: K1, K3, K4a, K2,
+# K5 and the spilled union probe
+for m in pass2_id_dropped tiles_ignored no_row_scale values_first_tile \
+    k5_no_weight_scale spill_rowmap_no_offset; do
+  mutant "doctor_$m" "${FILE[$m]}" "${EXPR[$m]}" doctor_path "${FILE2[$m]}" \
+    "${EXPR2[$m]}"
+done
 wait
 for dir in "${checked[@]}"; do
   cat "$dir/verdict"
   ! grep -q MISSED "$dir/verdict" || failed=1
 done
+# argv through a pty (curses needs a terminal): the child's output to
+# stdout, its exit code as ours, 124 if it has not exited in 300 s
+PTY_RUN='
+import os, pty, select, sys, time
+pid, fd = pty.fork()
+if pid == 0:
+    try:
+        os.execvp(sys.executable, [sys.executable] + sys.argv[1:])
+    finally:
+        os._exit(127)
+out, end, status = b"", time.monotonic() + 300, None
+while status is None and time.monotonic() < end:
+    if select.select([fd], [], [], 0.1)[0]:
+        try:
+            out += os.read(fd, 65536)
+        except OSError:
+            pass
+    done, code = os.waitpid(pid, os.WNOHANG)
+    status = code if done else None
+if status is None:
+    os.kill(pid, 9)
+    os.waitpid(pid, 0)
+sys.stdout.write(out.decode(errors="replace"))
+sys.exit(124 if status is None else os.waitstatus_to_exitcode(status))
+'
 cli_mutant() {
-  local name=$1 file=$2 expr=$3 expect=$4
+  # name, a file under sema_tpu_torch/, sed expression, the error expected,
+  # and the command: query (the int8 encoder's) or tui
+  local name=$1 file=$2 expr=$3 expect=$4 how=${5:-query}
   chosen "$name" || return 0
   local dir=build/mut-$name
   rm -rf "$dir"
@@ -296,17 +337,26 @@ cli_mutant() {
     failed=1
     return
   fi
+  local cmd=(env SEMA_TPU_ENCODER_QUANT=int8 python3 -m sema_tpu_torch query
+             "retry with exponential backoff") bad=substring
+  if [ "$how" = tui ]; then
+    mkdir -p "$dir/tree"
+    printf 'def retry(request):\n    return request.send()  # backoff\n' \
+      > "$dir/tree/net.py"
+    cmd=(env TERM=xterm-256color COLUMNS=100 LINES=30 python3 -c "$PTY_RUN"
+         -m sema_tpu_torch tree)
+    bad="Indexing failed"
+  fi
   if (cd "$dir" && SEMA_TPU_HOME="$PWD/home" SEMA_TPU_DATA="$PWD/data" \
-        SEMA_TPU_ENCODER_QUANT=int8 python3 -m sema_tpu_torch query \
-        "retry with exponential backoff" > out.txt 2> err.txt); then
-    echo "mutant $name: MISSED, query exited 0"
+        "${cmd[@]}" > out.txt 2> err.txt); then
+    echo "mutant $name: MISSED, $how exited 0"
     failed=1
-  elif grep -q "substring" "$dir/err.txt" \
+  elif cat "$dir/out.txt" >> "$dir/err.txt"; grep -q "$bad" "$dir/err.txt" \
       || ! grep -q "$expect" "$dir/err.txt"; then
     echo "mutant $name: MISSED, $(tail -c 300 "$dir/err.txt")"
     failed=1
   else
-    echo "mutant $name: caught, query exited non-zero:" \
+    echo "mutant $name: caught, $how exited non-zero:" \
       "$(grep -o 'Error: .*' "$dir/err.txt" | head -1 | cut -c1-160)"
   fi
 }
@@ -318,4 +368,8 @@ cli_mutant k5_build_fails csrc/encoder_layer.cu \
 cli_mutant k5_refuses ops/encoder_layer_int8.py \
   's/        _check(x, layer, mask_bias, num_heads, quantized=True)/        raise KernelError("refused by the mutant")/; s/        _check_operands(x, mask_bias, num_heads, operands, True)/        raise KernelError("refused by the mutant")/' \
   "refused by the mutant"
+# K2's library does not build: the TUI's startup index must end it
+cli_mutant tui_k2_build_fails csrc/encoder_layer.cu \
+  's/^extern "C" int sema_encoder_layer(/#error a build that fails\nextern "C" int sema_encoder_layer(/' \
+  "kernel build failed" tui
 exit $failed

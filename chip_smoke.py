@@ -263,6 +263,34 @@ Phases, one JSON line each:
                       ``scan_ab14`` (and ``scan_ab14 --small``) at their
                       default shapes, which must exit 0 with ids identical
                       through their kernels.
+16. ``tui_path``      (right after ``main_path``, before ``append_path``
+                      rewrites the tree) the bare ``python -m
+                      sema_tpu_torch TREE``, the curses TUI, on the main
+                      path's tree in fresh config and data dirs (MiniLM-L6,
+                      random weights from seed 0), exec'd under a pty by a
+                      runner (``TUI_RUNNER``) that logs the app's startup,
+                      searches and previews with their wall ms and
+                      launches: READY, two semantic queries (K2 and K1, no
+                      other scan), the keyword query ``'backoff`` (no
+                      launch), Down, Enter (a preview in plain text: the
+                      runner blocks pygments), Esc, q; exit code 0. The
+                      first one's results must equal, file for file and line
+                      for line, ``Engine``'s grouping of an in-process
+                      ``IndexManager.search`` on the same data dir; then the
+                      port's ``tools/tui_monkey.py`` over the warm index
+                      must print OK (the app's exit status it prints is
+                      reported: see ``run_monkey``). Prints the time to
+                      READY, each search's ms and the startup's launches.
+17. ``doctor_path``   ``python -m sema_tpu_torch doctor --skip-quality``
+                      in-process for MiniLM-L6 bf16, gte-large bf16 and
+                      gte-large W8A8 over an int8 store (the weights of the
+                      IVF paths): exit 0, the six self-test checks ok and
+                      the two unported ones n/a, the self-test's K1, K4a
+                      and K3 and the encoder's K2 (K5 for W8A8) launched;
+                      then one full ``doctor`` on random MiniLM weights
+                      must print ``quality gate     : SKIPPED`` and exit 1.
+                      Prints each check's seconds and each encoder parity's
+                      min cosine.
 
 ``--parent-source DIR`` (another revision's tree, e.g. ``git archive REV
 | tar -x -C build/parent``; its two kernel sources are built beside this
@@ -483,14 +511,19 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
                                        else "operations")
 
 
+# every kernel's wrapper: its name in the kernels line → its name in
+# sema_tpu_torch.ops
+WRAPPERS = {**{name: name for name in SCANS},
+            "scan_topk_warm": "scan_topk_warm", "fold_topk": "fold_topk",
+            "encoder_layer": "fused_encoder_layer",
+            "encoder_layer_int8": "fused_encoder_layer_int8",
+            "attention_block": "fused_attention_block",
+            "attention_qkv": "fused_attention_qkv"}
+
+
 def _wrappers() -> dict:
     from sema_tpu_torch import ops
-    return {**{name: getattr(ops, name) for name in SCANS},
-            "scan_topk_warm": ops.scan_topk_warm, "fold_topk": ops.fold_topk,
-            "encoder_layer": ops.fused_encoder_layer,
-            "encoder_layer_int8": ops.fused_encoder_layer_int8,
-            "attention_block": ops.fused_attention_block,
-            "attention_qkv": ops.fused_attention_qkv}
+    return {name: getattr(ops, attr) for name, attr in WRAPPERS.items()}
 
 
 def launch_counts() -> dict:
@@ -671,7 +704,7 @@ def phase_scan(gen):
     emit("scan_topk", cases=cases)
 
 
-# -- K4a, K3, K4b --------------------------------------------------------------
+# -- K4a, K3, K4b -------------------------------------------------------------
 
 IVF_TILE = 512                 # VectorStore.IVF_TILE on device buckets
 PROBE_BUDGET = SEAL // IVF_TILE // 4    # a sealed bucket's tile budget
@@ -878,7 +911,7 @@ def phase_scan_more(gen):
     return int8_cases, pruned_cases
 
 
-# -- K8, K9: the scan A/B paths ---------------------------------------------------
+# -- K8, K9: the scan A/B paths -----------------------------------------------
 
 AB_N = 1 << 20                 # the A/B tools' store: 1,048,576 rows at D
 AB_WARM = (2048, 4096, 8192)   # scan_ab15's warm starts (k 10; k 64, 128: 2048)
@@ -4099,6 +4132,359 @@ def phase_tp_path(work: Path, tree: Path, weights, gen,
     return runs
 
 
+# -- the TUI and doctor -------------------------------------------------------
+
+TUI_AGAIN = "parse the socket token stream"   # the session's later query
+TUI_KEYWORD = "'backoff"       # the session's keyword query
+TUI_WAIT_S = 300.0             # the most any step of the session may take
+ESC = b"\x1b"
+DOWN = b"\x1bOB"               # SS3: curses keypad mode, as tui_monkey sends
+
+# The TUI in a fresh process: exec'd, never forked from this one (CUDA
+# cannot be used in the forked child of a process that initialised it).
+# argv[1] is a JSON-lines log, argv[2] WRAPPERS as JSON; the rest is the
+# CLI's argv. The app's startup, searches and opened previews each note
+# their wall time, the launches they made and what they showed. pygments
+# is blocked, so that a preview takes the plain-text fallback of
+# render._lexer_for (tui_monkey's TUI highlights where it is installed).
+TUI_RUNNER = r"""
+import time
+t0 = time.perf_counter()
+import importlib.util, json, sys
+pygments = importlib.util.find_spec("pygments") is not None
+sys.modules["pygments"] = None
+from sema_tpu_torch import cli, ops
+from sema_tpu_torch.tui import render
+from sema_tpu_torch.tui.app import TuiApp
+log = open(sys.argv[1], "a", buffering=1)
+wrappers = {name: getattr(ops, attr)
+            for name, attr in json.loads(sys.argv[2]).items()}
+
+def counts():
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+def note(event, before, t, **fields):
+    after = counts()
+    log.write(json.dumps({
+        "event": event, "ms": (time.perf_counter() - t) * 1e3,
+        "launches": {n: after[n] - before[n] for n in after},
+        **fields}) + "\n")
+
+run_indexing, execute_search, open_file = (
+    TuiApp.run_indexing, TuiApp.execute_search, TuiApp.open_file)
+
+def indexed(self, stdscr):
+    before, t = counts(), time.perf_counter()
+    run_indexing(self, stdscr)
+    note("ready", before, t, ready_s=time.perf_counter() - t0,
+         error=self.index_error,
+         live_rows=self.engine.index_manager.vector_store.live_rows)
+
+def searched(self, query):
+    before, t = counts(), time.perf_counter()
+    execute_search(self, query)
+    note("search", before, t, query=query, error=self.engine.search_error,
+         results=[[str(r.chunk.file_path), r.chunk.start_line,
+                   r.chunk.end_line, r.total_matches_in_file, r.score]
+                  for r in self.engine.search_results])
+
+def opened(self):
+    before, t = counts(), time.perf_counter()
+    open_file(self)
+    self.draw(self.stdscr)
+    path = self.engine.current_file_path
+    note("open", before, t, path=str(path), mode=self.engine.ui_mode.name,
+         pygments_installed=pygments,
+         lexer=repr(render._LEXER_CACHE.get(path.suffix.lower())))
+
+run = TuiApp.run
+def run_keeping_screen(self, stdscr):
+    self.stdscr = stdscr
+    return run(self, stdscr)
+
+TuiApp.run_indexing, TuiApp.execute_search, TuiApp.open_file = (
+    indexed, searched, opened)
+TuiApp.run = run_keeping_screen
+rc = cli.main(sys.argv[3:])
+log.write(json.dumps({"event": "exit", "rc": rc}) + "\n")
+sys.exit(rc)
+"""
+
+
+def tui_env(home: Path) -> dict:
+    """The environment of a TUI process: its own config and data dirs, a
+    terminal of 120 x 40, a short ESCDELAY so that a lone Esc is a key."""
+    return dict(os.environ, SEMA_TPU_HOME=str(home),
+                SEMA_TPU_DATA=str(home / "data"), TERM="xterm-256color",
+                COLUMNS="120", LINES="40", ESCDELAY="25",
+                PYTHONPATH=str(ROOT))
+
+
+class TuiSession:
+    """``python3 -c TUI_RUNNER`` under a pty: the events it logs, keys sent
+    to it, its output drained so that it never blocks on the terminal."""
+
+    def __init__(self, log: Path, env: dict, argv):
+        import pty
+        self.log, self.out, self.status = log, b"", None
+        self.pid, self.fd = pty.fork()
+        if self.pid == 0:
+            try:
+                os.chdir(ROOT)
+                os.execvpe(sys.executable, [sys.executable, "-c", TUI_RUNNER,
+                                            str(log), json.dumps(WRAPPERS),
+                                            *argv], env)
+            finally:
+                os._exit(127)
+
+    def events(self) -> list:
+        return ([json.loads(line) for line in self.log.read_text()
+                 .splitlines()] if self.log.exists() else [])
+
+    def pump(self, seconds: float) -> None:
+        import select
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            if select.select([self.fd], [], [], 0.05)[0]:
+                try:
+                    self.out += os.read(self.fd, 65536)
+                except OSError:
+                    pass
+            if self.status is None:
+                done, status = os.waitpid(self.pid, os.WNOHANG)
+                if done:
+                    self.status = status
+
+    def wait_for(self, kind: str, n: int, seconds: float = TUI_WAIT_S):
+        """The ``n``-th event of ``kind``, once logged; raises on a timeout
+        or when the app has exited without it."""
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            got = [e for e in self.events() if e["event"] == kind]
+            if len(got) >= n:
+                return got[n - 1]
+            check(self.status is None, f"the TUI exited before {kind} {n}: "
+                  f"{self.out[-1500:].decode(errors='replace')}")
+            self.pump(0.1)
+        raise RuntimeError(f"no {kind} {n} from the TUI in {seconds} s")
+
+    def send(self, keys: bytes, settle: float = 0.3) -> None:
+        os.write(self.fd, keys)
+        self.pump(settle)
+
+    def close(self, seconds: float = 60.0) -> int:
+        """The exit code, once the app has quit (killed past ``seconds``)."""
+        end = time.monotonic() + seconds
+        while self.status is None and time.monotonic() < end:
+            self.pump(0.1)
+        if self.status is None:
+            os.kill(self.pid, 9)
+            os.waitpid(self.pid, 0)
+        os.close(self.fd)
+        check(self.status is not None, f"the TUI did not quit in {seconds} s")
+        return os.waitstatus_to_exitcode(self.status)
+
+
+def grouped_search(query: str, device: str) -> list:
+    """``Engine``'s grouping of an in-process ``IndexManager.search`` of
+    ``query`` on the data dir of ``SEMA_TPU_HOME``/``SEMA_TPU_DATA``, as the
+    TUI shows it."""
+    from sema_tpu_torch import cli
+    from sema_tpu_torch.search.engine import Engine
+    from sema_tpu_torch.types import AppState
+    args = cli.parse_args(["--device", device])
+    config = cli.load_config(args)
+    mgr = cli.make_index_manager(config, device)
+    try:
+        engine = Engine(index_manager=mgr, state=AppState.READY)
+        engine.execute_search(query, limit=config.index.result_limit)
+        check(engine.search_error is None, engine.search_error)
+        return [[str(r.chunk.file_path), r.chunk.start_line,
+                 r.chunk.end_line, r.total_matches_in_file, r.score]
+                for r in engine.search_results]
+    finally:
+        mgr.close()
+
+
+def run_monkey(tree: Path, env: dict) -> dict:
+    """The port's ``tools/tui_monkey.py`` over ``tree``: it must print OK.
+    The app's exit status, which it prints, is reported and not held: it
+    quits on Ctrl-C, and where the pty also raises SIGINT for it in raw
+    mode (a sandboxed pty may), the app's KeyboardInterrupt races its quit
+    (status 2 = SIGINT)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sema_tpu_torch.tools.tui_monkey", str(tree)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
+    line = (proc.stdout.strip().splitlines() or [""])[-1]
+    check(proc.returncode == 0 and line.startswith("OK"),
+          f"tui_monkey exited {proc.returncode}: {line} "
+          f"{proc.stderr[-1500:]}")
+    return {"line": line, "seconds": time.perf_counter() - t0}
+
+
+def phase_tui_path(work: Path, tree: Path, device: str = "cuda",
+                   monkey: bool = True) -> list:
+    """The bare ``python -m sema_tpu_torch TREE`` (the TUI, MiniLM-L6 at
+    full width, random weights from seed 0) over the main path's tree, in
+    fresh config and data dirs, under a pty: READY (the startup index and
+    warm-up), two semantic queries, the keyword query TUI_KEYWORD, Down,
+    Enter (a file's preview, in plain text), Esc, q. Then the first
+    semantic results against ``grouped_search`` and, with ``monkey``,
+    ``tools/tui_monkey.py`` over the warm index. Returns the launch counts
+    of the startup and the three searches."""
+    home = work / "tui-home"
+    env = tui_env(home)
+    extra = [] if device == "cuda" else ["--device", device]
+    t0 = time.perf_counter()
+    session = TuiSession(work / "tui-events.jsonl", env, [str(tree), *extra])
+    try:
+        ready = session.wait_for("ready", 1)
+        ready_wall_s = time.perf_counter() - t0
+        searches = []
+        for n, query in enumerate((QUERY, TUI_AGAIN, TUI_KEYWORD), 1):
+            if n > 1:       # back to the input, and clear it
+                session.send(ESC, 0.5)
+                session.send(b"\x7f" * (len(QUERY) + 8))
+            session.send(query.encode() + b"\r")
+            searches.append(session.wait_for("search", n))
+        semantic, again, keyword = searches
+        session.send(DOWN)
+        session.send(b"\r")
+        opened = session.wait_for("open", 1)
+        session.send(ESC, 0.5)
+        session.send(b"q")
+    finally:
+        code = session.close()
+    exit_event = session.wait_for("exit", 1, 5.0)
+    check(code == 0 and exit_event["rc"] == 0,
+          f"the TUI exited {code} (rc {exit_event['rc']}): "
+          f"{session.out[-1500:].decode(errors='replace')}")
+    check(ready["error"] is None and ready["live_rows"] > 0, ready)
+    check(ready["launches"]["encoder_layer"] > 0,
+          f"startup launches {ready['launches']}")
+    for search in (semantic, again):
+        sl = search["launches"]
+        check(search["error"] is None and search["results"], search)
+        check(sl["encoder_layer"] > 0 and sl["scan_topk"] > 0
+              and not any(sl[n] for n in SCANS[1:]),
+              f"semantic search launches {sl}")
+    check(keyword["error"] is None and keyword["results"]
+          and not any(keyword["launches"].values()), keyword)
+    check(opened["mode"] == "FILE_PREVIEW"
+          and opened["path"] == keyword["results"][1][0]
+          and opened["lexer"] == "None", opened)
+    os.environ["SEMA_TPU_HOME"] = env["SEMA_TPU_HOME"]
+    os.environ["SEMA_TPU_DATA"] = env["SEMA_TPU_DATA"]
+    want = grouped_search(QUERY, device)
+    check([r[:4] for r in semantic["results"]] == [r[:4] for r in want],
+          "the TUI's semantic results differ from the in-process search's")
+    score_diff = max(abs(a[4] - b[4])
+                     for a, b in zip(semantic["results"], want))
+    monkey_run = run_monkey(tree, env) if monkey else None
+    emit("tui_path", files=len(list(tree.rglob("*.py"))),
+         chunks=ready["live_rows"], ready_s=ready["ready_s"],
+         ready_wall_s=ready_wall_s, startup_ms=ready["ms"],
+         semantic_ms=[semantic["ms"], again["ms"]], keyword_ms=keyword["ms"],
+         open_ms=opened["ms"], groups=len(semantic["results"]),
+         score_max_diff=score_diff,
+         pygments_installed=opened["pygments_installed"],
+         lexer=opened["lexer"], startup_launches=ready["launches"],
+         semantic_launches=semantic["launches"], monkey=monkey_run,
+         exit_code=code)
+    return [ready["launches"]] + [s["launches"] for s in searches]
+
+
+# (model, dtype, quant, store dtype) of the doctor's three cases, and the
+# wrappers each must launch: the scans of the self-test, and K2 or K5
+DOCTOR_CASES = (("minilm-l6", "bfloat16", "none", "bfloat16"),
+                (IVF_MODEL, "bfloat16", "none", "bfloat16"),
+                (IVF_MODEL, "bfloat16", "int8", "int8"))
+DOCTOR_SCANS = ("scan_topk", "scan_topk_int8", "scan_topk_pruned")
+CHECK_LINE = re.compile(r"^device (\S+)\s*: (ok|FAIL|n/a) — (.*?)"
+                        r"(?: \[([\d.]+) s\])?$")
+
+
+def run_doctor(home: Path, model: str, dtype: str, quant: str,
+               store_dtype: str, weights, argv) -> dict:
+    """``cli.main(["doctor", *argv])`` in-process with a config of its own
+    in ``home``: exit code, seconds, its lines, each check's verdict,
+    seconds and detail, and the launches it made."""
+    from sema_tpu_torch import cli
+    from sema_tpu_torch.config import ConfigManager
+    manager = ConfigManager(home)
+    config = manager.load_config()
+    m = config.model
+    m.name, m.dtype, m.quant = model, dtype, quant
+    m.weights_path = "" if weights is None else str(weights)
+    config.index.store_dtype = store_dtype
+    manager.save_config(config)
+    os.environ["SEMA_TPU_HOME"] = str(home)
+    os.environ["SEMA_TPU_DATA"] = str(home / "data")
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        rc = cli.main(["doctor", *argv])
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    checks = {}
+    for line in lines:
+        hit = CHECK_LINE.match(line)
+        if hit:
+            name, verdict, detail, s = hit.groups()
+            checks[name] = {"verdict": verdict, "detail": detail,
+                            "seconds": None if s is None else float(s)}
+    parity = checks.get("encoder-parity", {}).get("detail", "")
+    cos = re.search(r"min cosine ([\d.]+)", parity)
+    return {"model": model, "quant": quant, "store_dtype": store_dtype,
+            "rc": rc, "seconds": seconds, "lines": lines, "checks": checks,
+            "min_cosine": float(cos.group(1)) if cos else None,
+            "launches": launch_counts()}
+
+
+def phase_doctor_path(work: Path, weights, extra=(), cases=DOCTOR_CASES):
+    """``doctor --skip-quality`` in-process for each of ``cases`` (gte-large
+    from ``weights``): exit 0 with each of the six checks ok and the two
+    unported ones n/a, and the self-test's scans (K1, K4a, K3) and the
+    encoder's kernel (K2, or K5 for W8A8) launched; then one full
+    ``doctor`` on random MiniLM weights, which must skip the quality gate
+    and exit 1. Returns the launch counts of every run."""
+    runs, report = [], []
+    for i, (model, dtype, quant, store_dtype) in enumerate(cases):
+        got = run_doctor(work / f"doctor-{i}", model, dtype, quant,
+                         store_dtype, weights if model == IVF_MODEL else None,
+                         ["--skip-quality", *extra])
+        runs.append(got["launches"])
+        report.append({k: v for k, v in got.items() if k != "lines"})
+        text = "\n".join(got["lines"])
+        check(got["rc"] == 0, f"doctor {model} {quant} exited {got['rc']}:"
+              f"\n{text}")
+        verdicts = {name: c["verdict"] for name, c in got["checks"].items()}
+        check(verdicts == {"scan-ids": "ok", "scan-int8": "ok",
+                           "scan-spill": "ok", "scan-ivf": "ok",
+                           "scan-spill-ivf": "ok", "encoder-parity": "ok",
+                           "scan-ids-pallas": "n/a", "scan-mesh": "n/a"},
+              f"doctor {model} {quant}: {verdicts}\n{text}")
+        layer = "encoder_layer_int8" if quant == "int8" else "encoder_layer"
+        other = ("encoder_layer" if quant == "int8"
+                 else "encoder_layer_int8")
+        launched = got["launches"]
+        check(all(launched[n] > 0 for n in DOCTOR_SCANS + (layer,))
+              and launched[other] == 0,
+              f"doctor {model} {quant} launches {launched}")
+    full = run_doctor(work / "doctor-full", *cases[0], None, list(extra))
+    runs.append(full["launches"])
+    skipped = [line for line in full["lines"]
+               if line.startswith("quality gate     : SKIPPED")]
+    check(full["rc"] == 1 and skipped,
+          f"full doctor exited {full['rc']}: {full['lines'][-3:]}")
+    emit("doctor_path", cases=report,
+         full={"rc": full["rc"], "seconds": full["seconds"],
+               "quality": skipped[0]})
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
@@ -4159,39 +4545,30 @@ def main() -> int:
         tree = work / "tree"
         if not tree.exists():
             make_tree(tree, 400)
+        if run("tui_path"):     # before append_path rewrites the tree
+            tui_runs = phase_tui_path(work, tree)
         weights = None
+        if any(run(name) for name in (
+                "int8_ivf_path", "bf16_ivf_path", "spill_path",
+                "append_path", "tp_path", "doctor_path")):
+            t0 = time.perf_counter()
+            weights = write_weights(work / "gte-weights")
+            emit("weights", model=IVF_MODEL,
+                 seconds=time.perf_counter() - t0)
         for store_dtype in ("int8", "bfloat16"):
             name = ("int8_ivf_path" if store_dtype == "int8"
                     else "bf16_ivf_path")
             if run(name):
-                if weights is None:
-                    t0 = time.perf_counter()
-                    weights = write_weights(work / "gte-weights")
-                    emit("weights", model=IVF_MODEL,
-                         seconds=time.perf_counter() - t0)
                 paths[store_dtype] = phase_ivf_path(work, tree, store_dtype,
                                                     4 * SEAL, gen, weights)
         if run("spill_path"):
-            if weights is None:
-                t0 = time.perf_counter()
-                weights = write_weights(work / "gte-weights")
-                emit("weights", model=IVF_MODEL,
-                     seconds=time.perf_counter() - t0)
             spill = phase_spill_path(work, tree, gen, weights, paths)
         if run("append_path"):
-            if weights is None:
-                t0 = time.perf_counter()
-                weights = write_weights(work / "gte-weights")
-                emit("weights", model=IVF_MODEL,
-                     seconds=time.perf_counter() - t0)
             append = phase_append_path(work, tree, gen, weights)
         if run("tp_path"):
-            if weights is None:
-                t0 = time.perf_counter()
-                weights = write_weights(work / "gte-weights")
-                emit("weights", model=IVF_MODEL,
-                     seconds=time.perf_counter() - t0)
             tp_runs = phase_tp_path(work, tree, weights, gen)
+        if run("doctor_path"):
+            doctor_runs = phase_doctor_path(work, weights)
     if phases is not None:
         print(f"partial run of {sorted(phases)}: no kernels line", flush=True)
         return 0
@@ -4206,7 +4583,8 @@ def main() -> int:
     runs = [index_launches, query_launches, scan_ab["launches"]] + [
         p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")] + [
-        dict(s["launches"]) for s in spill.values()] + [append["launches"]]
+        dict(s["launches"]) for s in spill.values()] + [append["launches"]] \
+        + tui_runs + doctor_runs
     launches = {name: sum(r.get(name, 0) for r in runs) for name in runs[0]}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

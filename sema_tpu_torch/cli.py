@@ -1,11 +1,16 @@
 """Command-line interface of the port (from ``sema_tpu/cli.py``).
 
+    python -m sema_tpu_torch [DIR] [flags]          crawl + index + the TUI
+                                                    (``tui``, the default)
     python -m sema_tpu_torch index [DIR] [flags]    headless index build
     python -m sema_tpu_torch query "text" [flags]   headless query
                                                     ('-prefix = keyword)
     python -m sema_tpu_torch serve [DIR] [flags]    HTTP search daemon
                                                     (--host, --port,
                                                     --reindex-interval)
+    python -m sema_tpu_torch doctor [flags]         environment, the device
+                                                    self-test and the
+                                                    quality gate
 
 The flags are the JAX package's, plus ``--device {cuda,cpu}`` (default
 ``cuda``; a missing card raises rather than falling back). Config and
@@ -14,15 +19,19 @@ data live where the JAX package keeps them (``SEMA_TPU_HOME``,
 answers ``GET /healthz`` and ``GET``/``POST /search`` (see
 ``search/http_server.py``) until SIGINT or SIGTERM; with
 ``--reindex-interval N`` a thread re-crawls DIR every N seconds and
-indexes what changed while queries go on. Every command exits non-zero
-when a kernel does not build, launch or take its tensors
-(:class:`~sema_tpu_torch.ops._cuda.KernelError`); ``serve`` does so
-before it takes traffic, from its warm-up query. ``[mesh] shape`` (with
+indexes what changed while queries go on. ``doctor`` builds the kernels,
+runs ``selftest.run_device_selftest`` on the device (planted-winner scans
+through the real store, the encoder against its f32 plain version on the
+CPU) and, unless ``--skip-quality``, ``quality.run_quality_gate``. Every
+command exits non-zero when a kernel does not build, launch or take its
+tensors (:class:`~sema_tpu_torch.ops._cuda.KernelError`); ``serve`` does
+so before it takes traffic, from its warm-up query, and the TUI once
+curses has restored the terminal. ``[mesh] shape`` (with
 ``model_axis``) runs the encoder data- and tensor-parallel over a mesh
 (:func:`config_mesh`); the store stays single-shard. ``[index]
 hbm_budget_mb`` caps the store's device buckets: past it, sealed buckets
-stay on the host and stream (``VectorStore``'s HBM spill). The TUI,
-``bench`` and ``doctor`` are not ported yet.
+stay on the host and stream (``VectorStore``'s HBM spill). ``bench`` is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from sema_tpu_torch.config import (Config, ConfigManager, apply_cli_overrides,
                                    data_dir)
 from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.types import CrawlerConfig
+
+SUBCOMMANDS = {"index", "query", "tui", "serve", "doctor"}
 
 
 def _add_crawl_flags(p: argparse.ArgumentParser) -> None:
@@ -78,7 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "local files, on an NVIDIA GPU")
     p.add_argument("--version", action="version",
                    version=f"sema_tpu_torch {__version__}")
-    sub = p.add_subparsers(dest="command", required=True)
+    sub = p.add_subparsers(dest="command")
+
+    tui = sub.add_parser("tui", help="interactive TUI (default)")
+    _add_crawl_flags(tui)
+    _add_model_flags(tui)
 
     index = sub.add_parser("index", help="build/update the index headlessly")
     _add_crawl_flags(index)
@@ -110,7 +125,26 @@ def build_parser() -> argparse.ArgumentParser:
                             "index changed files every N seconds while "
                             "serving (0 = off)")
     _add_model_flags(serve)
+
+    doctor = sub.add_parser(
+        "doctor", help="environment + device self-test + semantic-quality "
+                       "check")
+    _add_model_flags(doctor)
+    doctor.add_argument("--skip-quality", action="store_true",
+                        help="only report environment and the device "
+                             "self-test, skip the canned-corpus retrieval "
+                             "gate")
     return p
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # as sema_tpu/cli.py:121-128: a bare `[DIR] [flags]` runs the TUI
+    passthrough = ("-h", "--help", "--version")
+    if not argv or (argv[0] not in SUBCOMMANDS
+                    and argv[0] not in passthrough):
+        argv = ["tui"] + argv
+    return build_parser().parse_args(argv)
 
 
 def load_config(args) -> Config:
@@ -297,6 +331,88 @@ def cmd_query(args) -> int:
     return 0
 
 
+def cmd_tui(args) -> int:
+    from sema_tpu_torch.tui.app import run_app
+    config = load_config(args)
+    directory = resolve_directory(args)
+    return run_app(directory, config, args.device)
+
+
+def cmd_doctor(args) -> int:
+    """Self-check (``sema_tpu/cli.py:323-382``): the environment, the
+    kernels built, weight resolution, the device self-test, then the
+    semantic quality gate. Exit 0 only when every self-test check is ok
+    and (without ``--skip-quality``) the gate ran and passed; random
+    weights skip the gate, which exits 1 as the JAX package does."""
+    import torch
+
+    from sema_tpu_torch.device import resolve_device
+    from sema_tpu_torch.models import Encoder
+    from sema_tpu_torch.selftest import NOT_PORTED, run_device_selftest
+
+    config = load_config(args)
+    device = resolve_device(args.device)
+    print(f"torch            : {torch.__version__} "
+          f"(CUDA {torch.version.cuda})")
+    if device.type == "cuda":
+        from sema_tpu_torch.ops import _cuda
+        print(f"card             : {torch.cuda.get_device_name(device)} "
+              f"({torch.cuda.device_count()} device(s))")
+        t0 = time.perf_counter()
+        built = _cuda.build()      # a failed build raises KernelError
+        print(f"kernels          : built in {time.perf_counter() - t0:.2f}s ("
+              + ", ".join(f"{name} {s:.1f}s" for name, s in
+                          sorted(built.items()))
+              + "; 0.0s: built before)")
+    else:
+        print("card             : not used (--device cpu: the kernels' "
+              "plain versions)")
+    try:
+        import sema_tpu_torch.native.bindings  # noqa: F401
+        print("native extension : built (crawler/chunker/xxh3/BM25 in C++)")
+    except ImportError:
+        print("native extension : NOT built — run `make -C native` "
+              "(pure-Python fallbacks active)")
+
+    encoder = Encoder.from_config(config.model, device=device)
+    print(f"model            : {encoder.spec.name} "
+          f"({encoder.spec.dim}-d, {encoder.spec.num_layers} layers, "
+          f"quant={encoder.quant})")
+    print(f"weights          : {encoder.weights_source}")
+    print(f"tokenizer        : {encoder.tokenizer_source}")
+
+    selftest_ok = True
+    for name, ok, detail in run_device_selftest(
+            config.model, dim=encoder.spec.dim, encoder=encoder,
+            device=device):
+        selftest_ok &= ok
+        print(f"device {name:<15}: {'ok' if ok else 'FAIL'} — {detail}")
+    for name, reason in NOT_PORTED.items():
+        print(f"device {name:<15}: n/a — {reason}")
+
+    if args.skip_quality:
+        return 0 if selftest_ok else 1
+    from sema_tpu_torch.quality import run_quality_gate
+    report = run_quality_gate(encoder)
+    if not report.ran:
+        print(f"quality gate     : SKIPPED — {report.reason}")
+        return 1
+    print(f"quality gate     : {report.correct_at_1}/{report.total} "
+          f"queries ranked their document #1")
+    for query, expected, got in report.failures:
+        print(f"  MISS  {query!r}: expected {expected}, got {got}")
+    if report.fixture_min_cosine is not None:
+        print(f"fixture vectors  : {report.fixture_checked} checked, "
+              f"min cosine {report.fixture_min_cosine:.6f} "
+              f"(gate ≥ 0.999)")
+    else:
+        print("fixture vectors  : no fixture file (tests/fixtures/"
+              f"quality_vectors_{encoder.spec.name}.npz)")
+    passed = report.passed and selftest_ok
+    print(f"RESULT           : {'PASS' if passed else 'FAIL'}")
+    return 0 if passed else 1
+
+
 def cmd_serve(args) -> int:
     """The HTTP daemon (``sema_tpu/cli.py:385-425``) until SIGINT or
     SIGTERM, with the streaming re-index thread when asked. A KernelError
@@ -360,9 +476,9 @@ def cmd_serve(args) -> int:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-    cmd = {"index": cmd_index, "query": cmd_query,
-           "serve": cmd_serve}[args.command]
+    args = parse_args(argv)
+    cmd = {"index": cmd_index, "query": cmd_query, "tui": cmd_tui,
+           "serve": cmd_serve, "doctor": cmd_doctor}[args.command]
     try:
         return cmd(args)
     except KernelError as e:

@@ -1,4 +1,4 @@
-# Copy of sema_tpu/search/engine.py with imports renamed; tests/test_torch_imports.py checks it for drift.
+# Copy of sema_tpu/search/engine.py with imports renamed and a KernelError raised out of execute_search; tests/test_torch_imports.py checks it for drift.
 """Search engine state machine (≙ reference ``Engine``, src/tui/engine.rs).
 
 Headless by design: the reference keeps all mutable search/UI state in
@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.types import AppState, SearchResult, UIMode
 
 SEARCH_RESULTS_LIMIT = 50          # engine.rs:11
@@ -98,6 +99,9 @@ class Engine:
             return
         try:
             raw = self.index_manager.search(query, limit)
+        except KernelError:
+            raise   # a kernel that does not build or launch is a fault,
+            #         never a failed search
         except Exception as e:  # noqa: BLE001 — parity: capture, don't raise
             self.search_error = f"Search failed: {e}"
             return

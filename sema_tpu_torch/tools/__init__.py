@@ -3,7 +3,10 @@ warm-start scan, K8, against the cold one, K1) and ``scan_ab14`` (the
 fold-merge scan, K9, against K1), run as ``python -m
 sema_tpu_torch.tools.scan_ab15``. Each makes the JAX tool's data from the
 same numpy seed, runs on ``cuda`` unless given ``--device cpu`` (the plain
-versions), checks the ids first and exits non-zero when they differ."""
+versions), checks the ids first and exits non-zero when they differ.
+``tui_monkey`` (a headed copy of ``tools/tui_monkey.py``) drives ``python
+-m sema_tpu_torch tui DIR`` through a pty with random keys, then a keyword
+search and a quit, and prints ``OK`` when the app survived."""
 
 from __future__ import annotations
 

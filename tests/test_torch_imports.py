@@ -82,7 +82,9 @@ def test_port_runs_with_jax_blocked_and_imports_no_sema_tpu(tmp_path):
     assert "sema_tpu_torch.ops.scan_topk" in report["modules"]
     assert "sema_tpu_torch.cli" in report["modules"]
     for name in ("parallel", "parallel.mesh", "models.tp", "ops.attention",
-                 "tools", "tools.scan_ab15", "tools.scan_ab14"):
+                 "tools", "tools.scan_ab15", "tools.scan_ab14",
+                 "tools.tui_monkey", "tui", "tui.app", "tui.events",
+                 "tui.render", "selftest", "quality"):
         assert f"sema_tpu_torch.{name}" in report["modules"]
     assert report["hits"] > 0 and report["tp_rows"] == [3, 64]
     assert report["sema_tpu"] == [] and report["jax"] == []
@@ -105,7 +107,11 @@ ingest/__init__.py ingest/chunker.py ingest/hashing.py native/__init__.py
 native/bindings.py tokenizer/__init__.py tokenizer/wordpiece.py
 models/registry.py index/text_segment.py index/text_index.py index/ivf_cache.py
 search/__init__.py search/engine.py search/server.py
-search/http_server.py""".split()
+search/http_server.py tui/__init__.py tui/events.py tui/render.py tui/app.py
+quality.py tools/tui_monkey.py""".split()
+
+# A copy's source, where it is not sema_tpu/<the same path>.
+SOURCES = {"tools/tui_monkey.py": "tools/tui_monkey.py"}
 
 _XXHASH_OPTIONAL = '''import hashlib
 from pathlib import Path
@@ -121,6 +127,73 @@ HASH_NAME = "xxh3-128" if xxhash is not None else "blake2b-128"
 '''
 
 REPLACEMENTS = {
+    # a KernelError leaves the search: the TUI ends non-zero with the
+    # kernel's message instead of showing "Search failed"
+    "search/engine.py": [
+        ("from sema_tpu_torch.types import AppState, SearchResult, UIMode\n",
+         "from sema_tpu_torch.ops._cuda import KernelError\n"
+         "from sema_tpu_torch.types import AppState, SearchResult, UIMode\n"),
+        ("            raw = self.index_manager.search(query, limit)\n"
+         "        except Exception as e:",
+         "            raw = self.index_manager.search(query, limit)\n"
+         "        except KernelError:\n"
+         "            raise   # a kernel that does not build or launch is a "
+         "fault,\n"
+         "            #         never a failed search\n"
+         "        except Exception as e:"),
+    ],
+    # the port's device, and a KernelError of the crawl, the index or the
+    # warm-up leaves the app instead of becoming "Indexing failed"
+    "tui/app.py": [
+        ("from sema_tpu_torch.search.engine import Engine\n",
+         "from sema_tpu_torch.ops._cuda import KernelError\n"
+         "from sema_tpu_torch.search.engine import Engine\n"),
+        ("    def __init__(self, directory: Path, config):\n"
+         "        self.directory = directory\n"
+         "        self.config = config\n",
+         "    def __init__(self, directory: Path, config, device: str = "
+         "\"cuda\"):\n"
+         "        self.directory = directory\n"
+         "        self.config = config\n"
+         "        self.device = device\n"),
+        ("            mgr = make_index_manager(self.config)\n",
+         "            mgr = make_index_manager(self.config, self.device)\n"),
+        ('                    mgr.search("warmup", 1)\n'
+         "            except Exception:",
+         '                    mgr.search("warmup", 1)\n'
+         "            except KernelError:\n"
+         "                raise\n"
+         "            except Exception:"),
+        ("        except TuiApp._QuitDuringIndex:\n            raise\n",
+         "        except (TuiApp._QuitDuringIndex, KernelError):\n"
+         "            raise\n"),
+        ("def run_app(directory: Path, config) -> int:\n"
+         "    app = TuiApp(directory, config)\n",
+         "def run_app(directory: Path, config, device: str = \"cuda\") -> int:\n"
+         "    app = TuiApp(directory, config, device)\n"),
+    ],
+    # the port fetches nothing (models/loader.py): its skip reasons say
+    # where local weights go; its encoder returns a torch tensor
+    "quality.py": [
+        ("    ours = encoder.encode_texts(texts)\n",
+         "    ours = np.asarray(encoder.encode_texts(texts))\n"),
+        ('"encoder has random-init weights; fetch real weights "\n'
+         '                   "with tools/fetch_weights.py to run the quality '
+         'gate")',
+         '"encoder has random-init weights; put real weights in "\n'
+         '                   "a local dir (--weights DIR) or the HF cache to '
+         'run "\n'
+         '                   "the quality gate")'),
+        ('hash tokenizer rank meaninglessly — fetch the "\n'
+         '                   "tokenizer files (tools/fetch_weights.py)")',
+         'hash tokenizer rank meaninglessly — put the "\n'
+         '                   "tokenizer files beside the weights (--weights '
+         'DIR)")'),
+    ],
+    "tools/tui_monkey.py": [
+        ('[sys.executable, "-m", "sema_tpu.cli", "tui",',
+         '[sys.executable, "-m", "sema_tpu_torch", "tui",'),
+    ],
     # a KernelError is surfaced, never degraded to the substring scan or
     # swallowed by the warm-up
     "search/http_server.py": [
@@ -196,19 +269,22 @@ REPLACEMENTS = {
 }
 
 
-# Absolute paths of the machine the source was written on, in its prose,
-# become relative in the copy (pattern, replacement; one match each).
+# Paths in a source's prose that the copy words otherwise: the machine's
+# the source was written on, a notes file's (pattern, replacement; one
+# match each).
 PATTERN_REPLACEMENTS = {
     "index/text_segment.py": [(r"\(/\w+/reference/src/",
                                "(the reference's src/")],
+    "tools/tui_monkey.py": [(r"`\.\w+/skills/verify`'s", "the verify skill's")],
 }
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_has_not_drifted(rel):
-    source = (REPO / "sema_tpu" / rel).read_text()
+    source_rel = SOURCES.get(rel, f"sema_tpu/{rel}")
+    source = (REPO / source_rel).read_text()
     header, copy = (REPO / "sema_tpu_torch" / rel).read_text().split("\n", 1)
-    assert header.startswith(f"# Copy of sema_tpu/{rel} ")
+    assert header.startswith(f"# Copy of {source_rel} ")
     want = re.sub(r"^(\s*)(from|import) sema_tpu\b", r"\1\2 sema_tpu_torch",
                   source, flags=re.M)
     for old, new in REPLACEMENTS.get(rel, ()):
