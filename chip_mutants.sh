@@ -14,7 +14,8 @@
 # non-zero with the kernel's error, not answer from the substring scan;
 # or it breaks K2's build, and the TUI (`python -m sema_tpu_torch DIR`
 # under a pty) must exit non-zero with the kernel's error and never show
-# "Indexing failed". The doctor_* mutants put the fault of a mutant above
+# "Indexing failed". The shard_* mutants break the store's row sharding
+# (phase shard_path). The doctor_* mutants put the fault of a mutant above
 # again and must fail the doctor's self-test (phase doctor_path).
 # Prints one line per mutant, "caught" or "MISSED" (once every mutant's
 # phase has ended), and exits non-zero if any mutant was missed or left
@@ -283,6 +284,19 @@ mutant append_pending_kept index/vector_store.py \
 mutant append_pendings_swapped index/vector_store.py \
   's/            vals = pend\[0\] if len(pend) == 1 else torch.cat(pend)/            vals = pend[0] if len(pend) == 1 else torch.cat(pend[::-1])/' \
   append_path
+# the sharded scan: a shard's local ids never offset by its first row
+mutant shard_offset_dropped parallel/sharded_topk.py \
+  's/        ids.append(ix + s \* shard_rows)/        ids.append(ix)/' \
+  shard_path
+# the merge: equal scores ranked by the later shard first (the candidates
+# gathered in reverse shard order)
+mutant shard_merge_unstable parallel/sharded_topk.py \
+  's/    s = torch.cat(\[t.to(device) for t in scores\], 1)/    s = torch.cat([t.to(device) for t in scores[::-1]], 1)/; s/    i = torch.cat(\[t.to(device) for t in ids\], 1)/    i = torch.cat([t.to(device) for t in ids[::-1]], 1)/' \
+  shard_path
+# per-shard IVF: a shard's cluster permutation without its block's offset
+mutant shard_ivf_perm_local index/vector_store.py \
+  's/            perm\[s \* sr:(s + 1) \* sr\] = p + s \* sr/            perm[s * sr:(s + 1) * sr] = p/' \
+  shard_path
 # the doctor's self-test (planted winners at k = 1, the encoder against f32
 # on the CPU) against the faults of kernels it launches: K1, K3, K4a, K2,
 # K5 and the spilled union probe

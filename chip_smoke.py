@@ -284,13 +284,45 @@ Phases, one JSON line each:
 17. ``doctor_path``   ``python -m sema_tpu_torch doctor --skip-quality``
                       in-process for MiniLM-L6 bf16, gte-large bf16 and
                       gte-large W8A8 over an int8 store (the weights of the
-                      IVF paths): exit 0, the six self-test checks ok and
-                      the two unported ones n/a, the self-test's K1, K4a
+                      IVF paths): exit 0, the seven self-test checks ok
+                      (``scan-mesh``: the bf16 store over a mesh of the one
+                      card) and the unported one n/a, the self-test's K1, K4a
                       and K3 and the encoder's K2 (K5 for W8A8) launched;
                       then one full ``doctor`` on random MiniLM weights
                       must print ``quality gate     : SKIPPED`` and exit 1.
                       Prints each check's seconds and each encoder parity's
                       min cosine.
+
+18. ``shard_path``    (after ``spill_path``) the store's rows sharded over a
+                      mesh's ``index`` axis, SHARDS = 4 shards on the one
+                      card (``make_mesh(..., devices=[cuda] * 4)``): first
+                      small stores (``shard_synthetic``: a tie planted in
+                      each of 4 shards must answer in row order over (1,
+                      4) and (2, 1, 2); stored rows of a store clustered
+                      per shard come back first through the probe and the
+                      exact scan). Then the main path's MiniLM store
+                      (3,600 chunks; indexed here when ``main_path`` did
+                      not run) single-shard, then over (data 1, index 4)
+                      and (slice 2, data 1, index 2): 20 queries answer the
+                      single-shard store's row ids in order, scores within
+                      1e-5; 4 K1 launches a bucket and 6 K2 a query;
+                      ``--limit 1500`` (K1 at k 1,024 on each shard)
+                      equal where scores are more than 1e-5 apart. Then
+                      both IVF paths' stores (1,048,576 rows + the tree,
+                      filled here when needed; no budget) single-shard,
+                      then over (1, 4): the open re-clusters each sealed
+                      bucket per shard (the single-shard sidecars' key
+                      has shards 1; one sidecar a bucket written, the old
+                      ones kept), 5 ``exact=True`` queries answer the
+                      single-shard store's ids, K1/K4a once a shard a
+                      bucket; 20 queries at the configured nprobe 32 and
+                      at SHARD_NPROBE = 8, each bucket's shards through
+                      K3/K4b or the exact scan, with recall@10 against
+                      ``exact=True``. Every shard's launch of one query
+                      is held against its plain version (``check_scan``'s
+                      limits; K4a and K4b bit for bit). Prints each open's
+                      seconds, the p50s, the busy shares and the launches
+                      a query beside the single-shard store's.
 
 ``--parent-source DIR`` (another revision's tree, e.g. ``git archive REV
 | tar -x -C build/parent``; its two kernel sources are built beside this
@@ -3351,6 +3383,462 @@ def phase_spill_path(work: Path, tree: Path, gen, weights, paths: dict,
     return stores
 
 
+# -- shard (the store's rows over a mesh's index axis, shards on the card) ---
+
+SHARDS = 4                     # shards of the (1, 4) and (2, 1, 2) meshes
+SHARD_WARM = 20                # warm queries of each store
+SHARD_EXACT = 5                # exact=True queries of each IVF store
+SHARD_RECALL = 100             # perturbed stored rows for recall@10
+SHARD_NPROBE = 8               # nprobe a shard: 32 x 128 / 512 clusters
+# queries of the block-recall check: the sharded store's recall@10 at
+# SHARD_NPROBE may fall below that of a single-shard store of one shard's
+# block (the same rows a cluster, the same share probed) on the same
+# queries by at most 3 standard errors of their per-query differences
+SHARD_BLOCK_QUERIES = 300
+SHARD_TIES = [7, 1030, 2050, 3080]   # a row in each shard of 1,024
+
+
+def shard_mesh(slices: int = 0):
+    """(data 1, index SHARDS), or (slice, data 1, index) with ``slices``
+    slices, every shard on the card."""
+    from sema_tpu_torch.parallel.mesh import make_mesh
+    if slices:
+        return make_mesh([slices, 1, SHARDS // slices],
+                         ("slice", "data", "index"), devices=[DEV] * SHARDS)
+    return make_mesh([1, SHARDS], ("data", "index"), devices=[DEV] * SHARDS)
+
+
+def sharded_manager(data: Path, enc, store_dtype: str, slices: int = 0,
+                    **kw):
+    """An ``IndexManager`` over ``data`` with ``enc`` (single-device) and
+    its store's rows sharded over ``shard_mesh(slices)``."""
+    from sema_tpu_torch.index import IndexManager
+    return IndexManager(data, enc, store_dtype=store_dtype,
+                        mesh=shard_mesh(slices),
+                        slice_axis="slice" if slices else None, **kw)
+
+
+def warm_queries(search, shapes: Counter = None, n: int = SHARD_WARM
+                 ) -> tuple:
+    """(p50 ms, launches a query) of ``n`` warm calls of ``search()``,
+    after 3 warm-ups, host clock; ``shapes`` gains the scan launches of
+    the ``n`` calls by (wrapper, rows of the block)."""
+    for _ in range(3):
+        search()
+    reset_launch_counts()
+    lat = []
+    rec = ScanRecorder()
+    with rec.recording():
+        for _ in range(n):
+            t0 = time.perf_counter()
+            search()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    if shapes is not None:
+        shapes.update(Counter((name, rows) for name, rows, _, _ in
+                              rec.calls))
+    lat.sort()
+    return lat[n // 2], {k: v / n for k, v in launch_counts().items() if v}
+
+
+def shard_check(name: str, args) -> float:
+    """A shard's launch as the store made it, against its plain version on
+    the same arguments: K4a and K4b bit for bit, K1 and K3 under
+    ``check_scan``. Returns the max abs error."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    got = getattr(scan_mod, name)(*args)
+    want = getattr(scan_mod, f"{name}_reference")(*args)
+    torch.cuda.synchronize()
+    if "int8" not in name:
+        return check_scan(args[0], args[1], args[2], True, got, want)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{name} on a shard differs from its plain version")
+    fin = torch.isfinite(want[0])
+    return float((got[0][fin] - want[0][fin]).abs().max()) if fin.any() \
+        else 0.0
+
+
+def shard_kernel_case(name: str, args) -> dict:
+    """``shard_check``, then the launch's time, the plain version's, the
+    library call's and the bound."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    fn = getattr(scan_mod, name)
+    ref = getattr(scan_mod, f"{name}_reference")
+    err = shard_check(name, args)
+    int8, pruned = "int8" in name, "pruned" in name
+    rows_t, q, valid = ((args[0], args[2], args[3]) if int8
+                        else (args[0], args[1], args[2]))
+    n, d = rows_t.shape
+    k = args[-2] if pruned else args[-1]
+    idx, n_live = None, 0
+    if pruned:
+        tiles, n_live, tile = args[-4], args[-3], args[-1]
+        idx = (torch.as_tensor(tiles[:n_live], device=DEV)[:, None] * tile
+               + torch.arange(tile, device=DEV)).reshape(-1)
+        n = n_live * tile
+    if int8:
+        lib, _ = int8_library(args[0], args[1], valid, q, k, idx)
+        bnd = bound(n * (d + 5) + d * 4 + k * 8 + 4 * n_live,
+                    2.0 * n * d, INT8_OPS_PER_S)
+    else:
+        rows_s = rows_t if idx is None else rows_t.index_select(0, idx)
+        lib = lambda: torch.topk(q.to(rows_t.dtype) @ rows_s.T, k)
+        bnd = bound(n * (2 * d + 1) + d * 4 + k * 8 + 4 * n_live,
+                    2.0 * n * d)
+    return {"max_abs_err": err, "ms": device_ms(lambda: fn(*args), 50),
+            "plain_ms": device_ms(lambda: ref(*args), 20),
+            "library_ms": None if lib is None else device_ms(lib, 20),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "rows": n, "k": k}
+
+
+def shard_calls(fn) -> dict:
+    """Each distinct (wrapper, rows of its block) of the scan calls that
+    ``fn()`` makes through the store, every call held against its plain
+    version; the first call of each shape timed (``shard_kernel_case``),
+    with the count of its calls."""
+    rec = ScanRecorder()
+    with rec.recording():
+        fn()
+    out = {}
+    for name, rows, _, args in rec.calls:
+        key = f"{name}:{rows}"
+        if key in out:
+            shard_check(name, args)
+            out[key]["calls"] += 1
+        else:
+            out[key] = {**shard_kernel_case(name, args), "calls": 1}
+    return out
+
+
+def shard_synthetic(work: Path, gen) -> dict:
+    """Small stores on the meshes, first (a fault of the merge fails here
+    in seconds): 4,096 bf16 rows at d = 384, row 7 copied into one row of
+    every other shard, on (1, 4) and (2, 1, 2): row 7 as the query must
+    answer SHARD_TIES first, in row order. Then the same rows sealed and
+    clustered per shard (IVF tiles of 128, bf16 and int8): the stored
+    rows of every shard must come back first through the probe and
+    through the exact scan."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    from sema_tpu_torch.types import Chunk
+    rows = F.normalize(torch.randn(4096, D, generator=gen, device=DEV),
+                       dim=1).to(BF16)
+    rows[SHARD_TIES[1:]] = rows[SHARD_TIES[0]].clone()
+    host = rows.cpu()
+    chunks = [Chunk(f"r{i}", Path("/synthetic/ties.txt"), i + 1, i + 1, "")
+              for i in range(4096)]
+    probes = [0, 1500, 2999, 4095]
+    out = {}
+    for label, slices, ivf, dtype in (("ties", 0, False, "bfloat16"),
+                                      ("ties_slices", 2, False, "bfloat16"),
+                                      ("ivf_bf16", 0, True, "bfloat16"),
+                                      ("ivf_int8", 2, True, "int8")):
+        with tempfile.TemporaryDirectory(dir=work) as td:
+            store = VectorStore(td, D, "shard-synthetic", store_dtype=dtype,
+                                mesh=shard_mesh(slices), ivf=ivf,
+                                slice_axis="slice" if slices else None,
+                                rescore_k=16)
+            if ivf:
+                store.SEAL_ROWS, store.IVF_TILE = 4096, 128
+                store.IVF_CLUSTER_ROWS, store.IVF_BUDGET_DIV = 128, 1
+                store.ivf_nprobe = 2
+            store.add_chunks(chunks, host)
+            buckets = store.device_buckets()
+            check(all(len(b["store"]) == SHARDS for b in buckets)
+                  and (not ivf or buckets[0]["ivf"]["centroids"].shape[0]
+                       == SHARDS), f"{label}: not {SHARDS} shards")
+            reset_launch_counts()
+            got = store.search_batch(rows[SHARD_TIES[0]][None].float(), 16)
+            ids = got[1][0].tolist()
+            if not ivf:
+                check(ids[:4] == SHARD_TIES, f"{label}: the tie across "
+                      f"shards answered {ids[:4]}, want {SHARD_TIES}")
+            for p in probes:
+                q = rows[p][None].float()
+                top = [int(store.search_batch(q, 16, exact=exact)[1][0][0])
+                       for exact in (False, True)]
+                check(top == [p, p], f"{label}: row {p} answered {top}")
+            out[label] = {"answer": ids[:8], "launches": {
+                k: v for k, v in launch_counts().items() if v}}
+            store.close()
+    return out
+
+
+def shard_main(work: Path, tree: Path, device: str) -> dict:
+    """(a) and (b): the main path's MiniLM store opened single-shard, then
+    over (1, 4) and (2, 1, 2): the same row ids in the same order for
+    SHARD_WARM queries (the stored chunks' own text), scores within 1e-5,
+    4 K1 launches a bucket a query, the --limit WIDE_LIMIT query's hits
+    (K1 at k 1,024 on each shard; single-shard, the hierarchical route)
+    equal where scores are more than 1e-5 apart, and every shard's launch
+    against its plain version."""
+    os.environ["SEMA_TPU_HOME"] = str(work / "home")
+    os.environ["SEMA_TPU_DATA"] = str(work / "data")
+    if not (work / "data" / "vector_index" / "manifest.json").exists():
+        run_cli(["index", str(tree), "--device", device])
+    single = open_manager(device)
+    st, enc = single.vector_store, single.encoder
+    picks = np.linspace(0, st.total_rows - 1, SHARD_WARM).astype(int)
+    texts = [st.chunk_at(int(r)).content[:400] for r in picks]
+    qvecs = [enc.encode_query_device(t)[None] for t in texts]
+    want = [st.search_batch(q, 10) for q in qvecs]
+    wide = single.search(QUERY, WIDE_LIMIT)
+    turn = iter(range(10 ** 9))
+    one = lambda m: m.search(texts[next(turn) % SHARD_WARM], 10)
+    p50, per_q = warm_queries(lambda: one(single))
+    runs = {"single": {"query_p50_ms": p50, "launches_per_query": per_q,
+                       "query_device": query_device_time(
+                           lambda: one(single), SHARD_WARM)}}
+    single.close()
+    launches, shapes = Counter(), Counter()
+    for label, slices in (("index4", 0), ("slice2_index2", 2)):
+        t0 = time.perf_counter()
+        mgr = sharded_manager(work / "data", enc, "bfloat16", slices)
+        sst = mgr.vector_store
+        buckets = sst.device_buckets()
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        check(all(len(b["store"]) == SHARDS for b in buckets),
+              f"main store {label}: buckets not in {SHARDS} shards")
+        for q, (ws, wi), text in zip(qvecs, want, texts):
+            gs, gi = sst.search_batch(q, 10)
+            check(np.array_equal(gi, wi) and np.allclose(gs, ws, atol=1e-5,
+                                                         rtol=0),
+                  f"main store {label}: {text[:40]!r} answered {gi[0]} "
+                  f"({gs[0]}), single-shard {wi[0]} ({ws[0]})")
+        p50, per_q = warm_queries(lambda: one(mgr), shapes)
+        launches.update({k: v * SHARD_WARM for k, v in per_q.items()})
+        check(per_q.get("scan_topk") == SHARDS * len(buckets)
+              and per_q.get("encoder_layer") == 6
+              and not any(per_q.get(n) for n in SCANS[1:]),
+              f"main store {label}: launches a query {per_q}")
+        reset_launch_counts()
+        got = mgr.search(QUERY, WIDE_LIMIT)
+        wide_launches = launch_counts()
+        launches.update(wide_launches)
+        check(len(got) == len(wide) and close_hits(got, wide, 1e-5)
+              and wide_launches["scan_topk"] == SHARDS * len(buckets),
+              f"main store {label}: --limit {WIDE_LIMIT} answered "
+              f"{len(got)} hits, launches {wide_launches}")
+        runs[label] = {"open_s": open_s, "buckets": len(buckets),
+                       "n_pad": [b["n_pad"] for b in buckets],
+                       "query_p50_ms": p50, "launches_per_query": per_q,
+                       "query_device": query_device_time(lambda: one(mgr),
+                                                         SHARD_WARM),
+                       "wide_launches": {k: v for k, v in
+                                         wide_launches.items() if v}}
+        if not slices:
+            runs[label]["kernels"] = shard_calls(lambda: one(mgr))
+        mgr.close()
+    return {"runs": runs, "launches": launches, "shapes": shapes}
+
+
+def shard_ivf(work: Path, tree: Path, store_dtype: str, gen, weights,
+              device: str) -> dict:
+    """(c), (d) and (f): the IVF path's store (1,048,576 rows + the tree),
+    single-shard first (its sidecars, no budget), then over (1, 4) after
+    it closed: the open re-clusters each sealed bucket per shard (the
+    single-shard sidecars' key has shards 1), writes one sidecar a bucket
+    and keeps the old ones; SHARD_EXACT exact=True queries answer the
+    single-shard store's ids, with K1/K4a once a shard a bucket; the
+    probe at the configured nprobe and at SHARD_NPROBE (each shard's
+    clusters are a quarter of the bucket's), each bucket's shards through
+    K3/K4b or, any shard over its budget, the exact scan; recall@10
+    against exact=True; every shard's launch against its plain version."""
+    store_mod = importlib.import_module("sema_tpu_torch.index.vector_store")
+    home = spill_prepare(work, tree, store_dtype, gen, weights, device)
+    set_budget(home, 0.0)
+    data = work / f"data-{store_dtype}"
+    int8 = store_dtype == "int8"
+    pruned, exact_k = (("scan_topk_int8_pruned", "scan_topk_int8") if int8
+                       else ("scan_topk_pruned", "scan_topk"))
+    single = open_manager(device)
+    st, enc = single.vector_store, single.encoder
+    sealed = sum(b["ivf"] is not None for b in st.device_buckets())
+    rng = np.random.default_rng(3)
+    qs = st.rows_at(rng.choice(sealed * SEAL, size=SHARD_RECALL,
+                               replace=False))
+    qs += (QNOISE / math.sqrt(GTE_D)) * rng.standard_normal(
+        qs.shape).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    want = [st.search_batch(q[None], 10, exact=True)
+            for q in qs[:SHARD_EXACT]]
+    search = lambda m: m.search(QUERY, 50)
+    p50, per_q = warm_queries(lambda: search(single))
+    runs = {"single": {"query_p50_ms": p50, "launches_per_query": per_q,
+                       "nprobe": st.ivf_nprobe,
+                       "query_device": query_device_time(
+                           lambda: search(single), SHARD_WARM)}}
+    nprobe = st.ivf_nprobe
+    single.close()
+    vi = data / "vector_index"
+    before = set(vi.glob("ivf-*.bin"))
+    kmeans = store_mod.kmeans_cluster
+    clustered = []
+
+    def counted(*a, **k):
+        clustered.append(a[0].shape[0])
+        return kmeans(*a, **k)
+    t0 = time.perf_counter()
+    with swapped("sema_tpu_torch.index.vector_store",
+                 {"kmeans_cluster": counted}):
+        mgr = sharded_manager(data, enc, store_dtype, rescore_k=100,
+                              ivf=True, ivf_nprobe=nprobe)
+        sst = mgr.vector_store
+        buckets = sst.device_buckets()
+        torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    written = set(vi.glob("ivf-*.bin")) - before
+    check(len(clustered) == SHARDS * sealed and len(written) == sealed
+          and before <= set(vi.glob("ivf-*.bin")),
+          f"{store_dtype}: k-means on {clustered}, sidecars written "
+          f"{len(written)}, want {SHARDS * sealed} and {sealed}")
+    for b in buckets[:sealed]:
+        sr = b["n_pad"] // SHARDS
+        perm = b["ivf"]["perm"]
+        check(b["ivf"]["centroids"].shape[0] == SHARDS and all(
+            perm[s * sr:(s + 1) * sr].min() >= s * sr
+            and perm[s * sr:(s + 1) * sr].max() < (s + 1) * sr
+            for s in range(SHARDS)),
+              f"{store_dtype}: a permutation leaves its shard's block")
+    for q, (ws, wi) in zip(qs[:SHARD_EXACT], want):
+        gs, gi = sst.search_batch(q[None], 10, exact=True)
+        check(np.array_equal(gi, wi) and np.allclose(gs, ws, atol=1e-5,
+                                                     rtol=0),
+              f"{store_dtype} exact: {gi[0]} ({gs[0]}), single-shard "
+              f"{wi[0]} ({ws[0]})")
+    reset_launch_counts()
+    sst.search_batch(qs[:1], 10, exact=True)
+    exact_launches = {k: v for k, v in launch_counts().items() if v}
+    check(exact_launches == {exact_k: SHARDS * len(buckets)},
+          f"{store_dtype} exact launches {exact_launches}")
+    launches, shapes = Counter(exact_launches), Counter()
+    probes = {}
+    for n in (nprobe, SHARD_NPROBE):
+        sst.ivf_nprobe = n
+        p50, per_q = warm_queries(lambda: search(mgr), shapes)
+        launches.update({k: v * SHARD_WARM for k, v in per_q.items()})
+        check(per_q.get(pruned, 0) % SHARDS == 0
+              and per_q.get(pruned, 0) + per_q.get(exact_k, 0)
+              == SHARDS * len(buckets),
+              f"{store_dtype} nprobe {n}: launches a query {per_q}")
+        recall = recall_at_10(sst, qs)
+        probes[n] = {"query_p50_ms": p50, "launches_per_query": per_q,
+                     "pruned_share": per_q.get(pruned, 0)
+                     / (SHARDS * sealed),
+                     "recall_at_10_mean": float(np.mean(recall)),
+                     "recall_at_10_min": float(np.min(recall)),
+                     "query_device": query_device_time(lambda: search(mgr),
+                                                       SHARD_WARM)}
+    check(probes[SHARD_NPROBE]["pruned_share"] > 0,
+          f"{store_dtype}: no probe took the pruned scan at nprobe "
+          f"{SHARD_NPROBE}")
+    block = shard_block_recall(work, sst, store_dtype, pruned)
+    q = torch.from_numpy(qs[:1]).to(DEV)
+    kernels = shard_calls(lambda: sst.search_batch(q, 50))
+    kernels.update(shard_calls(lambda: sst.search_batch(q, 50, exact=True)))
+    mgr.close()
+    del sst, buckets, mgr
+    torch.cuda.empty_cache()
+    runs["index4"] = {"open_s": open_s, "kmeans_rows": clustered[:1],
+                      "kmeans_runs": len(clustered),
+                      "sidecars": {"single_shard": len(before),
+                                   "written": len(written)},
+                      "exact_launches": exact_launches, "probes": probes,
+                      "block_recall": block, "kernels": kernels}
+    return {"runs": runs, "launches": launches, "shapes": shapes}
+
+
+def recall_at_10(store, qs: np.ndarray) -> np.ndarray:
+    """Each query's recall@10 of ``store``'s probe against exact=True."""
+    out = []
+    for q in qs:
+        a = store.search_batch(q[None], 10)[1][0]
+        e = store.search_batch(q[None], 10, exact=True)[1][0]
+        out.append(len(set(a.tolist()) & set(e.tolist())) / 10)
+    return np.asarray(out)
+
+
+def shard_block_recall(work: Path, sst, store_dtype: str, pruned: str
+                       ) -> dict:
+    """Whether a low recall of the sharded probe is the probe's fault or
+    the rows': a single-shard store of one shard's block (the first
+    SEAL / SHARDS rows, block 0 of the first sealed bucket: its clusters
+    and tile budget those of a shard) probed at SHARD_NPROBE, every query
+    through K3/K4b, against exact=True, and the sharded store ``sst`` at
+    SHARD_NPROBE on the same SHARD_BLOCK_QUERIES queries (perturbed rows
+    of the block). Fails where the sharded recall's mean falls below the
+    block's by more than 3 standard errors of the per-query differences
+    (a block's recall is near all or nothing a query: its probe reaches
+    the query's centre or misses it, where the sharded store's 16 blocks
+    average out)."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    from sema_tpu_torch.types import Chunk
+    n = SEAL // SHARDS
+    rows = sst.rows_at(np.arange(n))
+    rng = np.random.default_rng(4)
+    qs = rows[rng.choice(n, SHARD_BLOCK_QUERIES, replace=False)]
+    qs += (QNOISE / math.sqrt(GTE_D)) * rng.standard_normal(
+        qs.shape).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    path = Path("/synthetic/block.txt")
+    with tempfile.TemporaryDirectory(dir=work) as td:
+        store = VectorStore(td, GTE_D, IVF_MODEL, store_dtype=store_dtype,
+                            ivf=True, device=DEV, rescore_k=100,
+                            ivf_nprobe=SHARD_NPROBE)
+        store.SEAL_ROWS = n
+        store.add_chunks([Chunk(f"{path}:{i}", path, i + 1, i + 1, "")
+                          for i in range(n)], torch.from_numpy(rows))
+        (b,) = store.device_buckets()
+        clusters = int(b["ivf"]["centroids"].shape[0])
+        reset_launch_counts()
+        for q in qs:
+            store.search_batch(q[None], 10)
+        probed = launch_counts()[pruned]
+        block = recall_at_10(store, qs)
+        store.close()
+        del store, b
+    torch.cuda.empty_cache()
+    check(clusters == sst.device_buckets()[0]["ivf"]["centroids"].shape[1]
+          and probed == len(qs),
+          f"{store_dtype} block store: {clusters} clusters, {probed} of "
+          f"{len(qs)} queries through {pruned}")
+    sst.ivf_nprobe = SHARD_NPROBE
+    sharded = recall_at_10(sst, qs)
+    diff = sharded - block
+    limit = 3 * float(diff.std(ddof=1)) / math.sqrt(len(diff))
+    out = {"rows": n, "clusters": clusters, "queries": len(qs),
+           "mean_difference": float(diff.mean()), "limit": -limit,
+           "block_recall_at_10_mean": float(block.mean()),
+           "block_recall_at_10_min": float(block.min()),
+           "sharded_recall_at_10_mean": float(sharded.mean()),
+           "sharded_recall_at_10_min": float(sharded.min())}
+    check(diff.mean() >= -limit,
+          f"{store_dtype}: sharded recall@10 {sharded.mean():.3f} at "
+          f"nprobe {SHARD_NPROBE}, a single block's {block.mean():.3f}, "
+          f"below it by more than 3 standard errors ({limit:.3f})")
+    return out
+
+
+def phase_shard_path(work: Path, tree: Path, gen, weights,
+                     device: str = "cuda") -> dict:
+    smi = smi_line()
+    os.environ.pop("SEMA_TPU_HBM_BUDGET_MB", None)
+    t0 = time.perf_counter()
+    synthetic = shard_synthetic(work, gen)
+    main = shard_main(work, tree, device)
+    stores = {dtype: shard_ivf(work, tree, dtype, gen, weights, device)
+              for dtype in ("int8", "bfloat16")}
+    launches = Counter(main["launches"])
+    shapes = {"main": main["shapes"]}
+    for d, s in stores.items():
+        launches.update(s["launches"])
+        shapes[d] = s["shapes"]
+    emit("shard_path", nvidia_smi=smi, shards=SHARDS,
+         seconds=time.perf_counter() - t0, synthetic=synthetic,
+         main=main["runs"], **{d: s["runs"] for d, s in stores.items()})
+    return {"launches": dict(launches), "shapes": shapes,
+            "main": main["runs"], **{d: s["runs"] for d, s in stores.items()}}
+
+
 # -- serve (the int8 deployment behind its HTTP daemon) -----------------------
 
 SERVE_REQUESTS, SERVE_CLIENTS = 256, 32
@@ -4445,8 +4933,8 @@ def run_doctor(home: Path, model: str, dtype: str, quant: str,
 
 def phase_doctor_path(work: Path, weights, extra=(), cases=DOCTOR_CASES):
     """``doctor --skip-quality`` in-process for each of ``cases`` (gte-large
-    from ``weights``): exit 0 with each of the six checks ok and the two
-    unported ones n/a, and the self-test's scans (K1, K4a, K3) and the
+    from ``weights``): exit 0 with each of the seven checks ok and the
+    unported one n/a, and the self-test's scans (K1, K4a, K3) and the
     encoder's kernel (K2, or K5 for W8A8) launched; then one full
     ``doctor`` on random MiniLM weights, which must skip the quality gate
     and exit 1. Returns the launch counts of every run."""
@@ -4462,9 +4950,9 @@ def phase_doctor_path(work: Path, weights, extra=(), cases=DOCTOR_CASES):
               f"\n{text}")
         verdicts = {name: c["verdict"] for name, c in got["checks"].items()}
         check(verdicts == {"scan-ids": "ok", "scan-int8": "ok",
-                           "scan-spill": "ok", "scan-ivf": "ok",
-                           "scan-spill-ivf": "ok", "encoder-parity": "ok",
-                           "scan-ids-pallas": "n/a", "scan-mesh": "n/a"},
+                           "scan-mesh": "ok", "scan-spill": "ok",
+                           "scan-ivf": "ok", "scan-spill-ivf": "ok",
+                           "encoder-parity": "ok", "scan-ids-pallas": "n/a"},
               f"doctor {model} {quant}: {verdicts}\n{text}")
         layer = "encoder_layer_int8" if quant == "int8" else "encoder_layer"
         other = ("encoder_layer" if quant == "int8"
@@ -4550,7 +5038,7 @@ def main() -> int:
         weights = None
         if any(run(name) for name in (
                 "int8_ivf_path", "bf16_ivf_path", "spill_path",
-                "append_path", "tp_path", "doctor_path")):
+                "shard_path", "append_path", "tp_path", "doctor_path")):
             t0 = time.perf_counter()
             weights = write_weights(work / "gte-weights")
             emit("weights", model=IVF_MODEL,
@@ -4563,6 +5051,8 @@ def main() -> int:
                                                     4 * SEAL, gen, weights)
         if run("spill_path"):
             spill = phase_spill_path(work, tree, gen, weights, paths)
+        if run("shard_path"):   # before append_path rewrites the tree
+            shard = phase_shard_path(work, tree, gen, weights)
         if run("append_path"):
             append = phase_append_path(work, tree, gen, weights)
         if run("tp_path"):
@@ -4584,7 +5074,7 @@ def main() -> int:
         p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")] + [
         dict(s["launches"]) for s in spill.values()] + [append["launches"]] \
-        + tui_runs + doctor_runs
+        + tui_runs + doctor_runs + [shard["launches"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in runs[0]}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -4640,6 +5130,23 @@ def main() -> int:
                                 [f["rows"], 1, f["k"]], f),
                         "name": f"{name}:spill_{case}_{dtype}",
                         "launches": f["launches"]})
+    # the shard path's launch shapes: each wrapper on one shard's block of
+    # a store row-sharded over (1, 4), with its launches at that shape in
+    # the phase's warm queries
+    replaces = {"scan_topk": "pallas_topk.py:280",
+                "scan_topk_int8": "pallas_topk.py:368",
+                "scan_topk_pruned": "pallas_topk.py:544",
+                "scan_topk_int8_pruned": "pallas_topk.py:580"}
+    for store_name, key in (("main", "main"), ("int8", "int8"),
+                            ("bf16", "bfloat16")):
+        for case, f in shard[key]["index4"]["kernels"].items():
+            name, rows = case.split(":")
+            kernels.append({**entry(name, scan_src,
+                                    f"sema_tpu/ops/{replaces[name]}",
+                                    [f["rows"], 1, f["k"]], f),
+                            "name": f"{name}:shard_{store_name}_{rows}",
+                            "launches": shard["shapes"][key][
+                                (name, int(rows))]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

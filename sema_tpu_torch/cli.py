@@ -26,9 +26,10 @@ CPU) and, unless ``--skip-quality``, ``quality.run_quality_gate``. Every
 command exits non-zero when a kernel does not build, launch or take its
 tensors (:class:`~sema_tpu_torch.ops._cuda.KernelError`); ``serve`` does
 so before it takes traffic, from its warm-up query, and the TUI once
-curses has restored the terminal. ``[mesh] shape`` (with
-``model_axis``) runs the encoder data- and tensor-parallel over a mesh
-(:func:`config_mesh`); the store stays single-shard. ``[index]
+curses has restored the terminal. ``[mesh]`` builds a mesh
+(:func:`config_mesh`): the store's rows shard over its ``index`` axis
+(and ``slice_axis``), the encoder's batch splits over ``index`` and, with
+``model_axis``, its weights over that axis. ``[index]
 hbm_budget_mb`` caps the store's device buckets: past it, sealed buckets
 stay on the host and stream (``VectorStore``'s HBM spill). ``bench`` is
 not ported yet.
@@ -182,64 +183,61 @@ def crawler_config(config: Config) -> CrawlerConfig:
 
 
 def config_mesh(config: Config, device: str):
-    """(mesh, model_axis) of ``[mesh]`` (``sema_tpu/cli.py:175-201``): with
-    ``model_axis``, a (data, model, index) mesh of the explicit 3-entry
-    ``shape`` (SystemExit without one); else a (data, index) mesh of an
-    explicit ``shape``. Without a shape there is no mesh: the JAX package's
-    default mesh puts every device on ``index`` to shard the store's rows,
-    and the port's store is single-shard, so a mesh whose ``index`` axis is
-    larger than 1 raises NotImplementedError, as ``slice_axis`` does. The
-    shards lie on the CUDA devices, or for ``device="cpu"`` all on the CPU
-    (the counterpart of the JAX package's virtual CPU devices)."""
+    """The mesh of ``[mesh]`` (``sema_tpu/cli.py:175-201``): with
+    ``model_axis`` or ``slice_axis``, a (slice, data, model, index) mesh,
+    each named axis only, ``slice`` outermost so that the store's row
+    blocks are slice-major, of the explicit ``shape`` (SystemExit
+    without one of that length); else a (data, index) mesh of an explicit
+    ``shape``; else :func:`~sema_tpu_torch.parallel.mesh.default_mesh`,
+    every card on ``index`` (None on one card, and for ``device="cpu"``).
+    The shards lie on the CUDA devices, or for ``device="cpu"`` all on
+    the CPU (the counterpart of the JAX package's virtual CPU devices)."""
     from sema_tpu_torch.device import resolve_device
-    from sema_tpu_torch.parallel.mesh import local_devices, make_mesh
+    from sema_tpu_torch.parallel.mesh import (default_mesh, local_devices,
+                                              make_mesh)
     m = config.mesh
-    if m.slice_axis:
-        raise NotImplementedError(
-            "[mesh] slice_axis (multislice) not ported to sema_tpu_torch yet")
-    model_axis = m.model_axis or None
-    axes = [m.data_axis] + ([model_axis] if model_axis else []) \
-        + [m.index_axis]
-    if model_axis and len(m.shape) != len(axes):
-        raise SystemExit(
-            f"[mesh] model_axis requires an explicit {len(axes)}-entry shape "
-            f"({' x '.join(axes)}), e.g. shape = [1, 2, 1] for two shards "
-            "of the model")
-    if not m.shape:
-        return None, None
     kind = resolve_device(device).type
+    model_axis, slice_axis = m.model_axis or None, m.slice_axis or None
+    if model_axis or slice_axis:
+        axes = ([slice_axis] if slice_axis else []) + [m.data_axis] \
+            + ([model_axis] if model_axis else []) + [m.index_axis]
+        if len(m.shape) != len(axes):
+            raise SystemExit(
+                f"[mesh] model_axis/slice_axis require an explicit "
+                f"{len(axes)}-entry shape ({' x '.join(axes)}), e.g. "
+                f"shape = {[1] * (len(axes) - 1) + [8]} on 8 cards")
+    elif m.shape:
+        axes = [m.data_axis, m.index_axis]
+    else:
+        return default_mesh() if kind == "cuda" else None
     devices = (local_devices() if kind == "cuda"
                else local_devices("cpu") * math.prod(m.shape))
-    mesh = make_mesh(m.shape, axes, devices)
-    if mesh.shape[m.index_axis] > 1:
-        raise NotImplementedError(
-            f"[mesh] shape {list(m.shape)} puts {mesh.shape[m.index_axis]} "
-            f"shards on the {m.index_axis!r} axis: row-sharding the store is "
-            "not ported to sema_tpu_torch yet (single-shard store)")
-    return mesh, model_axis
+    return make_mesh(m.shape, axes, devices)
 
 
 def make_index_manager(config: Config, device: str, metrics=None):
     from sema_tpu_torch.index import IndexManager
     from sema_tpu_torch.models import Encoder
 
-    mesh, model_axis = config_mesh(config, device)
+    mesh = config_mesh(config, device)
     if metrics is None and os.environ.get("SEMA_TPU_LOG"):
         from sema_tpu_torch.utils.metrics import Metrics
         metrics = Metrics(log_stream=open(
             os.environ["SEMA_TPU_LOG"], "a", buffering=1))
-    # the JAX CLI splits the encoder's batch over the index axis (its
-    # default mesh's only axis); here that axis is 1, so the data axis
+    # the encoder's batch splits over the index axis, as the JAX CLI's
+    # (its default mesh's only axis of more than one device)
     encoder = Encoder.from_config(config.model, device=device, mesh=mesh,
-                                  data_axis=config.mesh.data_axis,
-                                  model_axis=model_axis)
+                                  data_axis=config.mesh.index_axis,
+                                  model_axis=config.mesh.model_axis or None)
     if encoder.weights_source == "random":
         print("Warning: no weights for model "
               f"{config.model.name!r} (none under --weights or in the HF "
               "cache); using random init (rankings will be meaningless).",
               file=sys.stderr)
     return IndexManager(data_dir(), encoder,
-                        store_dtype=config.index.store_dtype,
+                        store_dtype=config.index.store_dtype, mesh=mesh,
+                        index_axis=config.mesh.index_axis,
+                        slice_axis=config.mesh.slice_axis or None,
                         metrics=metrics, rescore_k=config.index.rescore_k,
                         hbm_budget_mb=config.index.hbm_budget_mb,
                         ivf=config.index.ivf,

@@ -12,6 +12,9 @@
 - once the store holds a live device copy (it has served a search), each
   slice's embeddings stay on the device too (``return_device``), and the
   store writes them into its tail's spare rows with no upload;
+- with a ``mesh``, the store's rows shard over its ``index_axis`` (and
+  ``slice_axis``, where the mesh has it); without one the store lies on
+  the encoder's device;
 - search dispatch: queries starting with ``'`` hit the BM25 text index
   (prefix stripped; empty rest → no results), everything else is
   semantic; a failed semantic query degrades to a substring scan with a
@@ -42,7 +45,8 @@ class IndexManager:
     INDEX_BATCH = 65_536
 
     def __init__(self, data_dir: Path | str, encoder,
-                 store_dtype: str = "bfloat16",
+                 store_dtype: str = "bfloat16", mesh=None,
+                 index_axis: str = "index", slice_axis: Optional[str] = None,
                  metrics: Optional[Metrics] = None, rescore_k: int = 100,
                  hbm_budget_mb: float = 0.0, ivf: bool = False,
                  ivf_nprobe: int = 32, ivf_min_recall: float = 0.0):
@@ -50,7 +54,8 @@ class IndexManager:
         self.metrics = metrics or null_metrics()
         self.vector_store = VectorStore(
             data_dir, dim=encoder.spec.dim, model=encoder.spec.name,
-            store_dtype=store_dtype, device=encoder.device,
+            store_dtype=store_dtype, device=encoder.device, mesh=mesh,
+            index_axis=index_axis, slice_axis=slice_axis,
             rescore_k=rescore_k, hbm_budget_mb=hbm_budget_mb, ivf=ivf,
             ivf_nprobe=ivf_nprobe, ivf_min_recall=ivf_min_recall)
         self.text_index = make_text_index(data_dir)

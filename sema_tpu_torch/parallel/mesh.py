@@ -12,7 +12,10 @@ runs the same code.
 
 Axes, as in the JAX package: ``data`` splits the encoder's batch,
 ``model`` shards the encoder's weights (tensor parallelism), ``index``
-would shard the store's rows (not ported: the store is single-shard).
+shards the store's rows (each shard scans its block, and the candidates
+merge: :mod:`sema_tpu_torch.parallel.sharded_topk`), and ``slice``, where
+a mesh has it, shards them too, slice-major, with a two-level merge
+(:mod:`sema_tpu_torch.parallel.multislice`).
 """
 
 from __future__ import annotations

@@ -11,6 +11,9 @@ rows-2 and rows-1 that must come back as their own row ids:
 
 - ``scan-ids``: 300 bf16 rows, the unsealed tail (K1);
 - ``scan-int8``: the same over int8 rows, rescored from bf16 (K4a);
+- ``scan-mesh``: the bf16 store row-sharded over a mesh of every local
+  device of the kind (one card: one shard; the CPU: one), each shard's
+  K1 and the sharded merge;
 - ``scan-spill``: a host bucket under ``SEMA_TPU_HBM_BUDGET_MB``, streamed
   in 3 slices (K1);
 - ``scan-ivf``: a sealed, clustered bucket, each probe through the pruned
@@ -24,9 +27,9 @@ rows-2 and rows-1 that must come back as their own row ids:
 
 An IVF probe that fell back to the exact scan fails its check: the store
 records each probe's route (:func:`_pruned_routes`). The JAX package's
-``scan-ids-pallas`` and ``scan-mesh`` have nothing to run here
-(:data:`NOT_PORTED` says why). Each check returns ``(name, ok, detail)``,
-its seconds at the end of the detail.
+``scan-ids-pallas`` has nothing to run here (:data:`NOT_PORTED` says
+why). Each check returns ``(name, ok, detail)``, its seconds at the end
+of the detail.
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ Check = Tuple[str, bool, str]
 NOT_PORTED: Dict[str, str] = {
     "scan-ids-pallas": "the port has one scan route on the card (K1), "
                        "which scan-ids runs",
-    "scan-mesh": "needs the store's row sharding, not ported yet",
 }
 
 
@@ -87,8 +89,10 @@ def _pruned_routes(store) -> List[int]:
 
 def _scan_check(name: str, dim: int, store_dtype: str, rows: int, device,
                 spill: bool = False, ivf: bool = False,
-                segments: int = 1) -> Check:
+                segments: int = 1, mesh: bool = False) -> Check:
+    from sema_tpu_torch.device import resolve_device
     from sema_tpu_torch.index.vector_store import VectorStore
+    from sema_tpu_torch.parallel.mesh import local_devices, make_mesh
     from sema_tpu_torch.types import Chunk
 
     rng = np.random.default_rng(7)
@@ -98,11 +102,18 @@ def _scan_check(name: str, dim: int, store_dtype: str, rows: int, device,
                     start_line=1, end_line=1, content="")
               for i in range(rows)]
     probes = [0, 1, rows // 3, rows - 2, rows - 1]
+    mesh_obj = None
+    if mesh:
+        # every local device on ``index`` (often one): the sharded merge
+        # must run on this device even when the axis size is 1
+        devices = local_devices(resolve_device(device).type)
+        mesh_obj = make_mesh([len(devices)], ("index",), devices)
     with tempfile.TemporaryDirectory() as td, \
             _env("SEMA_TPU_IVF_NPROBE", "2" if ivf else None), \
             _env("SEMA_TPU_HBM_BUDGET_MB", "0.000001" if spill else None):
         store = VectorStore(td, dim=dim, model="selftest",
-                            store_dtype=store_dtype, device=device, ivf=ivf)
+                            store_dtype=store_dtype, device=device,
+                            mesh=mesh_obj, ivf=ivf)
         try:
             if spill:
                 # instance-level shrink so this small store seals, spills
@@ -123,6 +134,9 @@ def _scan_check(name: str, dim: int, store_dtype: str, rows: int, device,
                 store.add_chunks(chunks[lo:hi], vecs[lo:hi])
             misses = []
             buckets = store.device_buckets()
+            if mesh and not all(isinstance(b["store"], list)
+                                for b in buckets):
+                misses.append("store is not sharded (check is vacuous)")
             if spill and not all(b.get("host_resident") for b in buckets):
                 misses.append("store did not spill (check is vacuous)")
             ivf_field = "ivf_spill" if (ivf and spill) else "ivf"
@@ -145,6 +159,7 @@ def _scan_check(name: str, dim: int, store_dtype: str, rows: int, device,
         return (name, False, "planted winners missed: " + "; ".join(misses))
     return (name, True, f"{len(probes)} planted winners exact "
                         f"({rows} rows, {store_dtype}"
+                        f"{f', {len(devices)} shard(s)' if mesh else ''}"
                         f"{', spilled' if spill else ''}"
                         f"{', ivf-pruned' if ivf else ''})")
 
@@ -199,6 +214,8 @@ def run_device_selftest(model_cfg=None, dim: int = 384,
     checks = [
         lambda: _scan_check("scan-ids", dim, "bfloat16", 300, device),
         lambda: _scan_check("scan-int8", dim, "int8", 300, device),
+        lambda: _scan_check("scan-mesh", dim, "bfloat16", 300, device,
+                            mesh=True),
         lambda: _scan_check("scan-spill", dim, "bfloat16", 300, device,
                             spill=True),
         lambda: _scan_check("scan-ivf", dim, "bfloat16", 300, device,

@@ -24,7 +24,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 # A blocked jax, every module of the port imported, then the CLI's index
 # and query on the CPU with the default model (MiniLM-L6, random weights),
-# and the tensor-parallel encoder on a (2, 2) mesh of CPU shards.
+# the tensor-parallel encoder on a (2, 2) mesh of CPU shards, and a store
+# row-sharded over a (slice 2, index 2) mesh of CPU shards.
 _ISOLATED = r"""
 import importlib, io, json, pkgutil, sys
 from contextlib import redirect_stdout
@@ -55,8 +56,22 @@ spec = get_spec("test-tiny")
 tp = Encoder(spec, random_params(spec), HashTokenizer(spec.vocab_size),
              mesh=make_mesh([2, 2], ("data", "model"), devices=["cpu"] * 4),
              model_axis="model")
+import tempfile
+import numpy as np
+from sema_tpu_torch.index.vector_store import VectorStore
+from sema_tpu_torch.types import Chunk
+rows = np.random.default_rng(0).standard_normal((300, 64)).astype(np.float32)
+rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+with tempfile.TemporaryDirectory() as td:
+    store = VectorStore(td, 64, "m", device="cpu", slice_axis="slice",
+                        mesh=make_mesh([2, 2], ("slice", "index"),
+                                       devices=["cpu"] * 4))
+    store.add_chunks([Chunk(f"r{i}", "f.py", 1, 1, "") for i in range(300)],
+                     rows)
+    sharded = [c.id for c, _ in store.search(rows[211], 3)]
+    store.close()
 print(json.dumps({
-    "modules": names, "hits": len(hits),
+    "modules": names, "hits": len(hits), "sharded": sharded,
     "tp_rows": tuple(tp.encode_texts(["a", "b", "c"]).shape),
     "sema_tpu": sorted(m for m in sys.modules
                        if m == "sema_tpu" or m.startswith("sema_tpu.")),
@@ -81,12 +96,14 @@ def test_port_runs_with_jax_blocked_and_imports_no_sema_tpu(tmp_path):
     report = json.loads(proc.stdout.splitlines()[-1])
     assert "sema_tpu_torch.ops.scan_topk" in report["modules"]
     assert "sema_tpu_torch.cli" in report["modules"]
-    for name in ("parallel", "parallel.mesh", "models.tp", "ops.attention",
+    for name in ("parallel", "parallel.mesh", "parallel.sharded_topk",
+                 "parallel.multislice", "models.tp", "ops.attention",
                  "tools", "tools.scan_ab15", "tools.scan_ab14",
                  "tools.tui_monkey", "tui", "tui.app", "tui.events",
                  "tui.render", "selftest", "quality"):
         assert f"sema_tpu_torch.{name}" in report["modules"]
     assert report["hits"] > 0 and report["tp_rows"] == [3, 64]
+    assert report["sharded"][0] == "r211"
     assert report["sema_tpu"] == [] and report["jax"] == []
 
 

@@ -16,8 +16,8 @@ from sema_tpu_torch.index import vector_store
 from sema_tpu_torch.index.vector_store import VectorStore
 from sema_tpu_torch.selftest import NOT_PORTED, run_device_selftest
 
-NAMES = ["scan-ids", "scan-int8", "scan-spill", "scan-ivf", "scan-spill-ivf",
-         "encoder-parity"]
+NAMES = ["scan-ids", "scan-int8", "scan-mesh", "scan-spill", "scan-ivf",
+         "scan-spill-ivf", "encoder-parity"]
 
 
 def test_selftest_all_green_on_cpu():
@@ -31,7 +31,7 @@ def test_selftest_all_green_on_cpu():
 def test_selftest_scan_only():
     checks = run_device_selftest(None, dim=32, with_encoder=False,
                                  device="cpu")
-    assert len(checks) == 5
+    assert len(checks) == 6
     assert all(ok for _, ok, _ in checks)
 
 
@@ -55,13 +55,13 @@ def test_check_names_are_the_jax_packages_less_the_unported():
         "scan-ids", "scan-ids-pallas", "scan-int8", "scan-mesh",
         "scan-spill", "scan-ivf", "scan-spill-ivf", "encoder-parity"]
     assert [n for n in jax_names if n not in NOT_PORTED] == NAMES
-    assert sorted(NOT_PORTED) == ["scan-ids-pallas", "scan-mesh"]
+    assert sorted(NOT_PORTED) == ["scan-ids-pallas"]
     assert all(NOT_PORTED.values())
 
 
 # the scan wrapper each check's probes reach, by the name the store calls
 SCAN_OF = {"scan-ids": "scan_topk", "scan-int8": "scan_topk_int8",
-           "scan-spill": "scan_topk", "scan-ivf": "scan_topk_pruned",
+           "scan-mesh": "scan_topk", "scan-spill": "scan_topk", "scan-ivf": "scan_topk_pruned",
            "scan-spill-ivf": "scan_topk_pruned"}
 
 

@@ -30,6 +30,7 @@ from sema_tpu_torch.models.tp import (permute_qkv_heads, shard_params_tp,
 from sema_tpu_torch.ops import attention as attn
 from sema_tpu_torch.parallel.mesh import Mesh, default_mesh, make_mesh
 from sema_tpu_torch.tokenizer import HashTokenizer
+from sema_tpu_torch.types import Chunk
 
 TEXTS = [f"padded doc {i} " + "word " * (3 + 9 * i) for i in range(8)]
 # over 128 tokens each: one batch in the 256 bucket, where K6 runs
@@ -217,28 +218,56 @@ def _config(**mesh):
 
 
 def test_mesh_config_reaches_the_encoder(tmp_path, monkeypatch):
+    """``[mesh]`` through ``cli.make_index_manager`` on CPU shards, as
+    ``sema_tpu/cli.py:175-204`` builds it: the encoder's batch splits over
+    ``index`` and its weights over ``model_axis``; the store's rows shard
+    over ``index`` (and ``slice_axis``, the outermost axis); every mesh's
+    manager indexes and answers a query."""
     monkeypatch.setenv("SEMA_TPU_HOME", str(tmp_path / "home"))
     monkeypatch.setenv("SEMA_TPU_DATA", str(tmp_path / "data"))
+    chunks = [Chunk(id=f"c{i}", file_path=tmp_path / f"f{i % 3}.py",
+                    start_line=i + 1, end_line=i + 1,
+                    content=f"production wiring doc {i} " + "word " * i)
+              for i in range(40)]
+
+    def answers(mgr):
+        mgr.index_chunks(chunks)
+        hits = mgr.search(chunks[7].content, 5)
+        assert hits and hits[0][0].id == "c7", hits
+        mgr.close()
+
     mgr = cli.make_index_manager(
         _config(model_axis="model", shape=[2, 2, 1]), "cpu")
     enc = mgr.encoder
     assert enc.model_axis == "model" and enc.mesh.shape == {
         "data": 2, "model": 2, "index": 1}
-    assert enc.shards.shape == (2, 2)
+    assert enc.shards.shape == (1, 2)       # index x model
     assert enc.shards[0, 1]["layers"]["qkv_w"].shape[-1] == 3 * 64 // 2
     out = enc.encode_texts(["production wiring doc"])
     assert out.shape == (1, enc.spec.dim)
     assert float(out[0].norm()) == pytest.approx(1.0, abs=1e-3)
-    mgr.close()
-    dp = cli.make_index_manager(_config(shape=[2, 1]), "cpu")
-    assert dp.encoder.model_axis is None and dp.encoder.shards.shape == (2, 1)
-    dp.close()
+    assert mgr.vector_store._shards() == 1
+    answers(mgr)
     with pytest.raises(SystemExit):          # no explicit 3-entry shape
         cli.make_index_manager(_config(model_axis="model"), "cpu")
     with pytest.raises(SystemExit):
         cli.make_index_manager(_config(model_axis="model", shape=[1, 2]),
                                "cpu")
-    for mesh in ({"model_axis": "model", "shape": [1, 2, 2]},
-                 {"shape": [1, 4]}, {"slice_axis": "slice"}):
-        with pytest.raises(NotImplementedError):
-            cli.make_index_manager(_config(**mesh), "cpu")
+    with pytest.raises(SystemExit):          # slice needs its shape too
+        cli.make_index_manager(_config(slice_axis="slice"), "cpu")
+    assert cli.config_mesh(_config(), "cpu") is None   # default_mesh
+    for mesh, shards, enc_shards, axes in (
+            ({"model_axis": "model", "shape": [1, 2, 2]}, 2, (2, 2),
+             ("data", "model", "index")),
+            ({"shape": [1, 4]}, 4, (4, 1), ("data", "index")),
+            # data-parallel: the batch splits over index, here of one
+            ({"shape": [2, 1]}, 1, (1, 1), ("data", "index")),
+            ({"slice_axis": "slice", "shape": [2, 1, 2]}, 4, (2, 1),
+             ("slice", "data", "index"))):
+        mgr = cli.make_index_manager(_config(**mesh), "cpu")
+        store = mgr.vector_store
+        assert store.mesh.axis_names == axes and store._shards() == shards
+        assert store.slice_axis == mesh.get("slice_axis")
+        assert mgr.encoder.shards.shape == enc_shards
+        assert mgr.encoder.model_axis == mesh.get("model_axis")
+        answers(mgr)
