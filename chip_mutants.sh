@@ -16,7 +16,9 @@
 # under a pty) must exit non-zero with the kernel's error and never show
 # "Indexing failed". The shard_* mutants break the store's row sharding
 # (phase shard_path). The doctor_* mutants put the fault of a mutant above
-# again and must fail the doctor's self-test (phase doctor_path).
+# again and must fail the doctor's self-test (phase doctor_path). The
+# tools_path mutants break a measuring tool or encoder_ablate's ablated
+# builds; their phase runs only the tool at fault (--tools).
 # Prints one line per mutant, "caught" or "MISSED" (once every mutant's
 # phase has ended), and exits non-zero if any mutant was missed or left
 # its source unchanged. MUTANT_JOBS phases run at once on the card
@@ -62,7 +64,9 @@ mutant() {
 # $dir/verdict
 check_mutant() {
   local dir=$1 name=$2 phases=$3
-  if (cd "$dir" && python3 chip_smoke.py --phases "$phases" \
+  local args
+  read -ra args <<< "$phases"   # the phases, then any other arguments
+  if (cd "$dir" && python3 chip_smoke.py --phases "${args[@]}" \
         > out.txt 2> err.txt); then
     echo "mutant $name: MISSED by phase $phases" > "$dir/verdict"
   else
@@ -297,6 +301,24 @@ mutant shard_merge_unstable parallel/sharded_topk.py \
 mutant shard_ivf_perm_local index/vector_store.py \
   's/            perm\[s \* sr:(s + 1) \* sr\] = p + s \* sr/            perm[s * sr:(s + 1) * sr] = p/' \
   shard_path
+# tools_path's: an ablated build of encoder_ablate that ignores its -D
+# (prod and the ablated variants equal)
+mutant ablate_define_ignored encoder_layer.cu \
+  's/^#if SEMA_ABLATE == [12]$/#if 0/; s/^#elif SEMA_ABLATE == 2$/#elif 0/' \
+  "tools_path --tools encoder_ablate"
+# a tool that resolves its device to the CPU (no launch, device "cpu")
+mutant tool_on_cpu tools/serving_sweep.py \
+  's/dev = resolve_device(args.device)/dev = resolve_device("cpu")/' \
+  "tools_path --tools serving_sweep"
+# load_test's mutator streams into planted.txt, whose rows it then
+# tombstones (mismatches > 0)
+mutant load_test_mutates_planted tools/load_test.py \
+  's/return f"stream-{gen}.txt"/return "planted.txt"/' \
+  "tools_path --tools load_test"
+# the product's build of encoder_layer.cu takes the no_exp softmax: K2
+# against its plain version must fail
+mutant product_build_ablated encoder_layer.cu \
+  's/^#define SEMA_ABLATE 0$/#define SEMA_ABLATE 1/' encoder_layer
 # the doctor's self-test (planted winners at k = 1, the encoder against f32
 # on the CPU) against the faults of kernels it launches: K1, K3, K4a, K2,
 # K5 and the spilled union probe

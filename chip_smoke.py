@@ -323,6 +323,30 @@ Phases, one JSON line each:
                       limits; K4a and K4b bit for bit). Prints each open's
                       seconds, the p50s, the busy shares and the launches
                       a query beside the single-shard store's.
+19. ``tools_path``    (last) the port's measuring tools, each as ``python
+                      -m sema_tpu_torch.tools.<name>`` in a fresh process
+                      (``TOOLS``): ``load_test`` at 262,144 x 384 with 256
+                      clients and the mutator, then at BASELINE config 4's
+                      widths (int8 IVF, d 1,024, 64 clients); 0 errors, 0
+                      mismatches. ``spill_ivf_bench`` in bf16 and int8: a
+                      bucket spilled, the probe staging less than the
+                      stream. ``query_breakdown`` (every stage > 0),
+                      ``ivf_bench`` at 1,048,576 x 384 (K1's recall 1
+                      against its plain version, recall not falling with
+                      nprobe, K3's hits of 8 queries under ``check_scan``'s
+                      limits), ``serving_sweep`` (8, 32, 128 clients, no
+                      error), ``index_build_bench`` (MiniLM, then
+                      gte-large W8A8; every chunk of the tree indexed) and
+                      ``encoder_ablate`` at MiniLM (256, 256) (prod bit-equal
+                      to K2; no_exp and no_softmax, the builds of
+                      ``encoder_layer.cu`` with ``-DSEMA_ABLATE`` made in
+                      the build phase, unequal to prod and at per-row
+                      cosine >= 0.9999 to their plain versions), with
+                      ``text_index_scale`` at 200,000 chunks on the host
+                      beside it. Each must exit 0, name the card's
+                      nvidia-smi line as its ``device`` and launch the
+                      kernels its path reaches; their launches add to the
+                      kernels line's.
 
 ``--parent-source DIR`` (another revision's tree, e.g. ``git archive REV
 | tar -x -C build/parent``; its two kernel sources are built beside this
@@ -373,6 +397,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the timing helpers and the wrappers' names the port's tools share;
+# WRAPPERS maps a kernel's name in the kernels line to its wrapper's in
+# sema_tpu_torch.ops
+from sema_tpu_torch.tools import (WRAPPERS, device_ms, query_device_time,
+                                  short_name)
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
@@ -404,38 +434,6 @@ def check(ok, what="check failed") -> None:
     """Raise unless ``ok`` (an ``assert`` would vanish under ``-O``)."""
     if not ok:
         raise RuntimeError(what)
-
-
-def device_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events,
-    after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def short_name(key: str) -> str:
-    """A kernel's name as the profiler reports it, without its return
-    type, anonymous namespace and argument list: ``gemm_kernel<0, 2,
-    16>``. Two instantiations of one template keep their template
-    arguments apart."""
-    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
-    depth = 0
-    for i, ch in enumerate(name):
-        if ch == "<":
-            depth += 1
-        elif ch == ">":
-            depth -= 1
-        elif ch == "(" and depth == 0 and i > 0:
-            return name[:i].strip()
-    return name.strip()
 
 
 def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1,
@@ -541,16 +539,6 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
     t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
-
-
-# every kernel's wrapper: its name in the kernels line → its name in
-# sema_tpu_torch.ops
-WRAPPERS = {**{name: name for name in SCANS},
-            "scan_topk_warm": "scan_topk_warm", "fold_topk": "fold_topk",
-            "encoder_layer": "fused_encoder_layer",
-            "encoder_layer_int8": "fused_encoder_layer_int8",
-            "attention_block": "fused_attention_block",
-            "attention_qkv": "fused_attention_qkv"}
 
 
 def _wrappers() -> dict:
@@ -2233,30 +2221,6 @@ def make_tree(root: Path, n_files: int) -> Path:
         d.mkdir(parents=True, exist_ok=True)
         (d / f"mod{f:04d}.py").write_text(module_text(rng))
     return root
-
-
-def query_device_time(search, n: int) -> dict:
-    """Device time of ``n`` queries under torch.profiler: busy ms per
-    query, the busy share of the wall time, and the kernels that take
-    the most of it (device ms per query, summed by ``short_name``: a
-    prefix of the profiler's key would merge one template's
-    instantiations, and a dict keyed by it kept only the last of them)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            search()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    check(events, "the profiler saw no device activity")
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    by_name = Counter()
-    for e in events:
-        by_name[short_name(e.key)] += e.self_device_time_total / 1e3 / n
-    return {"busy_ms": busy_ms / n, "busy_share": busy_ms / wall_ms,
-            "top_ms": dict(by_name.most_common(10))}
 
 
 def bucket_batches(enc, texts):
@@ -4973,6 +4937,156 @@ def phase_doctor_path(work: Path, weights, extra=(), cases=DOCTOR_CASES):
     return runs
 
 
+# -- tools_path: the port's measuring tools ------------------------------------
+
+# (tool, arguments, the kernels its run must launch); text_index_scale,
+# host only, runs beside encoder_ablate (whose times are the profiler's)
+TOOLS = (
+    ("load_test", ["--rows", "262144", "--dim", "384", "--clients", "256",
+                   "--max-batch", "256", "--duration", "8", "--warmup", "3",
+                   "--mutate"], ("scan_topk",)),
+    ("load_test", ["--ivf", "--store-dtype", "int8", "--dim", "1024",
+                   "--rows", "262144", "--clients", "64", "--duration", "5"],
+     ("scan_topk_int8_pruned",)),
+    ("spill_ivf_bench", [], ("scan_topk", "scan_topk_pruned")),
+    ("spill_ivf_bench", ["--store-dtype", "int8"],
+     ("scan_topk", "scan_topk_int8_pruned")),
+    ("query_breakdown", ["--rows", "262144"], ("scan_topk", "encoder_layer")),
+    ("ivf_bench", ["--rows", "1048576", "--dim", "384"],
+     ("scan_topk", "scan_topk_pruned")),
+    ("serving_sweep", ["--rows", "262144", "--clients", "8", "32", "128",
+                       "--duration", "4", "--warmup", "2"], ("scan_topk",)),
+    ("index_build_bench", ["--chunks", "20000"], ("encoder_layer",)),
+    ("index_build_bench", ["--model", "gte-large", "--quant", "int8",
+                           "--chunks", "2048"], ("encoder_layer_int8",)),
+    ("encoder_ablate", ["--model", "minilm-l6", "--batch", "256", "--seq",
+                        "256"], ("encoder_layer",)),
+)
+TEXT_SCALE_ARGS = ["--docs", "200000"]
+
+
+def tool_command(module: str, argv) -> list:
+    return [sys.executable, "-m", f"sema_tpu_torch.tools.{module}", *argv]
+
+
+def tool_result(module: str, argv, proc, out: str, err: str,
+                t0: float) -> dict:
+    """A finished tool run: its exit code, seconds, last line (None when
+    it printed no JSON) and the end of what it printed."""
+    try:
+        last = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        last = None
+    return {"tool": module, "argv": list(argv), "rc": proc.returncode,
+            "seconds": time.perf_counter() - t0, "last": last,
+            "printed": (out + err)[-1500:]}
+
+
+def tool_checks(module: str, argv, last: dict) -> list:
+    """The table's checks of one tool's last line: what failed."""
+    bad = []
+
+    def need(ok, what):
+        if not ok:
+            bad.append(f"{module} {' '.join(argv)}: {what}")
+    if module == "load_test":
+        need(last["errors"] == 0 and last["mismatches"] == 0
+             and last["mutated_batches"] >= (1 if "--mutate" in argv else 0),
+             "errors, mismatches or no mutation")
+    elif module == "spill_ivf_bench":
+        need(last["spilled_buckets"] >= 1, "nothing spilled")
+        need(last["probe_upload_mb"] < last["streamed_upload_mb"],
+             "the probe staged no less than the stream")
+        need(0.0 <= last["recall_at_k"] <= 1.0, "recall out of [0, 1]")
+    elif module == "query_breakdown":
+        need(all(last[s] > 0 for s in (
+            "tokenize_ms", "rtt_ms", "embed_device_ms", "scan_device_ms",
+            "embed_e2e_ms", "search_e2e_ms")), "a stage is not positive")
+    elif module == "ivf_bench":
+        rungs = [r for r in last["rungs"].values() if "recall_at_k" in r]
+        need(last["exact_recall_at_k"] == 1.0, "exact recall below 1")
+        need(len(rungs) >= 2 and rungs[-1]["recall_at_k"]
+             >= rungs[0]["recall_at_k"], "recall fell with nprobe")
+        need(last["plain_check"]["ok"]
+             and last["plain_check"]["queries"] == 8,
+             f"K3 against its plain version: {last['plain_check']}")
+    elif module == "serving_sweep":
+        need(all(r["errors"] == 0 and r["mismatches"] == 0
+                 for r in last["rungs"]), "a rung with errors")
+    elif module == "index_build_bench":
+        need(last["chunks"] == last["tree_chunks"] > 0,
+             "chunks are not the tree's")
+    elif module == "encoder_ablate":
+        c = last["checks"]
+        need(c["prod_bit_equal"], "prod is not K2 bit for bit")
+        for name in ("no_exp", "no_softmax"):
+            need(c[name]["differs_from_prod"] and c[name]["min_cos"]
+                 >= 0.9999, f"{name} against prod and its plain version: "
+                 f"{c[name]}")
+    return bad
+
+
+def phase_tools_path(work: Path, smi: str, tools=TOOLS,
+                     text_args=TEXT_SCALE_ARGS) -> dict:
+    """Each of the port's tools as ``python -m sema_tpu_torch.tools.<name>``
+    in a fresh process on the card (TMPDIR in ``work``), its last line
+    printed as it comes and checked (``tool_checks``): exit 0, ``device``
+    the card's nvidia-smi line, and the kernels it must reach among its
+    ``launches``; ``text_index_scale`` on the host beside
+    ``encoder_ablate``, with no launch (its ``rss_*`` keys, ``ru_maxrss``,
+    are this process's peak, which a child inherits at fork and keeps
+    across exec: its own RSS shows only when it runs by hand). Every run
+    is printed before a failed check fails the phase. Returns the
+    launches summed over the tools."""
+    tmp = work / "tools-tmp"
+    tmp.mkdir(exist_ok=True)
+    env = {**os.environ, "TMPDIR": str(tmp)}
+    t_phase = time.perf_counter()
+    failed, launches = [], Counter()
+    for module, argv, kernels in tools:
+        side = None
+        if module == "encoder_ablate":
+            side = (time.perf_counter(), subprocess.Popen(
+                tool_command("text_index_scale", text_args), cwd=ROOT,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        t0 = time.perf_counter()
+        proc = subprocess.run(tool_command(module, argv), cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        runs = [tool_result(module, argv, proc, proc.stdout, proc.stderr,
+                            t0)]
+        if side is not None:
+            t_side, sp = side
+            out, err = sp.communicate(timeout=600)
+            runs.append(tool_result("text_index_scale", text_args, sp, out,
+                                    err, t_side))
+        for r, must in zip(runs, (kernels, ())):
+            last = r["last"]
+            emit("tools_path", **{k: v for k, v in r.items()
+                                  if k != "printed" or last is None
+                                  or r["rc"] != 0})
+            what = f"{r['tool']} {' '.join(r['argv'])}"
+            if r["rc"] != 0 or last is None:
+                failed.append(f"{what}: exit {r['rc']}")
+                continue
+            launched = last["launches"]
+            launches.update(launched)
+            if must:
+                if last["device"] != smi:
+                    failed.append(f"{what}: device {last['device']!r}")
+                if not all(launched.get(k, 0) > 0 for k in must):
+                    failed.append(f"{what}: launches {launched}, want "
+                                  f"{must}")
+                failed += tool_checks(r["tool"], r["argv"], last)
+            elif launched:
+                failed.append(f"{what}: host only, launched {launched}")
+    seconds = time.perf_counter() - t_phase
+    emit("tools_path", seconds=seconds, launches=dict(launches),
+         failed=failed)
+    check(not failed, f"tools_path: {failed}")
+    return dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
@@ -4981,6 +5095,9 @@ def main() -> int:
                     help="another revision's tree (e.g. `git archive REV | "
                          "tar -x -C build/parent`): run the layer_bits and "
                          "scan_bits phases against its kernels")
+    ap.add_argument("--tools", default=None,
+                    help="comma-separated tools that tools_path runs "
+                         "(default: all of TOOLS)")
     cli_args = ap.parse_args()
     phases = (None if cli_args.phases is None
               else set(cli_args.phases.split(",")))
@@ -4998,7 +5115,17 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    seconds = _cuda.build()
+    if run("tools_path"):
+        # encoder_ablate's three builds of encoder_layer.cu, beside the
+        # product's: the tool then finds them built
+        from concurrent.futures import ThreadPoolExecutor
+        from sema_tpu_torch.tools.encoder_ablate import build_variants
+        with ThreadPoolExecutor(1) as ex:
+            ablate = ex.submit(build_variants)
+            seconds = _cuda.build()
+            seconds["encoder_ablate"] = ablate.result()
+    else:
+        seconds = _cuda.build()
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0)
 
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -5059,6 +5186,10 @@ def main() -> int:
             tp_runs = phase_tp_path(work, tree, weights, gen)
         if run("doctor_path"):
             doctor_runs = phase_doctor_path(work, weights)
+        if run("tools_path"):
+            chosen = (cli_args.tools or "").split(",")
+            tools_launches = phase_tools_path(work, smi, [
+                t for t in TOOLS if cli_args.tools is None or t[0] in chosen])
     if phases is not None:
         print(f"partial run of {sorted(phases)}: no kernels line", flush=True)
         return 0
@@ -5074,7 +5205,7 @@ def main() -> int:
         p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")] + [
         dict(s["launches"]) for s in spill.values()] + [append["launches"]] \
-        + tui_runs + doctor_runs + [shard["launches"]]
+        + tui_runs + doctor_runs + [shard["launches"], tools_launches]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in runs[0]}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

@@ -11,6 +11,8 @@
     python -m sema_tpu_torch doctor [flags]         environment, the device
                                                     self-test and the
                                                     quality gate
+    python -m sema_tpu_torch bench [flags]          not written yet: names
+                                                    the tools, exits 2
 
 The flags are the JAX package's, plus ``--device {cuda,cpu}`` (default
 ``cuda``; a missing card raises rather than falling back). Config and
@@ -31,8 +33,11 @@ curses has restored the terminal. ``[mesh]`` builds a mesh
 (and ``slice_axis``), the encoder's batch splits over ``index`` and, with
 ``model_axis``, its weights over that axis. ``[index]
 hbm_budget_mb`` caps the store's device buckets: past it, sealed buckets
-stay on the host and stream (``VectorStore``'s HBM spill). ``bench`` is
-not ported yet.
+stay on the host and stream (``VectorStore``'s HBM spill). ``bench``
+takes the JAX package's flags, says that the port's benchmark harness is
+not written yet, names the tools that measure the port today
+(``python -m sema_tpu_torch.tools.load_test``, ``ivf_bench``,
+``spill_ivf_bench``) and exits 2.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from sema_tpu_torch.config import (Config, ConfigManager, apply_cli_overrides,
 from sema_tpu_torch.ops._cuda import KernelError
 from sema_tpu_torch.types import CrawlerConfig
 
-SUBCOMMANDS = {"index", "query", "tui", "serve", "doctor"}
+SUBCOMMANDS = {"index", "query", "tui", "bench", "serve", "doctor"}
 
 
 def _add_crawl_flags(p: argparse.ArgumentParser) -> None:
@@ -115,6 +120,12 @@ def build_parser() -> argparse.ArgumentParser:
     query.add_argument("--trace", metavar="DIR", default=None,
                        help="capture a torch.profiler trace into DIR")
     _add_model_flags(query)
+
+    bench = sub.add_parser("bench", help="run the standard benchmark "
+                                         "(not written yet)")
+    bench.add_argument("--config", default="minilm-10k",
+                       help="benchmark config name")
+    _add_model_flags(bench)
 
     serve = sub.add_parser("serve", help="HTTP search daemon over the index")
     _add_crawl_flags(serve)
@@ -473,10 +484,26 @@ def cmd_serve(args) -> int:
     return 0
 
 
+BENCH_TOOLS = ("load_test", "ivf_bench", "spill_ivf_bench")
+
+
+def cmd_bench(args) -> int:
+    """The port has no benchmark harness yet: say so and name the tools
+    that measure it (``sema_tpu``'s ``bench`` calls ``bench.run`` with an
+    argument it does not take)."""
+    print(f"bench: the port's benchmark harness is not written yet "
+          f"(config {args.config!r} not run). Its measuring tools:",
+          file=sys.stderr)
+    for tool in BENCH_TOOLS:
+        print(f"  python -m sema_tpu_torch.tools.{tool}", file=sys.stderr)
+    return 2
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     cmd = {"index": cmd_index, "query": cmd_query, "tui": cmd_tui,
-           "serve": cmd_serve, "doctor": cmd_doctor}[args.command]
+           "bench": cmd_bench, "serve": cmd_serve,
+           "doctor": cmd_doctor}[args.command]
     try:
         return cmd(args)
     except KernelError as e:

@@ -5,6 +5,9 @@ own shared library with a plain C interface, at first use, and loaded
 with ``ctypes``. The library name carries a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
 ``build()`` starts one ``nvcc`` per missing source, all at once.
+``defines`` (``-D`` macros) build a source a second time into a library
+of its own; only the attribution tools of ``sema_tpu_torch/tools/`` pass
+them, so no product path loads such a build.
 
 The build directory (``build/kernels/`` at the repository root) is listed
 in ``.gitignore``. Nothing here runs at import time: a host without
@@ -25,12 +28,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -38,8 +42,8 @@ SOURCES = ("scan_topk", "encoder_layer")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: Dict[str, ctypes.CDLL] = {}
-_bound: set = set()          # (library, entry point) with argtypes set
+_libs: Dict[tuple, ctypes.CDLL] = {}     # (name, defines) → library
+_bound: set = set()          # ((name, defines), entry point) bound
 _lock = threading.Lock()
 
 
@@ -57,25 +61,33 @@ def _nvcc() -> str:
                        f"{home}/bin); the CUDA kernels cannot be built")
 
 
-def lib_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source + flags."""
+def _macros(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return tuple(f"-D{d}" for d in defines)
+
+
+def lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by source + flags (and
+    the ``defines`` of a second build, which its name also shows)."""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(NVCC_FLAGS + _macros(defines)).encode())
+    tag = "".join("-" + re.sub(r"\W", "", d) for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+def build(names: Optional[Iterable[str]] = None,
+          defines: Tuple[str, ...] = ()) -> Dict[str, float]:
     """Compile every missing library of ``names`` (default: all), one
-    ``nvcc`` process per source, all started together. Returns the
-    seconds each build took (0.0 when the library was already there).
-    Raises KernelError with the compiler's output if one fails."""
+    ``nvcc`` process per source, all started together, each with the
+    macros ``defines`` (``"NAME=VALUE"``). Returns the seconds each build
+    took (0.0 when the library was already there). Raises KernelError
+    with the compiler's output if one fails."""
     names = tuple(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = {}
     seconds = {}
     for name in names:
-        out = lib_path(name)
+        out = lib_path(name, defines)
         if out.exists():
             seconds[name] = 0.0
             continue
@@ -83,7 +95,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
         log = open(out.with_suffix(".log"), "w")
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *NVCC_FLAGS, *_macros(defines), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT)
         running[name] = (proc, tmp, out, log, time.perf_counter())
     failed = []
@@ -101,28 +114,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
-def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed.
-    ``signatures`` maps each C entry point to its ctypes argtypes (two
-    modules may bind entry points of one library); every entry point
-    returns a ``cudaError_t`` as int."""
+def library(name: str, signatures: Dict[str, list],
+            defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    built first if needed. ``signatures`` maps each C entry point to its
+    ctypes argtypes (two modules may bind entry points of one library);
+    every entry point returns a ``cudaError_t`` as int."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build([name])
+            build([name], key[1])
+            path = lib_path(name, key[1])
             try:
-                lib = ctypes.CDLL(str(lib_path(name)))
+                lib = ctypes.CDLL(str(path))
             except OSError as e:
-                raise KernelError(f"cannot load {lib_path(name)}: {e}") from e
+                raise KernelError(f"cannot load {path}: {e}") from e
             lib.sema_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sema_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[key] = lib
         for fn, argtypes in signatures.items():
-            if (name, fn) not in _bound:
+            if (key, fn) not in _bound:
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-                _bound.add((name, fn))
+                _bound.add((key, fn))
         return lib
 
 

@@ -53,12 +53,24 @@ _SIGNATURES = {
 }
 
 
+# the softmaxes of heads_attention: the product's, and the two that
+# tools/encoder_ablate.py times its attention without (the plain versions
+# of csrc/encoder_layer.cu built with -DSEMA_ABLATE=1 and 2)
+SOFTMAXES = ("exp", "no_exp", "no_softmax")
+
+
 def heads_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
-                    num_heads: int, scale: float) -> torch.Tensor:
+                    num_heads: int, scale: float,
+                    softmax: str = "exp") -> torch.Tensor:
     """The attention core every kernel of the encoder shares
     (``fused_attention.py:_heads_attention``): (B, S, 3·H) qkv in the
     compute dtype and (B, S) f32 mask bias → (B, S, H) context in the
-    compute dtype."""
+    compute dtype. ``softmax`` other than "exp" computes wrong attention,
+    for attribution only: "no_exp" takes s - max + 1 for exp(s - max)
+    (``tools/encoder_ablate.py:_heads_attention_no_exp``), "no_softmax"
+    the rounded score times 1e-3 as the probability
+    (``_heads_attention_no_softmax``), each in f32 from the scores in the
+    compute dtype, as the ablated kernels do."""
     b, s, h3 = qkv.shape
     h = h3 // 3
     dt = qkv.dtype
@@ -66,7 +78,17 @@ def heads_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
         2, 0, 3, 1, 4)
     scores = q.float() @ k.float().transpose(-1, -2)          # (b, n, s, s)
     scores = scores * scale + mask_bias.float()[:, None, None, :]
-    probs = torch.softmax(scores.to(dt), dim=-1)
+    scores = scores.to(dt)
+    if softmax == "exp":
+        probs = torch.softmax(scores, dim=-1)
+    elif softmax == "no_exp":
+        e = scores.float() - scores.float().amax(-1, keepdim=True) + 1.0
+        probs = (e / e.sum(-1, keepdim=True)).to(dt)
+    elif softmax == "no_softmax":
+        probs = (scores.float() * 1e-3).to(dt)
+    else:
+        raise ValueError(f"softmax must be one of {SOFTMAXES}, got "
+                         f"{softmax!r}")
     ctx = (probs.float() @ v.float()).to(dt)
     return ctx.permute(0, 2, 1, 3).reshape(b, s, h)
 

@@ -182,24 +182,29 @@ def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 def encoder_layer_reference(x: torch.Tensor, layer: dict,
                             mask_bias: torch.Tensor, num_heads: int,
                             scale: float, ln_eps: float,
-                            operands=None) -> torch.Tensor:
+                            operands=None, softmax: str = "exp"
+                            ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_encoder_layer`
-    (``operands``, the kernels' gathered leaves, is not used)."""
+    (``operands``, the kernels' gathered leaves, is not used). The
+    product calls it with the default ``softmax``; the others are the
+    plain versions of the ablated builds (``attention.SOFTMAXES``)."""
     dt = x.dtype
 
     def mm(a, name):                     # f32 accumulation of dt operands
         return a.float() @ layer[name].to(dt).float()
 
     return layer_with_products(x, layer, mask_bias, num_heads, scale,
-                               ln_eps, mm)
+                               ln_eps, mm, softmax)
 
 
 def layer_with_products(x: torch.Tensor, layer: dict,
                         mask_bias: torch.Tensor, num_heads: int,
-                        scale: float, ln_eps: float, mm) -> torch.Tensor:
+                        scale: float, ln_eps: float, mm,
+                        softmax: str = "exp") -> torch.Tensor:
     """The layer's rounding sequence around its four products, each
     ``mm(rows, name)``: the f32 (rows, out) product of ``(rows, in)``
-    activations in the compute dtype with the linear ``name``."""
+    activations in the compute dtype with the linear ``name``, and the
+    attention's ``softmax`` (``attention.heads_attention``)."""
     b, s, h = x.shape
     dt = x.dtype
     f32 = torch.float32
@@ -211,7 +216,7 @@ def layer_with_products(x: torch.Tensor, layer: dict,
     xf = x.reshape(b * s, h)
     qkv = (mm(xf, "qkv_w") + bias("qkv_b", f32)).to(dt)
     ctx = heads_attention(qkv.view(b, s, 3 * h), mask_bias, num_heads,
-                          scale).reshape(b * s, h)
+                          scale, softmax).reshape(b * s, h)
 
     attn = mm(ctx, "attn_out_w").to(acc)
     attn = (attn + bias("attn_out_b", acc)).to(dt)

@@ -99,7 +99,11 @@ def test_port_runs_with_jax_blocked_and_imports_no_sema_tpu(tmp_path):
     for name in ("parallel", "parallel.mesh", "parallel.sharded_topk",
                  "parallel.multislice", "models.tp", "ops.attention",
                  "tools", "tools.scan_ab15", "tools.scan_ab14",
-                 "tools.tui_monkey", "tui", "tui.app", "tui.events",
+                 "tools.tui_monkey", "tools.load_test",
+                 "tools.spill_ivf_bench", "tools.query_breakdown",
+                 "tools.ivf_bench", "tools.serving_sweep",
+                 "tools.index_build_bench", "tools.text_index_scale",
+                 "tools.encoder_ablate", "tui", "tui.app", "tui.events",
                  "tui.render", "selftest", "quality"):
         assert f"sema_tpu_torch.{name}" in report["modules"]
     assert report["hits"] > 0 and report["tp_rows"] == [3, 64]
@@ -125,10 +129,11 @@ native/bindings.py tokenizer/__init__.py tokenizer/wordpiece.py
 models/registry.py index/text_segment.py index/text_index.py index/ivf_cache.py
 search/__init__.py search/engine.py search/server.py
 search/http_server.py tui/__init__.py tui/events.py tui/render.py tui/app.py
-quality.py tools/tui_monkey.py""".split()
+quality.py tools/tui_monkey.py tools/text_index_scale.py""".split()
 
 # A copy's source, where it is not sema_tpu/<the same path>.
-SOURCES = {"tools/tui_monkey.py": "tools/tui_monkey.py"}
+SOURCES = {"tools/tui_monkey.py": "tools/tui_monkey.py",
+           "tools/text_index_scale.py": "tools/text_index_scale.py"}
 
 _XXHASH_OPTIONAL = '''import hashlib
 from pathlib import Path
@@ -210,6 +215,21 @@ REPLACEMENTS = {
     "tools/tui_monkey.py": [
         ('[sys.executable, "-m", "sema_tpu.cli", "tui",',
          '[sys.executable, "-m", "sema_tpu_torch", "tui",'),
+    ],
+    # run as a module of the port; its last line names where it ran and
+    # the kernels it launched (none: the text index is host only)
+    "tools/text_index_scale.py": [
+        ("    python tools/text_index_scale.py --docs 2000000 [--batch 4096]\n",
+         "    python -m sema_tpu_torch.tools.text_index_scale --docs 2000000 "
+         "[--batch 4096]\n"),
+        ("sys.path.insert(0, str(Path(__file__).resolve().parents[1]))\n",
+         "sys.path.insert(0, str(Path(__file__).resolve().parents[2]))\n"),
+        ('        "commit_ms_p50_last16": round(\n'
+         '            statistics.median(late) * 1e3, 1),\n',
+         '        "commit_ms_p50_last16": round(\n'
+         '            statistics.median(late) * 1e3, 1),\n'
+         '        "device": "cpu",\n'
+         '        "launches": {},\n'),
     ],
     # a KernelError is surfaced, never degraded to the substring scan or
     # swallowed by the warm-up
@@ -311,6 +331,25 @@ def test_copy_has_not_drifted(rel):
         want, n = re.subn(pattern, lambda m: new, want)
         assert n == 1, pattern
     assert copy == want
+
+
+def test_only_the_tools_load_an_ablated_kernel_build():
+    """A ``defines`` build of a kernel source (``_cuda.build``/``library``
+    with ``-D`` macros: the attribution builds of encoder_ablate) is
+    asked for under ``tools/`` only; no product module can load one."""
+    call = re.compile(r"\b(_cuda\.)?(build|library)\((?:[^()]|\([^()]*\))*"
+                      r"\bdefines\b", re.S)
+    users = sorted(str(f.relative_to(REPO / "sema_tpu_torch"))
+                   for f in (REPO / "sema_tpu_torch").rglob("*.py")
+                   if f.name != "_cuda.py" and call.search(f.read_text()))
+    assert users == ["tools/encoder_ablate.py"]
+    assert "SEMA_ABLATE" not in (REPO / "sema_tpu_torch" / "ops" /
+                                 "_cuda.py").read_text()
+    # the product's build of every source has no macro
+    assert _cuda.lib_path("encoder_layer").name.startswith(
+        "libencoder_layer-")
+    assert "SEMA_ABLATE1" in _cuda.lib_path("encoder_layer",
+                                            ("SEMA_ABLATE=1",)).name
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch, tmp_path):

@@ -569,7 +569,8 @@ ARGVS = [[], ["."], ["some/dir", "--include-hidden", "--model", "gte-large"],
          ["index", "x", "--reindex", "--stats"], ["index"],
          ["query", "text", "--limit", "5", "--group"],
          ["serve", "x", "--port", "1", "--reindex-interval", "2"],
-         ["doctor"], ["doctor", "--skip-quality", "--weights", "w"]]
+         ["doctor"], ["doctor", "--skip-quality", "--weights", "w"],
+         ["bench"], ["bench", "--config", "c", "--model", "gte-large"]]
 
 
 @pytest.mark.parametrize("argv", ARGVS, ids=" ".join)
@@ -580,6 +581,19 @@ def test_parse_args_routes_like_the_jax_cli(argv):
     want = vars(jax_cli.parse_args(argv))
     assert got.pop("device") == "cuda"
     assert got == want
+
+
+def test_bench_names_the_tools_and_exits_2(monkeypatch, capsys):
+    """``bench`` is a command, not the TUI on a directory named bench: it
+    says the harness is not written yet, names the tools and exits 2."""
+    def no_tui(args):
+        raise AssertionError("bench started the TUI")
+    monkeypatch.setattr(cli, "cmd_tui", no_tui)
+    assert cli.main(["bench", "--config", "minilm-10k"]) == 2
+    err = capsys.readouterr().err
+    assert "not written yet" in err
+    for tool in ("load_test", "ivf_bench", "spill_ivf_bench"):
+        assert f"python -m sema_tpu_torch.tools.{tool}" in err
 
 
 # -- a KernelError is a fault, never a failed search --------------------------
