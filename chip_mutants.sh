@@ -228,6 +228,32 @@ mutant k9_always_fast scan_topk.cu \
 # K9: the highest column first among equal folded values
 mutant k9_highest_column scan_topk.cu \
   's/(ov == bv \&\& oc < bc)/(ov == bv \&\& oc > bc)/' scan_ab
+# K1, K3, K8 (bf16/f16, scan_pass1_merged): the queues are not flushed at
+# the chunk's end, so its last survivors never reach the lists
+mutant merge_no_chunk_end_flush scan_topk.cu \
+  's/      if (cnt > 0) flush(qi, cnt);/      if (cnt < 0) flush(qi, cnt);/' \
+  scan_topk
+# a flush's sort orders equal scores by nothing (the row id ignored)
+mutant merge_sort_ignores_id scan_topk.cu \
+  's/const bool other_first = ov > v || (ov == v \&\& oi < id);/const bool other_first = ov > v;/' \
+  scan_topk
+# the mergers' screen lets a score equal to the threshold into the queue:
+# the result stands (such a score ranks k or lower), the merge counters
+# leave the plain model's
+mutant merge_screen_ge scan_topk.cu \
+  's/__ballot_sync(0xffffffffu, s > t)/__ballot_sync(0xffffffffu, s >= t)/g' \
+  scan_topk
+# the mergers read a score buffer before the scorers have written it: their
+# wait on the buffer's barrier moved after their reads (the barriers'
+# arrivals stay balanced, so nothing hangs)
+mutant merge_no_full_barrier scan_topk.cu \
+  '/      bar_sync(kBarFull + b, NTH);  \/\/ the scorers have written buffer b/d; s|^      if (tt + nb < n_tiles) bar_arrive(kBarEmpty + b, NTH);|      bar_sync(kBarFull + b, NTH);\n&|' \
+  scan_topk
+# the Python plan gives the bf16 route a query block of 128, which its
+# kernel does not take
+mutant merge_plan_block_not_taken ops/scan_topk.py \
+  's/^_MERGED_BLOCKS = (64, 32, 16, 8)/_MERGED_BLOCKS = (128, 64, 32, 16, 8)/' \
+  scan_topk
 # K2 and K5, the LayerNorm GEMMs: no cluster barrier before the LayerNorm,
 # so a block may read a peer's slice before the peer has written it
 mutant ln_no_cluster_barrier encoder_layer.cu \

@@ -17,7 +17,15 @@ Phases, one JSON line each:
                       between scores within 1e-5 of each other, and scores
                       agree within 1e-5 (both sum the same f32 products in
                       another order). Kernel, plain and library times
-                      beside the bound.
+                      (the library's ``topk`` at the case's own k) beside
+                      the bound, and pass 1's and pass 2's device ms
+                      apart (``scan_passes``). Then the bf16 route's merge
+                      (MERGE_CASES: K1, K8 and K3, k 16 to 1,024) on rows
+                      of whole numbers, whose scores are exact in any
+                      order: the result bit-equal to the plain version's,
+                      and its counters (survivors queued, flushes) equal
+                      to the plain model's (``pass1_merge_reference``)
+                      on the kernel's chunk plan.
 4. ``encoder_layer``  K2 against its plain version, bf16, at MiniLM width
                       (head dim 32) at every bucket shape of the index and
                       at the query's (1, 256), and at e5-base width (head
@@ -255,9 +263,11 @@ Phases, one JSON line each:
                       global k-th ties the sample's k-th
                       (``one_hot_ties``). Every K8 and K9 result must equal
                       K1's on the same inputs bit for bit; K1, K8 and K9
-                      against their plain versions under ``check_scan``.
+                      against their plain versions under ``check_scan``;
+                      K1 also alone at Q 256 and k 1,024 (AB_WIDE_K).
                       Kernel, plain and library (``torch.topk`` of the bf16
-                      product) times beside the bound, and the share of
+                      product at the case's k) times beside the bound,
+                      pass 1's and pass 2's device ms, and the share of
                       K9's merged spans that took the fast path. Then
                       ``python -m sema_tpu_torch.tools.scan_ab15`` and
                       ``scan_ab14`` (and ``scan_ab14 --small``) at their
@@ -326,7 +336,9 @@ Phases, one JSON line each:
 19. ``tools_path``    (last) the port's measuring tools, each as ``python
                       -m sema_tpu_torch.tools.<name>`` in a fresh process
                       (``TOOLS``): ``load_test`` at 262,144 x 384 with 256
-                      clients and the mutator, then at BASELINE config 4's
+                      clients and the mutator, again at ``--k 50`` (the
+                      store's k class 64, K1 over batches of about 124
+                      queries), then at BASELINE config 4's
                       widths (int8 IVF, d 1,024, 64 clients); 0 errors, 0
                       mismatches. ``spill_ivf_bench`` in bf16 and int8: a
                       bucket spilled, the probe staging less than the
@@ -706,7 +718,8 @@ def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
         "plain_ms": device_ms(
             lambda: scan_topk_reference(store, q, valid, k, masked), iters),
         "library_ms": device_ms(lambda: torch.topk(qb @ store.T, k), iters),
-        "bound_ms": ms, "bound_by": bound_by}
+        "bound_ms": ms, "bound_by": bound_by,
+        "passes": scan_passes(lambda: scan_topk(store, q, valid, k, masked))}
 
 
 # phase scan_topk's cases: (n, Q, k, masked, d, dtype)
@@ -717,11 +730,88 @@ K1_CASES = tuple((n, nq, k, masked, D, torch.bfloat16)
     for d in (768, 1024) for nq in (1, 256))
 
 
+def int_rows(n, d, gen):
+    """Rows of whole numbers in [-2, 2] (bf16 holds them exactly): any
+    order of summing their products gives the same f32 score, so the
+    plain version's scores are the kernel's bit for bit, and many tie."""
+    return torch.randint(-2, 3, (n, d), generator=gen, device=DEV).float()
+
+
+# merge_case's cases: (what, n or live tiles, Q, k, masked); K3's tiles
+# are of IVF_TILE rows, K8's sample AB_WARM[0] rows
+MERGE_CASES = (("K1", 16_384, 64, 64, True), ("K1", 16_384, 200, 128, True),
+               ("K1", 8_192, 20, 1024, False), ("K1", 8_192, 40, 256, True),
+               ("K1", 3_600, 1, 64, False),
+               ("K8", 16_384, 64, 64, True), ("K3", 24, 1, 64, True),
+               ("K3", 24, 64, 16, True))
+
+
+def merge_case(what, size, nq, k, masked, gen) -> dict:
+    """The bf16 route's merge (scan_pass1_merged) on rows whose scores
+    are exact (``int_rows``), through ``ops.scan_topk._launch`` with its
+    merge counters: the result must equal the plain version's bit for
+    bit, and the counters (survivors queued, flushes) the plain model's,
+    ``pass1_merge_reference``, on the same scores and the kernel's own
+    chunk plan, exactly: a screen that lets a score equal to the
+    threshold in, or a flush at another point, changes them."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    n = SEAL if what == "K3" else size
+    store = int_rows(n, D, gen)
+    store[TIE[1:]] = store[TIE[0]].clone()
+    store = store.to(BF16)
+    q = int_rows(nq, D, gen)
+    q[0] = store[TIE[0]].float()
+    valid = torch.rand(n, generator=gen, device=DEV) > 0.1
+    valid[TIE] = True
+    if not masked:
+        valid[:] = True
+    kw, rows = {}, torch.arange(n, device=DEV)
+    if what == "K3":
+        tiles = np.sort(np.concatenate([[0], np.random.default_rng(
+            size).choice(np.arange(1, SEAL // IVF_TILE), size - 1,
+                         replace=False)])).astype(np.int32)
+        kw = {"tiles": tiles, "tile_n": IVF_TILE}
+        rows = scan_mod._tile_rows(tiles, size, IVF_TILE, DEV)
+        want = scan_mod.scan_topk_pruned_reference(store, q, valid, tiles,
+                                                   size, k, IVF_TILE)
+    elif what == "K8":
+        w = AB_WARM[0]
+        sample = scan_mod._launch(store[:w], q.to(BF16), valid[:w], k)
+        kw = {"thr0": scan_mod.warm_threshold(sample[0][:, -1])}
+        want = scan_mod.scan_topk_warm_reference(store, q, valid, k, w)
+    else:
+        want = scan_mod.scan_topk_reference(store, q, valid, k, masked)
+    stats = torch.zeros(2, dtype=torch.int64, device=DEV)
+    got = scan_mod._launch(store, q.to(BF16), valid if masked else None, k,
+                           stats=stats, **kw)
+    torch.cuda.synchronize()
+    plan = scan_mod._plan(len(rows), nq, D, 2, k, 64,
+                          scan_mod._sm_count(DEV.index or 0))
+    scores = scan_mod._scores(store[rows], q, valid[rows], masked).cpu()
+    warm = kw.get("thr0")
+    model = scan_mod.pass1_merge_reference(
+        scores, rows.cpu().numpy(), k, plan[1],
+        None if warm is None else warm.cpu())[2]
+    counters = tuple(stats.tolist())
+    equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    check(equal, f"merge {what} n {n} Q {nq} k {k}: not the plain result")
+    check(counters == model, f"merge {what} n {n} Q {nq} k {k}: counters "
+          f"{counters}, the model's {model}")
+    return {"kernel": what, "n": n, "rows": len(rows), "q": nq, "k": k,
+            "masked": masked, "query_block": plan[0],
+            "score_buffers": plan[5], "chunks": plan[3],
+            "queued": counters[0], "flushes": counters[1]}
+
+
 def phase_scan(gen):
     cases = [scan_case(n, nq, k, masked, gen, 10 if n > 10_000 else 30,
                        d=d, dtype=dt)
              for n, nq, k, masked, d, dt in K1_CASES]
-    emit("scan_topk", cases=cases)
+    # the merge cases draw from their own generator, so that the phases
+    # after this one draw what they drew before these cases existed
+    merge_gen = torch.Generator(device=DEV).manual_seed(15)
+    merges = [merge_case(*c, merge_gen) for c in MERGE_CASES]
+    emit("scan_topk", cases=cases, merge_model=merges)
 
 
 # -- K4a, K3, K4b -------------------------------------------------------------
@@ -936,6 +1026,7 @@ def phase_scan_more(gen):
 AB_N = 1 << 20                 # the A/B tools' store: 1,048,576 rows at D
 AB_WARM = (2048, 4096, 8192)   # scan_ab15's warm starts (k 10; k 64, 128: 2048)
 AB_SHAPES = ((256, 10), (1, 10), (256, 64), (1, 64), (256, 128), (1, 128))
+AB_WIDE_K = 1024               # K1 alone at Q 256 and the scans' K_MAX
 # K9's planted ties: an adjacent pair (two lanes of one span: the fast
 # path's tie order), a pair 32 rows apart (one lane: the slow path) and a
 # duplicate in another span (scan_ab14's 4096 = 100), each the query of
@@ -1000,7 +1091,7 @@ def ab_record(kernel, store, q, k, fn, plain, lib_q, err, **extra):
             "plain_ms": device_ms(plain, 2 if nq > 1 else 5),
             "library_ms": device_ms(lambda: torch.topk(lib_q @ store.T, k),
                                     iters),
-            "bound_ms": ms, "bound_by": bound_by}
+            "bound_ms": ms, "bound_by": bound_by, "passes": scan_passes(fn)}
 
 
 def run_tool(module: str, *argv) -> dict:
@@ -1063,6 +1154,9 @@ def phase_scan_ab(gen):
         calls["scan_topk_warm"] += len(run["warm"])
         calls["fold_topk"] += 1
         runs.append(run)
+    wide = scan_topk(warm_store, queries[256][0], live, AB_WIDE_K,
+                     masked=False)
+    calls["scan_topk"] += 1
     for name, store, q, valid, k, masked in (
             ("tombstones", tomb, tomb_q[:1], tomb_valid, 16, True),
             ("tombstones", tomb, tomb_q, tomb_valid, 16, True),
@@ -1134,6 +1228,17 @@ def phase_scan_ab(gen):
                                               masked=False),
                             5 if nq > 1 else 20)))
         torch.cuda.empty_cache()
+    qw = queries[256][0]
+    err = check_scan(warm_store, qw, live, False, wide,
+                     scan_mod.scan_topk_reference(warm_store, qw, live,
+                                                  AB_WIDE_K, masked=False))
+    cases.append(ab_record(
+        "K1", warm_store, qw, AB_WIDE_K,
+        lambda: scan_topk(warm_store, qw, live, AB_WIDE_K, masked=False),
+        lambda: scan_mod.scan_topk_reference(warm_store, qw, live, AB_WIDE_K,
+                                             masked=False), qw.to(BF16), err))
+    del wide
+    torch.cuda.empty_cache()
     more_cases = []
     for r in more_runs:
         name, store, q, valid, k = (r[key] for key in ("name", "store", "q",
@@ -2081,6 +2186,7 @@ def parent_scans(root: Path, lib):
     return mod
 
 
+LOAD_BATCH = 124               # about load_test's mean batch at 256 clients
 # the paths' scan shapes: (what, kernel, rows or live tiles, d, k); a
 # bucket's probe of 61 tiles of 512 (int8, k 128) or 62 (bf16, k 64), the
 # tail's 3,600 rows, and the main path's MiniLM store
@@ -2093,8 +2199,10 @@ PATH_SCANS = (("K4b int8 IVF probe", "int8_pruned", 61, GTE_D, 128),
 
 def phase_scan_bits(gen, root: Path, lib):
     """K1, K3, K4a, K4b, K8 and K9 at every case of the phases scan_topk,
-    scan_int8, scan_pruned and scan_ab, at the paths' shapes (PATH_SCANS),
-    and K1, K4a and K4b at k = K_MAX, through this tree's wrappers and kernels and through
+    scan_int8, scan_pruned and scan_ab, at the paths' shapes (PATH_SCANS)
+    and load_test's batch at k 64 (Q LOAD_BATCH), and K1, K3, K4a, K4b and
+    K8 at k = K_MAX (K1 and K8 also at the A/B's 1M rows and Q 256),
+    through this tree's wrappers and kernels and through
     another revision's (``parent_scans``), on the same inputs: scores and
     ids bit for bit, and both timed in turns in this run (``bits_case``).
     Run with ``--parent-source``; not a phase of the default run."""
@@ -2129,7 +2237,8 @@ def phase_scan_bits(gen, root: Path, lib):
         if d == GTE_D:      # k_max, and the paths' shapes, on the same rows
             for nq in (1, 256):
                 q = more_queries(data, nq, gen)
-                for kind, kernel in (("int8", "K4a"), ("int8_pruned", "K4b")):
+                for kind, kernel in (("int8", "K4a"), ("pruned", "K3"),
+                                     ("int8_pruned", "K4b")):
                     name, args = more_args(kind, data, q, k_max)
                     add(kernel, f"d {d}, Q {nq}, k {k_max}", name, args, nq)
             q = more_queries(data, 1, gen)
@@ -2151,11 +2260,25 @@ def phase_scan_bits(gen, root: Path, lib):
                     args = (data["bf16"][:size], q, data["valid"][:size], k,
                             False)
                 add(what.split()[0], f"path: {what}", name, args, 1)
+            # the spill path's K1 over a streamed slice and K3 over a
+            # staged probe (tiles of SPILL_TILE)
+            for k in (16, 128):
+                add("K1", f"path: spill slice ({SEAL}, {d}), Q 1, k {k}",
+                    "scan_topk", (data["bf16"], q, data["valid"], k, True), 1)
+            stage = np.sort(np.random.default_rng(1).choice(
+                SEAL // SPILL_TILE, size=138, replace=False)).astype(np.int32)
+            add("K3", f"path: spill stage (138 tiles of {SPILL_TILE}, {d}), "
+                "Q 1, k 16", "scan_topk_pruned",
+                (data["bf16"], q, data["valid"], stage, 138, 16, SPILL_TILE),
+                1)
         del data
         torch.cuda.empty_cache()
     store, q, valid = k1_inputs(3_600, 1, D, BF16, gen)
     add("K1", f"path: {PATH_SCANS[4][0]}", "scan_topk",
         (store, q, valid, 64, False), 1)
+    store, q, valid = k1_inputs(SEAL, LOAD_BATCH, D, BF16, gen)
+    add("K1", f"path: load_test --k 50 batch ({SEAL}, {D}), Q {LOAD_BATCH}, "
+        "k 64", "scan_topk", (store, q, valid, 64, False), LOAD_BATCH)
     store, q, valid = k1_inputs(SEAL, 256, D, BF16, gen)
     for nq in (1, 256):
         add("K1", f"({SEAL}, {D}) bfloat16, Q {nq}, k {k_max}", "scan_topk",
@@ -2173,6 +2296,11 @@ def phase_scan_bits(gen, root: Path, lib):
                 (warm_store, qw, live, k, False), nq, warm_rows=w)
         add("K9", f"A/B ({AB_N}, {D}), Q {nq}, k {k}", "fold_topk",
             (fold_store, qf, k), nq)
+    qw = ab_queries(warm_store, fold_store, 256, gen)[0]
+    add("K1", f"A/B ({AB_N}, {D}), Q 256, k {AB_WIDE_K}", "scan_topk",
+        (warm_store, qw, live, AB_WIDE_K, False), 256)
+    add("K8", f"A/B warm {AB_WARM[0]}, Q 256, k {AB_WIDE_K}", "scan_topk",
+        (warm_store, qw, live, AB_WIDE_K, False), 256, warm_rows=AB_WARM[0])
     del warm_store, fold_store
     torch.cuda.empty_cache()
     tie_store, tie_q = one_hot_ties(AB_WARM[0], gen)
@@ -4945,6 +5073,9 @@ TOOLS = (
     ("load_test", ["--rows", "262144", "--dim", "384", "--clients", "256",
                    "--max-batch", "256", "--duration", "8", "--warmup", "3",
                    "--mutate"], ("scan_topk",)),
+    ("load_test", ["--rows", "262144", "--dim", "384", "--clients", "256",
+                   "--max-batch", "256", "--duration", "8", "--warmup", "3",
+                   "--k", "50"], ("scan_topk",)),
     ("load_test", ["--ivf", "--store-dtype", "int8", "--dim", "1024",
                    "--rows", "262144", "--clients", "64", "--duration", "5"],
      ("scan_topk_int8_pruned",)),

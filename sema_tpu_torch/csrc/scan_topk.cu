@@ -26,10 +26,20 @@
 //           only if it beats the list's k-th entry (the TPU kernel's
 //           threshold screen), and it goes in after equal scores, so equal
 //           scores keep the row scanned first. The lists go out as
-//           (Q, chunks, k) candidates. bf16, f16 and f32 rows merge a
-//           tile's survivors one at a time (merge_rows); int8 rows merge
-//           three or more at once (merge_ranked), each survivor taking its
-//           rank.
+//           (Q, chunks, k) candidates. f32 rows and K9 merge a tile's
+//           survivors one at a time (merge_rows); int8 rows merge three or
+//           more at once (merge_ranked), each survivor taking its rank.
+//           bf16/f16 rows of K1, K3 and K8 (scan_pass1_merged) merge in
+//           warps of their own beside the scoring warps: the scorers
+//           write each tile's scores into a score buffer (two where shared
+//           memory allows) and go on to the next stage, named barriers
+//           handing the buffer over; a merger queues each query's scores
+//           above its threshold (max(the list's k-th, K8's warm), as of
+//           the last flush) 32 columns at a time, and flushes a queue
+//           that a round does not fit, and every queue at the chunk's end:
+//           a bitonic sort of the queue under before() in registers, then
+//           each entry placed at its rank (flush_queue), ranks k and
+//           below dropped, and the threshold refreshed.
 //   pass 2  one block of W warps a query (W = min(32, chunks, 4096 / k),
 //           the wrapper's pass2_warps). Warp w merges the chunk lists of
 //           its run, chunks [w C / W, (w + 1) C / W), in order into a list
@@ -54,7 +64,15 @@
 // and so does any merge that ranks entries under that order: each row
 // appears once, so the ranks of finite entries are distinct. The runs,
 // the tree and merge_ranked rank by before(), score and id: the result,
-// ids and scores, is the sequential merge's bit for bit.
+// ids and scores, is the sequential merge's bit for bit. So do the
+// queues of scan_pass1_merged: a flush keeps the first k of the list and
+// the queue under before(), a total order, so the list after any sequence
+// of flushes is the first k of every row queued so far; a stale threshold
+// (one that has not risen since the last flush) is no higher than the
+// sequential merge's at that row, so it queues every row that the
+// sequential merge would insert, and the extra ones rank k or below
+// when their flush places them. Where the flushes fall, and how many
+// rows they take, changes no bit of the result.
 //
 // Scoring, by the store dtype.
 //   bf16, f16, int8  the tensor cores: mma.sync m16n8k16 (bf16, f16; f32
@@ -71,10 +89,14 @@
 //           route's; rows are zero past d up to the k-step (32 int8 values,
 //           16 bf16). The tiles (or slabs of their rows) come in by
 //           cp.async into two buffers: the next is in flight while this one
-//           is scored and merged. A block takes 64 queries for a batch at
-//           k <= 128 (8 warps: 4 groups of 16 rows x 2 of 32 queries), so a
-//           store is read once per 64 queries, else 8 (4 warps of 16 rows x
-//           8 queries). A bf16 or f16 product is exact in f32; the
+//           is scored and merged. An int8 or K9 block takes 64 queries
+//           for a batch at k <= 128 (8 warps: 4 groups of 16 rows x 2 of 32
+//           queries), so a store is read once per 64 queries, else 8 (4
+//           warps of 16 rows x 8 queries). A bf16/f16 block of K1, K3 or
+//           K8 takes the most of 64, 32 (4 scoring warps of 32 queries), 16
+//           (8 of 8) and 8 whose lists leave room for slabs of 64 elements
+//           (ops/scan_topk.py:merge_layout): at k 1,024 16, so that a batch
+//           of 256 reads the store 16 times, not 32. A bf16 or f16 product is exact in f32; the
 //           tensor cores add the 16 products of a k-step and the running
 //           sum in their own order, not the IEEE sequence of FMAs, so the
 //           scores may differ from a sequence of FMAs in the last bits.
@@ -84,10 +106,10 @@
 //           (sum), scale)), the order of pallas_topk.py:219, so the int8
 //           scores and ids equal the plain version's bit for bit.
 //           Before a tile's scores go to the merge, each scoring thread
-//           screens its own against its queries' k-th (the lists hold still
-//           until the merge) and flags a query that has a score above it;
-//           the merge skips an unflagged query, whose merge would insert
-//           nothing, so the survivors reach the merge in row order as ever.
+//           screens its own against its queries' k-th (scan_pass1_merged:
+//           their thresholds) and flags a query that has a score above it;
+//           the merge skips an unflagged query, whose merge would take
+//           nothing.
 //   f32     f32 FMAs over the row's values against the query, one thread a
 //           row (TF32 would round the operands).
 // Masked rows score -inf.
@@ -138,8 +160,12 @@
 // over N*d*itemsize bytes is Q = 256 a byte for bf16, under the card's
 // 295, and 512 for int8, under its 590; 0.240 ms at 1M x 384 bf16), the
 // rows read 4 times from L2 (once per query block of 64); for f32 the
-// scoring, with scalar FMAs (67 TFLOP/s). What the tensor-core route
-// spends beyond the scoring goes to the merge: each chunk restarts its
+// scoring, with scalar FMAs (67 TFLOP/s). What the int8 route and K9
+// spend beyond the scoring goes to the merge, which stops the scoring
+// while it runs; the bf16/f16 route's merge runs in warps of its own, so
+// that a tile's merge overlaps the next tile's copies and products, and
+// costs time only where it takes longer than they do (the first tiles of
+// a chunk, where every score survives). Each chunk restarts its
 // lists, so the insertions grow with the chunks, and the wrapper plans
 // one wave of blocks (chunk_plan), two an SM where shared memory holds
 // two; at one query block an int8 scan takes fewer, longer chunks, so that
@@ -427,6 +453,10 @@ struct ScanArgs {
   int* cand_i;
   const float* thr0;        // (nq,) K8's warm-start thresholds, or null
   unsigned long long* fold_stats;  // K9: (spans merged, spans fast), or null
+  int score_bufs;           // bf16/f16 K1, K3, K8: score buffers (1 or 2)
+  int smem_plan;            // pass 1's shared memory as the wrapper planned it
+  unsigned long long* merge_stats;  // bf16/f16 K1, K3, K8: (survivors
+                                    // queued, flushes), or null
 };
 
 // The physical row of the first row of the tile at logical row t0; a tile
@@ -471,10 +501,10 @@ __device__ void merge_tile(const ScanArgs& a, const float* sc, int scs, float* l
   }
 }
 
-// Each block's lists out as its chunk's candidates.
+// Each block's lists out as its chunk's candidates (nthr threads).
 __device__ void write_candidates(const ScanArgs& a, const float* ls, const int* li, int nqb,
-                                 int q0, int chunk, int tid) {
-  for (int e = tid; e < nqb * a.k; e += kThreads) {
+                                 int q0, int chunk, int tid, int nthr = kThreads) {
+  for (int e = tid; e < nqb * a.k; e += nthr) {
     const int qi = e / a.k, j = e % a.k;
     const size_t o = ((size_t)(q0 + qi) * a.n_chunks + chunk) * a.k + j;
     a.cand_s[o] = ls[e];
@@ -655,8 +685,9 @@ __device__ __forceinline__ void cp_async4n(void* dst, const void* src, int bytes
                : "memory");
 }
 
-// bf16, f16 and int8 rows on the tensor cores (see the top of the file).
-// Widths here are in 16-bit units: an int8 row of d values is d / 2 pairs.
+// int8 rows (K4a, K4b) and K9's bf16/f16 rows on the tensor cores (see the
+// top of the file; K1, K3 and K8 take scan_pass1_merged). Widths here are
+// in 16-bit units: an int8 row of d values is d / 2 pairs.
 // Shared memory: the queries [QB][dp + 8], NS stage buffers [64][se + 8]
 // (se = 2 slab_words units of each row), the scores [QB][SPAN + 4] f32, the
 // lists, a screen flag per query, and for int8 the slots merge_ranked's
@@ -854,6 +885,349 @@ __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
   write_candidates(a, ls, li, nqb, q0, chunk, tid);
 }
 
+// -- bf16/f16 pass 1 of K1, K3 and K8: survivors queued, merged beside the
+// scoring (see the top of the file) --------------------------------------
+
+constexpr int kQueue = 32;    // survivors a query's queue holds: a flush sorts
+                              // them in one warp, an entry a lane
+constexpr int kScoreStride = kTileRows + 4;  // a query's scores, floats apart
+// named barriers (0 is __syncthreads): the scorers around each stage; score
+// buffer b written (kBarFull + b: the scorers arrive, the mergers wait) and
+// read (kBarEmpty + b: the mergers arrive, the scorers wait)
+constexpr int kBarStage = 1, kBarFull = 2, kBarEmpty = 4;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Flush one query's queue (qv, qid: n entries, 1 <= n <= kQueue) into its
+// sorted list of k (qls, qli). A bitonic network sorts the queue under
+// before() in registers, an entry a lane; sorted entry j takes slot j +
+// (the list's entries before it) where that is below k; the list's entries
+// keep their order in the slots left, each moved up by the queue entries
+// placed below it, and those pushed past k drop out (merge_ranked's
+// placement). taken: (k + 31) / 32 words of scratch. Called by a whole
+// warp; k <= 1024.
+__device__ void flush_queue(const float* qv, const int* qid, int n, float* qls, int* qli,
+                            int k, int lane, unsigned* taken) {
+  float v = lane < n ? qv[lane] : -INFINITY;
+  int id = lane < n ? qid[lane] : 0x7fffffff;  // after every real entry
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, stride);
+      const int oi = __shfl_xor_sync(0xffffffffu, id, stride);
+      // the lane's slot holds the pair's first entry where its block runs
+      // first to last (every block at size 32), else the pair's last
+      const bool first = ((lane & stride) == 0) == ((lane & size) == 0);
+      const bool other_first = ov > v || (ov == v && oi < id);
+      if (other_first == first) {
+        v = ov;
+        id = oi;
+      }
+    }
+  const int words = (k + 31) / 32;
+  if (lane < words) taken[lane] = 0u;
+  __syncwarp();
+  int pos = k;
+  if (lane < n) {
+    pos = lane + count_before(qls, qli, k, v, id);
+    if (pos < k) atomicOr(&taken[pos >> 5], 1u << (pos & 31));
+  }
+  __syncwarp();
+  // taken slots below each word of slots: an exclusive scan of popcounts
+  const unsigned own = lane < words ? taken[lane] : 0u;
+  int incl = __popc(own);
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  const int excl = incl - __popc(own);
+  const unsigned busy = __ballot_sync(0xffffffffu, own != 0u);
+  // from the top word down to the lowest with a taken slot: free slot p
+  // takes entry p - (taken slots below p), which lies at or below p
+  for (int w = words - 1; busy != 0u && w >= __ffs(busy) - 1; --w) {
+    const unsigned bits = __shfl_sync(0xffffffffu, own, w);
+    const int below = __shfl_sync(0xffffffffu, excl, w) + __popc(bits & ((1u << lane) - 1u));
+    const int p = w * 32 + lane;
+    const bool mv = p < k && !((bits >> lane) & 1u);
+    float s = 0.f;
+    int i = 0;
+    if (mv) {
+      s = qls[p - below];
+      i = qli[p - below];
+    }
+    __syncwarp();
+    if (mv) {
+      qls[p] = s;
+      qli[p] = i;
+    }
+    __syncwarp();
+  }
+  if (pos < k) {
+    qls[pos] = v;
+    qli[pos] = id;
+  }
+  __syncwarp();
+}
+
+// The warps of scan_pass1_merged for a query block of QB: scorers of WQ
+// queries each (4 row groups of 16 x QB / WQ query groups), with warps that
+// only copy the stages where the scorers are fewer than 8 (8 warps issue
+// a stage's copies, as in scan_pass1_mma: with 4, pass 1 of K1 over a
+// 262,144 x 1,024 slice at Q 1 took 0.227 device ms on the H100 against
+// 0.206), then the mergers, a query each in a block of 8, else 16 (K1 at
+// 1M x 384, Q 256, k 128: 2.27 ms against 2.63 with 8 and 2.42 with 12,
+// in turns). chip_merge_ab.py measures both.
+template <int QB> struct Merged {
+  static constexpr int kWQ = QB >= 32 ? 32 : 8;
+  static constexpr int kScorers = 4 * (QB / kWQ);
+  static constexpr int kCopiers = kScorers < 8 ? 8 : kScorers;
+  static constexpr int kMergers = QB == 8 ? 8 : 16;
+  static constexpr int kThreads = (kCopiers + kMergers) * 32;
+};
+
+// bf16/f16 rows on the tensor cores, the merge in warps of its own (see the
+// top of the file). The scorers (and copiers) stream the chunk's tiles
+// through two stage buffers and score them as scan_pass1_mma does; at a
+// tile's last slab the scorers write its scores into score buffer tile %
+// nb (nb, 1 or 2, the wrapper's plan), flag each query that has a score
+// above its threshold (thr, which only the mergers write: a stale read
+// flags more, never fewer), and go on to the next stage. Merger
+// warp m of M takes queries m, m + M, ...: for each flagged query, the
+// tile's 64 scores in two rounds of 32 columns; a round's scores above the
+// threshold go to the query's queue (ballot and popc offsets); a round that
+// does not fit flushes the queue first, refreshes the threshold (max(the
+// list's k-th, K8's warm)) and screens again. The queues flush at the
+// chunk's end. Shared memory: the queries [QB][dp + 8], 2 stage buffers
+// [64][se + 8], nb score buffers [QB][kScoreStride] f32, the lists
+// [QB][k] (scores, then ids), the queues [QB][kQueue] (scores, then ids),
+// thr [QB], the queues' counts [QB], nb flag sets [QB], and each merger's
+// placement scratch [M][(k + 31) / 32].
+template <int DT, int QB>
+__global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
+    scan_pass1_merged(ScanArgs a) {
+  constexpr int WQ = Merged<QB>::kWQ;
+  constexpr int NT = WQ / 8;  // n8 tiles of a scorer
+  constexpr int SCORERS = Merged<QB>::kScorers;
+  constexpr int NSC = Merged<QB>::kCopiers * 32;  // the stages' copies and barrier
+  constexpr int NTH = Merged<QB>::kThreads;
+  constexpr int M = Merged<QB>::kMergers;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = a.d, k = a.k, nb = a.score_bufs;
+  const int dp = (d + 15) / 16 * 16;
+  const int se = 2 * a.slab_words;
+  const int qstr = dp + 8, tstr = se + 8;
+  const int nslab = (dp + se - 1) / se;
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem);                      // [QB][qstr]
+  uint16_t* tiles = qs + QB * qstr;                                      // [2][64][tstr]
+  float* sc = reinterpret_cast<float*>(tiles + 2 * kTileRows * tstr);   // [nb][QB][stride]
+  float* ls = sc + nb * QB * kScoreStride;                               // [QB][k]
+  int* li = reinterpret_cast<int*>(ls + QB * k);                         // [QB][k]
+  float* qv = reinterpret_cast<float*>(li + QB * k);                     // [QB][kQueue]
+  int* qid = reinterpret_cast<int*>(qv + QB * kQueue);                   // [QB][kQueue]
+  float* thr = reinterpret_cast<float*>(qid + QB * kQueue);              // [QB]
+  int* qcnt = reinterpret_cast<int*>(thr + QB);                          // [QB]
+  int* hit = qcnt + QB;                                                  // [nb][QB]
+  unsigned* taken = reinterpret_cast<unsigned*>(hit + nb * QB);          // [M][words]
+  const uint16_t* store = reinterpret_cast<const uint16_t*>(a.store);
+  const uint16_t* queries = reinterpret_cast<const uint16_t*>(a.queries);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = blockIdx.y;
+  const int q0 = blockIdx.x * QB;
+  const int nqb = min(QB, a.nq - q0);
+  const int r_begin = chunk * a.rows_per_chunk;
+  const int r_end = min(a.n, r_begin + a.rows_per_chunk);
+  const int n_tiles = (r_end - r_begin + kTileRows - 1) / kTileRows;
+
+  for (int e = tid; e < QB * (dp / 8) && tid < NSC; e += NSC) {
+    const int qi = e / (dp / 8), c = e % (dp / 8) * 8;
+    const bool in = qi < nqb && c < d;
+    cp_async16(qs + qi * qstr + c, in ? queries + (size_t)(q0 + qi) * d + c : queries, in);
+  }
+  for (int e = tid; e < QB * k; e += NTH) {
+    ls[e] = -INFINITY;
+    li[e] = 0;
+  }
+  for (int qi = tid; qi < QB; qi += NTH) {
+    // a query past the batch is never flagged
+    thr[qi] = qi >= nqb ? INFINITY : a.thr0 == nullptr ? -INFINITY : a.thr0[q0 + qi];
+    qcnt[qi] = 0;
+  }
+  for (int e = tid; e < nb * QB; e += NTH) hit[e] = 0;
+  __syncthreads();
+
+  if (warp < NSC / 32) {
+    // stage g: slab g % nslab of the chunk's tile g / nslab, into buffer
+    // g % 2; zeros past the tile's rows and past d; one group
+    auto load = [&](int g) {
+      const int t0 = r_begin + g / nslab * kTileRows, c0 = g % nslab * se;
+      const int rows = min(kTileRows, r_end - t0), phys0 = tile_row0(a, t0);
+      const int vec = min(se, dp - c0) / 8;  // 16-byte pieces of a row
+      uint16_t* buf = tiles + (g % 2) * kTileRows * tstr;
+      int r = tid / vec, v = tid % vec;
+      const int dr = NSC / vec, dv = NSC % vec;
+      while (r < kTileRows) {
+        const int c = c0 + v * 8;
+        const bool in = r < rows && c < d;
+        cp_async16(buf + r * tstr + v * 8, in ? store + (size_t)(phys0 + r) * d + c : store, in);
+        v += dv;
+        r += dr;
+        if (v >= vec) {
+          v -= vec;
+          ++r;
+        }
+      }
+      cp_async_commit();
+    };
+    const int rg = warp & 3, qg = warp >> 2;  // rows rg*16.., queries qg*WQ..
+    const volatile float* vthr = thr;
+    float acc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][c] = 0.f;
+    const int n_stages = n_tiles * nslab;
+    load(0);
+    for (int g = 0; g < n_stages; ++g) {
+      cp_async_wait_all();  // this thread's copies of stage g have landed
+      bar_sync(kBarStage, NSC);  // everyone's have; all are done with g - 1
+      if (g + 1 < n_stages) load(g + 1);  // in flight while stage g is scored
+      const int s = g % nslab, c0 = s * se;
+      const int cn = warp < SCORERS ? min(se, dp - c0) : 0;  // a copier scores nothing
+      const uint16_t* buf = tiles + (g % 2) * kTileRows * tstr;
+      const uint16_t* arow = buf + (rg * 16 + (lane & 15)) * tstr + (lane >> 4) * 8;
+      const uint16_t* brow = qs + (qg * WQ) * qstr + c0 + ((lane >> 3) & 1) * 8;
+      for (int kk = 0; kk < cn; kk += 16) {
+        uint32_t af[4];
+        ldmatrix_x4(af, arow + kk);
+        if constexpr (NT == 1) {
+          uint32_t bf[2];
+          ldmatrix_x2(bf, brow + (lane & 7) * qstr + kk);
+          mma16816<DT>(acc[0], af, bf[0], bf[1]);
+        } else {
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, brow + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * qstr + kk);
+            mma16816<DT>(acc[2 * np], af, bf[0], bf[1]);
+            mma16816<DT>(acc[2 * np + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+      if (s != nslab - 1) continue;  // the tile's next slab
+
+      const int tt = g / nslab, b = tt % nb;
+      const int t0 = r_begin + tt * kTileRows;
+      const int rows = min(kTileRows, r_end - t0), phys0 = tile_row0(a, t0);
+      if (tt >= nb) bar_sync(kBarEmpty + b, NTH);  // the mergers are done with b
+      if (warp >= SCORERS) {  // a copier
+        bar_arrive(kBarFull + b, NTH);
+        continue;
+      }
+      float* sb = sc + b * QB * kScoreStride;
+      // accumulator (row lane/4 [+ 8], queries 2 (lane%4) [+ 1]) of each
+      // n8 tile, into buffer b; the flag: a score above its query's
+      // threshold
+      float th[NT][2];
+      bool beat[NT][2] = {};
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) th[t][c] = vthr[qg * WQ + t * 8 + (lane & 3) * 2 + c];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rg * 16 + (lane >> 2) + 8 * h;
+        const bool live = r < rows && (a.valid == nullptr || a.valid[phys0 + r]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qc = qg * WQ + t * 8 + (lane & 3) * 2 + c;
+            const float v = live ? acc[t][2 * h + c] : -INFINITY;
+            sb[qc * kScoreStride + r] = v;
+            beat[t][c] |= v > th[t][c];
+            acc[t][2 * h + c] = 0.f;
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (beat[t][c]) hit[b * QB + qg * WQ + t * 8 + (lane & 3) * 2 + c] = 1;
+      bar_arrive(kBarFull + b, NTH);  // buffer b is the mergers'
+    }
+  } else {
+    const int mw = warp - NSC / 32;
+    unsigned* mtaken = taken + mw * ((k + 31) / 32);
+    unsigned long long queued = 0, flushes = 0;
+    auto flush = [&](int qi, int n) {
+      float* qls = ls + qi * k;
+      flush_queue(qv + qi * kQueue, qid + qi * kQueue, n, qls, li + qi * k, k, lane, mtaken);
+      const float warm = a.thr0 == nullptr ? -INFINITY : a.thr0[q0 + qi];
+      const float t = fmaxf(qls[k - 1], warm);
+      if (lane == 0) thr[qi] = t;
+      ++flushes;
+      return t;
+    };
+    for (int tt = 0; tt < n_tiles; ++tt) {
+      const int b = tt % nb;
+      const int t0 = r_begin + tt * kTileRows, phys0 = tile_row0(a, t0);
+      bar_sync(kBarFull + b, NTH);  // the scorers have written buffer b
+      const float* sb = sc + b * QB * kScoreStride;
+      // the flags of this merger's queries, lane j's mw + j M, at once
+      const int qj = mw + lane * M;
+      const bool mine = qj < nqb && hit[b * QB + qj];
+      unsigned flagged = __ballot_sync(0xffffffffu, mine);
+      if (mine) hit[b * QB + qj] = 0;
+      while (flagged) {
+        const int qi = mw + (__ffs(flagged) - 1) * M;
+        flagged &= flagged - 1;
+        float t = thr[qi];
+        int cnt = qcnt[qi];
+        for (int half = 0; half < 2; ++half) {
+          const int c = half * 32 + lane;
+          const float s = sb[qi * kScoreStride + c];
+          unsigned m = __ballot_sync(0xffffffffu, s > t);
+          if (m == 0u) continue;
+          if (cnt + __popc(m) > kQueue) {  // the round does not fit: flush
+            t = flush(qi, cnt);
+            cnt = 0;
+            m = __ballot_sync(0xffffffffu, s > t);
+          }
+          if ((m >> lane) & 1u) {
+            const int p = qi * kQueue + cnt + __popc(m & ((1u << lane) - 1u));
+            qv[p] = s;
+            qid[p] = phys0 + c;
+          }
+          cnt += __popc(m);
+          queued += __popc(m);
+        }
+        __syncwarp();
+        if (lane == 0) qcnt[qi] = cnt;
+      }
+      if (tt + nb < n_tiles) bar_arrive(kBarEmpty + b, NTH);  // b is the scorers'
+    }
+    for (int qi = mw; qi < nqb; qi += M) {  // the chunk's end
+      const int cnt = qcnt[qi];
+      __syncwarp();
+      if (cnt > 0) flush(qi, cnt);
+    }
+    if (a.merge_stats != nullptr && lane == 0 && queued > 0) {
+      atomicAdd(a.merge_stats, queued);
+      atomicAdd(a.merge_stats + 1, flushes);
+    }
+  }
+  __syncthreads();
+  write_candidates(a, ls, li, nqb, q0, chunk, tid, NTH);
+}
+
 // Warp w of a pass-2 block of W merges the chunks [run_start(w),
 // run_start(w + 1)) of its query.
 __device__ __forceinline__ int run_start(int w, int n_chunks, int W) {
@@ -983,6 +1357,7 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
     smem = (size_t)QB * a.d * 4 + (size_t)kTileRows * (a.slab_words + 1) * 4 +
            (size_t)QB * SPAN * 4 + (size_t)QB * a.k * 8;
   }
+  if (smem != (size_t)a.smem_plan) return cudaErrorInvalidValue;  // the plan drifted
   void (*kern)(ScanArgs);
   if constexpr (MMA)
     kern = scan_pass1_mma<DT, QB, FOLD>;
@@ -996,18 +1371,61 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16/f16 pass 1 of K1, K3 and K8 (scan_pass1_merged): checks the layout
+// the wrapper planned, sizes the shared memory as the kernel carves it.
+template <int DT, int QB>
+cudaError_t launch_merged(const ScanArgs& a, cudaStream_t stream) {
+  if (a.tile_ids != nullptr && (a.tile_n < kTileRows || a.tile_n % kTileRows))
+    return cudaErrorInvalidValue;
+  if (a.slab_words < 8 || a.slab_words % 8 || (a.score_bufs != 1 && a.score_bufs != 2))
+    return cudaErrorInvalidValue;
+  const size_t dp = (a.d + 15) / 16 * 16, nb = a.score_bufs;
+  const size_t smem = (size_t)QB * (dp + 8) * 2 + 2 * kTileRows * (2 * a.slab_words + 8) * 2 +
+                      nb * QB * kScoreStride * 4 + (size_t)QB * a.k * 8 +
+                      (size_t)QB * kQueue * 8 + (size_t)QB * 8 + nb * QB * 4 +
+                      (size_t)Merged<QB>::kMergers * ((a.k + 31) / 32) * 4;
+  if (smem != (size_t)a.smem_plan) return cudaErrorInvalidValue;  // the plan drifted
+  void (*kern)(ScanArgs) = scan_pass1_merged<DT, QB>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.nq + QB - 1) / QB, a.n_chunks);
+  kern<<<grid, Merged<QB>::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_merged_qb(int qb, const ScanArgs& a, cudaStream_t st) {
+  switch (qb) {
+    case 64: return launch_merged<DT, 64>(a, st);
+    case 32: return launch_merged<DT, 32>(a, st);
+    case 16: return launch_merged<DT, 16>(a, st);
+    case 8: return launch_merged<DT, 8>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool FOLD>
 cudaError_t launch_pass1_dt(int dtype, int qb, const ScanArgs& a, cudaStream_t st) {
-  // bf16/f16/int8: the tensor-core route, query blocks of 64 or 8
+  // bf16/f16 K1, K3, K8: the merge beside the scoring, query blocks of 64,
+  // 32, 16 or 8
+  if constexpr (!FOLD) {
+    if (dtype == 0) return launch_merged_qb<0>(qb, a, st);
+    if (dtype == 1) return launch_merged_qb<1>(qb, a, st);
+  }
+  // bf16/f16 K9 and int8: the tensor-core route, query blocks of 64 or 8
   if (dtype == 0 || dtype == 1 || dtype == kInt8) {
     if (qb != 64 && qb != 8) return cudaErrorInvalidValue;
-    if (dtype == 0)
-      return qb == 64 ? launch_pass1<0, 64, FOLD>(a, st) : launch_pass1<0, 8, FOLD>(a, st);
-    if (dtype == 1)
-      return qb == 64 ? launch_pass1<1, 64, FOLD>(a, st) : launch_pass1<1, 8, FOLD>(a, st);
-    if (FOLD) return cudaErrorInvalidValue;  // K9 scores bf16/f16/f32 rows only
-    return qb == 64 ? launch_pass1<kInt8, 64, false>(a, st)
-                    : launch_pass1<kInt8, 8, false>(a, st);
+    if constexpr (FOLD) {
+      if (dtype == 0)
+        return qb == 64 ? launch_pass1<0, 64, true>(a, st) : launch_pass1<0, 8, true>(a, st);
+      if (dtype == 1)
+        return qb == 64 ? launch_pass1<1, 64, true>(a, st) : launch_pass1<1, 8, true>(a, st);
+      return cudaErrorInvalidValue;  // K9 scores bf16/f16/f32 rows only
+    } else {
+      return qb == 64 ? launch_pass1<kInt8, 64, false>(a, st)
+                      : launch_pass1<kInt8, 8, false>(a, st);
+    }
   }
   // f32: the SIMT route, query blocks of 16 or 4
   if (dtype != 2 || (qb != 16 && qb != 4)) return cudaErrorInvalidValue;
@@ -1048,14 +1466,20 @@ cudaError_t scan(const ScanArgs& a, int dtype, int qb, int warps2, bool fold,
 // f32; row_scale given). tile_ids null: scan rows 0..n-1; else n = live
 // tiles * tile_n logical rows through the tile list. thr0 null: K1, K3,
 // K4a, K4b; else K8's per-query warm-start thresholds (bf16/f16/f32 only).
+// score_bufs: the bf16/f16 route's score buffers (1 or 2); smem_plan: pass
+// 1's shared memory in the wrapper's plan, which must be the kernel's.
+// stats null, or two counters that gain the bf16/f16 route's survivors
+// queued and its flushes.
 extern "C" int sema_scan_topk(const void* store, const void* queries, void* qbuf,
                               const uint8_t* valid, const float* row_scale,
                               const int* tile_ids, int tile_n, int n, int d,
                               int nq, int k, int dtype, int qb,
                               int rows_per_chunk, int slab_words, int n_chunks,
-                              int pass2_warps, float* cand_s, int* cand_i,
+                              int pass2_warps, int score_bufs, int smem_plan,
+                              float* cand_s, int* cand_i,
                               float* qscale, const float* thr0,
-                              float* out_s, int* out_i, void* stream) {
+                              float* out_s, int* out_i,
+                              unsigned long long* stats, void* stream) {
   const bool i8 = dtype == kInt8;
   if (i8 && (row_scale == nullptr || qbuf == nullptr || qscale == nullptr || thr0 != nullptr))
     return cudaErrorInvalidValue;
@@ -1063,24 +1487,25 @@ extern "C" int sema_scan_topk(const void* store, const void* queries, void* qbuf
                    static_cast<const uint32_t*>(i8 ? qbuf : queries),
                    valid, row_scale, tile_ids, tile_n, n, d, nq, k,
                    rows_per_chunk, slab_words, n_chunks, cand_s, cand_i,
-                   thr0, nullptr};
+                   thr0, nullptr, score_bufs, smem_plan, stats};
   return scan(a, dtype, qb, pass2_warps, false, static_cast<const float*>(queries),
               i8 ? qscale : nullptr, out_s, out_i, static_cast<cudaStream_t>(stream));
 }
 
 // K9: rows 0..n-1 of a bf16/f16/f32 store, every row live. stats null, or
-// two counters that gain the spans merged and the spans on the fast path.
+// two counters that gain the spans merged and the spans on the fast path;
+// smem_plan as above.
 extern "C" int sema_fold_topk(const void* store, const void* queries, int n,
                               int d, int nq, int k, int dtype, int qb,
                               int rows_per_chunk, int slab_words, int n_chunks,
-                              int pass2_warps, float* cand_s, int* cand_i,
+                              int pass2_warps, int smem_plan, float* cand_s, int* cand_i,
                               float* out_s, int* out_i,
                               unsigned long long* stats, void* stream) {
   const ScanArgs a{static_cast<const uint32_t*>(store),
                    static_cast<const uint32_t*>(queries),
                    nullptr, nullptr, nullptr, 0, n, d, nq, k,
                    rows_per_chunk, slab_words, n_chunks, cand_s, cand_i,
-                   nullptr, stats};
+                   nullptr, stats, 1, smem_plan, nullptr};
   return scan(a, dtype, qb, pass2_warps, true, nullptr, nullptr, out_s, out_i,
               static_cast<cudaStream_t>(stream));
 }

@@ -51,7 +51,12 @@ int8 rows on the tensor cores too (i32 accumulation), f32 rows by scalar
 FMAs; the block's queries, the staged slab of each row and the chunks
 follow :func:`_query_block`, :func:`slab_words` and :func:`chunk_plan`,
 and pass 2's warps :func:`pass2_warps` (its plain version is
-:func:`scan_pass2_reference`).
+:func:`scan_pass2_reference`). bf16/f16 rows of K1, K3 and K8 merge pass
+1's survivors in warps of their own beside the scoring warps, through
+queues flushed by rank (``csrc/scan_topk.cu:scan_pass1_merged``); their
+query block, score buffers and slab follow :func:`merge_layout`, and
+:func:`pass1_merge_reference` is the plain model of that merge, down to
+the counters the kernel can report (survivors queued, flushes).
 The int8 scores and ids equal the plain version's bit for bit: an i32 sum
 of d <= 1040 products of int8 values is exact in any order and converts
 to f32 without loss. K8 and K9 compute K1's function: on the card their
@@ -83,20 +88,26 @@ _SIGNATURES = {"sema_scan_topk": [
     _P, _P, _P,            # valid, row scales, tile ids
     _I, _I, _I, _I, _I,    # tile_n, n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
-    _I,                    # slab, chunks, pass-2 warps
+    _I, _I, _I,            # slab, chunks, pass-2 warps, score buffers,
+                           # pass 1's shared memory
     _P, _P, _P, _P,        # candidates, query scales, warm thresholds
-    _P, _P, _P],           # outputs, stream
+    _P, _P, _P, _P],       # outputs, merge counters, stream
     "sema_fold_topk": [
     _P, _P,                # store, queries
     _I, _I, _I, _I,        # n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
-    _I,                    # slab, chunks, pass-2 warps
+    _I, _I,                # slab, chunks, pass-2 warps, pass 1's shared
+                           # memory
     _P, _P, _P, _P,        # candidates, outputs
     _P, _P]}               # span counters, stream
 _FOLD_SPAN = 256        # rows each K9 merge takes (csrc/scan_topk.cu)
 _RANKED_SLOTS = 1_024   # the int8 route's merge_ranked slots: 8 warps x 32 words
 _PASS2_MAX_WARPS = 32   # warps of a pass-2 block
 _PASS2_SLOTS = 4_096    # warps x k of a pass-2 block: three lists each, 96 KB
+# the bf16/f16 route of K1, K3 and K8 (csrc/scan_topk.cu:scan_pass1_merged)
+_MERGED_BLOCKS = (64, 32, 16, 8)   # the query blocks its kernel takes
+_QUEUE = 32             # survivors a query's queue holds (kQueue)
+_SCORE_STRIDE = _TILE_ROWS + 4     # a query's scores, floats apart
 
 
 def _select(scores: torch.Tensor, k: int):
@@ -246,13 +257,80 @@ def _units(d: int, itemsize: int) -> int:
     return d * itemsize // 2
 
 
+def _merged(itemsize: int, span: int) -> bool:
+    """bf16/f16 rows of K1, K3 and K8: scan_pass1_merged's route (K9,
+    span 256, keeps the tensor-core route of the int8 rows)."""
+    return itemsize == 2 and span == _TILE_ROWS
+
+
+def _mergers(qb: int) -> int:
+    """scan_pass1_merged's merger warps for a block of ``qb`` queries
+    (``Merged<QB>::kMergers``): one a query in a block of 8, else 16."""
+    return 8 if qb == 8 else 16
+
+
+def _merged_fixed(d: int, qb: int, k: int, nb: int) -> int:
+    """scan_pass1_merged's shared memory beside its two stage buffers:
+    ``qb`` queries of ``d`` units, ``nb`` score buffers, the lists of k,
+    the queues, the thresholds, the queues' counts, ``nb`` flag sets and
+    the mergers' placement scratch."""
+    return (qb * (_up(d, 16) + 8) * 2 + nb * qb * _SCORE_STRIDE * 4
+            + qb * k * 8 + qb * _QUEUE * 8 + qb * 8 + nb * qb * 4
+            + _mergers(qb) * -(-k // 32) * 4)
+
+
+def _merged_smem(d: int, qb: int, k: int, nb: int, slab: int) -> int:
+    """scan_pass1_merged's shared memory with slabs of ``slab`` units."""
+    return _merged_fixed(d, qb, k, nb) + 2 * _TILE_ROWS * (slab + 8) * 2
+
+
+def _even_slab(d: int, most: int) -> int:
+    """A row of ``d`` units (padded to 16) in as few slabs of at most
+    ``most`` units as fit, of equal width rounded up to 16 units."""
+    dp = _up(d, 16)
+    return _up(-(-dp // -(-dp // most)), 16)
+
+
+def _per_sm(smem: int) -> int:
+    """Blocks of pass 1 one SM holds: two where two fit, else one."""
+    return 2 if 2 * (smem + _SMEM_RESERVED) <= _SM_SMEM else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def merge_layout(d: int, k: int, nq: int) -> tuple:
+    """(query block, score buffers, slab units) of scan_pass1_merged for
+    a bf16/f16 row of ``d``: the lists' room sets the query block, the
+    most of 64, 32, 16 and 8 (8 for a batch of 8 or fewer) beside whose
+    lists, queries, queues and one score buffer a slab of 64 units fits
+    (at d 384: 64 up to k 128, 32 at k 256 and 512, 16 at k 1,024); a
+    second score buffer, which lets the scorers run a tile ahead of the
+    mergers, where it costs neither a slab nor an SM's second block; the
+    row in as few equal slabs as fit (0: not even a slab of 16)."""
+    def most(qb, nb):
+        free = _SMEM_MAX - _merged_fixed(d, qb, k, nb)
+        return (free // (2 * _TILE_ROWS * 2) - 8) // 16 * 16
+    blocks = _MERGED_BLOCKS if nq > 8 else (8,)
+    qb = next((b for b in blocks if most(b, 1) >= 64), 8)
+    if most(qb, 1) < 16:
+        return qb, 1, 0
+    slab = _even_slab(d, most(qb, 1))
+    if most(qb, 2) >= 16 and _even_slab(d, most(qb, 2)) == slab and (
+            _per_sm(_merged_smem(d, qb, k, 2, slab))
+            == _per_sm(_merged_smem(d, qb, k, 1, slab))):
+        return qb, 2, slab
+    return qb, 1, slab
+
+
 def _query_block(d: int, itemsize: int, k: int, nq: int,
                  span: int = _TILE_ROWS) -> int:
-    """Queries one block of pass 1 takes. bf16/f16 and int8 rows
-    (itemsize 2 and 1, the tensor-core route): 64 for a batch of more
-    than 8 at k <= 128 where slabs of at least 64 units fit beside them,
-    so that the store is read once per 64 queries; else 8, one n8 tile
-    of the mma. f32 rows (the SIMT route): 16 at k <= 128, else 4."""
+    """Queries one block of pass 1 takes. bf16/f16 rows of K1, K3 and
+    K8: :func:`merge_layout`'s. int8 rows and K9's bf16/f16 (the
+    tensor-core route): 64 for a batch of more than 8 at k <= 128 where
+    slabs of at least 64 units fit beside them, so that the store is read
+    once per 64 queries; else 8, one n8 tile of the mma. f32 rows (the
+    SIMT route): 16 at k <= 128, else 4."""
+    if _merged(itemsize, span):
+        return merge_layout(d, k, nq)[0]
     if itemsize in (1, 2):
         wide = nq > 8 and k <= 128 and _mma_slab_most(
             _units(d, itemsize), 64, k, span, itemsize) >= 64
@@ -270,22 +348,26 @@ def slab_words(d: int, itemsize: int, k: int, nq: int,
     the row, padded with zeros to a multiple of 16 units (16 values; 32
     for int8), in as few slabs as fit, of equal width rounded up to 16
     units. f32 (the SIMT route, one buffer): the whole row where it
-    fits, else the most that fit, a multiple of 4."""
+    fits, else the most that fit, a multiple of 4. bf16/f16 rows of K1,
+    K3 and K8: :func:`merge_layout`'s slab."""
+    if _merged(itemsize, span):
+        return merge_layout(d, k, nq)[2] // 2
     qb = _query_block(d, itemsize, k, nq, span)
     if itemsize in (1, 2):
         du = _units(d, itemsize)
-        dp, most = _up(du, 16), _mma_slab_most(du, qb, k, span, itemsize)
-        if most < 16:
-            return 0
-        slabs = -(-dp // most)
-        return _up(-(-dp // slabs), 16) // 2
+        most = _mma_slab_most(du, qb, k, span, itemsize)
+        return 0 if most < 16 else _even_slab(du, most) // 2
     free = _SMEM_MAX - (qb * d * 4 + qb * span * 4 + qb * k * 8)
     return max(0, min(d, (free // (_TILE_ROWS * 4) - 1) // 4 * 4))
 
 
 def pass1_smem_bytes(d: int, itemsize: int, k: int, nq: int,
                      span: int = _TILE_ROWS) -> int:
-    """Dynamic shared memory of pass 1 (mirrors csrc/scan_topk.cu)."""
+    """Dynamic shared memory of pass 1 (mirrors csrc/scan_topk.cu, whose
+    launch refuses a plan that differs)."""
+    if _merged(itemsize, span):
+        qb, nb, slab = merge_layout(d, k, nq)
+        return _merged_smem(d, qb, k, nb, slab)
     qb = _query_block(d, itemsize, k, nq, span)
     words = slab_words(d, itemsize, k, nq, span)
     if itemsize in (1, 2):
@@ -318,7 +400,7 @@ def chunk_plan(n: int, nq: int, qb: int, sms: int, smem: int,
     of 512 rows still streams its 512 KB at about the rate a share of
     the card's memory gives it. The bf16/f16/f32 routes keep the
     one-wave plan."""
-    per_sm = 2 if 2 * (smem + _SMEM_RESERVED) <= _SM_SMEM else 1
+    per_sm = _per_sm(smem)
     q_blocks = -(-nq // qb)
     tiles = -(-n // _TILE_ROWS)
     chunks = max(1, min(tiles, per_sm * sms // q_blocks))
@@ -364,6 +446,88 @@ def merge_lists_reference(a_s, a_i, b_s, b_i):
         out_s[row[keep], pos[keep]] = xs[keep]
         out_i[row[keep], pos[keep]] = xi[keep]
     return out_s, out_i
+
+
+def _flush_model(ls, li, qv, qi):
+    """``flush_queue`` on numpy arrays: the queue (qv, qi) sorted by
+    ``_before``, each entry of the list and of the sorted queue placed at
+    its index plus the entries of the other before it, slots k and past
+    dropped."""
+    k = len(ls)
+    order = np.lexsort((qi, -qv))
+    qv, qi = qv[order], qi[order]
+    qpos = np.arange(len(qv)) + _before(ls[None, :], li[None, :],
+                                        qv[:, None], qi[:, None]).sum(1)
+    lpos = np.arange(k) + _before(qv[None, :], qi[None, :],
+                                  ls[:, None], li[:, None]).sum(1)
+    out_s = np.full(k, -np.inf, dtype=np.float32)
+    out_i = np.zeros(k, dtype=np.int64)
+    for pos, s, i in ((lpos, ls, li), (qpos, qv, qi)):
+        keep = pos < k
+        out_s[pos[keep]], out_i[pos[keep]] = s[keep], i[keep]
+    return out_s, out_i
+
+
+def pass1_merge_reference(scores: torch.Tensor, ids: torch.Tensor, k: int,
+                          rows_per_chunk: int, warm: torch.Tensor = None,
+                          queue: int = _QUEUE, flush_rounds=(),
+                          refresh: bool = True):
+    """Plain model of the bf16/f16 route's pass-1 merge
+    (``scan_pass1_merged``), query by query and chunk by chunk as the
+    kernel's mergers make it. ``scores`` (Q, N) f32 in scan order, masked
+    rows -inf; ``ids`` (N,) the rows' ids (physical rows of a pruned
+    scan); ``warm`` K8's (Q,) thresholds or None. Each chunk of
+    ``rows_per_chunk`` rows starts a list of k at -inf (id 0) and the
+    threshold at the warm one (-inf); its rows go in rounds of 32 (half a
+    tile): the round's scores above the threshold join the query's queue
+    in row order, except that a round that does not fit the queue's
+    ``queue`` entries flushes the queue first, and the round is screened
+    again at the threshold that flush leaves, max(the list's k-th, warm)
+    (the warm one alone where ``refresh`` is False). A flush sorts the
+    queue by ``_before`` and places each entry of it and of the list at
+    its index plus the entries of the other before it, dropping slots k
+    and past. The queue also flushes after each round (its index in the
+    chunk) of ``flush_rounds`` and at the chunk's end, where it holds
+    any. Returns the (Q, chunks, k) candidate lists pass 1 writes and
+    (survivors queued, flushes), the kernel's merge counters."""
+    s_all = scores.float().numpy()
+    id_all = np.asarray(ids, dtype=np.int64)
+    nq, n = s_all.shape
+    chunks = -(-n // rows_per_chunk)
+    cand_s = np.full((nq, chunks, k), -np.inf, dtype=np.float32)
+    cand_i = np.zeros((nq, chunks, k), dtype=np.int64)
+    queued = flushes = 0
+    for q in range(nq):
+        w = np.float32(-np.inf if warm is None else warm[q])
+        for c in range(chunks):
+            ls = np.full(k, -np.inf, dtype=np.float32)
+            li = np.zeros(k, dtype=np.int64)
+            qv, qi = np.zeros(0, np.float32), np.zeros(0, np.int64)
+            thr = w
+            lo, hi = c * rows_per_chunk, min(n, (c + 1) * rows_per_chunk)
+
+            def flush():
+                nonlocal ls, li, qv, qi, thr, flushes
+                ls, li = _flush_model(ls, li, qv, qi)
+                qv, qi = qv[:0], qi[:0]
+                thr = max(ls[-1], w) if refresh else w
+                flushes += 1
+            for rnd, r0 in enumerate(range(lo, hi, 32)):
+                seg = s_all[q, r0:min(r0 + 32, hi)]
+                up = seg > thr
+                if up.any() and len(qv) + up.sum() > queue:
+                    flush()
+                    up = seg > thr
+                qv = np.concatenate([qv, seg[up]])
+                qi = np.concatenate([qi, id_all[r0:r0 + len(seg)][up]])
+                queued += int(up.sum())
+                if rnd in flush_rounds and len(qv):
+                    flush()
+            if len(qv):
+                flush()
+            cand_s[q, c], cand_i[q, c] = ls, li
+    return (torch.from_numpy(cand_s),
+            torch.from_numpy(cand_i.astype(np.int32)), (queued, flushes))
 
 
 def scan_pass2_reference(cand_s: torch.Tensor, cand_i: torch.Tensor,
@@ -468,13 +632,15 @@ def _sm_count(index: int) -> int:
 def _plan(n: int, nq: int, d: int, isz: int, k: int, span: int,
           sms: int) -> tuple:
     """(query block, rows per chunk, words per slab, chunks, pass-2
-    warps) of one scan shape: a pure function of it, planned once."""
+    warps, score buffers, pass 1's shared memory) of one scan shape: a
+    pure function of it, planned once."""
     qb = _query_block(d, isz, k, nq, span)
-    rows, chunks = chunk_plan(n, nq, qb, sms,
-                              pass1_smem_bytes(d, isz, k, nq, span),
+    smem = pass1_smem_bytes(d, isz, k, nq, span)
+    rows, chunks = chunk_plan(n, nq, qb, sms, smem,
                               select_k=k if isz == 1 else 0)
+    nb = merge_layout(d, k, nq)[1] if _merged(isz, span) else 1
     return (qb, rows, slab_words(d, isz, k, nq, span), chunks,
-            pass2_warps(chunks, k))
+            pass2_warps(chunks, k), nb, smem)
 
 
 def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
@@ -483,8 +649,10 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
     ``q`` is in the store dtype, f32 for an int8 store (the kernel
     quantizes it per row and scales the merged scores by the query's
     scale); ``thr0`` K8's (Q,) thresholds; ``fold`` K9 (no mask, no
-    tiles), whose ``stats``, a (2,) int64 tensor or None, gain the spans
-    merged and those merged on the fast path."""
+    tiles). ``stats``, a (2,) int64 tensor or None, gains K9's spans
+    merged and those merged on the fast path, or the bf16/f16 route's
+    survivors queued and flushes (those of :func:`pass1_merge_reference`
+    on the kernel's scores)."""
     lib = _cuda.library("scan_topk", _SIGNATURES)
     q = _cuda.aligned(q)
     dev = store.device
@@ -496,8 +664,8 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
                 else torch.from_numpy(tiles).pin_memory().to(
                     dev, non_blocking=True))
     isz, span = store.element_size(), _FOLD_SPAN if fold else _TILE_ROWS
-    qb, rows, words, chunks, warps2 = _plan(n, nq, d, isz, k, span,
-                                            _sm_count(dev.index or 0))
+    qb, rows, words, chunks, warps2, nb, smem = _plan(
+        n, nq, d, isz, k, span, _sm_count(dev.index or 0))
     f32, i32 = torch.float32, torch.int32
     cand_s = torch.empty((nq, chunks, k), dtype=f32, device=dev)
     cand_i = torch.empty((nq, chunks, k), dtype=i32, device=dev)
@@ -508,19 +676,20 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
         qbuf = torch.empty((nq, d), dtype=torch.int8, device=dev)
         qscale = torch.empty((nq,), dtype=f32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    plan = (_DTYPE_CODES[store.dtype], qb, rows, words, chunks, warps2,
-            cand_s.data_ptr(), cand_i.data_ptr())
+    plan = (_DTYPE_CODES[store.dtype], qb, rows, words, chunks, warps2)
+    cand = (cand_s.data_ptr(), cand_i.data_ptr())
     if fold:
         err = _cuda.launch(
             lib.sema_fold_topk, dev, store.data_ptr(), q.data_ptr(),
-            n, d, nq, k, *plan, out_s.data_ptr(), out_i.data_ptr(),
-            ptr(stats))
+            n, d, nq, k, *plan, smem, *cand, out_s.data_ptr(),
+            out_i.data_ptr(), ptr(stats))
     else:
         err = _cuda.launch(
             lib.sema_scan_topk, dev,
             store.data_ptr(), q.data_ptr(), ptr(qbuf), ptr(valid),
-            ptr(row_scale), ptr(tile_dev), tile_n, n, d, nq, k, *plan,
-            ptr(qscale), ptr(thr0), out_s.data_ptr(), out_i.data_ptr())
+            ptr(row_scale), ptr(tile_dev), tile_n, n, d, nq, k, *plan, nb,
+            smem, *cand, ptr(qscale), ptr(thr0), out_s.data_ptr(),
+            out_i.data_ptr(), ptr(stats))
     _cuda.check(lib, err, "fold_topk" if fold else "scan_topk")
     return out_s, out_i
 

@@ -10,7 +10,21 @@ for any split of the chunks into runs; against the selection over the
 whole range; and against the JAX package's Pallas int8 scans in
 interpret mode, bit for bit. The ties of the cases cross chunk
 boundaries. Then the int8 route's query blocks, shared memory and chunk
-plan, and pass 2's warps."""
+plan, and pass 2's warps.
+
+Then pass 1's merge of the bf16/f16 route (K1, K3, K8 on the card:
+``scan_pass1_merged``), whose plain model is ``pass1_merge_reference``:
+survivors queued 32 columns at a time above a threshold refreshed only
+at flushes, a queue flushed when a round does not fit and at the chunk's
+end, each flush sorted and placed by rank. It is held, for any queue
+size from 32 to k, any extra flush points and a threshold never
+refreshed at all, against the sequential merge row by row (insertion
+after equals), against ``scan_topk_reference`` and its warm and pruned
+versions, and against the JAX package's ``pallas_topk`` and
+``pallas_topk_pruned`` in interpret mode, bit for bit, on bf16 rows of
+whole numbers (exact scores in any order: many ties, within a round,
+across tiles and across chunks). Then the route's query blocks: each
+fits shared memory, and the lists' room sets it."""
 
 import importlib
 
@@ -18,8 +32,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
-from sema_tpu.ops.pallas_topk import pallas_topk_int8, pallas_topk_int8_pruned
+from sema_tpu.ops.pallas_topk import (pallas_topk, pallas_topk_int8,
+                                      pallas_topk_int8_pruned,
+                                      pallas_topk_pruned)
 from sema_tpu.ops.quant import quantize_rows
 from sema_tpu_torch.ops.quant import int8_dot, quantize_query
 
@@ -269,3 +287,232 @@ def test_pass2_warps_fit_shared_memory(chunks, k, warps):
     w = scan_mod.pass2_warps(chunks, k)
     assert w == warps and 1 <= w <= min(32, chunks)
     assert 3 * w * k * 8 <= 96 * 1024
+
+
+# -- pass 1's merge of the bf16/f16 route -------------------------------------
+
+D16 = 32                                    # row width of the bf16 cases
+
+
+def _int_case(n, nq, seed, live=None, zero=True):
+    """bf16 rows of whole numbers in [-2, 2] (their f32 scores are exact
+    in any order, so JAX's, the plain version's and the model's agree bit
+    for bit, and many tie), the 17-way tie TIE as far as it fits,
+    tombstones, and queries: query 1 equals row 7 (the tied rows score
+    top), query 2 is zero where ``zero`` (every live row scores 0);
+    ``live`` keeps only that many leading rows valid."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-2, 3, (n, D16)).astype(np.float32)
+    tie = [t for t in TIE if t < n] or [0]
+    rows[tie[1:]] = rows[tie[0]]
+    valid = rng.random(n) > 0.2
+    valid[tie] = True
+    if live is not None:
+        valid[:] = False
+        valid[:live] = True
+    queries = rng.integers(-2, 3, (max(nq, 3), D16)).astype(np.float32)
+    queries[1] = rows[tie[0]]
+    if zero:
+        queries[2] = 0.0
+    return rows, queries, valid
+
+
+def _torch(rows, queries, valid):
+    return (torch.from_numpy(rows).bfloat16(), torch.from_numpy(queries),
+            torch.from_numpy(valid))
+
+
+def _sequential_rows(scores, ids, k, rows_per_chunk, warm=None):
+    """The TPU kernel's merge of each chunk, row by row: a score that beats
+    max(the list's k-th, warm) goes in after equal scores."""
+    nq, n = scores.shape
+    chunks = -(-n // rows_per_chunk)
+    out_s = torch.full((nq, chunks, k), float("-inf"))
+    out_i = torch.zeros((nq, chunks, k), dtype=torch.int32)
+    for q in range(nq):
+        w = float("-inf") if warm is None else float(warm[q])
+        for c in range(chunks):
+            ls, li = [float("-inf")] * k, [0] * k
+            for r in range(c * rows_per_chunk,
+                           min(n, (c + 1) * rows_per_chunk)):
+                s = float(scores[q, r])
+                if s > max(ls[-1], w):
+                    p = sum(x >= s for x in ls)
+                    ls = ls[:p] + [s] + ls[p:-1]
+                    li = li[:p] + [int(ids[r])] + li[p:-1]
+            out_s[q, c], out_i[q, c] = torch.tensor(ls), torch.tensor(li)
+    return out_s, out_i
+
+
+def _warm(scores, k, w):
+    """K8's thresholds from the sample's columns of the same scores."""
+    return scan_mod.warm_threshold(
+        torch.topk(scores[:, :w], k, dim=1).values[:, -1])
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(seed=st.integers(0, 2 ** 16), n=st.integers(1, 700),
+       k=st.integers(1, 130), chunk_tiles=st.integers(1, 6),
+       queue_mult=st.integers(1, 5), refresh=st.booleans(),
+       flush_rounds=st.sets(st.integers(0, 11), max_size=4),
+       live=st.one_of(st.none(), st.integers(0, 40)),
+       warm_rows=st.sampled_from([0, 0, 64, 256]))
+def test_merge_model_is_the_sequential_merge(seed, n, k, chunk_tiles,
+                                             queue_mult, refresh,
+                                             flush_rounds, live, warm_rows):
+    """Whatever the queue's size (32 to k, in 32s), wherever the extra
+    flushes fall, and whether the threshold is refreshed at flushes or
+    never, each chunk's list is the sequential merge's, bit for bit; and
+    the chunks merged by pass 2 are the plain version's (K8's with its
+    warm thresholds), masked rows and k above the live rows included."""
+    queue = 32 * min(queue_mult, max(1, -(-k // 32)))
+    rows, queries, valid = _int_case(n, 4, seed, live)
+    store, q, v = _torch(rows, queries, valid)
+    scores = scan_mod._scores(store, q, v, True)
+    warm = None
+    if warm_rows and k <= min(warm_rows, n):
+        warm = _warm(scores, k, min(warm_rows, n))
+    rows_per_chunk = 64 * chunk_tiles
+    got_s, got_i, (queued, flushes) = scan_mod.pass1_merge_reference(
+        scores, np.arange(n), k, rows_per_chunk, warm, queue=queue,
+        flush_rounds=flush_rounds, refresh=refresh)
+    want_s, want_i = _sequential_rows(scores, np.arange(n), k,
+                                      rows_per_chunk, warm)
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+    merged = scan_mod.scan_pass2_reference(got_s, got_i)
+    plain = (scan_mod.scan_topk_reference(store, q, v, k) if warm is None
+             else scan_mod.scan_topk_warm_reference(store, q, v, k,
+                                                    min(warm_rows, n)))
+    assert _equal(merged, plain)
+    assert flushes <= queued
+
+
+@pytest.mark.parametrize("k,masked,rows_per_chunk", [
+    (1, True, 64), (16, True, 128), (17, False, 192), (64, True, 256),
+    (100, True, 128), (128, False, 512)])
+def test_merge_model_bit_equal_to_pallas_topk(k, masked, rows_per_chunk):
+    """The model's chunks merged by pass 2 equal the JAX package's Pallas
+    scan in interpret mode, bit for bit; the 17-way tie and the zero
+    query (every live row ties at 0) in row order."""
+    rows, queries, valid = _int_case(N, 5, 5)
+    store, q, v = _torch(rows, queries, valid)
+    scores = scan_mod._scores(store, q, v, masked)
+    cand = scan_mod.pass1_merge_reference(scores, np.arange(N), k,
+                                          rows_per_chunk)
+    got = scan_mod.scan_pass2_reference(*cand[:2])
+    want = pallas_topk(jnp.asarray(store.float().numpy(), jnp.bfloat16),
+                       jnp.asarray(queries), jnp.asarray(valid), k,
+                       tile_n=TILE, interpret=True, masked=masked)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    t = min(k, len(TIE))
+    assert got[1][1, :t].tolist() == TIE[:t]
+    live = np.flatnonzero(valid) if masked else np.arange(N)
+    assert got[1][2, :t].tolist() == live[:t].tolist()
+
+
+@pytest.mark.parametrize("k,n_live", [(16, 6), (64, 3), (128, 8)])
+def test_merge_model_bit_equal_to_pallas_topk_pruned(k, n_live):
+    """K3's ids are physical rows of sorted tiles, so a chunk's rows are
+    not contiguous: the model over the probe's rows equals the Pallas
+    pruned scan in interpret mode, bit for bit."""
+    rows, queries, valid = _int_case(N, 5, 6)
+    rng = np.random.default_rng(7)
+    live = np.sort(np.concatenate([[0], rng.choice(
+        np.arange(1, N // TILE), size=n_live - 1, replace=False)]))
+    tiles = np.full(8, live[-1], dtype=np.int32)
+    tiles[:n_live] = live
+    phys = (live[:, None] * TILE + np.arange(TILE)[None, :]).reshape(-1)
+    store, q, v = _torch(rows, queries, valid)
+    scores = scan_mod._scores(store[phys], q, v[phys], True)
+    cand = scan_mod.pass1_merge_reference(scores, phys, k, 128)
+    got = scan_mod.scan_pass2_reference(*cand[:2])
+    want = pallas_topk_pruned(
+        jnp.asarray(store.float().numpy(), jnp.bfloat16),
+        jnp.asarray(queries), jnp.asarray(valid), jnp.asarray(tiles),
+        jnp.asarray([n_live], dtype=jnp.int32), k, tile_n=TILE,
+        interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[1][1, :2].tolist() == TIE[:2]     # both in tile 0
+
+
+@pytest.mark.parametrize("k,warm_rows", [(10, 128), (64, 256), (100, 512)])
+def test_merge_model_warm_screen_bit_equal_to_pallas_warm(k, warm_rows):
+    """K8: the screen starts at one ULP below the sample's k-th, so rows
+    that tie the global k-th still enter; the model with those
+    thresholds equals ``pallas_topk(warm_rows=)`` in interpret mode. No
+    zero query: its threshold, one ULP below 0, is a denormal, which JAX
+    flushes to 0 on the CPU (its warm scan then drops the tied zeros)."""
+    rows, queries, valid = _int_case(N, 5, 8, zero=False)
+    store, q, v = _torch(rows, queries, valid)
+    scores = scan_mod._scores(store, q, v, True)
+    cand = scan_mod.pass1_merge_reference(
+        scores, np.arange(N), k, 256, _warm(scores, k, warm_rows))
+    got = scan_mod.scan_pass2_reference(*cand[:2])
+    want = pallas_topk(jnp.asarray(store.float().numpy(), jnp.bfloat16),
+                       jnp.asarray(queries), jnp.asarray(valid), k,
+                       tile_n=TILE, interpret=True, warm_rows=warm_rows)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("k", [1, 20, 32])
+def test_merge_model_counts_what_a_strict_screen_queues(k):
+    """The counters the kernel reports, on a query whose every live score
+    is 0: the first round queues its 32 rows, the second does not fit
+    and flushes them (the list, k <= 32, is then full at 0), and a
+    strict screen queues nothing more, so each chunk queues 32 and
+    flushes once. A screen that let scores equal to the threshold in
+    would queue every row."""
+    n, rows_per_chunk = 1024, 256
+    scores = torch.zeros((1, n))
+    got_s, got_i, counts = scan_mod.pass1_merge_reference(
+        scores, np.arange(n), k, rows_per_chunk)
+    chunks = n // rows_per_chunk
+    assert counts == (32 * chunks, chunks)
+    assert (got_i[0, :, :k] == torch.arange(k)[None, :]
+            + torch.arange(0, n, rows_per_chunk)[:, None]).all()
+
+
+@pytest.mark.parametrize("d", [64, 384, 768, 1024])
+@pytest.mark.parametrize("k", [1, 10, 16, 64, 100, 128, 256, 512, 1024])
+@pytest.mark.parametrize("nq", [1, 8, 9, 124, 256])
+def test_merge_layout_fits_shared_memory(d, k, nq):
+    """Every query block the bf16 route plans is one its kernel takes,
+    fits shared memory as the kernel carves it with equal slabs of whole
+    k-steps covering the row, and is the largest beside whose lists a
+    slab of 64 elements fits (8 for a batch of 8 or fewer); a second
+    score buffer only where it costs neither a slab nor an SM's second
+    block."""
+    qb, nb, slab = scan_mod.merge_layout(d, k, nq)
+    assert qb in scan_mod._MERGED_BLOCKS and nb in (1, 2)
+    assert scan_mod._query_block(d, 2, k, nq) == qb
+    assert scan_mod.slab_words(d, 2, k, nq) * 2 == slab
+    dp = -(-d // 16) * 16
+    slabs = -(-dp // slab)
+    assert slab % 16 == 0 and 16 <= slab and (slabs - 1) * slab < dp
+    smem = scan_mod.pass1_smem_bytes(d, 2, k, nq)
+    assert smem == scan_mod._merged_smem(d, qb, k, nb, slab)
+    assert smem <= scan_mod._SMEM_MAX
+    if nq <= 8:
+        assert qb == 8
+    else:
+        larger = [b for b in scan_mod._MERGED_BLOCKS if b > qb]
+        room = lambda b: scan_mod._SMEM_MAX - scan_mod._merged_fixed(
+            d, b, k, 1) - 2 * 64 * (64 + 8) * 2
+        assert all(room(b) < 0 for b in larger)
+        assert qb == 8 or room(qb) >= 0
+    if nb == 2:
+        one = scan_mod._merged_smem(d, qb, k, 1, slab)
+        assert scan_mod._per_sm(smem) == scan_mod._per_sm(one)
+
+
+def test_merge_query_block_reads_the_store_fewer_times_above_k_128():
+    """At k 1,024 a batch of 256 takes blocks of 16 (the store read 16
+    times; the int8 route's blocks of 8 read it 32), 32 at k 256 and 512,
+    64 up to k 128, at MiniLM's width."""
+    assert [scan_mod.merge_layout(384, k, 256)[0]
+            for k in (16, 64, 128, 256, 512, 1024)] == [64, 64, 64, 32, 32,
+                                                       16]
+    assert scan_mod._query_block(384, 1, 1024, 256) == 8

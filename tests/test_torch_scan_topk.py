@@ -174,13 +174,14 @@ def test_slab_words_fit_shared_memory(d, itemsize, k, whole):
 @pytest.mark.parametrize("d,k,qb,whole", [(384, 10, 64, True),
                                           (384, 128, 64, False),
                                           (1024, 16, 64, False),
-                                          (1024, 128, 8, False),
-                                          (384, 1024, 8, True)])
+                                          (1024, 128, 32, False),
+                                          (384, 1024, 16, False)])
 def test_batch_query_block(d, k, qb, whole):
-    """At Q 256 the tensor-core route takes 64 queries a block (the store
-    read 4 times, the query blocks of a chunk side by side in the grid)
-    wherever slabs of 64 elements still fit beside them, else 8; f32 and
-    int8 keep 16 (4 above k 128)."""
+    """At Q 256 the bf16 route takes the most of 64, 32, 16 and 8 queries
+    a block (the store read 256 / qb times, the query blocks of a chunk
+    side by side in the grid) beside which slabs of 64 elements still fit:
+    at k 1,024 16, where lists of 8 queries alone once left room; f32
+    keeps 16 (4 above k 128)."""
     assert scan_mod._query_block(d, 2, k, 256) == qb
     assert scan_mod._query_block(d, 2, k, 8) == 8
     assert scan_mod._query_block(d, 4, k, 256) == (16 if k <= 128 else 4)
