@@ -4,6 +4,7 @@
 #     bash chip_mutants.sh        # from the repository root; needs one card
 #     bash chip_mutants.sh k6_no_bias k7_next_heads_keys   # only these
 #     MUTANT_JOBS=4 bash chip_mutants.sh ...   # four mutants' phases at once
+#     bash chip_mutants.sh --cards 4  # the mesh's mutants; needs four cards
 #
 # Each mutant is a copy of chip_smoke.py and sema_tpu_torch/ under
 # build/mut-<name>/ with one fault put by sed into a CUDA source or a
@@ -18,16 +19,27 @@
 # (phase shard_path). The doctor_* mutants put the fault of a mutant above
 # again and must fail the doctor's self-test (phase doctor_path). The
 # tools_path mutants break a measuring tool or encoder_ablate's ablated
-# builds; their phase runs only the tool at fault (--tools).
+# builds; their phase runs only the tool at fault (--tools). The cards_*
+# mutants break what only a mesh over distinct cards can show (a launch on
+# a card other than its tensors', a tensor left on the first card): they
+# run only with --cards N (and only they then run), each against the part
+# of cards_path it targets (--cards-parts), one at a time over the N cards.
 # Prints one line per mutant, "caught" or "MISSED" (once every mutant's
 # phase has ended), and exits non-zero if any mutant was missed or left
 # its source unchanged. MUTANT_JOBS phases run at once on the card
-# (default 1). The kernels of the
+# (default 1), but a spill_path or append_path mutant runs alone: their
+# phases time the card's copies and stalls, and spill_path leaves the card
+# 1.25 GiB free on purpose. The kernels of the
 # unchanged sources are built once and copied into each mutant's tree
 # (a library's name carries its source's hash, so a mutated source is
 # rebuilt there).
 set -u
 cd "$(dirname "$0")"
+CARDS=0      # --cards N: the mesh's mutants over N cards, and only they
+if [ "${1:-}" = "--cards" ]; then
+  CARDS=$2
+  shift 2
+fi
 python3 -c 'from sema_tpu_torch.ops import _cuda; _cuda.build()' || exit 1
 failed=0
 JOBS=${MUTANT_JOBS:-1}
@@ -43,6 +55,12 @@ mutant() {
   FILE[$name]=$file EXPR[$name]=$expr FILE2[$name]=$file2 EXPR2[$name]=$expr2
   [[ $file == */* ]] || file=csrc/$file
   chosen "$name" || return 0
+  # a cards_path mutant runs only with --cards, and then only such mutants
+  if [[ $phases == cards_path* ]]; then
+    [ "$CARDS" -gt 0 ] || return 0
+  elif [ "$CARDS" -gt 0 ]; then
+    return 0
+  fi
   local dir=build/mut-$name
   rm -rf "$dir"
   mkdir -p "$dir/build"
@@ -56,8 +74,14 @@ mutant() {
     failed=1
     return
   fi
-  check_mutant "$dir" "$name" "$phases" &
   checked+=("$dir")
+  case "$phases" in
+    spill_path|append_path)
+      wait
+      check_mutant "$dir" "$name" "$phases"
+      return ;;
+  esac
+  check_mutant "$dir" "$name" "$phases" &
   while [ "$(jobs -rp | wc -l)" -ge "$JOBS" ]; do wait -n; done
 }
 # the phases from the mutant's tree, which must fail; the verdict into
@@ -345,11 +369,33 @@ mutant load_test_mutates_planted tools/load_test.py \
 # against its plain version must fail
 mutant product_build_ablated encoder_layer.cu \
   's/^#define SEMA_ABLATE 0$/#define SEMA_ABLATE 1/' encoder_layer
+# the mesh over distinct cards (--cards 4): a kernel launched without its
+# tensors' card made current. A K1 over 300 rows still answers right, so
+# cards_path's doctor part misses this mutant; the TP embeddings of K6 on
+# cards 1-3 come back NaN, with no error from the entry point (cause not
+# yet known)
+mutant cards_launch_unguarded ops/_cuda.py \
+  's/    with torch.cuda.device(device):/    if True:/' \
+  "cards_path --cards-parts tp4"
+# each shard scans with the query left on the first card
+mutant cards_query_not_copied parallel/sharded_topk.py \
+  's/        sc, ix = local_fn(store\[s\], queries.to(dev), valid\[s\], \*probe, k)/        sc, ix = local_fn(store[s], queries, valid[s], *probe, k)/' \
+  "cards_path --cards-parts doctor"
+# the merge takes each shard's candidates where they lie
+mutant cards_merge_not_gathered parallel/sharded_topk.py \
+  's/    s = torch.cat(\[t.to(device) for t in scores\], 1)/    s = torch.cat(list(scores), 1)/; s/    i = torch.cat(\[t.to(device) for t in ids\], 1)/    i = torch.cat(list(ids), 1)/' \
+  "cards_path --cards-parts doctor"
+# TP: the shards' sum never copied back, so every shard gets the first
+# card's total
+mutant cards_psum_no_copy_back models/bert.py \
+  's/    return \[total.to(p.device) for p in parts\]/    return [total for p in parts]/' \
+  "cards_path --cards-parts tp4"
 # the doctor's self-test (planted winners at k = 1, the encoder against f32
 # on the CPU) against the faults of kernels it launches: K1, K3, K4a, K2,
 # K5 and the spilled union probe
 for m in pass2_id_dropped tiles_ignored no_row_scale values_first_tile \
     k5_no_weight_scale spill_rowmap_no_offset; do
+  [ "$CARDS" -gt 0 ] && break
   mutant "doctor_$m" "${FILE[$m]}" "${EXPR[$m]}" doctor_path "${FILE2[$m]}" \
     "${EXPR2[$m]}"
 done
@@ -388,6 +434,7 @@ cli_mutant() {
   # and the command: query (the int8 encoder's) or tui
   local name=$1 file=$2 expr=$3 expect=$4 how=${5:-query}
   chosen "$name" || return 0
+  [ "$CARDS" -eq 0 ] || return 0
   local dir=build/mut-$name
   rm -rf "$dir"
   mkdir -p "$dir/build"

@@ -360,6 +360,34 @@ Phases, one JSON line each:
                       kernels its path reaches; their launches add to the
                       kernels line's.
 
+20. ``cards_path``    (only when ``--phases`` names it, alone: with more
+                      than one card visible every other phase refuses to
+                      run, and on one card it raises unless
+                      ``--rehearse`` repeats card 0 CARDS times) the
+                      port's mesh over CARDS = 4 cards, a shard a card, in
+                      parts (``--cards-parts``): ``doctor --skip-quality``
+                      (``scan-mesh`` a shard a card, every check ok);
+                      gte-large at 4 layers over (data 1, model 4)
+                      (``tp4``); the CLI's default mesh (no ``[mesh]``:
+                      index over every card, the encoder's batch split
+                      over it) on the main path's tree, whose ``index``,
+                      ``query`` and ``query --limit 1500`` must answer
+                      the files, lines and chunk ids of the same CLI in a
+                      process that sees card 0 alone, each shard's block
+                      and K1 on its own card, and ``[mesh] shape = [4,
+                      1]``; gte-large at full depth over (1, 4) and (2,
+                      2), float linears then W8A8 (``tp_run``: its rows
+                      against the single-device encoder at TP_COS_MIN,
+                      each K6/K7 shape on each card against its plain
+                      version); both IVF paths' stores (1,048,576 rows)
+                      single-shard, then over (1, 4) and (2, 1, 2), the
+                      exact ids equal. Every launch is counted by card
+                      (``CallRecorder``), every timer waits on every card
+                      of its mesh and each card's busy share comes from
+                      the profiler;
+                      each part prints its line before its checks fail
+                      it. The default run prints that it did not run it.
+
 ``--parent-source DIR`` (another revision's tree, e.g. ``git archive REV
 | tar -x -C build/parent``; its two kernel sources are built beside this
 tree's) adds two phases, each output bit for bit against the parent's,
@@ -404,6 +432,7 @@ from collections import Counter
 from contextlib import (ExitStack, contextmanager, redirect_stderr,
                         redirect_stdout)
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -413,7 +442,7 @@ import torch.nn.functional as F
 # WRAPPERS maps a kernel's name in the kernels line to its wrapper's in
 # sema_tpu_torch.ops
 from sema_tpu_torch.tools import (WRAPPERS, device_ms, query_device_time,
-                                  short_name)
+                                  short_name, synchronize)
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
@@ -434,12 +463,17 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def smi_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
+def smi_lines() -> list:
+    """Every card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        check=True).stdout.strip().splitlines()
+
+
+def smi_line() -> str:
+    """The first card's name and power limit."""
+    return smi_lines()[0]
 
 
 def check(ok, what="check failed") -> None:
@@ -1522,8 +1556,80 @@ def phase_layer(gen):
         cases += [layer_case(layer, spec, dt, b, s, gen, iters=10)
                   for m, dt, b, s in K2_SHAPES if m == name]
         del layer
-    emit("encoder_layer", cases=cases)
+    sweep = k2_sweep()
+    emit("encoder_layer", cases=cases, k2_sweep=sweep)
+    check_k2_sweep(sweep)
     return cases
+
+
+# K2 at gte-large (256, 256) bf16 over K2_SWEEP draws of its weights and
+# inputs from a generator of its own (seed K2_SWEEP_SEED), so that the
+# cases above keep their draws
+K2_SWEEP, K2_SWEEP_SEED, K2_SWEEP_SHAPE = 32, 16, ("gte-large", 256, 256)
+# a draw whose kernel falls under layer_close against the plain version
+# passes where the kernel's worst row against f32 is no farther than the
+# plain version's, less this margin: see check_k2_sweep
+K2_SWEEP_MARGIN = 1e-4
+
+
+def row_cosines(a, b) -> torch.Tensor:
+    h = a.shape[-1]
+    return F.cosine_similarity(a.float().reshape(-1, h),
+                               b.float().reshape(-1, h), dim=1)
+
+
+def k2_sweep() -> list:
+    """Each draw's kernel (K2) and plain version (bf16) against each
+    other (``layer_close``: min cosine, relative error) and each against
+    the same layer in f32 on the card (the input and the bf16 weights
+    upcast, TF32 off: ``main`` turns it off), with the worst row's index
+    (batch row, token) and the rows under COS_MIN of each pair. Both
+    sides round at the same points (``csrc/encoder_layer.cu``'s header);
+    the f32 layer says which of the two a low cosine between them
+    belongs to."""
+    from sema_tpu_torch.models.bert import LN_EPS
+    from sema_tpu_torch.models.registry import get_spec
+    from sema_tpu_torch.ops.encoder_layer import (encoder_layer_reference,
+                                                  fused_encoder_layer)
+    name, b, s = K2_SWEEP_SHAPE
+    spec = get_spec(name)
+    gen = torch.Generator(device=DEV).manual_seed(K2_SWEEP_SEED)
+    out = []
+    for draw in range(K2_SWEEP):
+        layer = layer_params(spec.hidden_size, spec.intermediate_size, gen)
+        x, _, bias, heads, scale = layer_inputs(spec, BF16, b, s, gen)
+        args = (bias, heads, scale, LN_EPS)
+        got = fused_encoder_layer(x, layer, *args)
+        want = encoder_layer_reference(x, layer, *args)
+        f32 = encoder_layer_reference(x.float(), layer, *args)
+        _, cos, rel = layer_close(got, want)
+        row = {"draw": draw, "min_cosine": cos, "max_rel_err": rel}
+        for pair, (p, q) in (("kernel_plain", (got, want)),
+                             ("kernel_f32", (got, f32)),
+                             ("plain_f32", (want, f32))):
+            c = row_cosines(p, q)
+            worst = int(c.argmin())
+            row[pair] = {"min": float(c[worst]), "row": [worst // s,
+                                                         worst % s],
+                         "under": int((c < COS_MIN).sum()),
+                         "mean": float(c.mean())}
+        out.append(row)
+        del layer, x, got, want, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_k2_sweep(sweep: list) -> None:
+    """Every draw holds ``layer_close`` between the kernel and the plain
+    version, or, where it does not, the kernel's worst row against f32 is
+    no lower than the plain version's less K2_SWEEP_MARGIN: the low cosine
+    is then the plain version's distance from f32, not the kernel's."""
+    bad = [r["draw"] for r in sweep
+           if not (r["min_cosine"] >= COS_MIN and r["max_rel_err"] <= REL_MAX)
+           and r["kernel_f32"]["min"] < r["plain_f32"]["min"]
+           - K2_SWEEP_MARGIN]
+    check(not bad, f"K2 sweep: draws {bad} fall under layer_close with the "
+          "kernel the side farther from f32")
 
 
 # -- K5 -----------------------------------------------------------------------
@@ -2881,30 +2987,69 @@ BLOB_ROOM = 4 << 30            # bytes the spill layouts may write
 SPILL_SPLIT_TURNS = 20         # IVF probes a staging mode, in turns
 
 
-class ScanRecorder:
-    """The store's scan wrappers, each call recorded as (name, rows of the
-    tensor it scans, tile_n or None) with its arguments, then made
-    through the wrapper, which counts its launch."""
+# the kernels' wrappers as the product's paths call them, by the module
+# that calls them: the store's scans, the encoder's layers and attention
+CARD_CALLED = {"sema_tpu_torch.index.vector_store": SCANS,
+               "sema_tpu_torch.models.bert": (
+                   "fused_encoder_layer", "fused_encoder_layer_int8",
+                   "fused_attention_block", "fused_attention_qkv")}
+KERNEL_OF = {attr: name for name, attr in WRAPPERS.items()}
+
+
+class Call(NamedTuple):
+    wrapper: str              # its name in the calling module
+    card: str                 # the card of its first argument
+    rows: int                 # rows of its first argument
+    tile_n: int | None        # a pruned scan's tile
+    args: tuple | None        # None for an encoder call past the first
+
+
+class CallRecorder:
+    """Each call that the store or the encoder makes to a kernel's wrapper
+    (the names of CARD_CALLED) on a card, recorded as a ``Call`` and then
+    made through the wrapper, which counts its launch as ever. The
+    arguments of every scan are kept; of the encoder's calls, those of the
+    first of each (wrapper, card, shape) only (``first``), so that an
+    index's activations are not kept. A call on CPU tensors launches
+    nothing and is left out."""
 
     def __init__(self):
         self.calls = []
+        self.first = {}            # (wrapper, card, shape) → arguments
 
     @contextmanager
     def recording(self):
-        store_mod = importlib.import_module(
-            "sema_tpu_torch.index.vector_store")
-        wrap = {}
-        for name in SCANS:
-            def call(*a, _fn=getattr(store_mod, name), _name=name, **k):
-                tile_n = a[-1] if "pruned" in _name else None
-                self.calls.append((_name, a[0].shape[0], tile_n, a))
-                return _fn(*a, **k)
-            wrap[name] = call
-        with swapped("sema_tpu_torch.index.vector_store", wrap):
+        with ExitStack() as stack:
+            for module, names in CARD_CALLED.items():
+                mod = importlib.import_module(module)
+                wrap = {}
+                for name in names:
+                    def call(*a, _fn=getattr(mod, name), _name=name, **kw):
+                        t = a[0]
+                        if t.device.type == "cuda":
+                            key = (_name, str(t.device), tuple(t.shape))
+                            self.first.setdefault(key, a)
+                            self.calls.append(Call(
+                                _name, key[1], t.shape[0],
+                                a[-1] if "pruned" in _name else None,
+                                a if _name in SCANS else None))
+                        return _fn(*a, **kw)
+                    wrap[name] = call
+                stack.enter_context(swapped(module, wrap))
             yield self
 
     def shapes(self) -> Counter:
-        return Counter((n, r, t) for n, r, t, _ in self.calls)
+        """(wrapper, rows, tile_n) → calls, of the store's scans."""
+        return Counter((c.wrapper, c.rows, c.tile_n) for c in self.calls
+                       if c.wrapper in SCANS)
+
+    def table(self) -> dict:
+        """{kernel: {card: calls}} of the calls recorded."""
+        out = {}
+        for (wrapper, card), n in sorted(Counter(
+                (c.wrapper, c.card) for c in self.calls).items()):
+            out.setdefault(KERNEL_OF[wrapper], {})[card] = n
+        return out
 
 
 @contextmanager
@@ -3133,7 +3278,7 @@ def spill_store(work: Path, tree: Path, store_dtype: str, gen, weights,
     layers = get_spec(IVF_MODEL).num_layers
     mgr = open_manager(device, Metrics())
     store, enc = mgr.vector_store, mgr.encoder
-    rec = ScanRecorder()
+    rec = CallRecorder()
     out = {"launches": Counter(), "stage_launches": 0, "slice_launches": 0}
     with spill_counters() as stats:
         # the first query: the bucket build, three spill layouts (k-means
@@ -3194,8 +3339,8 @@ def spill_store(work: Path, tree: Path, store_dtype: str, gen, weights,
                   f"{name}: IVF route launches {c}, want {want}; shapes "
                   f"{dict(shapes)}")
             out["stage_launches"] += 1
-        stage_args = [a for n, _, tn, a in rec.calls
-                      if n == pruned and tn == SPILL_TILE]
+        stage_args = [c.args for c in rec.calls
+                      if c.wrapper == pruned and c.tile_n == SPILL_TILE]
         rec.calls.clear()
         lat.sort()
         out.update(ivf_p50_ms=lat[len(lat) // 2], ivf_max_ms=lat[-1],
@@ -3312,9 +3457,9 @@ def spill_store(work: Path, tree: Path, store_dtype: str, gen, weights,
             if int8:
                 want["scan_topk_int8"] = 1 + len(tails)
             # K1 over a staged slice: not over the device bucket's rows
-            slices = [a for n, r, _, a in rec.calls
-                      if n == "scan_topk" and r == SPILL_SLICE
-                      and a[0].data_ptr() != dev_rows.data_ptr()]
+            slices = [c.args for c in rec.calls
+                      if c.wrapper == "scan_topk" and c.rows == SPILL_SLICE
+                      and c.args[0].data_ptr() != dev_rows.data_ptr()]
             out["slice_launches"] += len(slices)
             check(c == want and len(slices) == 3
                   and stats["staged_bytes"] == 3 * SPILL_SLICE * (
@@ -3490,23 +3635,25 @@ SHARD_BLOCK_QUERIES = 300
 SHARD_TIES = [7, 1030, 2050, 3080]   # a row in each shard of 1,024
 
 
-def shard_mesh(slices: int = 0):
+def shard_mesh(slices: int = 0, devices=None):
     """(data 1, index SHARDS), or (slice, data 1, index) with ``slices``
-    slices, every shard on the card."""
+    slices, over ``devices`` in shard order (default: every shard on the
+    card)."""
     from sema_tpu_torch.parallel.mesh import make_mesh
+    devices = [DEV] * SHARDS if devices is None else list(devices)
     if slices:
         return make_mesh([slices, 1, SHARDS // slices],
-                         ("slice", "data", "index"), devices=[DEV] * SHARDS)
-    return make_mesh([1, SHARDS], ("data", "index"), devices=[DEV] * SHARDS)
+                         ("slice", "data", "index"), devices=devices)
+    return make_mesh([1, SHARDS], ("data", "index"), devices=devices)
 
 
 def sharded_manager(data: Path, enc, store_dtype: str, slices: int = 0,
-                    **kw):
+                    devices=None, **kw):
     """An ``IndexManager`` over ``data`` with ``enc`` (single-device) and
-    its store's rows sharded over ``shard_mesh(slices)``."""
+    its store's rows sharded over ``shard_mesh(slices, devices)``."""
     from sema_tpu_torch.index import IndexManager
     return IndexManager(data, enc, store_dtype=store_dtype,
-                        mesh=shard_mesh(slices),
+                        mesh=shard_mesh(slices, devices),
                         slice_axis="slice" if slices else None, **kw)
 
 
@@ -3519,15 +3666,15 @@ def warm_queries(search, shapes: Counter = None, n: int = SHARD_WARM
         search()
     reset_launch_counts()
     lat = []
-    rec = ScanRecorder()
+    rec = CallRecorder()
     with rec.recording():
         for _ in range(n):
             t0 = time.perf_counter()
             search()
             lat.append((time.perf_counter() - t0) * 1e3)
     if shapes is not None:
-        shapes.update(Counter((name, rows) for name, rows, _, _ in
-                              rec.calls))
+        shapes.update(Counter((c.wrapper, c.rows) for c in rec.calls
+                              if c.wrapper in SCANS))
     lat.sort()
     return lat[n // 2], {k: v / n for k, v in launch_counts().items() if v}
 
@@ -3561,11 +3708,12 @@ def shard_kernel_case(name: str, args) -> dict:
                         else (args[0], args[1], args[2]))
     n, d = rows_t.shape
     k = args[-2] if pruned else args[-1]
+    dev = rows_t.device
     idx, n_live = None, 0
     if pruned:
         tiles, n_live, tile = args[-4], args[-3], args[-1]
-        idx = (torch.as_tensor(tiles[:n_live], device=DEV)[:, None] * tile
-               + torch.arange(tile, device=DEV)).reshape(-1)
+        idx = (torch.as_tensor(tiles[:n_live], device=dev)[:, None] * tile
+               + torch.arange(tile, device=dev)).reshape(-1)
         n = n_live * tile
     if int8:
         lib, _ = int8_library(args[0], args[1], valid, q, k, idx)
@@ -3576,28 +3724,33 @@ def shard_kernel_case(name: str, args) -> dict:
         lib = lambda: torch.topk(q.to(rows_t.dtype) @ rows_s.T, k)
         bnd = bound(n * (2 * d + 1) + d * 4 + k * 8 + 4 * n_live,
                     2.0 * n * d)
-    return {"max_abs_err": err, "ms": device_ms(lambda: fn(*args), 50),
-            "plain_ms": device_ms(lambda: ref(*args), 20),
-            "library_ms": None if lib is None else device_ms(lib, 20),
-            "bound_ms": bnd[0], "bound_by": bnd[1], "rows": n, "k": k}
+    with torch.cuda.device(dev):   # the events time the shard's card
+        return {"max_abs_err": err, "ms": device_ms(lambda: fn(*args), 50),
+                "plain_ms": device_ms(lambda: ref(*args), 20),
+                "library_ms": None if lib is None else device_ms(lib, 20),
+                "bound_ms": bnd[0], "bound_by": bnd[1], "rows": n, "k": k,
+                "card": str(dev)}
 
 
-def shard_calls(fn) -> dict:
+def shard_calls(fn, by_card: bool = False) -> dict:
     """Each distinct (wrapper, rows of its block) of the scan calls that
-    ``fn()`` makes through the store, every call held against its plain
-    version; the first call of each shape timed (``shard_kernel_case``),
-    with the count of its calls."""
-    rec = ScanRecorder()
+    ``fn()`` makes through the store (and with ``by_card`` of the card it
+    ran on), every call held against its plain version; the first call of
+    each shape timed (``shard_kernel_case``), with the count of its
+    calls."""
+    rec = CallRecorder()
     with rec.recording():
         fn()
     out = {}
-    for name, rows, _, args in rec.calls:
-        key = f"{name}:{rows}"
+    for c in rec.calls:
+        if c.wrapper not in SCANS:
+            continue
+        key = f"{c.wrapper}:{c.rows}" + (f":{c.card}" if by_card else "")
         if key in out:
-            shard_check(name, args)
+            shard_check(c.wrapper, c.args)
             out[key]["calls"] += 1
         else:
-            out[key] = {**shard_kernel_case(name, args), "calls": 1}
+            out[key] = {**shard_kernel_case(c.wrapper, c.args), "calls": 1}
     return out
 
 
@@ -4498,7 +4651,16 @@ def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
     before the residual add), K2 and K5 as their kernels do, so the two
     differ by design by a few bf16 ulps a layer. The query vector and hits
     of the same path through the plain versions (``plain_attention``) on
-    the card must agree with the kernels' (``close_hits``)."""
+    the card must agree with the kernels' (``close_hits``).
+
+    The mesh's (data, model) shards lie on its devices, one card or
+    several (cards_path): the launches of the index and of one query are
+    counted by card too (each shard's card launches its K6/K7 once a
+    layer of each batch's part, the first card the query's K1), the
+    counts multiply by the data-parallel degree, and each (kernel, card,
+    shape) they launched is held against its plain version on its card
+    (``hold_attention``). The timers wait on every card of the mesh; the
+    single-device encoder is on the first."""
     from sema_tpu_torch import cli
     from sema_tpu_torch.config import Config, ModelConfig
     from sema_tpu_torch.crawl import FileCrawler
@@ -4513,21 +4675,29 @@ def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
                               model_axis="model")
     load_s = time.perf_counter() - t0
     metrics = Metrics()
-    mgr = IndexManager(work / f"data-tp-{quant}", enc,
+    shape = "x".join(map(str, mesh.devices.shape))
+    mgr = IndexManager(work / f"data-tp-{quant}-{shape}", enc,
                        store_dtype="bfloat16", metrics=metrics)
     files = FileCrawler(cli.crawler_config(Config())).crawl_directory(tree)
-    layers, tp = enc.spec.num_layers, mesh.shape["model"]
+    layers, tp, dp = enc.spec.num_layers, mesh.shape["model"], enc._dp
+    devices = list(mesh.devices.flat)
     err = io.StringIO()
+    rec = CallRecorder()
     with counted_plain_calls() as plain, redirect_stderr(err):
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        n_chunks = mgr.process_and_index_files(files)
-        index_s = time.perf_counter() - t0
-        index_launches = launch_counts()
-        index_stages_s = metrics.report()["stages_s"]
-        reset_launch_counts()
-        mgr.search(QUERY, 50)
-        one_query = launch_counts()
+        with rec.recording():
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            n_chunks = mgr.process_and_index_files(files)
+            synchronize(devices)
+            index_s = time.perf_counter() - t0
+            index_launches = launch_counts()
+            index_by_card = rec.table()
+            index_stages_s = metrics.report()["stages_s"]
+            reset_launch_counts()
+            rec.calls.clear()
+            mgr.search(QUERY, 50)
+            one_query = launch_counts()
+            query_by_card = rec.table()
         for _ in range(3):
             mgr.search(QUERY, 50)
         metrics.stage_samples.clear()
@@ -4539,7 +4709,7 @@ def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
         lat.sort()
         stages_p50_ms = {k: v * 1e3
                          for k, v in metrics.report()["p50_s"].items()}
-        busy = query_device_time(lambda: mgr.search(QUERY, 50), 20)
+        busy = query_device_time(lambda: mgr.search(QUERY, 50), 20, devices)
     check("Failed to index" not in err.getvalue()
           and "falling back" not in err.getvalue(),
           f"tp_path {quant}: {err.getvalue()[-2000:]}")
@@ -4551,23 +4721,27 @@ def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
     k6 = (sum(n for s, n in batches.items() if s >= 192)
           if quant == "none" else 0)
     want = dict.fromkeys(index_launches, 0)
-    want.update(attention_block=k6 * layers * tp,
-                attention_qkv=(sum(batches.values()) - k6) * layers * tp)
+    want.update(attention_block=k6 * layers * tp * dp,
+                attention_qkv=(sum(batches.values()) - k6) * layers * tp
+                * dp)
     check(n_chunks > 0 and index_launches == want,
           f"tp_path {quant} index: {n_chunks} chunks, batches "
           f"{dict(batches)}, launches {index_launches}, want {want}")
-    # every (B, S) at which this run launched K6 or K7 (a full batch of
-    # each bucket, and the query) is one that phase_attention holds
-    kind = lambda s: "block" if quant == "none" and s >= 192 else "qkv"
-    ran = {(kind(s), enc.batch_size * max(1, enc.max_length // s), s)
-           for s in batches} | {(kind(enc.max_length), 1, enc.max_length)}
-    held = ({*K67_PATH} | {("block", b, s) for b, s in K6_BS}
-            | {("qkv", b, s) for b, s in K7_BS})
-    check(ran <= held, f"tp_path {quant}: K6/K7 ran at {sorted(ran - held)}"
-          f", which phase_attention does not hold (K67_PATH)")
+    query_kernel = ("attention_block" if quant == "none"
+                    else "attention_qkv")
+    # every (data, model) shard's card: its K6/K7 once a layer of each
+    # batch's part; the query's K1 on the first card
+    shards = mesh.grid(["data", "model"]).reshape(-1)
+    want_index = {name: per_card(shards, n // (tp * dp))
+                  for name, n in want.items() if n}
+    want_query = {query_kernel: per_card(shards, layers),
+                  "scan_topk": {card_name(enc.device): 1}}
+    check(index_by_card == want_index and query_by_card == want_query,
+          f"tp_path {quant} {shape}: launches by card {index_by_card} "
+          f"and {query_by_card}, want {want_index} and {want_query}")
+    held_calls = hold_attention(rec)
     want = dict.fromkeys(one_query, 0)
-    want.update({"attention_block" if quant == "none" else "attention_qkv":
-                 layers * tp, "scan_topk": 1})
+    want.update({query_kernel: layers * tp * dp, "scan_topk": 1})
     check(one_query == want, f"tp_path {quant} query launches {one_query}, "
           f"want {want}")
 
@@ -4590,7 +4764,7 @@ def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
     bucket = store.device_buckets()
     check(len(bucket) == 1, f"tp_path: {len(bucket)} device buckets")
     rows = bucket[0]["store"][sample].float()
-    single = Encoder.from_config(cfg, device=DEV)
+    single = Encoder.from_config(cfg, device=devices[0])
     ref = single.encode_texts([texts[i] for i in sample]).to(rows.device)
     cos = F.cosine_similarity(rows, ref, dim=1)
     check(float(cos.min()) >= TP_COS_MIN, f"tp_path {quant}: TP rows "
@@ -4598,7 +4772,11 @@ def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
     mgr.close()
     del single, mgr, store, bucket, enc
     torch.cuda.empty_cache()
-    return {"quant": quant, "tp": tp, "chunks": n_chunks, "load_s": load_s,
+    return {"quant": quant, "tp": tp, "dp": dp, "mesh": mesh.shape,
+            "index_launches_by_card": index_by_card,
+            "query_launches_by_card": query_by_card,
+            "held_against_plain": held_calls,
+            "chunks": n_chunks, "load_s": load_s,
             "index_s": index_s, "chunks_per_s": n_chunks / index_s,
             "index_stages_s": index_stages_s,
             "bucket_rows": {str(s): n for s, n in sorted(counts.items())},
@@ -4617,11 +4795,12 @@ def tp_run(work: Path, tree: Path, weights, quant: str, mesh,
 
 
 def tp_embeddings(weights, texts, shape, layers=None,
-                  model: str = IVF_MODEL) -> dict:
+                  model: str = IVF_MODEL, devices=None) -> dict:
     """``model`` (cut to ``layers`` layers if given), bf16, on a (data,
-    model) mesh of ``shape`` whose shards all lie on the card: the
-    embeddings of ``texts`` against the single-device encoder (K2) there,
-    per-row cosine >= TP_COS_MIN, with K6 and K7 launching and K2 not."""
+    model) mesh of ``shape`` whose shards lie on ``devices`` (default:
+    all on the card): the embeddings of ``texts`` against the
+    single-device encoder (K2) on the first, per-row cosine >=
+    TP_COS_MIN, with K6 and K7 launching and K2 not."""
     import dataclasses
     from sema_tpu_torch.models.encoder import Encoder
     from sema_tpu_torch.models.loader import load_params
@@ -4635,8 +4814,8 @@ def tp_embeddings(weights, texts, shape, layers=None,
     params["layers"] = {k: v[:spec.num_layers]
                         for k, v in params["layers"].items()}
     tok = HashTokenizer(spec.vocab_size)
-    mesh = make_mesh(shape, ("data", "model"),
-                     devices=[DEV] * math.prod(shape))
+    devices = [DEV] * math.prod(shape) if devices is None else devices
+    mesh = make_mesh(shape, ("data", "model"), devices=devices)
     enc = Encoder(spec, params, tok, max_length=256, batch_size=256,
                   mesh=mesh, data_axis="data", model_axis="model")
     reset_launch_counts()
@@ -4645,7 +4824,7 @@ def tp_embeddings(weights, texts, shape, layers=None,
     seconds = time.perf_counter() - t0
     launches = launch_counts()
     single = Encoder(spec, params, tok, max_length=256, batch_size=256,
-                     device=DEV)
+                     device=devices[0])
     cos = F.cosine_similarity(got, single.encode_texts(texts), dim=1)
     check(launches["attention_block"] > 0 and launches["attention_qkv"] > 0
           and not launches["encoder_layer"]
@@ -5065,6 +5244,526 @@ def phase_doctor_path(work: Path, weights, extra=(), cases=DOCTOR_CASES):
     return runs
 
 
+# -- cards_path: the mesh over several cards -----------------------------------
+
+CARDS = 4                      # cards of cards_path's meshes
+ATTENTION_PLAIN = {"attention_block": "attention_block_reference",
+                   "attention_qkv": "attention_qkv_reference"}
+
+
+def card_launches(fn):
+    """``fn()`` with the launch counts set to 0 and its calls recorded by
+    card: (its result, the wrappers' counts, {kernel: {card: calls}}).
+    Fails unless the calls by card add up to the wrappers' counts, kernel
+    by kernel: every launch went through the store or the encoder, each
+    on the card recorded."""
+    rec = CallRecorder()
+    reset_launch_counts()
+    with rec.recording():
+        out = fn()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    table = rec.table()
+    check({k: sum(v.values()) for k, v in table.items()} == counts,
+          f"launches {counts}, recorded by card {table}")
+    return out, counts, table
+
+
+def card_name(device) -> str:
+    """``device`` as a tensor on it names its card: ``cuda:i``."""
+    d = torch.device(device)
+    return f"cuda:{torch.cuda.current_device() if d.index is None else d.index}"
+
+
+def per_card(cards, n: int) -> dict:
+    """{card: calls} where each shard on ``cards`` makes ``n`` calls (a
+    card that holds several shards makes theirs together)."""
+    names = [card_name(c) for c in cards]
+    return {c: n * names.count(c) for c in names}
+
+
+def hold_attention(rec) -> list:
+    """Each (kernel, card, shape) of K6/K7 that ``rec`` recorded, launched
+    again on its card with the arguments of its first call and held
+    against its plain version there (``attention_close``); these launches
+    are not the path's and leave its counts as they were."""
+    ops = importlib.import_module("sema_tpu_torch.ops")
+    out = []
+    for (wrapper, card, shape), args in sorted(rec.first.items()):
+        kernel = KERNEL_OF[wrapper]
+        if kernel not in ATTENTION_PLAIN:
+            continue
+        fn = getattr(ops, wrapper)
+        before = fn.launches
+        got = fn(*args)
+        fn.launches = before
+        want = getattr(ops, ATTENTION_PLAIN[kernel])(*args)
+        ok, cos, rel = attention_close(got, want)
+        out.append({"kernel": kernel, "card": card, "shape": list(shape),
+                    "min_cosine": cos, "max_rel_err": rel})
+        check(ok and str(got.device) == card,
+              f"{kernel} on {card} at {shape}: cosine {cos}, relative "
+              f"error {rel}, out on {got.device}")
+    return out
+
+
+def fail_after(what: str, fails: list) -> None:
+    """Fail with every sub-check of ``what`` that failed, once its numbers
+    are printed."""
+    check(not fails, f"{what}: " + "; ".join(fails))
+
+
+def block_cards(blocks) -> list:
+    """The card of each shard's block of a bucket (an int8 block is a
+    (values, scales) pair, both on the block's card)."""
+    out = []
+    for blk in blocks:
+        parts = blk if isinstance(blk, (tuple, list)) else (blk,)
+        devs = {str(t.device) for t in parts}
+        out.append(devs.pop() if len(devs) == 1 else sorted(devs))
+    return out
+
+
+# the one-card CLI: index, query, query --limit, then 20 warm queries of a
+# manager of the same config, in a process that sees card 0 alone
+CARDS_ONE = r"""
+import io, json, sys, time
+from contextlib import redirect_stdout
+from sema_tpu_torch import cli
+from sema_tpu_torch.tools import query_device_time
+tree, query, limit = sys.argv[1:4]
+
+def run(argv):
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc:
+        sys.exit(f"{argv[0]} exited {rc}")
+    return out.getvalue()
+
+t0 = time.perf_counter()
+index = run(["index", tree])
+index_s = time.perf_counter() - t0
+hits = run(["query", query, "--json"])
+wide = run(["query", query, "--json", "--limit", limit])
+args = cli.build_parser().parse_args(["query", query])
+mgr = cli.make_index_manager(cli.load_config(args), args.device)
+for _ in range(3):
+    mgr.search(query, 50)
+lat = []
+for _ in range(20):
+    t0 = time.perf_counter()
+    mgr.search(query, 50)
+    lat.append((time.perf_counter() - t0) * 1e3)
+busy = query_device_time(lambda: mgr.search(query, 50), 20)
+print(json.dumps({"index": index, "index_s": index_s, "hits": hits,
+                  "wide": wide, "query_p50_ms": sorted(lat)[10],
+                  "query_device": busy, "mesh": repr(mgr.vector_store.mesh)}))
+mgr.close()
+"""
+
+
+def hit_keys(text: str) -> list:
+    """(chunk id, file, first and last line) of each hit of ``query
+    --json``."""
+    return [(h["id"], h["file_path"], h["start_line"], h["end_line"])
+            for h in map(json.loads, text.splitlines())]
+
+
+def score_gap(a: str, b: str) -> float:
+    return max((abs(x["score"] - y["score"]) for x, y in zip(
+        map(json.loads, a.splitlines()), map(json.loads, b.splitlines()))),
+        default=0.0)
+
+
+def stored_rows(data: Path, model: str, dim: int, device) -> dict:
+    """The rows of the store under ``data``, read from its segments on
+    disk, by chunk id."""
+    from sema_tpu_torch.index.vector_store import VectorStore
+    st = VectorStore(data, dim, model, device=device)
+    n = st.total_rows
+    rows = st.rows_at(np.arange(n))
+    ids = [st.chunk_at(i).id for i in range(n)]
+    st.close()
+    return dict(zip(ids, rows))
+
+
+def rows_against(got: dict, want: dict) -> dict:
+    """Per-row cosine of the same chunks' rows in two stores (main_path's
+    stored-row limit, 0.9999), and how many are bit-equal."""
+    ids = sorted(want)
+    g = torch.from_numpy(np.stack([got[i] for i in ids])).float()
+    w = torch.from_numpy(np.stack([want[i] for i in ids])).float()
+    cos = F.cosine_similarity(g, w, dim=1)
+    return {"rows": len(ids), "min_cosine": float(cos.min()),
+            "bit_equal": int((g == w).all(1).sum()),
+            "ok": sorted(got) == ids and float(cos.min()) >= 0.9999}
+
+
+def cards_cli(work: Path, tree: Path, cards) -> dict:
+    """The CLI's default mesh (no ``[mesh]``: data 1, index over every
+    card, the encoder's batch split over ``index`` as the JAX CLI splits
+    it) on the main path's tree, MiniLM-L6 bf16 exact: ``index``,
+    ``query`` and ``query --limit WIDE_LIMIT`` in-process, against the
+    same three commands in a process that sees card 0 alone
+    (``CUDA_VISIBLE_DEVICES=0``, no mesh): the same chunks indexed, the
+    same files, lines and chunk ids in the same order, each index
+    launching K2 on every card for its part of every batch, each query K2
+    on every card (a query's one row padded to a row a card) and K1 once
+    a shard a bucket, each shard on its own card; the stored rows of both
+    equal to main_path's limit (per-row cosine >= 0.9999). A manager of
+    the same config holds every bucket's blocks and the encoder's params
+    on the cards in shard order; its 20 warm queries give the p50 and
+    each card's busy share, beside the one-card process's. Then ``[mesh]
+    shape = [CARDS, 1]`` (data CARDS, index 1): its index, launches by
+    card and stored rows against the one-card index."""
+    from sema_tpu_torch import cli
+    from sema_tpu_torch.config import ConfigManager
+    fails = []
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0",
+           "SEMA_TPU_HOME": str(work / "home-one"),
+           "SEMA_TPU_DATA": str(work / "data-one")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CARDS_ONE, str(tree), QUERY,
+                           str(WIDE_LIMIT)], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"the one-card CLI exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    one = json.loads(proc.stdout.strip().splitlines()[-1])
+    one_s = time.perf_counter() - t0
+    one_chunks = int(re.search(r"indexed (\d+) chunks", one["index"])[1])
+
+    os.environ["SEMA_TPU_HOME"] = str(work / "home-cards")
+    os.environ["SEMA_TPU_DATA"] = str(work / "data-cards")
+    t0 = time.perf_counter()
+    out, index_launches, index_cards = card_launches(
+        lambda: run_cli(["index", str(tree)]))
+    index_s = time.perf_counter() - t0
+    n_chunks = int(re.search(r"indexed (\d+) chunks", out)[1])
+    hits, _, query_cards = card_launches(
+        lambda: run_cli(["query", QUERY, "--json"]))
+    wide, _, wide_cards = card_launches(
+        lambda: run_cli(["query", QUERY, "--json", "--limit",
+                         str(WIDE_LIMIT)]))
+    mgr = open_manager("cuda")
+    st, enc = mgr.vector_store, mgr.encoder
+    buckets = st.device_buckets()
+    names = [card_name(c) for c in cards]
+    placement = {"mesh": repr(st.mesh),
+                 "shards": [str(d) for d in st._shard_devs],
+                 "blocks": [block_cards(b["store"]) for b in buckets],
+                 "masks": [block_cards(b["valid"]) for b in buckets],
+                 "encoder": [str(row[0]["embeddings"]["word"].device)
+                             for row in enc.shards]}
+    _, batches = bucket_batches(enc, [st.chunk_at(i).content
+                                      for i in range(n_chunks)])
+    layers = enc.spec.num_layers
+    want_index = {"encoder_layer": per_card(
+        cards, sum(batches.values()) * layers)}
+    want_query = {"encoder_layer": per_card(cards, layers),
+                  "scan_topk": per_card(cards, len(buckets))}
+    for ok, what in (
+            (n_chunks == one_chunks, f"indexed {n_chunks} chunks, one card "
+             f"{one_chunks}"),
+            (hit_keys(hits) == hit_keys(one["hits"]),
+             "query: the hits differ from the one-card CLI's"),
+            (hit_keys(wide) == hit_keys(one["wide"]),
+             f"--limit {WIDE_LIMIT}: the hits differ from the one-card "
+             "CLI's"),
+            (index_cards == want_index, f"index launches by card "
+             f"{index_cards}, want {want_index}"),
+            (query_cards == want_query, f"query launches by card "
+             f"{query_cards}, want {want_query}"),
+            (wide_cards == want_query, f"--limit {WIDE_LIMIT} launches by "
+             f"card {wide_cards}, want {want_query}"),
+            (placement["shards"] == names and placement["encoder"] == names
+             and all(b == names for b in placement["blocks"]
+                     + placement["masks"]),
+             f"placement {placement}, want every shard on {names}")):
+        if not ok:
+            fails.append(what)
+    p50, per_q = warm_queries(lambda: mgr.search(QUERY, 50))
+    busy = query_device_time(lambda: mgr.search(QUERY, 50), SHARD_WARM,
+                             cards)
+    busy_cards = {f"cuda:{i}" for i in busy["by_card"]}
+    if busy_cards != set(names):
+        fails.append(f"the queries kept {sorted(busy_cards)} busy, want "
+                     f"every card of {sorted(set(names))}")
+    model, dim = enc.spec.name, enc.spec.dim
+    mgr.close()
+    del mgr, st, enc, buckets
+    one_rows = stored_rows(work / "data-one", model, dim, cards[0])
+    rows = rows_against(stored_rows(work / "data-cards", model, dim,
+                                    cards[0]), one_rows)
+    if not rows["ok"]:
+        fails.append(f"stored rows against the one-card index: {rows}")
+
+    # [mesh] shape = [CARDS, 1]: data CARDS, index 1
+    home = work / "home-dp"
+    manager = ConfigManager(home)
+    config = manager.load_config()
+    config.mesh.shape = [len(cards), 1]
+    manager.save_config(config)
+    os.environ["SEMA_TPU_HOME"] = str(home)
+    os.environ["SEMA_TPU_DATA"] = str(work / "data-dp")
+    t0 = time.perf_counter()
+    out, _, dp_cards = card_launches(lambda: run_cli(["index", str(tree)]))
+    dp_s = time.perf_counter() - t0
+    dp_chunks = int(re.search(r"indexed (\d+) chunks", out)[1])
+    mesh = cli.config_mesh(config, "cuda")
+    dp_rows = rows_against(stored_rows(work / "data-dp", model, dim,
+                                       cards[0]), one_rows)
+    # the encoder splits its batch over index (1), as the JAX CLI's
+    # data_axis="index": every K2 on the first card
+    want_dp = {"encoder_layer": {names[0]: sum(batches.values()) * layers}}
+    if not (dp_rows["ok"] and dp_chunks == one_chunks
+            and dp_cards == want_dp):
+        fails.append(f"[mesh] shape = [{len(cards)}, 1]: {dp_chunks} "
+                     f"chunks, stored rows {dp_rows}, launches by card "
+                     f"{dp_cards}, want {want_dp}")
+    out = {"chunks": n_chunks, "index_s": index_s,
+           "chunks_per_s": n_chunks / index_s,
+           "one_card": {"chunks_per_s": one_chunks / one["index_s"],
+                        "index_s": one["index_s"], "process_s": one_s,
+                        "query_p50_ms": one["query_p50_ms"],
+                        "query_device": one["query_device"],
+                        "mesh": one["mesh"]},
+           "index_launches": index_launches,
+           "index_launches_by_card": index_cards,
+           "query_launches_by_card": query_cards,
+           "wide_launches_by_card": wide_cards,
+           "query_p50_ms": p50, "launches_per_query": per_q,
+           "query_device": busy, "placement": placement,
+           "hits": len(hit_keys(hits)), "wide_hits": len(hit_keys(wide)),
+           "score_gap": score_gap(hits, one["hits"]),
+           "wide_score_gap": score_gap(wide, one["wide"]),
+           "stored_rows": rows,
+           "data_parallel": {"shape": [len(cards), 1], "mesh": repr(mesh),
+                             "chunks": dp_chunks, "index_s": dp_s,
+                             "chunks_per_s": dp_chunks / dp_s,
+                             "index_launches_by_card": dp_cards,
+                             "stored_rows": dp_rows}}
+    emit("cards_path:cli", **out)
+    fail_after("cards_path cli", fails)
+    return out
+
+
+def cards_doctor(work: Path, cards) -> dict:
+    """``doctor --skip-quality`` on the cards: every check ok (the
+    unported one n/a), ``scan-mesh`` over a shard a card, each shard's K1
+    on its own card."""
+    rec = CallRecorder()
+    with rec.recording():
+        got = run_doctor(work / "doctor-cards", "minilm-l6", "bfloat16",
+                         "none", "bfloat16", None, ["--skip-quality"])
+    table = rec.table()
+    verdicts = {name: c["verdict"] for name, c in got["checks"].items()}
+    mesh = got["checks"].get("scan-mesh", {}).get("detail", "")
+    out = {k: v for k, v in got.items() if k != "lines"}
+    out["launches_by_card"] = table
+    emit("cards_path:doctor", **out)
+    names = {card_name(c) for c in cards}
+    fail_after("cards_path doctor", [what for ok, what in (
+        (got["rc"] == 0, f"doctor exited {got['rc']}"),
+        (verdicts == {"scan-ids": "ok", "scan-int8": "ok", "scan-mesh": "ok",
+                      "scan-spill": "ok", "scan-ivf": "ok",
+                      "scan-spill-ivf": "ok", "encoder-parity": "ok",
+                      "scan-ids-pallas": "n/a"}, f"verdicts {verdicts}"),
+        (f"{len(cards)} shard(s)" in mesh, f"scan-mesh: {mesh}"),
+        (set(table.get("scan_topk", {})) == names,
+         f"K1 launched on {table.get('scan_topk')}, want every card "
+         f"of {sorted(names)}")) if not ok])
+    return out
+
+
+def cards_tp(work: Path, tree: Path, weights, cards) -> list:
+    """gte-large at 24 layers over (data 1, model CARDS) and (data 2,
+    model CARDS / 2), each shard on its own card, float linears then
+    W8A8, through ``tp_run``: its index, queries, launches by card, K6/K7
+    on each card against their plain versions, and the stored rows against
+    the single-device encoder (K2, K5) on the first card at TP_COS_MIN."""
+    from sema_tpu_torch.parallel.mesh import make_mesh
+    runs = []
+    for shape in ([1, len(cards)], [2, len(cards) // 2]):
+        mesh = make_mesh(shape, ("data", "model"), devices=cards)
+        for quant in ("none", "int8"):
+            run = tp_run(work, tree, weights, quant, mesh)
+            emit("cards_path:tp", **run)
+            runs.append(run)
+            torch.cuda.empty_cache()
+    return runs
+
+
+def cards_ivf(work: Path, tree: Path, store_dtype: str, gen, weights,
+              cards) -> dict:
+    """The IVF path's store (1,048,576 rows + the tree; filled and indexed
+    here through the CLI's default mesh), single-shard on the first card,
+    then row-sharded over (data 1, index CARDS) and (slice 2, data 1,
+    index CARDS / 2), a shard a card: each open's k-means (runs, rows,
+    seconds, card), every bucket's blocks on the cards in shard order,
+    SHARD_EXACT exact=True queries answering the single-shard store's
+    ids (scores within 1e-5) with K1/K4a once a bucket on every card, and
+    at the configured nprobe 32 and at SHARD_NPROBE the p50 of 20 warm
+    queries, each card's busy share, the launches a query by card and
+    recall@10 against exact=True over SHARD_RECALL perturbed stored rows;
+    over (1, CARDS) every shard's launches of one query held against
+    their plain versions on their cards (``shard_calls``)."""
+    store_mod = importlib.import_module("sema_tpu_torch.index.vector_store")
+    from sema_tpu_torch import cli
+    from sema_tpu_torch.index import IndexManager
+    from sema_tpu_torch.models.encoder import Encoder
+    kmeans = store_mod.kmeans_cluster
+    clustered = []
+
+    def timed_kmeans(*a, **k):
+        t0 = time.perf_counter()
+        out = kmeans(*a, **k)
+        synchronize(cards)
+        clustered.append({"rows": a[0].shape[0], "card": str(a[0].device),
+                          "s": time.perf_counter() - t0})
+        return out
+    with swapped("sema_tpu_torch.index.vector_store",
+                 {"kmeans_cluster": timed_kmeans}):
+        t0 = time.perf_counter()
+        home = spill_prepare(work, tree, store_dtype, gen, weights, "cuda")
+        prepare = {"s": time.perf_counter() - t0, "kmeans": list(clustered)}
+    set_budget(home, 0.0)
+    data = work / f"data-{store_dtype}"
+    int8 = store_dtype == "int8"
+    pruned, exact_k = (("scan_topk_int8_pruned", "scan_topk_int8") if int8
+                       else ("scan_topk_pruned", "scan_topk"))
+    config = cli.load_config(cli.build_parser().parse_args(["query", QUERY]))
+    enc = Encoder.from_config(config.model, device=cards[0])
+    names = [card_name(c) for c in cards]
+    search = lambda m: m.search(QUERY, 50)
+    fails, runs, qs, want = [], {"prepare": prepare}, None, None
+    for label, devices, slices in (("single", None, 0),
+                                   ("index4", cards, 0),
+                                   ("slice2_index2", cards, 2)):
+        clustered.clear()
+        t0 = time.perf_counter()
+        with swapped("sema_tpu_torch.index.vector_store",
+                     {"kmeans_cluster": timed_kmeans}):
+            mgr = (IndexManager(data, enc, store_dtype=store_dtype,
+                                rescore_k=100, ivf=True, ivf_nprobe=32)
+                   if devices is None else
+                   sharded_manager(data, enc, store_dtype, slices, devices,
+                                   rescore_k=100, ivf=True, ivf_nprobe=32))
+            st = mgr.vector_store
+            buckets = st.device_buckets()
+            synchronize(cards)
+        run = {"open_s": time.perf_counter() - t0,
+               "kmeans": {"runs": len(clustered),
+                          "rows": sorted({c["rows"] for c in clustered}),
+                          "cards": sorted({c["card"] for c in clustered}),
+                          "s": sum(c["s"] for c in clustered)},
+               "buckets": len(buckets)}
+        if devices is None:
+            sealed = sum(b["ivf"] is not None for b in buckets)
+            rng = np.random.default_rng(3)
+            qs = st.rows_at(rng.choice(sealed * SEAL, size=SHARD_RECALL,
+                                       replace=False))
+            qs += (QNOISE / math.sqrt(GTE_D)) * rng.standard_normal(
+                qs.shape).astype(np.float32)
+            qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+            want = [st.search_batch(q[None], 10, exact=True)
+                    for q in qs[:SHARD_EXACT]]
+            want_exact = {exact_k: {str(st.device): len(buckets)}}
+        else:
+            blocks = [block_cards(b["store"]) for b in buckets] + [
+                block_cards(b["valid"]) for b in buckets]
+            run["blocks"] = blocks[0]
+            if not all(b == names for b in blocks):
+                fails.append(f"{label}: blocks on {blocks}, want {names}")
+            for q, (ws, wi) in zip(qs[:SHARD_EXACT], want):
+                gs, gi = st.search_batch(q[None], 10, exact=True)
+                if not (np.array_equal(gi, wi) and np.allclose(
+                        gs, ws, atol=1e-5, rtol=0)):
+                    fails.append(f"{label} exact: {gi[0]} ({gs[0]}), "
+                                 f"single-shard {wi[0]} ({ws[0]})")
+            want_exact = {exact_k: per_card(cards, len(buckets))}
+        _, _, exact_cards = card_launches(
+            lambda: st.search_batch(qs[:1], 10, exact=True))
+        run["exact_launches_by_card"] = exact_cards
+        if exact_cards != want_exact:
+            fails.append(f"{label} exact launches by card {exact_cards}, "
+                         f"want {want_exact}")
+        run["probes"] = {}
+        for n in (32, SHARD_NPROBE):
+            st.ivf_nprobe = n
+            p50, per_q = warm_queries(lambda: search(mgr))
+            _, _, q_cards = card_launches(lambda: search(mgr))
+            recall = recall_at_10(st, qs)
+            run["probes"][n] = {
+                "query_p50_ms": p50, "launches_per_query": per_q,
+                "launches_by_card": q_cards,
+                "recall_at_10_mean": float(recall.mean()),
+                "recall_at_10_min": float(recall.min()),
+                "query_device": query_device_time(lambda: search(mgr),
+                                                  SHARD_WARM, cards)}
+            scans = {k: v for k, v in q_cards.items() if k != "encoder_layer"
+                     and k != "encoder_layer_int8"}
+            if devices is not None and not all(
+                    sum(by.values()) % len(cards) == 0
+                    and set(by) <= set(names) for by in scans.values()):
+                fails.append(f"{label} nprobe {n}: scans by card {scans}")
+        if label == "index4":
+            q = torch.from_numpy(qs[:1]).to(cards[0])
+            kernels = shard_calls(lambda: st.search_batch(q, 50), True)
+            kernels.update(shard_calls(
+                lambda: st.search_batch(q, 50, exact=True), True))
+            run["kernels"] = kernels
+        runs[label] = run
+        mgr.close()
+        del mgr, st, buckets
+        torch.cuda.empty_cache()
+    emit("cards_path:ivf", store_dtype=store_dtype, **runs)
+    fail_after(f"cards_path {store_dtype} IVF", fails)
+    return runs
+
+
+# cards_path's parts, in the order they run (--cards-parts names some)
+CARD_PARTS = ("doctor", "tp4", "cli", "tp", "ivf")
+
+
+def phase_cards_path(work: Path, tree: Path, gen, weights, cards,
+                     parts=CARD_PARTS) -> dict:
+    """The port's mesh over ``cards`` (CARDS of them, a shard a card; the
+    same card CARDS times rehearses it on one card), in ``parts``:
+    doctor; gte-large at TP4_LAYERS over (data 1, model CARDS)
+    (``tp_embeddings``); the CLI's default mesh; tensor parallelism at
+    full depth; both IVF stores row-sharded. Each part prints its line,
+    then fails if any of its checks failed."""
+    smi = smi_lines()
+    emit("cards_path", cards=[str(c) for c in cards], parts=list(parts),
+         nvidia_smi=smi, count=torch.cuda.device_count())
+    os.environ.pop("SEMA_TPU_HBM_BUDGET_MB", None)
+    t0 = time.perf_counter()
+    out = {}
+    for part in CARD_PARTS:
+        if part not in parts:
+            continue
+        t1 = time.perf_counter()
+        if part == "doctor":
+            out[part] = cards_doctor(work, cards)
+        elif part == "tp4":
+            out[part] = tp_embeddings(weights, tree_heads(tree),
+                                      [1, len(cards)], TP4_LAYERS,
+                                      devices=cards)
+            emit("cards_path:tp4", **out[part])
+        elif part == "cli":
+            out[part] = cards_cli(work, tree, cards)
+        elif part == "tp":
+            out[part] = cards_tp(work, tree, weights, cards)
+        else:
+            out[part] = {dtype: cards_ivf(work, tree, dtype, gen, weights,
+                                          cards)
+                         for dtype in ("int8", "bfloat16")}
+        emit("cards_path:seconds", part=part,
+             seconds=time.perf_counter() - t1)
+    emit("cards_path:done", seconds=time.perf_counter() - t0)
+    return out
+
+
 # -- tools_path: the port's measuring tools ------------------------------------
 
 # (tool, arguments, the kernels its run must launch); text_index_scale,
@@ -5229,14 +5928,37 @@ def main() -> int:
     ap.add_argument("--tools", default=None,
                     help="comma-separated tools that tools_path runs "
                          "(default: all of TOOLS)")
+    ap.add_argument("--cards-parts", default=",".join(CARD_PARTS),
+                    help="comma-separated parts of cards_path to run "
+                         f"(default: all of {', '.join(CARD_PARTS)})")
+    ap.add_argument("--rehearse", action="store_true",
+                    help="cards_path over card 0 repeated CARDS times "
+                         "(on one card) instead of CARDS cards")
     cli_args = ap.parse_args()
     phases = (None if cli_args.phases is None
               else set(cli_args.phases.split(",")))
-    run = lambda name: phases is None or name in phases
+    # cards_path runs only when named; every other phase by default
+    run = lambda name: (name in phases if phases is not None
+                        else name != "cards_path")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
               "an NVIDIA card", file=sys.stderr)
         return 1
+    count = torch.cuda.device_count()
+    if count > 1 and (phases is None or phases - {"cards_path"}):
+        # on several cards the CLI's default mesh shards every store and
+        # the encoder's batch: the one-card phases' launch counts assume
+        # one card
+        print(f"chip_smoke: {count} cards visible; run the one-card phases "
+              "with CUDA_VISIBLE_DEVICES=0, and cards_path alone",
+              file=sys.stderr)
+        return 1
+    parts = cli_args.cards_parts.split(",")
+    check(set(parts) <= set(CARD_PARTS), f"--cards-parts {parts}: the parts "
+          f"are {CARD_PARTS}")
+    if run("cards_path") and not cli_args.rehearse and count < CARDS:
+        raise RuntimeError(f"cards_path needs {CARDS} cards, {count} "
+                           "visible (--rehearse runs it on one)")
     from sema_tpu_torch.ops import _cuda       # fails without the repo
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -5296,7 +6018,8 @@ def main() -> int:
         weights = None
         if any(run(name) for name in (
                 "int8_ivf_path", "bf16_ivf_path", "spill_path",
-                "shard_path", "append_path", "tp_path", "doctor_path")):
+                "shard_path", "append_path", "tp_path", "doctor_path")) or (
+                    run("cards_path") and {"tp4", "tp", "ivf"} & set(parts)):
             t0 = time.perf_counter()
             weights = write_weights(work / "gte-weights")
             emit("weights", model=IVF_MODEL,
@@ -5317,6 +6040,20 @@ def main() -> int:
             tp_runs = phase_tp_path(work, tree, weights, gen)
         if run("doctor_path"):
             doctor_runs = phase_doctor_path(work, weights)
+        if run("cards_path"):
+            if cli_args.rehearse:
+                cards = [torch.device("cuda", 0)] * CARDS
+                local = lambda kind="cuda": (list(cards) if kind == "cuda"
+                                             else [torch.device("cpu")])
+                with swapped("sema_tpu_torch.parallel.mesh",
+                             {"local_devices": local}):
+                    phase_cards_path(work, tree, gen, weights, cards,
+                                     parts)
+            else:
+                phase_cards_path(work, tree, gen, weights, [
+                    torch.device("cuda", i) for i in range(CARDS)], parts)
+        else:
+            emit("cards_path", ran=False, cards=count)
         if run("tools_path"):
             chosen = (cli_args.tools or "").split(",")
             tools_launches = phase_tools_path(work, smi, [

@@ -25,6 +25,18 @@ rows-2 and rows-1 that must come back as their own row ids:
   the same weights in f32 on the CPU through the plain versions, over texts
   that fill each sequence bucket; min cosine >= 0.999.
 
+A self-match at k = 1 over distinct random rows passes a scan that has
+lost its tie order or an int8 row's scale, so the exact checks also plant
+rows that only a sound kernel answers (:func:`_plant`): five equal rows
+spread over pass 1's tiles and chunks, the spill's slices and the mesh's
+shards, searched at k 8, which must come back first in row order (a merge
+that ranks equal scores by anything but the row id loses or reorders
+them); and in ``scan-int8`` one row's direction beside more flat decoys
+than ``rescore_k`` (unit rows of equal magnitudes, cosine about 0.56 to
+it), whose int8 values are all +-127 where only the row's peak reaches
+127: without the rows' scales the decoys outscore it in the int8 scan, it
+never reaches the rescore, and its self-match misses.
+
 An IVF probe that fell back to the exact scan fails its check: the store
 records each probe's route (:func:`_pruned_routes`). The JAX package's
 ``scan-ids-pallas`` has nothing to run here (:data:`NOT_PORTED` says
@@ -87,6 +99,32 @@ def _pruned_routes(store) -> List[int]:
     return taken
 
 
+def _plant(vecs: np.ndarray, rng, decoys: bool) -> Tuple[list, int]:
+    """Equal rows at TIE_ROWS (of 300: tiles 0, 0, 1, 2 and 4 of 64 rows,
+    spill slices 0, 0, 0, 1 and 2 of 128) and, with ``decoys``, flat rows
+    over rows/2 .. 19 rows/20 around the direction of row rows/30: each
+    the sign pattern of that row with 15% of the signs flipped, over
+    sqrt(dim). Returns (the tie rows, the decoys' target row or -1)."""
+    rows, dim = vecs.shape
+    ties = [rows * a // b + c for a, b, c in TIE_ROWS]
+    vecs[ties] = vecs[ties[0]]
+    target = -1
+    if decoys:
+        target = rows // 30
+        span = range(rows // 2, rows * 19 // 20)
+        signs = np.where(vecs[target] < 0, -1.0, 1.0)
+        flips = rng.random((len(span), dim)) < 0.15
+        vecs[span.start:span.stop] = (np.where(flips, -signs, signs)
+                                      / np.sqrt(dim))
+    return ties, target
+
+
+# the tie rows, rows * a // b + c for each (a, b, c): 20, 21, 90, 140 and
+# 290 of 300
+TIE_ROWS = ((1, 15, 0), (1, 15, 1), (3, 10, 0), (7, 15, 0), (29, 30, 0))
+TIE_K = 8
+
+
 def _scan_check(name: str, dim: int, store_dtype: str, rows: int, device,
                 spill: bool = False, ivf: bool = False,
                 segments: int = 1, mesh: bool = False) -> Check:
@@ -98,6 +136,10 @@ def _scan_check(name: str, dim: int, store_dtype: str, rows: int, device,
     rng = np.random.default_rng(7)
     vecs = rng.standard_normal((rows, dim)).astype(np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    # the IVF routes rank equal scores by their cluster-major position;
+    # they keep the self-matches alone
+    ties, target = ([], -1) if ivf else _plant(vecs, rng,
+                                               store_dtype == "int8")
     chunks = [Chunk(id=f"r{i}", file_path=Path("selftest.txt"),
                     start_line=1, end_line=1, content="")
               for i in range(rows)]
@@ -153,11 +195,24 @@ def _scan_check(name: str, dim: int, store_dtype: str, rows: int, device,
                 if ivf and pruned[0] == before:
                     misses.append(f"row {p}: probe fell back to the exact "
                                   "scan (pruned kernel never dispatched)")
+            if ties:
+                got = [c.id for c, _ in store.search(vecs[ties[0]],
+                                                     k=TIE_K)]
+                if got[:len(ties)] != [f"r{t}" for t in ties]:
+                    misses.append(f"equal rows {ties} -> {got}")
+            if target >= 0:
+                res = store.search(vecs[target], k=1)
+                got = res[0][0].id if res else "<none>"
+                if got != f"r{target}":
+                    misses.append(f"row {target} among flat decoys -> {got}")
         finally:
             store.close()
     if misses:
         return (name, False, "planted winners missed: " + "; ".join(misses))
-    return (name, True, f"{len(probes)} planted winners exact "
+    planted = (f", {len(ties)} equal rows in order" if ties else "") + (
+        f", a row among {rows * 19 // 20 - rows // 2} flat decoys"
+        if target >= 0 else "")
+    return (name, True, f"{len(probes)} planted winners exact{planted} "
                         f"({rows} rows, {store_dtype}"
                         f"{f', {len(devices)} shard(s)' if mesh else ''}"
                         f"{', spilled' if spill else ''}"

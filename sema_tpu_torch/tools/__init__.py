@@ -76,6 +76,14 @@ def launches_since(before: dict) -> dict:
             if now[name] != before[name]}
 
 
+def synchronize(devices=None) -> None:
+    """Wait for each card of ``devices`` (default: the current card): a
+    mesh's shards launch on their own cards, and a timer that waits on
+    one card alone stops while the others still run."""
+    for device in devices or [None]:
+        torch.cuda.synchronize(device)
+
+
 def measure(fn_one, xs: torch.Tensor, n_calls: int, repeats: int = 3) -> float:
     """Milliseconds a call of ``fn_one``: the best of ``repeats`` blocks of
     ``n_calls`` calls over the query sets ``xs`` in turn, after one
@@ -135,18 +143,23 @@ def short_name(key: str) -> str:
     return name.strip()
 
 
-def query_device_time(search, n: int) -> dict:
+def query_device_time(search, n: int, devices=None) -> dict:
     """Device time of ``n`` calls of ``search()`` under torch.profiler:
     busy ms per call, the busy share of the wall time, and the kernels
     that take the most of it (device ms per call, summed by
-    ``short_name``). Raises if the profiler saw no device activity."""
+    ``short_name``); ``by_card``, each card's own (its device events:
+    kernels, copies, fills) busy ms per call and share of the wall time.
+    The wall time ends once each card of ``devices`` (default: the
+    current card) is done. Raises if the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    synchronize(devices)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             search()
-        torch.cuda.synchronize()
+        synchronize(devices)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     if not events:
@@ -155,8 +168,14 @@ def query_device_time(search, n: int) -> dict:
     by_name = Counter()
     for e in events:
         by_name[short_name(e.key)] += e.self_device_time_total / 1e3 / n
+    by_card = Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_card[e.device_index] += e.self_device_time_total / 1e3
     return {"busy_ms": busy_ms / n, "busy_share": busy_ms / wall_ms,
-            "top_ms": dict(by_name.most_common(10))}
+            "top_ms": dict(by_name.most_common(10)),
+            "by_card": {str(i): {"busy_ms": ms / n, "busy_share": ms / wall_ms}
+                        for i, ms in sorted(by_card.items())}}
 
 
 def call_ms(fn, n: int, device: torch.device) -> dict:

@@ -65,21 +65,63 @@ SCAN_OF = {"scan-ids": "scan_topk", "scan-int8": "scan_topk_int8",
            "scan-spill-ivf": "scan_topk_pruned"}
 
 
-@pytest.mark.parametrize("name", list(SCAN_OF))
-def test_scan_check_fails_on_a_wrong_row_id(name, monkeypatch):
-    """The store's scan answers row 2 in every slot (never a planted
-    winner's row, whatever the order): the check must fail."""
-    scan = getattr(vector_store, SCAN_OF[name])
+def _ties_swapped(scan):
+    """``scan`` with the ids of each run of equal scores in reverse: a
+    merge that ranks equal scores by anything but the row id."""
+    def call(*args, **kwargs):
+        s, i = scan(*args, **kwargs)
+        i = i.clone()
+        for q, row in enumerate(s.tolist()):
+            lo = 0
+            while lo < len(row):
+                hi = lo
+                while hi + 1 < len(row) and row[hi + 1] == row[lo]:
+                    hi += 1
+                i[q, lo:hi + 1] = i[q, lo:hi + 1].flip(0)
+                lo = hi + 1
+        return s, i
+    return call
 
-    def wrong_row(*args, **kwargs):
+
+def _no_row_scale(scan):
+    """An int8 scan that multiplies no row's scale into its dots."""
+    def call(qvals, scales, *args, **kwargs):
+        return scan(qvals, torch.ones_like(scales), *args, **kwargs)
+    return call
+
+
+def _wrong_row(scan):
+    def call(*args, **kwargs):
         s, i = scan(*args, **kwargs)
         return s, torch.full_like(i, 2)
+    return call
 
-    monkeypatch.setattr(vector_store, SCAN_OF[name], wrong_row)
+
+@pytest.mark.parametrize("name, fault, want", [
+    *[pytest.param(n, "wrong_row", "planted winners missed: row 0 ->", id=n)
+      for n in SCAN_OF],
+    pytest.param("scan-ids", "ties_swapped",
+                 "planted winners missed: equal rows [20, 21, 90, 140, 290]"
+                 " -> ['r290', 'r140', 'r90', 'r21', 'r20'",
+                 id="scan-ids-ties-swapped"),
+    pytest.param("scan-int8", "no_row_scale",
+                 "planted winners missed: row 10 among flat decoys -> r",
+                 id="scan-int8-no-row-scale")])
+def test_scan_check_fails_on_a_wrong_row_id(name, fault, want, monkeypatch):
+    """The store's scan answers row 2 in every slot (never a planted
+    winner's row, whatever the order); or it reverses the ids of equal
+    scores (a lost tie order); or, over int8 rows, it leaves out every
+    row's scale: the check must fail, on the row that shows it."""
+    scan = getattr(vector_store, SCAN_OF[name])
+    faults = {"wrong_row": _wrong_row, "ties_swapped": _ties_swapped,
+              "no_row_scale": _no_row_scale}
+    monkeypatch.setattr(vector_store, SCAN_OF[name], faults[fault](scan))
     checks = dict((n, (ok, d)) for n, ok, d in run_device_selftest(
         None, dim=32, with_encoder=False, device="cpu"))
     ok, detail = checks[name]
-    assert not ok and "planted winners missed: row 0 ->" in detail, detail
+    assert not ok and want in detail, detail
+    assert all(checks[n][0] for n in checks
+               if SCAN_OF.get(n) != SCAN_OF[name]), checks
 
 
 @pytest.mark.parametrize("name, route", [
