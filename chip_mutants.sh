@@ -44,15 +44,17 @@ python3 -c 'from sema_tpu_torch.ops import _cuda; _cuda.build()' || exit 1
 failed=0
 JOBS=${MUTANT_JOBS:-1}
 checked=()   # the mutants' directories, each with its verdict once checked
-declare -A FILE EXPR FILE2 EXPR2   # each mutant's fault, by name
+declare -A FILE EXPR FILE2 EXPR2 EXPECT   # each mutant's fault, by name
 ONLY=("$@")
 # true for every mutant when none is named on the command line
 chosen() { [ ${#ONLY[@]} -eq 0 ] || [[ " ${ONLY[*]} " == *" $1 "* ]]; }
 mutant() {
   # name, CUDA source (or a path under sema_tpu_torch/), sed expression,
-  # phases[, a second file under sema_tpu_torch/ and its sed expression]
+  # phases[, a second file under sema_tpu_torch/ and its sed expression[,
+  # text the failing run must print, where the way it fails matters]]
   local name=$1 file=$2 expr=$3 phases=$4 file2=${5:-} expr2=${6:-}
   FILE[$name]=$file EXPR[$name]=$expr FILE2[$name]=$file2 EXPR2[$name]=$expr2
+  EXPECT[$name]=${7:-}
   [[ $file == */* ]] || file=csrc/$file
   chosen "$name" || return 0
   # a cards_path mutant runs only with --cards, and then only such mutants
@@ -93,6 +95,10 @@ check_mutant() {
   if (cd "$dir" && python3 chip_smoke.py --phases "${args[@]}" \
         > out.txt 2> err.txt); then
     echo "mutant $name: MISSED by phase $phases" > "$dir/verdict"
+  elif [ -n "${EXPECT[$name]}" ] && ! cat "$dir/out.txt" "$dir/err.txt" \
+      | grep -q "${EXPECT[$name]}"; then
+    echo "mutant $name: MISSED, phase $phases failed but not with" \
+      "\"${EXPECT[$name]}\": $(tail -c 200 "$dir/err.txt")" > "$dir/verdict"
   else
     echo "mutant $name: caught, $(grep -o 'RuntimeError: .*' \
       "$dir/err.txt" | head -1 | cut -c15-200)" > "$dir/verdict"
@@ -273,6 +279,19 @@ mutant merge_screen_ge scan_topk.cu \
 mutant merge_no_full_barrier scan_topk.cu \
   '/      bar_sync(kBarFull + b, NTH);  \/\/ the scorers have written buffer b/d; s|^      if (tt + nb < n_tiles) bar_arrive(kBarEmpty + b, NTH);|      bar_sync(kBarFull + b, NTH);\n&|' \
   scan_topk
+# the one-launch route: no fence between a block's candidates and its
+# count, so the last block may merge a chunk list that has not reached it;
+# scan_topk's one_launch_stress (calls back to back, queries alternating)
+# sees that only if the race happens, fence_before_count (the compiled
+# code) always
+mutant scan_last_block_no_fence scan_topk.cu \
+  's|  __threadfence();  // this block.s candidates reach the card before its count does||' \
+  scan_topk
+# the card's pinned staging buffer of tile lists written again before its
+# last copy has completed (scan_pruned's stalled_tiles)
+mutant scan_staging_reused_early scan_topk.cu \
+  's|  if ((e = cudaEventSynchronize(s.copied)) != cudaSuccess) return e;  // the last copy is done||' \
+  scan_pruned
 # the Python plan gives the bf16 route a query block of 128, which its
 # kernel does not take
 mutant merge_plan_block_not_taken ops/scan_topk.py \
@@ -370,13 +389,18 @@ mutant load_test_mutates_planted tools/load_test.py \
 mutant product_build_ablated encoder_layer.cu \
   's/^#define SEMA_ABLATE 0$/#define SEMA_ABLATE 1/' encoder_layer
 # the mesh over distinct cards (--cards 4): a kernel launched without its
-# tensors' card made current. A K1 over 300 rows still answers right, so
-# cards_path's doctor part misses this mutant; the TP embeddings of K6 on
-# cards 1-3 come back NaN, with no error from the entry point (cause not
-# yet known)
+# tensors' card made current. The entry points refuse it (their card is
+# not the current one), so doctor's scan-mesh fails at its first launch on
+# card 1 with the KernelError of cudaErrorInvalidDevice; without that
+# refusal the launch ran on card 0, unordered with card 1's stream
 mutant cards_launch_unguarded ops/_cuda.py \
-  's/    with torch.cuda.device(device):/    if True:/' \
-  "cards_path --cards-parts tp4"
+  's/    if card == current:/    if True:/' \
+  "cards_path --cards-parts doctor" "" "" "invalid device ordinal"
+# the scans' shared-memory limit raised once for every card, not once a
+# card: the first launch on card 1 asks for more than its default limit
+mutant scan_attr_once_any_card scan_topk.cu \
+  's/  size_t\& have = limit\[{card, kern}\];/  size_t\& have = limit[{0, kern}];/' \
+  "cards_path --cards-parts doctor"
 # each shard scans with the query left on the first card
 mutant cards_query_not_copied parallel/sharded_topk.py \
   's/        sc, ix = local_fn(store\[s\], queries.to(dev), valid\[s\], \*probe, k)/        sc, ix = local_fn(store[s], queries, valid[s], *probe, k)/' \

@@ -25,7 +25,13 @@ Phases, one JSON line each:
                       order: the result bit-equal to the plain version's,
                       and its counters (survivors queued, flushes) equal
                       to the plain model's (``pass1_merge_reference``)
-                      on the kernel's chunk plan.
+                      on the kernel's chunk plan. Then the one-launch
+                      route's stress (ONE_LAUNCH_STRESS): 2,000 calls at
+                      one query back to back, the query alternating, each
+                      bit-equal to its query's first call; and in the
+                      built library (``cuobjdump -sass``) a GPU fence
+                      before each merged pass 1's count
+                      (``fence_before_count``).
 4. ``encoder_layer``  K2 against its plain version, bf16, at MiniLM width
                       (head dim 32) at every bucket shape of the index and
                       at the query's (1, 256), and at e5-base width (head
@@ -105,7 +111,12 @@ Phases, one JSON line each:
                       among them): K4b bit-equal, K3 under K1's limits,
                       both ties in row order. Library: ``index_select`` of
                       the tiles + the product + topk. Pass 1 and pass 2
-                      apart, as for ``scan_int8``.
+                      apart, as for ``scan_int8``. Then
+                      ``stalled_tiles``: K3 and K4b twice over two tile
+                      lists with the stream held 300 ms, each call's
+                      answer bit-equal to its own without the stall (the
+                      card's pinned staging buffer of tile lists is not
+                      written again before its copy has run).
 9. ``main_path``      ``index`` then ``query`` of a generated tree of source
                       files through the CLI (MiniLM-L6, bf16, random weights
                       from seed 0, on the card). The launch counts are set
@@ -289,8 +300,10 @@ Phases, one JSON line each:
                       ``IndexManager.search`` on the same data dir; then the
                       port's ``tools/tui_monkey.py`` over the warm index
                       must print OK (the app's exit status it prints is
-                      reported: see ``run_monkey``). Prints the time to
-                      READY, each search's ms and the startup's launches.
+                      reported: see ``finish_monkey``); it runs beside the
+                      next phases up to the IVF paths (most of its minute
+                      is fixed waits). Prints the time to READY, each
+                      search's ms and the startup's launches.
 17. ``doctor_path``   ``python -m sema_tpu_torch doctor --skip-quality``
                       in-process for MiniLM-L6 bf16, gte-large bf16 and
                       gte-large W8A8 over an int8 store (the weights of the
@@ -343,19 +356,22 @@ Phases, one JSON line each:
                       mismatches. ``spill_ivf_bench`` in bf16 and int8: a
                       bucket spilled, the probe staging less than the
                       stream. ``query_breakdown`` (every stage > 0),
-                      ``ivf_bench`` at 1,048,576 x 384 (K1's recall 1
+                      ``ivf_bench`` at 524,288 x 384 (K1's recall 1
                       against its plain version, recall not falling with
                       nprobe, K3's hits of 8 queries under ``check_scan``'s
-                      limits), ``serving_sweep`` (8, 32, 128 clients, no
-                      error), ``index_build_bench`` (MiniLM, then
-                      gte-large W8A8; every chunk of the tree indexed) and
+                      limits), ``serving_sweep`` (8 and 128 clients, no
+                      error), ``index_build_bench`` (MiniLM at 5,000
+                      chunks, then gte-large W8A8 at 512; every chunk of
+                      the tree indexed) and
                       ``encoder_ablate`` at MiniLM (256, 256) (prod bit-equal
                       to K2; no_exp and no_softmax, the builds of
                       ``encoder_layer.cu`` with ``-DSEMA_ABLATE`` made in
                       the build phase, unequal to prod and at per-row
                       cosine >= 0.9999 to their plain versions), with
-                      ``text_index_scale`` at 200,000 chunks on the host
-                      beside it. Each must exit 0, name the card's
+                      ``text_index_scale`` at 50,000 chunks on the host
+                      beside it. The ``load_test`` runs take 3 s (the
+                      IVF one 2 s) after a second's warm-up, the sweep's
+                      rungs 2 s. Each must exit 0, name the card's
                       nvidia-smi line as its ``device`` and launch the
                       kernels its path reaches; their launches add to the
                       kernels line's.
@@ -365,7 +381,16 @@ Phases, one JSON line each:
                       run, and on one card it raises unless
                       ``--rehearse`` repeats card 0 CARDS times) the
                       port's mesh over CARDS = 4 cards, a shard a card, in
-                      parts (``--cards-parts``): ``doctor --skip-quality``
+                      parts (``--cards-parts``): ``guard`` (each kind of
+                      entry point called with its tensors on cards 1-3
+                      while card 0 is current, bypassing
+                      ``_cuda.launch``'s switch of card: each must raise
+                      the ``KernelError`` of cudaErrorInvalidDevice and
+                      launch nothing; it prints each call's return code,
+                      the cards its kernels ran on and whether its output
+                      equals the guarded call's, issued at once behind
+                      20 ms of the card's queued work and with every card
+                      synchronized first); ``doctor --skip-quality``
                       (``scan-mesh`` a shard a card, every check ok);
                       gte-large at 4 layers over (data 1, model 4)
                       (``tp4``); the CLI's default mesh (no ``[mesh]``:
@@ -395,10 +420,22 @@ or where they differ, and both timed in turns in the same run:
 ``layer_bits``: K2, K5, K6 and K7 at every case of K2_SHAPES, K5_SHAPES,
 K6_BS and K7_BS, and K6 and K7 at the tp_path's batches (K67_PATH);
 ``scan_bits``: K1, K3, K4a, K4b, K8 and K9 at every case of the
-phases ``scan_topk``, ``scan_int8``, ``scan_pruned`` and ``scan_ab`` and
-at the paths' shapes (PATH_SCANS), through the parent's own
-``ops/scan_topk.py`` over its ``csrc/scan_topk.cu``; the scan cases must
-be bit-equal. With ``--phases``, name them to run them.
+phases ``scan_topk``, ``scan_int8``, ``scan_pruned`` and ``scan_ab``,
+at the paths' shapes (PATH_SCANS) and at their one-query calls
+(Q1_SHAPES), through the parent's own ``ops/scan_topk.py`` and
+``ops/_cuda.py`` over its ``csrc/scan_topk.cu``; the scan cases must
+be bit-equal. ``scan_host`` (below) then also runs the parent's calls in
+turns. With ``--phases``, name them to run them.
+
+``scan_host`` (after ``scan_ab``): each one-query call of Q1_SHAPES (K1
+on the main path's 3,600 x 384 at k 64 and on a shard's block of 1,024 x
+384 and 65,536 x 1,024, K3 over one shard's probe of 17 tiles of 512 and
+over a spill stage of 138 tiles of 128) beside the library call at the
+same shape (``index_select``, the product, ``topk``), with its host
+profile (``host_split``: the host's µs a call, each step of the call
+apart by ``perf_counter_ns``, and torch.profiler's CPU ops and the
+kernels a call launches with their device µs). Before the kernels line
+a ``walls`` line gives each phase's wall seconds.
 
 Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises, so the script
@@ -530,16 +567,25 @@ def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1,
 
 
 def scan_passes(fn) -> dict:
-    """Device ms of each of a scan call's two launches (pass 1, pass 2)
-    by ``launch_profile``, with pass 1's kernel and grid."""
-    got = launch_profile(fn, 2, iters=10, keep=lambda n: "scan_pass" in n)
+    """Device ms of each of a scan call's launches by ``launch_profile``:
+    pass 1 and pass 2, or the one-launch route's pass 1 alone, whose last
+    block merges (``ops.scan_topk.one_launch``), with pass 1's kernel and
+    grid; ``launches`` counts them (two where a trace of four calls names
+    ``scan_pass2`` among its kernels) and ``device_ms`` adds them up."""
+    keep = lambda name: "scan_pass" in name
+    names = launch_profile(fn, 1, iters=4, keep=keep)[0].get("kernel") or []
+    names = names if isinstance(names, list) else [names]
+    got = launch_profile(fn, 2 if any("scan_pass2" in k for k in names)
+                         else 1, iters=10, keep=keep)
     if "error" in got[0]:
         return got[0]
-    p1, p2 = got
-    return {"pass1_ms": p1["ms"], "pass2_ms": p2["ms"],
-            "pass1": p1["kernel"], "pass1_grid": p1["grid"],
-            "pass1_smem": p1["smem"], "pass2_grid": p2["grid"],
-            "pass2_block": p2["block"]}
+    p1, p2 = got[0], got[1] if len(got) > 1 else None
+    return {"launches": len(got), "device_ms": sum(g["ms"] for g in got),
+            "pass1_ms": p1["ms"], "pass2_ms": None if p2 is None
+            else p2["ms"], "pass1": p1["kernel"], "pass1_grid": p1["grid"],
+            "pass1_smem": p1["smem"], "pass2_grid": None if p2 is None
+            else p2["grid"], "pass2_block": None if p2 is None
+            else p2["block"]}
 
 
 def weight_copies(layer: dict, names, total_bytes: float = 100e6) -> list:
@@ -837,6 +883,84 @@ def merge_case(what, size, nq, k, masked, gen) -> dict:
             "queued": counters[0], "flushes": counters[1]}
 
 
+# the one-launch route's stress: (rows, k) at d = D, one query a call
+ONE_LAUNCH_STRESS = ((3_600, 64), (16_384, 16), (SEAL, 16))
+STRESS_CALLS = 2_000
+
+
+def one_launch_stress(gen) -> list:
+    """K1 at one query through the one-launch route, STRESS_CALLS calls
+    back to back, the query changing from call to call among four: each
+    call's result must equal the first call's for its query, bit for bit.
+    Each call's candidates lie where the allocator put the call before's
+    (its result is copied out and the call's memory freed), so a last
+    block that merged a chunk list before the list's writer had made it
+    visible would merge what another query's call left there. At 3,600 and
+    16,384 rows every chunk is one tile and the blocks end together."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    out = []
+    for n, k in ONE_LAUNCH_STRESS:
+        store, q, valid = k1_inputs(n, 4, D, BF16, gen)
+        plan = scan_mod._plan(n, 1, D, 2, k, 64,
+                              scan_mod._sm_count(DEV.index or 0))
+        check(plan.one, f"one-launch stress ({n}, {k}): the plan {plan} "
+              "takes two launches")
+        want = [scan_mod.scan_topk(store, q[j:j + 1], valid, k)
+                for j in range(4)]
+        for j, w in enumerate(want):
+            check_scan(store, q[j:j + 1], valid, True, w,
+                       scan_mod.scan_topk_reference(store, q[j:j + 1], valid,
+                                                    k))
+        got_s = torch.empty(STRESS_CALLS, k, device=DEV)
+        got_i = torch.empty(STRESS_CALLS, k, dtype=torch.int32, device=DEV)
+        torch.cuda.synchronize()
+        for c in range(STRESS_CALLS):
+            s_, i_ = scan_mod.scan_topk(store, q[c % 4:c % 4 + 1], valid, k)
+            got_s[c], got_i[c] = s_[0], i_[0]
+        torch.cuda.synchronize()
+        ws = torch.cat([want[c % 4][0] for c in range(STRESS_CALLS)])
+        wi = torch.cat([want[c % 4][1] for c in range(STRESS_CALLS)])
+        bad = int(((got_s != ws) | (got_i != wi)).any(1).sum())
+        out.append({"rows": n, "k": k, "calls": STRESS_CALLS,
+                    "chunks": plan.chunks, "differing_calls": bad})
+        check(bad == 0, f"one-launch stress ({n}, {k}): {bad} of "
+              f"{STRESS_CALLS} calls differ from their query's first")
+    return out
+
+
+def fence_before_count() -> list:
+    """The one-launch route's release, read from the built library
+    (``cuobjdump -sass``): in every ``scan_pass1_merged`` a GPU-scope fence
+    (``MEMBAR``/``FENCE`` at ``.GPU``) comes before the block's count, its
+    one 32-bit global atomic add that returns the old value (the merge
+    counters' adds are 64-bit, the queues' ORs in shared memory). Without
+    that fence the last block may merge a chunk list that has not reached
+    it; ``one_launch_stress`` sees that only if the race happens, so the
+    compiled order is held too."""
+    from sema_tpu_torch.ops import _cuda
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
+        / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_cuda.lib_path(
+        "scan_topk"))], capture_output=True, text=True, check=True).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        if "scan_pass1_merged" not in name:
+            continue
+        lines = body.splitlines()
+        first = lambda pat: next((i for i, line in enumerate(lines)
+                                  if re.search(pat, line)), None)
+        fence = first(r"\b(MEMBAR|FENCE)\.[A-Z.]*GPU")
+        count = first(r"\bATOMG?\.E\.ADD(?!\.64)(\.|\s)")
+        out.append({"function": name.strip()[:90], "fence_line": fence,
+                    "count_line": count})
+    bad = [f for f in out if f["count_line"] is None or f["fence_line"] is None
+           or f["fence_line"] > f["count_line"]]
+    check(len(out) == 8 and not bad, f"scan_pass1_merged: {len(out)} "
+          f"instantiations, a count with no GPU fence before it: {bad}")
+    return out
+
+
 def phase_scan(gen):
     cases = [scan_case(n, nq, k, masked, gen, 10 if n > 10_000 else 30,
                        d=d, dtype=dt)
@@ -845,7 +969,9 @@ def phase_scan(gen):
     # after this one draw what they drew before these cases existed
     merge_gen = torch.Generator(device=DEV).manual_seed(15)
     merges = [merge_case(*c, merge_gen) for c in MERGE_CASES]
-    emit("scan_topk", cases=cases, merge_model=merges)
+    stress = one_launch_stress(torch.Generator(device=DEV).manual_seed(16))
+    emit("scan_topk", cases=cases, merge_model=merges,
+         one_launch_stress=stress, fence_before_count=fence_before_count())
 
 
 # -- K4a, K3, K4b -------------------------------------------------------------
@@ -1034,7 +1160,7 @@ def late_copies_case(kind, data, gen) -> dict:
 
 
 def phase_scan_more(gen):
-    int8_cases, pruned_cases, late = [], [], []
+    int8_cases, pruned_cases, late, stalled = [], [], [], []
     for d in (GTE_D, D):
         data = scan_store(d, gen)
         for nq in (1, 256):
@@ -1048,11 +1174,228 @@ def phase_scan_more(gen):
         if d == GTE_D:
             late = [late_copies_case(kind, data, gen)
                     for kind in ("int8", "int8_pruned")]
+            stalled = stalled_tiles(data)
         del data
         torch.cuda.empty_cache()
     emit("scan_int8", cases=int8_cases, late_copies=late)
-    emit("scan_pruned", cases=pruned_cases)
+    emit("scan_pruned", cases=pruned_cases, stalled_tiles=stalled)
     return int8_cases, pruned_cases
+
+
+def stalled_tiles(data, ms: float = 300.0) -> list:
+    """K3 and K4b, each called twice over two tile lists with the stream
+    held ``ms`` first: the first call's tile list goes to the card only
+    after the stall, from the card's pinned staging buffer, which the
+    second call fills with its own list while that copy still waits. Each
+    call must answer over its own tiles, bit for bit as with no stall."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    q = data["bf16"][SPREAD_TIE[0]].float()[None, :]
+    first = np.asarray(data["tiles"][:PROBE_LIVE])
+    others = np.setdiff1d(np.arange(SEAL // IVF_TILE), first)
+    second = np.sort(np.random.default_rng(3).choice(
+        others, PROBE_LIVE, replace=False)).astype(np.int32)
+    cycles = stall_cycles(ms)
+    out = []
+    for name, store in (("scan_topk_pruned", (data["bf16"],)),
+                        ("scan_topk_int8_pruned",
+                         (data["qvals"], data["scales"]))):
+        fn = getattr(scan_mod, name)
+        args = [(*store, q, data["valid"], t, PROBE_LIVE, 16, IVF_TILE)
+                for t in (first, second)]
+        want = [fn(*a) for a in args]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        got = [fn(*a) for a in args]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        equal = [torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+                 for g, w in zip(got, want)]
+        out.append({"wrapper": name, "stall_ms": ms, "equal": equal,
+                    "host_ms_of_both_calls": host_ms})
+        check(all(equal), f"{name} with the stream stalled {ms} ms: a call "
+              f"answered over another call's tiles ({equal})")
+    return out
+
+
+# -- the scans' one-query calls: host profile ----------------------------------
+
+# the paths' one-query scan calls that took longest against one library call
+# (PERF.md): (what, wrapper, store rows, d, live tiles, tile rows, k, masked)
+Q1_SHAPES = (("K1 main path", "scan_topk", 3_600, D, 0, 0, 64, False),
+             ("K3 shard probe", "scan_topk_pruned", 65_536, GTE_D, 17,
+              IVF_TILE, 64, True),
+             ("K3 spill stage", "scan_topk_pruned", SEAL, GTE_D, 138,
+              128, 16, True),             # tiles of IVF_SPILL_TILE
+             ("K1 shard block", "scan_topk", 1_024, D, 0, 0, 16, True),
+             ("K1 shard block", "scan_topk", 65_536, GTE_D, 0, 0, 64, True))
+
+
+def q1_case(shape, gen) -> tuple:
+    """(wrapper name, args, the library call) of a Q1_SHAPES entry: unit
+    bf16 rows with tombstones, an f32 query (as the store hands it over),
+    the live tiles drawn sorted. The library: ``index_select`` of the
+    tiles, the product and ``topk``, the mask left out, as the paths time
+    it."""
+    what, name, n, d, live, tile, k, masked = shape
+    store, q, valid = k1_inputs(n, 1, d, BF16, gen)
+    if not live:
+        return name, (store, q, valid, k, masked), (
+            lambda: torch.topk(q.to(BF16) @ store.T, k))
+    tiles = np.sort(np.random.default_rng(live).choice(
+        n // tile, size=live, replace=False)).astype(np.int32)
+    idx = (torch.as_tensor(tiles, device=DEV)[:, None] * tile
+           + torch.arange(tile, device=DEV)).reshape(-1)
+    return name, (store, q, valid, tiles, live, k, tile), (
+        lambda: torch.topk(q.to(BF16) @ store.index_select(0, idx).T, k))
+
+
+class StepTimer:
+    """perf_counter_ns around each wrapped callable, by step name."""
+
+    def __init__(self):
+        self.ns, self.calls = Counter(), Counter()
+
+    def wrap(self, name, fn):
+        def timed(*a, **kw):
+            t = time.perf_counter_ns()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ns[name] += time.perf_counter_ns() - t
+                self.calls[name] += 1
+        return timed
+
+
+def host_split(mod, name, args, iters: int = 200) -> dict:
+    """One scan wrapper of ``mod`` (this tree's ``ops.scan_topk`` or a
+    parent's, ``parent_scans``) called ``iters`` times back to back: the
+    host's µs a call on its own; then each step of the call timed apart
+    (perf_counter_ns around the module's helpers, ``_cuda``'s functions,
+    the C entry point, ``torch.empty``, ``torch.from_numpy``,
+    ``Tensor.pin_memory`` and ``Tensor.to``; the timers add their own
+    cost, which lands in the step that wraps them); then torch.profiler
+    with CPU and CUDA activities: the kernels a call launches with their
+    device µs, and the host's CPU µs a call by op and runtime call (self
+    time, the 12 largest)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn = getattr(mod, name)
+    for _ in range(5):
+        fn(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter_ns()
+    for _ in range(iters):
+        fn(*args)
+    host_us = (time.perf_counter_ns() - t) / iters / 1e3
+    torch.cuda.synchronize()
+    timer = StepTimer()
+    real = mod._cuda
+
+    def launch(entry, *a):
+        return real.launch(timer.wrap("C entry point", entry), *a)
+    cuda_ns = type("TimedCuda", (), {})()
+    for attr in dir(real):
+        if not attr.startswith("__"):
+            setattr(cuda_ns, attr, getattr(real, attr))
+    for attr in ("library", "aligned", "check"):
+        setattr(cuda_ns, attr, timer.wrap(f"_cuda.{attr}",
+                                          getattr(real, attr)))
+    cuda_ns.launch = timer.wrap("_cuda.launch", launch)
+    own = {h: timer.wrap(h, getattr(mod, h)) for h in (
+        "_check", "_check_tiles", "_plan", "_launch") if hasattr(mod, h)}
+    saved = {h: getattr(mod, h) for h in own}
+    tensor_saved = {m: getattr(torch.Tensor, m) for m in ("pin_memory", "to")}
+    torch_saved = {m: getattr(torch, m) for m in ("empty", "from_numpy")}
+    try:
+        for h, f in own.items():
+            setattr(mod, h, f)
+        mod._cuda = cuda_ns
+        for m, f in tensor_saved.items():
+            setattr(torch.Tensor, m, timer.wrap(f"Tensor.{m}", f))
+        for m, f in torch_saved.items():
+            setattr(torch, m, timer.wrap(f"torch.{m}", f))
+        t = time.perf_counter_ns()
+        for _ in range(iters):
+            fn(*args)
+        timed_us = (time.perf_counter_ns() - t) / iters / 1e3
+    finally:
+        for h, f in saved.items():
+            setattr(mod, h, f)
+        mod._cuda = real
+        for m, f in tensor_saved.items():
+            setattr(torch.Tensor, m, f)
+        for m, f in torch_saved.items():
+            setattr(torch, m, f)
+    torch.cuda.synchronize()
+    steps = {s: timer.ns[s] / iters / 1e3 for s in timer.ns}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if e.self_cpu_time_total > 0 and e.count >= iters:
+            ops.append((e.key[:60], e.self_cpu_time_total / iters,
+                        e.count / iters))
+        if dev_us > 0 and e.self_cpu_time_total == 0:
+            kernels.append({"kernel": short_name(e.key), "per_call":
+                            e.count / iters, "device_us": dev_us / iters})
+    ops.sort(key=lambda o: -o[1])
+    return {"host_us": host_us, "timed_us": timed_us, "steps_us": steps,
+            "kernels": kernels, "launches_per_call": sum(
+                k["per_call"] for k in kernels),
+            "cpu_us": [{"op": o, "self_us": s, "per_call": c}
+                       for o, s, c in ops[:12]]}
+
+
+def phase_scan_host(gen, parent=None) -> list:
+    """Each Q1_SHAPES call: its ms (CUDA events over back-to-back calls,
+    which at one query is the host's issue time wherever the host is
+    slower than the card) beside the library call's at the same shape,
+    and its host profile (``host_split``); with ``parent`` (another
+    revision's scan module, ``parent_scans``) the same of the parent's
+    call, in turns, and the parent's result bit for bit."""
+    ours = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    cases = []
+    for shape in Q1_SHAPES:
+        name, args, lib = q1_case(shape, gen)
+        ref = getattr(ours, f"{name}_reference")(*args)
+        got = getattr(ours, name)(*args)
+        torch.cuda.synchronize()
+        if shape[4]:
+            check(torch.equal(got[1], ref[1]), f"{shape[0]}: ids differ")
+        else:
+            check_scan(args[0], args[1], args[2], shape[7], got, ref)
+        case = {"case": shape[0], "rows": shape[2] if not shape[4]
+                else shape[4] * shape[5], "d": shape[3], "k": shape[6],
+                "library_ms": device_ms(lib, 200),
+                "ms": device_ms(lambda: getattr(ours, name)(*args), 200),
+                "host": host_split(ours, name, args)}
+        if parent is not None:
+            theirs = getattr(parent, name)(*args)
+            torch.cuda.synchronize()
+            case["bit_equal"] = all(torch.equal(a, b)
+                                    for a, b in zip(got, theirs))
+            turns = {"ms": [], "parent_ms": [], "library_ms": []}
+            for side in ("", "parent_", "library_", "parent_", "",
+                         "library_"):
+                f = (lib if side == "library_" else
+                     (lambda: getattr(parent, name)(*args)) if side
+                     else (lambda: getattr(ours, name)(*args)))
+                turns[side + "ms"].append(device_ms(f, 200))
+            case["turns"] = {k: sum(v) / len(v) for k, v in turns.items()}
+            case["parent_host"] = host_split(parent, name, args)
+        cases.append(case)
+        del args
+    torch.cuda.empty_cache()
+    if parent is not None:
+        differ = [c["case"] for c in cases if not c["bit_equal"]]
+        check(not differ, f"scan_host: not bit-equal to the parent: {differ}")
+    emit("scan_host", cases=cases)
+    return cases
 
 
 # -- K8, K9: the scan A/B paths -----------------------------------------------
@@ -2277,18 +2620,22 @@ def phase_layer_bits(gen, parent):
 def parent_scans(root: Path, lib):
     """The scan wrappers of another revision's tree ``root``
     (``sema_tpu_torch/ops/scan_topk.py``, loaded as a module of its own,
-    so that its own plan and entry points drive its kernels) over
-    ``lib``, its ``scan_topk`` library."""
+    so that its own plan and entry points drive its kernels, through its
+    own ``ops/_cuda.py``) over ``lib``, its ``scan_topk`` library."""
     import importlib.util
     from types import SimpleNamespace
-    from sema_tpu_torch.ops import _cuda
     spec = importlib.util.spec_from_file_location(
         "parent_scan_topk", root / "sema_tpu_torch" / "ops" / "scan_topk.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     bind(lib, (mod,))
-    mod._cuda = SimpleNamespace(library=lambda *a: lib, aligned=_cuda.aligned,
-                                launch=_cuda.launch, check=_cuda.check)
+    # the parent's own launch path (its calling convention, its cost)
+    spec = importlib.util.spec_from_file_location(
+        "parent_cuda", root / "sema_tpu_torch" / "ops" / "_cuda.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    mod._cuda = SimpleNamespace(library=lambda *a: lib, aligned=own.aligned,
+                                launch=own.launch, check=own.check)
     return mod
 
 
@@ -2305,8 +2652,9 @@ PATH_SCANS = (("K4b int8 IVF probe", "int8_pruned", 61, GTE_D, 128),
 
 def phase_scan_bits(gen, root: Path, lib):
     """K1, K3, K4a, K4b, K8 and K9 at every case of the phases scan_topk,
-    scan_int8, scan_pruned and scan_ab, at the paths' shapes (PATH_SCANS)
-    and load_test's batch at k 64 (Q LOAD_BATCH), and K1, K3, K4a, K4b and
+    scan_int8, scan_pruned and scan_ab, at the paths' shapes (PATH_SCANS),
+    at the paths' one-query calls (Q1_SHAPES: the one-launch route) and
+    load_test's batch at k 64 (Q LOAD_BATCH), and K1, K3, K4a, K4b and
     K8 at k = K_MAX (K1 and K8 also at the A/B's 1M rows and Q 256),
     through this tree's wrappers and kernels and through
     another revision's (``parent_scans``), on the same inputs: scores and
@@ -2382,6 +2730,16 @@ def phase_scan_bits(gen, root: Path, lib):
     store, q, valid = k1_inputs(3_600, 1, D, BF16, gen)
     add("K1", f"path: {PATH_SCANS[4][0]}", "scan_topk",
         (store, q, valid, 64, False), 1)
+    # the paths' one-query calls (Q1_SHAPES: the one-launch route), from a
+    # generator of their own, so that the cases after them draw what they
+    # drew before
+    q1_gen = torch.Generator(device=DEV).manual_seed(17)
+    for shape in Q1_SHAPES:
+        name, args, _ = q1_case(shape, q1_gen)
+        rows = shape[2] if not shape[4] else f"{shape[4]} tiles of {shape[5]}"
+        add(shape[0].split()[0], f"one query: {shape[0]} ({rows}, "
+            f"{shape[3]}), k {shape[6]}", name, args, 1)
+    del args
     store, q, valid = k1_inputs(SEAL, LOAD_BATCH, D, BF16, gen)
     add("K1", f"path: load_test --k 50 batch ({SEAL}, {D}), Q {LOAD_BATCH}, "
         "k 64", "scan_topk", (store, q, valid, 64, False), LOAD_BATCH)
@@ -3720,8 +4078,10 @@ def shard_kernel_case(name: str, args) -> dict:
         bnd = bound(n * (d + 5) + d * 4 + k * 8 + 4 * n_live,
                     2.0 * n * d, INT8_OPS_PER_S)
     else:
-        rows_s = rows_t if idx is None else rows_t.index_select(0, idx)
-        lib = lambda: torch.topk(q.to(rows_t.dtype) @ rows_s.T, k)
+        # the probe's rows gathered inside the call, as the kernel reads
+        # them (int8_library gathers inside too)
+        lib = lambda: torch.topk(q.to(rows_t.dtype) @ (
+            rows_t if idx is None else rows_t.index_select(0, idx)).T, k)
         bnd = bound(n * (2 * d + 1) + d * 4 + k * 8 + 4 * n_live,
                     2.0 * n * d)
     with torch.cuda.device(dev):   # the events time the shard's card
@@ -5065,20 +5425,27 @@ def grouped_search(query: str, device: str) -> list:
         mgr.close()
 
 
-def run_monkey(tree: Path, env: dict) -> dict:
-    """The port's ``tools/tui_monkey.py`` over ``tree``: it must print OK.
-    The app's exit status, which it prints, is reported and not held: it
-    quits on Ctrl-C, and where the pty also raises SIGINT for it in raw
-    mode (a sandboxed pty may), the app's KeyboardInterrupt races its quit
-    (status 2 = SIGINT)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+def start_monkey(tree: Path, env: dict):
+    """The port's ``tools/tui_monkey.py`` over ``tree``, started: most of
+    its minute is fixed waits, so the caller goes on beside it and ends it
+    with ``finish_monkey``."""
+    return time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "sema_tpu_torch.tools.tui_monkey", str(tree)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
-    line = (proc.stdout.strip().splitlines() or [""])[-1]
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def finish_monkey(started) -> dict:
+    """Wait for ``start_monkey``'s run: it must print OK. The app's exit
+    status, which it prints, is reported and not held: it quits on
+    Ctrl-C, and where the pty also raises SIGINT for it in raw mode (a
+    sandboxed pty may), the app's KeyboardInterrupt races its quit (status
+    2 = SIGINT)."""
+    t0, proc = started
+    out, err = proc.communicate(timeout=400)
+    line = (out.strip().splitlines() or [""])[-1]
     check(proc.returncode == 0 and line.startswith("OK"),
-          f"tui_monkey exited {proc.returncode}: {line} "
-          f"{proc.stderr[-1500:]}")
+          f"tui_monkey exited {proc.returncode}: {line} {err[-1500:]}")
     return {"line": line, "seconds": time.perf_counter() - t0}
 
 
@@ -5090,8 +5457,9 @@ def phase_tui_path(work: Path, tree: Path, device: str = "cuda",
     warm-up), two semantic queries, the keyword query TUI_KEYWORD, Down,
     Enter (a file's preview, in plain text), Esc, q. Then the first
     semantic results against ``grouped_search`` and, with ``monkey``,
-    ``tools/tui_monkey.py`` over the warm index. Returns the launch counts
-    of the startup and the three searches."""
+    ``tools/tui_monkey.py`` over the warm index, started and left running
+    (``finish_monkey`` ends it). Returns the launch counts of the startup
+    and the three searches, and the monkey's run or None."""
     home = work / "tui-home"
     env = tui_env(home)
     extra = [] if device == "cuda" else ["--device", device]
@@ -5140,7 +5508,7 @@ def phase_tui_path(work: Path, tree: Path, device: str = "cuda",
           "the TUI's semantic results differ from the in-process search's")
     score_diff = max(abs(a[4] - b[4])
                      for a, b in zip(semantic["results"], want))
-    monkey_run = run_monkey(tree, env) if monkey else None
+    monkey_run = start_monkey(tree, env) if monkey else None
     emit("tui_path", files=len(list(tree.rglob("*.py"))),
          chunks=ready["live_rows"], ready_s=ready["ready_s"],
          ready_wall_s=ready_wall_s, startup_ms=ready["ms"],
@@ -5149,9 +5517,8 @@ def phase_tui_path(work: Path, tree: Path, device: str = "cuda",
          score_max_diff=score_diff,
          pygments_installed=opened["pygments_installed"],
          lexer=opened["lexer"], startup_launches=ready["launches"],
-         semantic_launches=semantic["launches"], monkey=monkey_run,
-         exit_code=code)
-    return [ready["launches"]] + [s["launches"] for s in searches]
+         semantic_launches=semantic["launches"], exit_code=code)
+    return [ready["launches"]] + [s["launches"] for s in searches], monkey_run
 
 
 # (model, dtype, quant, store dtype) of the doctor's three cases, and the
@@ -5575,6 +5942,135 @@ def cards_doctor(work: Path, cards) -> dict:
     return out
 
 
+def guard_calls(dev, gen) -> dict:
+    """One call of a wrapper of each kind of entry point on ``dev``'s
+    tensors, {name: (wrapper, args)}: K1 at one query and at a batch, K3
+    and K4a (``sema_scan_topk``), K9 (``sema_fold_topk``), K2, K5, K5's
+    product, K6 and K7, at MiniLM's widths (the attention at tp 2's)."""
+    from sema_tpu_torch import ops
+    from sema_tpu_torch.models.registry import get_spec
+    from sema_tpu_torch.models.bert import quantize_linear
+    from sema_tpu_torch.ops.encoder_layer_int8 import column_major
+    from sema_tpu_torch.ops.quant import quantize_rows_device
+    spec = get_spec("minilm-l6")
+    h, heads = spec.hidden_size, spec.num_heads
+    on = lambda t: t.to(dev)
+    store, q, valid = (on(t) for t in k1_inputs(16_384, 8, h, BF16, gen))
+    qv, sc = quantize_rows_device(store)
+    tiles = np.arange(0, 64, 4, dtype=np.int32)
+    x, _, bias, _, scale = (on(t) if torch.is_tensor(t) else t
+                            for t in layer_inputs(spec, BF16, 4, 32, gen))
+    layer = {k: on(v) for k, v in layer_params(
+        h, spec.intermediate_size, gen).items()}
+    layer8 = {k: on(v) for k, v in int8_layer_params(spec, gen).items()}
+    wq, ws = quantize_linear(0.08 * torch.randn(h, 3 * h, generator=gen,
+                                                device=DEV))
+    half = h // 2
+    qkv = on(1.5 * torch.randn(4, 32, 3 * half, generator=gen,
+                               device=DEV)).to(BF16)
+    w6 = on(torch.randn(h, 3 * half, generator=gen, device=DEV)
+            * 1.5 / math.sqrt(h)).to(BF16)
+    b6 = on(torch.ones(3 * half, device=DEV)).to(BF16)
+    return {
+        "K1 Q 1": (ops.scan_topk, (store, q[:1], valid, 16)),
+        "K1 Q 8": (ops.scan_topk, (store, q, valid, 16)),
+        "K3": (ops.scan_topk_pruned, (store, q[:1], valid, tiles,
+                                      len(tiles), 16, 256)),
+        "K4a": (ops.scan_topk_int8, (qv, sc, q[:1], valid, 16)),
+        "K9": (ops.fold_topk, (store, q[:1].to(BF16), 16)),
+        "K2": (ops.fused_encoder_layer, (x, layer, bias, heads, scale,
+                                         1e-12)),
+        "K5": (ops.fused_encoder_layer_int8, (x, layer8, bias, heads, scale,
+                                              1e-12)),
+        "qmm": (ops.qmm, (x.reshape(-1, h), on(column_major(wq)), on(ws))),
+        "K6": (ops.fused_attention_block, (x, w6, b6, bias, heads // 2,
+                                           scale)),
+        "K7": (ops.fused_attention_qkv, (qkv, bias, heads // 2, scale))}
+
+
+def cards_guard(cards, gen) -> dict:
+    """Each entry point called with its tensors on a card other than the
+    current one (card 0 current, as when ``_cuda.launch`` does not make
+    the tensors' card current): the call's return code, the current card,
+    the stream handle, the card the profiler saw its kernels run on, and
+    whether its output equals the same call made with its card current,
+    when the call is issued at once (behind the card's queued work) and
+    when every card is synchronized first. The entry points must refuse
+    such a call (``KernelError``, cudaErrorInvalidDevice) and launch
+    nothing; it prints every reading before it fails, so that a revision
+    whose entry points do not refuse it shows what the launch did."""
+    from torch.profiler import ProfilerActivity, profile
+    from sema_tpu_torch.ops import _cuda
+    log, rows, fails = [], [], []
+
+    def unguarded(entry, device, *args):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        extra = ((stream, device.index)
+                 if len(entry.argtypes) == len(args) + 2 else (stream,))
+        rc = entry(*args, *extra)
+        log.append({"entry": entry.__name__, "card": device.index,
+                    "current": torch.cuda.current_device(),
+                    "stream": stream, "rc": rc})
+        return rc
+    first = cards[0]
+    cycles = stall_cycles(20.0)
+    for dev in dict.fromkeys(cards[1:]):
+        if dev == first:
+            continue
+        calls = guard_calls(dev, gen)
+        for name, (fn, args) in calls.items():
+            with torch.cuda.device(dev):
+                want = fn(*args)
+            synchronize(cards)
+            want = want if isinstance(want, tuple) else (want,)
+            for synced in (False, True):
+                log.clear()
+                with torch.cuda.device(first), swapped(
+                        "sema_tpu_torch.ops._cuda", {"launch": unguarded}):
+                    # work queued on the tensors' card first: a launch
+                    # that is not ordered behind it reads what it has not
+                    # written yet
+                    with torch.cuda.device(dev):
+                        torch.cuda._sleep(0 if synced else cycles)
+                    if synced:
+                        synchronize(cards)
+                    err, got = None, None
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        try:
+                            got = fn(*args)
+                        except RuntimeError as e:   # KernelError among them
+                            err = f"{type(e).__name__}: {e}"
+                        synchronize(cards)
+                # the cards the kernels of csrc/ ran on (not PyTorch's own
+                # kernels or copies, which run on their tensors' card)
+                ran_on = sorted({e.device_index for e in prof.events()
+                                 if e.device_type == torch.autograd
+                                 .DeviceType.CUDA and "at::" not in e.name
+                                 and "Memcpy" not in e.name
+                                 and "Memset" not in e.name})
+                got = got if got is None or isinstance(got, tuple) else (got,)
+                row = {"call": name, "card": dev.index, "synced": synced,
+                       "launches": list(log), "kernel_error": err,
+                       "ran_on_cards": ran_on,
+                       "equal": None if got is None else all(
+                           torch.equal(g, w) for g, w in zip(got, want)),
+                       "finite": None if got is None else all(
+                           bool(torch.isfinite(g.float()).all())
+                           for g in got)}
+                rows.append(row)
+                emit("cards_path:guard_call", **row)
+                if err is None or "invalid device" not in err or any(
+                        c["rc"] == 0 for c in log) or ran_on:
+                    fails.append(f"{name} on {dev}, synced {synced}: "
+                                 f"{err}, codes {[c['rc'] for c in log]}, "
+                                 f"ran on cards {ran_on}, equal "
+                                 f"{row['equal']}")
+    out = {"calls": len(rows), "refused": len(rows) - len(fails)}
+    emit("cards_path:guard", **out)
+    fail_after("cards_path guard", fails)
+    return out
+
+
 def cards_tp(work: Path, tree: Path, weights, cards) -> list:
     """gte-large at 24 layers over (data 1, model CARDS) and (data 2,
     model CARDS / 2), each shard on its own card, float linears then
@@ -5722,7 +6218,7 @@ def cards_ivf(work: Path, tree: Path, store_dtype: str, gen, weights,
 
 
 # cards_path's parts, in the order they run (--cards-parts names some)
-CARD_PARTS = ("doctor", "tp4", "cli", "tp", "ivf")
+CARD_PARTS = ("guard", "doctor", "tp4", "cli", "tp", "ivf")
 
 
 def phase_cards_path(work: Path, tree: Path, gen, weights, cards,
@@ -5743,7 +6239,9 @@ def phase_cards_path(work: Path, tree: Path, gen, weights, cards,
         if part not in parts:
             continue
         t1 = time.perf_counter()
-        if part == "doctor":
+        if part == "guard":
+            out[part] = cards_guard(cards, gen)
+        elif part == "doctor":
             out[part] = cards_doctor(work, cards)
         elif part == "tp4":
             out[part] = tp_embeddings(weights, tree_heads(tree),
@@ -5770,29 +6268,30 @@ def phase_cards_path(work: Path, tree: Path, gen, weights, cards,
 # host only, runs beside encoder_ablate (whose times are the profiler's)
 TOOLS = (
     ("load_test", ["--rows", "262144", "--dim", "384", "--clients", "256",
-                   "--max-batch", "256", "--duration", "8", "--warmup", "3",
+                   "--max-batch", "256", "--duration", "3", "--warmup", "1",
                    "--mutate"], ("scan_topk",)),
     ("load_test", ["--rows", "262144", "--dim", "384", "--clients", "256",
-                   "--max-batch", "256", "--duration", "8", "--warmup", "3",
+                   "--max-batch", "256", "--duration", "3", "--warmup", "1",
                    "--k", "50"], ("scan_topk",)),
     ("load_test", ["--ivf", "--store-dtype", "int8", "--dim", "1024",
-                   "--rows", "262144", "--clients", "64", "--duration", "5"],
+                   "--rows", "262144", "--clients", "64", "--duration", "2",
+                   "--warmup", "1"],
      ("scan_topk_int8_pruned",)),
     ("spill_ivf_bench", [], ("scan_topk", "scan_topk_pruned")),
     ("spill_ivf_bench", ["--store-dtype", "int8"],
      ("scan_topk", "scan_topk_int8_pruned")),
     ("query_breakdown", ["--rows", "262144"], ("scan_topk", "encoder_layer")),
-    ("ivf_bench", ["--rows", "1048576", "--dim", "384"],
+    ("ivf_bench", ["--rows", "524288", "--dim", "384"],
      ("scan_topk", "scan_topk_pruned")),
-    ("serving_sweep", ["--rows", "262144", "--clients", "8", "32", "128",
-                       "--duration", "4", "--warmup", "2"], ("scan_topk",)),
-    ("index_build_bench", ["--chunks", "20000"], ("encoder_layer",)),
+    ("serving_sweep", ["--rows", "262144", "--clients", "8", "128",
+                       "--duration", "2", "--warmup", "1"], ("scan_topk",)),
+    ("index_build_bench", ["--chunks", "5000"], ("encoder_layer",)),
     ("index_build_bench", ["--model", "gte-large", "--quant", "int8",
-                           "--chunks", "2048"], ("encoder_layer_int8",)),
+                           "--chunks", "512"], ("encoder_layer_int8",)),
     ("encoder_ablate", ["--model", "minilm-l6", "--batch", "256", "--seq",
                         "256"], ("encoder_layer",)),
 )
-TEXT_SCALE_ARGS = ["--docs", "200000"]
+TEXT_SCALE_ARGS = ["--docs", "50000"]
 
 
 def tool_command(module: str, argv) -> list:
@@ -5856,24 +6355,37 @@ def tool_checks(module: str, argv, last: dict) -> list:
     return bad
 
 
+# the lanes tools_path runs at once, each a sequence of tools: a tool's
+# fixed cost (its process reaching the card, its store or weights built)
+# outweighs its measured seconds, so the tools share the card three at a
+# time; their numbers are taken beside each other's load
+TOOL_LANES = {"load_test": 0, "serving_sweep": 0, "spill_ivf_bench": 1,
+              "query_breakdown": 1, "ivf_bench": 1, "index_build_bench": 2,
+              "encoder_ablate": 2}
+
+
 def phase_tools_path(work: Path, smi: str, tools=TOOLS,
                      text_args=TEXT_SCALE_ARGS) -> dict:
     """Each of the port's tools as ``python -m sema_tpu_torch.tools.<name>``
-    in a fresh process on the card (TMPDIR in ``work``), its last line
-    printed as it comes and checked (``tool_checks``): exit 0, ``device``
-    the card's nvidia-smi line, and the kernels it must reach among its
+    in a fresh process on the card (TMPDIR in ``work``), in the lanes of
+    TOOL_LANES at once, each lane's tools one after another; each last
+    line printed and checked (``tool_checks``): exit 0, ``device`` the
+    card's nvidia-smi line, and the kernels it must reach among its
     ``launches``; ``text_index_scale`` on the host beside
     ``encoder_ablate``, with no launch (its ``rss_*`` keys, ``ru_maxrss``,
     are this process's peak, which a child inherits at fork and keeps
     across exec: its own RSS shows only when it runs by hand). Every run
     is printed before a failed check fails the phase. Returns the
     launches summed over the tools."""
+    from concurrent.futures import ThreadPoolExecutor
     tmp = work / "tools-tmp"
     tmp.mkdir(exist_ok=True)
     env = {**os.environ, "TMPDIR": str(tmp)}
     t_phase = time.perf_counter()
     failed, launches = [], Counter()
-    for module, argv, kernels in tools:
+
+    def run_tool_side(module, argv):
+        """One tool's run (and text_index_scale's beside encoder_ablate)."""
         side = None
         if module == "encoder_ablate":
             side = (time.perf_counter(), subprocess.Popen(
@@ -5890,6 +6402,21 @@ def phase_tools_path(work: Path, smi: str, tools=TOOLS,
             out, err = sp.communicate(timeout=600)
             runs.append(tool_result("text_index_scale", text_args, sp, out,
                                     err, t_side))
+        return runs
+
+    lanes = {}
+    for i, (module, argv, _) in enumerate(tools):
+        lanes.setdefault(TOOL_LANES.get(module, 0), []).append(i)
+    results = {}
+
+    def run_lane(indices):
+        for i in indices:
+            results[i] = run_tool_side(*tools[i][:2])
+    with ThreadPoolExecutor(len(lanes)) as ex:
+        for f in [ex.submit(run_lane, ix) for ix in lanes.values()]:
+            f.result()
+    for i, (module, argv, kernels) in enumerate(tools):
+        runs = results[i]
         for r, must in zip(runs, (kernels, ())):
             last = r["last"]
             emit("tools_path", **{k: v for k, v in r.items()
@@ -5911,8 +6438,8 @@ def phase_tools_path(work: Path, smi: str, tools=TOOLS,
             elif launched:
                 failed.append(f"{what}: host only, launched {launched}")
     seconds = time.perf_counter() - t_phase
-    emit("tools_path", seconds=seconds, launches=dict(launches),
-         failed=failed)
+    emit("tools_path", seconds=seconds, lanes=list(lanes.values()),
+         launches=dict(launches), failed=failed)
     check(not failed, f"tools_path: {failed}")
     return dict(launches)
 
@@ -5935,6 +6462,7 @@ def main() -> int:
                     help="cards_path over card 0 repeated CARDS times "
                          "(on one card) instead of CARDS cards")
     cli_args = ap.parse_args()
+    t_start = time.perf_counter()
     phases = (None if cli_args.phases is None
               else set(cli_args.phases.split(",")))
     # cards_path runs only when named; every other phase by default
@@ -5982,39 +6510,65 @@ def main() -> int:
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0)
 
     gen = torch.Generator(device=DEV).manual_seed(0)
+    walls, last = {}, [time.perf_counter()]
+
+    def tick(name):       # the wall seconds of the phase that just ended
+        now = time.perf_counter()
+        walls[name] = now - last[0]
+        last[0] = now
     if run("scan_topk"):
         phase_scan(gen)
+        tick("scan_topk")
     if run("encoder_layer"):
         layer_cases = phase_layer(gen)
+        tick("encoder_layer")
     if run("encoder_layer_int8"):
         int8_cases = phase_layer_int8(gen)
+        tick("encoder_layer_int8")
     if run("attention"):
         attention_cases = phase_attention(gen)
+        tick("attention")
     if run("scan_int8") or run("scan_pruned"):
         phase_scan_more(gen)
+        tick("scan_int8+scan_pruned")
     if run("scan_ab"):
         scan_ab = phase_scan_ab(gen)
+        tick("scan_ab")
+    parent_scan = None
     if cli_args.parent_source is not None:
         root = cli_args.parent_source.resolve()
         parent = parent_libraries(root, [
-            name for name, phase in (("encoder_layer", "layer_bits"),
-                                     ("scan_topk", "scan_bits"))
-            if run(phase)])
+            name for name, phases in (("encoder_layer", ("layer_bits",)),
+                                      ("scan_topk", ("scan_bits",
+                                                     "scan_host")))
+            if any(run(p) for p in phases)])
         if run("layer_bits"):
             phase_layer_bits(gen, parent["encoder_layer"])
+            tick("layer_bits")
         if run("scan_bits"):
             phase_scan_bits(gen, root, parent["scan_topk"])
+            tick("scan_bits")
+        if run("scan_host"):
+            parent_scan = parent_scans(root, parent["scan_topk"])
+    if run("scan_host"):
+        # its own generator: the phases after it draw what they drew
+        # before it existed
+        phase_scan_host(torch.Generator(device=DEV).manual_seed(17),
+                        parent_scan)
+        tick("scan_host")
     (ROOT / "build").mkdir(exist_ok=True)
     paths = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         work = Path(work)
         if run("main_path"):
             index_launches, query_launches, k1 = phase_main_path(work, 400)
+            tick("main_path")
         tree = work / "tree"
         if not tree.exists():
             make_tree(tree, 400)
         if run("tui_path"):     # before append_path rewrites the tree
-            tui_runs = phase_tui_path(work, tree)
+            tui_runs, monkey = phase_tui_path(work, tree)
+            tick("tui_path")
         weights = None
         if any(run(name) for name in (
                 "int8_ivf_path", "bf16_ivf_path", "spill_path",
@@ -6024,22 +6578,32 @@ def main() -> int:
             weights = write_weights(work / "gte-weights")
             emit("weights", model=IVF_MODEL,
                  seconds=time.perf_counter() - t0)
+            tick("weights")
+        if run("tui_path"):     # the monkey ran beside the weights' write
+            emit("tui_path:monkey", **finish_monkey(monkey))
+            tick("tui_path:monkey")
         for store_dtype in ("int8", "bfloat16"):
             name = ("int8_ivf_path" if store_dtype == "int8"
                     else "bf16_ivf_path")
             if run(name):
                 paths[store_dtype] = phase_ivf_path(work, tree, store_dtype,
                                                     4 * SEAL, gen, weights)
+                tick(name)
         if run("spill_path"):
             spill = phase_spill_path(work, tree, gen, weights, paths)
+            tick("spill_path")
         if run("shard_path"):   # before append_path rewrites the tree
             shard = phase_shard_path(work, tree, gen, weights)
+            tick("shard_path")
         if run("append_path"):
             append = phase_append_path(work, tree, gen, weights)
+            tick("append_path")
         if run("tp_path"):
             tp_runs = phase_tp_path(work, tree, weights, gen)
+            tick("tp_path")
         if run("doctor_path"):
             doctor_runs = phase_doctor_path(work, weights)
+            tick("doctor_path")
         if run("cards_path"):
             if cli_args.rehearse:
                 cards = [torch.device("cuda", 0)] * CARDS
@@ -6052,12 +6616,15 @@ def main() -> int:
             else:
                 phase_cards_path(work, tree, gen, weights, [
                     torch.device("cuda", i) for i in range(CARDS)], parts)
+            tick("cards_path")
         else:
             emit("cards_path", ran=False, cards=count)
         if run("tools_path"):
             chosen = (cli_args.tools or "").split(",")
             tools_launches = phase_tools_path(work, smi, [
                 t for t in TOOLS if cli_args.tools is None or t[0] in chosen])
+            tick("tools_path")
+    emit("walls", seconds=walls, total_s=time.perf_counter() - t_start)
     if phases is not None:
         print(f"partial run of {sorted(phases)}: no kernels line", flush=True)
         return 0

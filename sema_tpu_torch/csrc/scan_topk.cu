@@ -52,6 +52,24 @@
 //           the TPU kernels' zeroed ids leave them. An int8 scan's
 //           per-query scale multiplies the merged scores here, after the
 //           merge, as pallas_topk.py:432 does.
+//   one launch  at one query (the CLI's, the server's single requests,
+//           each shard's and each spill stage's call) the bf16/f16 route
+//           of K1, K3 and K8 runs pass 2's merge inside pass 1's launch:
+//           each block writes its candidates, fences them and counts
+//           itself done on its query block's counter; the block that
+//           counts last copies the query's chunk lists into its shared
+//           memory in one sweep, merges them exactly as pass 2 does
+//           (merge_chunks, with W = min(its 16 warps, chunks, 4096 / k)
+//           warps: any W gives the same bits, see below) and sets the
+//           counter back to 0 for the next launch on its stream. The
+//           wrapper takes this route where the chunk lists and the
+//           merge's own lists fit pass 1's shared memory (a few chunks,
+//           or a small k); elsewhere pass 2's launch merges. At one
+//           query pass 1 takes a few microseconds of device time and the
+//           call's cost is the host's: one launch, no cast launch (f32
+//           queries are rounded to bf16/f16 as they are staged), one
+//           workspace allocation, the tile list through a pinned buffer
+//           of the card's (ops/scan_topk.py:_launch).
 //
 // Why any merge order gives the sequential result. Rows are scanned in
 // increasing row id: K1, K4a, K8 and K9 scan rows 0..n-1 in order, K3 and
@@ -155,8 +173,12 @@
 // What bounds it on the H100: at the CLI's Q=1 the single read of the rows
 // scanned (N*d*itemsize bytes at 3.35 TB/s: 60 us for a sealed 262,144-row
 // bf16 bucket at d=384, 80 us for an int8 one at d=1024, 10 us for an int8
-// IVF probe of 61 tiles of 512), and at small stores the host's launch of
-// the call; at Q=256 the bytes still for bf16 and int8 (2*Q*N*d operations
+// IVF probe of 61 tiles of 512), and at small stores the host's issue of
+// the call: at the main path's 3,600 x 384 pass 1 takes about 7 us of
+// device time, its merge in the same launch about 20, and the host about
+// 35-50 us a call (one launch, one allocation; it took 90-120 with two
+// launches, a cast and five allocations: chip_smoke.py scan_host, H100);
+// at Q=256 the bytes still for bf16 and int8 (2*Q*N*d operations
 // over N*d*itemsize bytes is Q = 256 a byte for bf16, under the card's
 // 295, and 512 for int8, under its 590; 0.240 ms at 1M x 384 bf16), the
 // rows read 4 times from L2 (once per query block of 64); for f32 the
@@ -172,9 +194,17 @@
 // at most a quarter of its rows become candidates. Pass 2 grows with
 // chunks * k / W for its runs and k log k for each of log W tree steps.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <cstring>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -303,29 +333,21 @@ __device__ __forceinline__ int count_before(const float* ls, const int* li, int 
   return lo;
 }
 
-// The finite entries of a sorted list of n: its tail is -inf.
-__device__ __forceinline__ int count_finite(const float* ls, int n) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ls[mid] != -INFINITY)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
 // (os, oi) = the first k entries of the union of the sorted lists a and b
-// (k entries each) under before(): a finite entry goes to its index in its
-// own list plus the entries of the other list that come before it. The
-// finite entries' ids are distinct (rows of disjoint ranges), so their
-// slots are distinct and cover 0 .. fa + fb - 1; the slots past them are
+// (k entries each) under before(): an entry goes to its index in its own
+// list plus the entries of the other list that come before it. Only the fa
+// entries of a that come before b's k-th can rank below k (b's k entries
+// come before the others), and the fb of b before a's k-th; where a list
+// is not full, its k-th is -inf with id 0 and the other's finite entries
+// all count. The finite entries' ids are distinct (rows of disjoint
+// ranges), so their slots are distinct, and every slot below k that no
+// entry takes lies at or past fa + fb, past the union's finite entries:
 // -inf with id 0. Called by nthr threads, t the caller's index among them;
 // o is neither a nor b, and every slot of o is written once.
 __device__ void merge_lists(const float* as, const int* ai, const float* bs, const int* bi,
                             float* os, int* oi, int k, int t, int nthr) {
-  const int fa = count_finite(as, k), fb = count_finite(bs, k);
+  const int fa = count_before(as, ai, k, bs[k - 1], bi[k - 1]);
+  const int fb = count_before(bs, bi, k, as[k - 1], ai[k - 1]);
   for (int j = min(k, fa + fb) + t; j < k; j += nthr) {
     os[j] = -INFINITY;
     oi[j] = 0;
@@ -457,6 +479,14 @@ struct ScanArgs {
   int smem_plan;            // pass 1's shared memory as the wrapper planned it
   unsigned long long* merge_stats;  // bf16/f16 K1, K3, K8: (survivors
                                     // queued, flushes), or null
+  const float* fq;          // bf16/f16 K1, K3, K8: (nq, d) f32 queries, cast
+                            // as they are staged (queries then null), or null
+  int* done;                // the one-launch route: a counter a query block,
+                            // or null (pass 2 merges)
+  int pass2_warps;          // the warps of pass 2's merge
+  float* out_s;             // (nq, k) merged scores and ids
+  int* out_i;
+  int card;                 // the card the launch runs on (host side)
 };
 
 // The physical row of the first row of the tile at logical row t0; a tile
@@ -885,6 +915,116 @@ __global__ void __launch_bounds__(kThreads, 2) scan_pass1_mma(ScanArgs a) {
   write_candidates(a, ls, li, nqb, q0, chunk, tid);
 }
 
+// Warp w of a merge of W warps takes the chunks [run_start(w),
+// run_start(w + 1)) of its query.
+__device__ __forceinline__ int run_start(int w, int n_chunks, int W) {
+  return (int)((long long)w * n_chunks / W);
+}
+
+// Pass 2's merge of one query's chunk lists (qcs, qci: n_chunks lists of k,
+// see the top of the file) into (out_s, out_i), by the first W warps of the
+// calling block; every thread of the block calls it (the tree's barriers).
+// Shared memory (smem): three lists of k a warp, [3][W][k] scores then
+// [3][W][k] ids: slot 0 the warp's list, slot 1 a chunk list staged from
+// the candidates, slot 2 a merge's output. GLOBAL: the lists lie in global
+// memory (pass 2; read through L2), else in shared memory (the one-launch
+// route stages them first). qscale: an int8 scan's scale of the query, or
+// null.
+template <bool GLOBAL>
+__device__ void merge_chunks(const float* qcs, const int* qci, int n_chunks, int k, int W,
+                             const float* qscale, float* out_s, int* out_i,
+                             unsigned char* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* lists_s = reinterpret_cast<float*>(smem);
+  int* lists_i = reinterpret_cast<int*>(lists_s + 3 * W * k);
+  auto S = [&](int slot, int w) { return lists_s + (slot * W + w) * k; };
+  auto I = [&](int slot, int w) { return lists_i + (slot * W + w) * k; };
+  auto ld = [](const auto* p) {
+    if constexpr (GLOBAL)
+      return __ldcg(p);
+    else
+      return *p;
+  };
+
+  if (warp < W) {
+    // the run: each chunk list merged into the warp's list in turn
+    float* rs = S(0, warp);
+    int* ri = I(0, warp);
+    for (int j = lane; j < k; j += 32) {
+      rs[j] = -INFINITY;
+      ri[j] = 0;
+    }
+    __syncwarp();
+    const int c0 = run_start(warp, n_chunks, W);
+    const int c1 = run_start(warp + 1, n_chunks, W);
+    for (int c = c0; c < c1; ++c) {
+      const float* cs = qcs + (size_t)c * k;
+      const int* ci = qci + (size_t)c * k;
+      // a chunk list is sorted: if its first entry does not come before the
+      // run's k-th, none of it enters
+      if (!before(ld(cs), ld(ci), rs[k - 1], ri[k - 1])) continue;
+      const float* bs = cs;
+      const int* bi = ci;
+      if (GLOBAL) {
+        float* ss = S(1, warp);
+        int* si = I(1, warp);
+        for (int j = lane; j < k; j += 32) {
+          ss[j] = ld(cs + j);
+          si[j] = ld(ci + j);
+        }
+        bs = ss;
+        bi = si;
+      }
+      __syncwarp();
+      merge_lists(rs, ri, bs, bi, S(2, warp), I(2, warp), k, lane, 32);
+      __syncwarp();
+      for (int j = lane; j < k; j += 32) {
+        rs[j] = S(2, warp)[j];
+        ri[j] = I(2, warp)[j];
+      }
+      __syncwarp();
+    }
+  }
+  // the runs' lists, pairwise: at step s list i (a multiple of 2s) takes
+  // list i + s, merged by the warps i .. i + 2s - 1 that exist
+  for (int s = 1; s < W; s <<= 1) {
+    __syncthreads();
+    const int i = warp / (2 * s) * (2 * s);
+    const bool pair = warp < W && i + s < W;
+    const int t = (warp - i) * 32 + lane, nthr = (min(i + 2 * s, W) - i) * 32;
+    if (pair) merge_lists(S(0, i), I(0, i), S(0, i + s), I(0, i + s), S(2, i), I(2, i), k, t, nthr);
+    __syncthreads();
+    if (pair)
+      for (int j = t; j < k; j += nthr) {
+        S(0, i)[j] = S(2, i)[j];
+        I(0, i)[j] = I(2, i)[j];
+      }
+  }
+  __syncthreads();
+  const float qsc = qscale == nullptr ? 1.f : *qscale;
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const float s = S(0, 0)[j];
+    const bool empty = s == -INFINITY;
+    out_s[j] = empty || qscale == nullptr ? s : __fmul_rn(s, qsc);
+    out_i[j] = empty ? 0 : I(0, 0)[j];
+  }
+  __syncthreads();  // the lists are read before a next merge writes them
+}
+
+// Pass 2 (see the top of the file): one block a query, its W = blockDim.x
+// / 32 warps merging the query's chunk lists.
+__global__ void __launch_bounds__(kPass2MaxWarps * 32)
+scan_pass2(const float* cand_s, const int* cand_i, int n_chunks, int k,
+           const float* __restrict__ qscale, float* __restrict__ out_s,
+           int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q = blockIdx.x;
+  const size_t o = (size_t)q * n_chunks * k;
+  merge_chunks<true>(cand_s + o, cand_i + o, n_chunks, k, blockDim.x / 32,
+                     qscale == nullptr ? nullptr : qscale + q, out_s + (size_t)q * k,
+                     out_i + (size_t)q * k, smem);
+}
+
 // -- bf16/f16 pass 1 of K1, K3 and K8: survivors queued, merged beside the
 // scoring (see the top of the file) --------------------------------------
 
@@ -984,6 +1124,16 @@ __device__ void flush_queue(const float* qv, const int* qid, int n, float* qls, 
 // 0.206), then the mergers, a query each in a block of 8, else 16 (K1 at
 // 1M x 384, Q 256, k 128: 2.27 ms against 2.63 with 8 and 2.42 with 12,
 // in turns). chip_merge_ab.py measures both.
+// An f32 value in the store's 16-bit dtype (DT 0 bf16, 1 f16), rounded to
+// nearest even as torch's cast rounds it.
+template <int DT>
+__device__ __forceinline__ uint16_t to_store16(float v) {
+  if constexpr (DT == 0)
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  else
+    return __half_as_ushort(__float2half_rn(v));
+}
+
 template <int QB> struct Merged {
   static constexpr int kWQ = QB >= 32 ? 32 : 8;
   static constexpr int kScorers = 4 * (QB / kWQ);
@@ -1046,7 +1196,7 @@ __global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
   const int r_end = min(a.n, r_begin + a.rows_per_chunk);
   const int n_tiles = (r_end - r_begin + kTileRows - 1) / kTileRows;
 
-  for (int e = tid; e < QB * (dp / 8) && tid < NSC; e += NSC) {
+  for (int e = tid; e < QB * (dp / 8) && tid < NSC && a.fq == nullptr; e += NSC) {
     const int qi = e / (dp / 8), c = e % (dp / 8) * 8;
     const bool in = qi < nqb && c < d;
     cp_async16(qs + qi * qstr + c, in ? queries + (size_t)(q0 + qi) * d + c : queries, in);
@@ -1095,6 +1245,27 @@ __global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
       for (int c = 0; c < 4; ++c) acc[t][c] = 0.f;
     const int n_stages = n_tiles * nslab;
     load(0);
+    if (a.fq != nullptr) {
+      // f32 queries, rounded to the store dtype here while stage 0's copies
+      // fly, to nearest even as the wrapper's cast would round them (no
+      // cast launch before the scan); zeros past d and past the batch. d is
+      // a multiple of 8 (16-byte rows), and so is each piece of 8 values.
+      for (int e = tid; e < QB * (dp / 8); e += NSC) {
+        const int qi = e / (dp / 8), c = e % (dp / 8) * 8;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+        if (qi < nqb && c < d) {
+          const float4* src = reinterpret_cast<const float4*>(a.fq + (size_t)(q0 + qi) * d + c);
+          x = src[0];
+          y = src[1];
+        }
+        const float v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] = (uint32_t)to_store16<DT>(v[2 * j]) | (uint32_t)to_store16<DT>(v[2 * j + 1]) << 16;
+        *reinterpret_cast<uint4*>(qs + qi * qstr + c) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
     for (int g = 0; g < n_stages; ++g) {
       cp_async_wait_all();  // this thread's copies of stage g have landed
       bar_sync(kBarStage, NSC);  // everyone's have; all are done with g - 1
@@ -1226,87 +1397,30 @@ __global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
   }
   __syncthreads();
   write_candidates(a, ls, li, nqb, q0, chunk, tid, NTH);
-}
-
-// Warp w of a pass-2 block of W merges the chunks [run_start(w),
-// run_start(w + 1)) of its query.
-__device__ __forceinline__ int run_start(int w, int n_chunks, int W) {
-  return (int)((long long)w * n_chunks / W);
-}
-
-// Pass 2 (see the top of the file): one block a query, W = blockDim.x / 32
-// warps. Shared memory: three lists of k a warp, [3][W][k] scores then
-// [3][W][k] ids: slot 0 the warp's list, slot 1 a chunk list staged from
-// the candidates, slot 2 a merge's output.
-__global__ void __launch_bounds__(kPass2MaxWarps * 32)
-scan_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i, int n_chunks,
-           int k, const float* __restrict__ qscale, float* __restrict__ out_s,
-           int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int W = blockDim.x / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q = blockIdx.x;
-  float* lists_s = reinterpret_cast<float*>(smem);
-  int* lists_i = reinterpret_cast<int*>(lists_s + 3 * W * k);
-  auto S = [&](int slot, int w) { return lists_s + (slot * W + w) * k; };
-  auto I = [&](int slot, int w) { return lists_i + (slot * W + w) * k; };
-
-  // the run: each chunk list merged into the warp's list in turn
-  float* rs = S(0, warp);
-  int* ri = I(0, warp);
-  for (int j = lane; j < k; j += 32) {
-    rs[j] = -INFINITY;
-    ri[j] = 0;
-  }
-  __syncwarp();
-  const float* qcs = cand_s + (size_t)q * n_chunks * k;
-  const int* qci = cand_i + (size_t)q * n_chunks * k;
-  const int c0 = run_start(warp, n_chunks, W);
-  const int c1 = run_start(warp + 1, n_chunks, W);
-  for (int c = c0; c < c1; ++c) {
-    const float* cs = qcs + (size_t)c * k;
-    const int* ci = qci + (size_t)c * k;
-    // a chunk list is sorted: if its first entry does not come before the
-    // run's k-th, none of it enters
-    if (!before(cs[0], ci[0], rs[k - 1], ri[k - 1])) continue;
-    float* bs = S(1, warp);
-    int* bi = I(1, warp);
-    for (int j = lane; j < k; j += 32) {
-      bs[j] = cs[j];
-      bi[j] = ci[j];
-    }
-    __syncwarp();
-    merge_lists(rs, ri, bs, bi, S(2, warp), I(2, warp), k, lane, 32);
-    __syncwarp();
-    for (int j = lane; j < k; j += 32) {
-      rs[j] = S(2, warp)[j];
-      ri[j] = I(2, warp)[j];
-    }
-    __syncwarp();
-  }
-  // the runs' lists, pairwise: at step s list i (a multiple of 2s) takes
-  // list i + s, merged by the warps i .. i + 2s - 1 that exist
-  for (int s = 1; s < W; s <<= 1) {
-    __syncthreads();
-    const int i = warp / (2 * s) * (2 * s);
-    const bool pair = i + s < W;
-    const int t = (warp - i) * 32 + lane, nthr = (min(i + 2 * s, W) - i) * 32;
-    if (pair) merge_lists(S(0, i), I(0, i), S(0, i + s), I(0, i + s), S(2, i), I(2, i), k, t, nthr);
-    __syncthreads();
-    if (pair)
-      for (int j = t; j < k; j += nthr) {
-        S(0, i)[j] = S(2, i)[j];
-        I(0, i)[j] = I(2, i)[j];
-      }
-  }
+  if (a.done == nullptr) return;  // scan_pass2 merges the chunk lists
+  // one launch (see the top of the file): the last of the query block's
+  // chunks to finish merges their lists
+  __threadfence();  // this block's candidates reach the card before its count does
   __syncthreads();
-  const float qsc = qscale == nullptr ? 1.f : qscale[q];
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const float s = S(0, 0)[j];
-    const bool empty = s == -INFINITY;
-    out_s[(size_t)q * k + j] = empty || qscale == nullptr ? s : __fmul_rn(s, qsc);
-    out_i[(size_t)q * k + j] = empty ? 0 : I(0, 0)[j];
+  if (!__syncthreads_or(tid == 0 && atomicAdd(a.done + blockIdx.x, 1) == (int)gridDim.y - 1))
+    return;
+  __threadfence();  // the other blocks' candidates are read after their counts
+  // each query's lists into shared memory, past the merge's own lists (the
+  // wrapper takes this route only where they fit), in one sweep of the block
+  const size_t m = (size_t)a.n_chunks * k;
+  float* st_s = reinterpret_cast<float*>(smem + (size_t)24 * a.pass2_warps * k);
+  int* st_i = reinterpret_cast<int*>(st_s + m);
+  for (int qi = 0; qi < nqb; ++qi) {
+    const size_t o = (size_t)(q0 + qi) * m;
+    for (size_t e = tid; e < m; e += NTH) {
+      st_s[e] = __ldcg(a.cand_s + o + e);
+      st_i[e] = __ldcg(a.cand_i + o + e);
+    }
+    __syncthreads();
+    merge_chunks<false>(st_s, st_i, a.n_chunks, k, a.pass2_warps, nullptr,
+                        a.out_s + (size_t)(q0 + qi) * k, a.out_i + (size_t)(q0 + qi) * k, smem);
   }
+  if (tid == 0) a.done[blockIdx.x] = 0;  // the next launch on this stream counts from 0
 }
 
 // An int8 scan's queries, quantized per row as ops/quant.py:quantize_query
@@ -1335,6 +1449,135 @@ quantize_queries(const float* __restrict__ q, int d, int8_t* __restrict__ qi,
   if (threadIdx.x == 0) qscale[blockIdx.x] = scale;
 }
 
+// -- the launch path ----------------------------------------------------------
+
+constexpr int kMaxCards = 64;
+constexpr int kMaxDone = 1024;  // query blocks a one-launch grid may take
+
+// A kernel launches on the current card, into the stream it is given. The
+// wrapper makes its tensors' card current (ops/_cuda.py:launch); an entry
+// point refuses a call whose card is not the current one, or whose stream
+// lies on another card, with cudaErrorInvalidDevice. Otherwise the launch
+// runs on the current card, reading the other card's memory over NVLink
+// unordered with that card's stream (torch's current stream is the legacy
+// default stream, handle 0, whichever card is current).
+cudaError_t on_card(int card, void* stream) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  if (cur != card || card < 0 || card >= kMaxCards) return cudaErrorInvalidDevice;
+#if CUDART_VERSION >= 12080
+  if (stream != nullptr) {
+    int dev = -1;
+    e = cudaStreamGetDevice(static_cast<cudaStream_t>(stream), &dev);
+    if (e != cudaSuccess) return e;
+    if (dev != cur) return cudaErrorInvalidDevice;
+  }
+#endif
+  return cudaSuccess;
+}
+
+// A kernel's dynamic shared-memory limit, raised on a card the first time a
+// launch there needs more: the attribute holds per card, so a process that
+// launches on four cards sets it on each.
+cudaError_t allow_smem(const void* kern, int card, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> limit;
+  std::lock_guard<std::mutex> hold(mu);
+  size_t& have = limit[{card, kern}];
+  if (bytes <= have) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) have = bytes;
+  return e;
+}
+
+// The one-launch route's counters, an int a query block, one set per (card,
+// stream): launches on one stream run in order, so each finds them at 0,
+// where the last block of the launch before it left them; launches on two
+// streams may overlap.
+cudaError_t done_counters(int card, cudaStream_t st, int** out) {
+  static std::mutex mu;
+  static std::map<std::pair<int, cudaStream_t>, int*> sets;
+  std::lock_guard<std::mutex> hold(mu);
+  int*& p = sets[{card, st}];
+  if (p == nullptr) {
+    int* q = nullptr;
+    cudaError_t e = cudaMalloc(&q, kMaxDone * sizeof(int));
+    if (e != cudaSuccess) return e;
+    e = cudaMemsetAsync(q, 0, kMaxDone * sizeof(int), st);
+    if (e != cudaSuccess) return e;
+    p = q;
+  }
+  *out = p;
+  return cudaSuccess;
+}
+
+// A pruned scan's tile list goes to the card from a pinned buffer of the
+// card's, in stream order, maybe long after the call returns: the buffer is
+// written again only once its last copy has completed (its event).
+struct Staging {
+  std::mutex mu;
+  int* host = nullptr;
+  size_t cap = 0;
+  cudaEvent_t copied = nullptr;
+};
+cudaError_t stage_tiles(int card, const int* tiles, int n, int* dst, cudaStream_t st) {
+  static Staging staging[kMaxCards];
+  Staging& s = staging[card];
+  std::lock_guard<std::mutex> hold(s.mu);
+  cudaError_t e;
+  if (s.copied == nullptr &&
+      (e = cudaEventCreateWithFlags(&s.copied, cudaEventDisableTiming)) != cudaSuccess)
+    return e;
+  if ((e = cudaEventSynchronize(s.copied)) != cudaSuccess) return e;  // the last copy is done
+  if ((size_t)n > s.cap) {
+    if (s.host != nullptr && (e = cudaFreeHost(s.host)) != cudaSuccess) return e;
+    s.host = nullptr;
+    s.cap = 0;
+    const size_t cap = std::max<size_t>(n, 16384);
+    if ((e = cudaMallocHost(&s.host, cap * sizeof(int))) != cudaSuccess) return e;
+    s.cap = cap;
+  }
+  std::memcpy(s.host, tiles, (size_t)n * sizeof(int));
+  e = cudaMemcpyAsync(dst, s.host, (size_t)n * sizeof(int), cudaMemcpyHostToDevice, st);
+  return e != cudaSuccess ? e : cudaEventRecord(s.copied, st);
+}
+
+// The call's one device allocation (the wrapper's), carved in this order,
+// each piece rounded up to 16 bytes (ops/scan_topk.py:workspace_layout):
+// the (nq, k) scores and ids returned, the (nq, chunks, k) candidates, a
+// pruned scan's tile ids, an int8 scan's quantized queries and their scales.
+struct Workspace {
+  float* out_s;
+  int* out_i;
+  float* cand_s;
+  int* cand_i;
+  int* tiles;
+  int8_t* qbuf;
+  float* qscale;
+  size_t bytes;
+};
+Workspace carve(void* base, int nq, int k, int chunks, int n_tiles, int d, bool i8) {
+  unsigned char* p = static_cast<unsigned char*>(base);
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    unsigned char* q = p + at;
+    at += (bytes + 15) / 16 * 16;
+    return q;
+  };
+  Workspace w;
+  w.out_s = reinterpret_cast<float*>(take((size_t)nq * k * 4));
+  w.out_i = reinterpret_cast<int*>(take((size_t)nq * k * 4));
+  w.cand_s = reinterpret_cast<float*>(take((size_t)nq * chunks * k * 4));
+  w.cand_i = reinterpret_cast<int*>(take((size_t)nq * chunks * k * 4));
+  w.tiles = reinterpret_cast<int*>(take((size_t)n_tiles * 4));
+  w.qbuf = reinterpret_cast<int8_t*>(take(i8 ? (size_t)nq * d : 0));
+  w.qscale = reinterpret_cast<float*>(take(i8 ? (size_t)nq * 4 : 0));
+  w.bytes = at;
+  return w;
+}
+
 // Pass 1 of one route: checks the layout the wrapper planned, sizes the
 // shared memory as the kernel carves it, grid (query blocks, chunks).
 template <int DT, int QB, bool FOLD>
@@ -1343,6 +1586,7 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
   constexpr bool MMA = DT != 2;
   if (a.tile_ids != nullptr && (FOLD || a.tile_n < kTileRows || a.tile_n % kTileRows))
     return cudaErrorInvalidValue;
+  if (a.done != nullptr || a.fq != nullptr) return cudaErrorInvalidValue;  // merged route only
   size_t smem;
   if constexpr (MMA) {
     if (a.slab_words < 8 || a.slab_words % 8) return cudaErrorInvalidValue;
@@ -1363,8 +1607,7 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
     kern = scan_pass1_mma<DT, QB, FOLD>;
   else
     kern = scan_pass1_simt<QB, FOLD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), a.card, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.nq + QB - 1) / QB, a.n_chunks);
   kern<<<grid, kThreads, smem, stream>>>(a);
@@ -1372,7 +1615,9 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
 }
 
 // bf16/f16 pass 1 of K1, K3 and K8 (scan_pass1_merged): checks the layout
-// the wrapper planned, sizes the shared memory as the kernel carves it.
+// the wrapper planned, sizes the shared memory as the kernel carves it; in
+// the one-launch route, that its last block's merge fits its warps and its
+// shared memory.
 template <int DT, int QB>
 cudaError_t launch_merged(const ScanArgs& a, cudaStream_t stream) {
   if (a.tile_ids != nullptr && (a.tile_n < kTileRows || a.tile_n % kTileRows))
@@ -1385,11 +1630,16 @@ cudaError_t launch_merged(const ScanArgs& a, cudaStream_t stream) {
                       (size_t)QB * kQueue * 8 + (size_t)QB * 8 + nb * QB * 4 +
                       (size_t)Merged<QB>::kMergers * ((a.k + 31) / 32) * 4;
   if (smem != (size_t)a.smem_plan) return cudaErrorInvalidValue;  // the plan drifted
+  const int q_blocks = (a.nq + QB - 1) / QB;
+  if (a.done != nullptr &&
+      (q_blocks > kMaxDone || a.pass2_warps > Merged<QB>::kThreads / 32 ||
+       (size_t)24 * a.pass2_warps * a.k + (size_t)a.n_chunks * a.k * 8 > smem))
+    return cudaErrorInvalidValue;  // the merge's lists and a query's chunk lists
+
   void (*kern)(ScanArgs) = scan_pass1_merged<DT, QB>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), a.card, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.nq + QB - 1) / QB, a.n_chunks);
+  dim3 grid(q_blocks, a.n_chunks);
   kern<<<grid, Merged<QB>::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1432,11 +1682,12 @@ cudaError_t launch_pass1_dt(int dtype, int qb, const ScanArgs& a, cudaStream_t s
   return qb == 16 ? launch_pass1<2, 16, FOLD>(a, st) : launch_pass1<2, 4, FOLD>(a, st);
 }
 
-// Both passes on one stream; pass 2 with warps2 warps a query. An int8
-// scan quantizes its f32 queries (fq) into a.queries and qscale first.
-cudaError_t scan(const ScanArgs& a, int dtype, int qb, int warps2, bool fold,
-                 const float* fq, float* qscale, float* out_s, int* out_i,
-                 cudaStream_t st) {
+// The scan on one stream: an int8 scan quantizes its f32 queries (fq) into
+// a.queries and qscale first; pass 1; pass 2 with a.pass2_warps warps a
+// query, unless pass 1's last blocks merge (a.done, the one-launch route).
+cudaError_t scan(const ScanArgs& a, int dtype, int qb, bool fold, const float* fq,
+                 float* qscale, cudaStream_t st) {
+  const int warps2 = a.pass2_warps;
   if (warps2 < 1 || warps2 > kPass2MaxWarps || warps2 > a.n_chunks ||
       warps2 * a.k > kPass2Slots)
     return cudaErrorInvalidValue;
@@ -1449,65 +1700,114 @@ cudaError_t scan(const ScanArgs& a, int dtype, int qb, int warps2, bool fold,
   }
   e = fold ? launch_pass1_dt<true>(dtype, qb, a, st)
            : launch_pass1_dt<false>(dtype, qb, a, st);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || a.done != nullptr) return e;
   const size_t smem2 = (size_t)3 * warps2 * a.k * 8;
-  e = cudaFuncSetAttribute(scan_pass2, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem2);
+  e = allow_smem(reinterpret_cast<const void*>(scan_pass2), a.card, smem2);
   if (e != cudaSuccess) return e;
   scan_pass2<<<a.nq, warps2 * 32, smem2, st>>>(a.cand_s, a.cand_i, a.n_chunks, a.k, qscale,
-                                                out_s, out_i);
+                                                a.out_s, a.out_i);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 bf16, 1 f16, 2 f32 (queries in the store dtype), 3 int8
-// (queries f32, quantized here into qbuf, (nq, d) int8, and qscale, (nq,)
-// f32; row_scale given). tile_ids null: scan rows 0..n-1; else n = live
-// tiles * tile_n logical rows through the tile list. thr0 null: K1, K3,
-// K4a, K4b; else K8's per-query warm-start thresholds (bf16/f16/f32 only).
-// score_bufs: the bf16/f16 route's score buffers (1 or 2); smem_plan: pass
-// 1's shared memory in the wrapper's plan, which must be the kernel's.
-// stats null, or two counters that gain the bf16/f16 route's survivors
-// queued and its flushes.
-extern "C" int sema_scan_topk(const void* store, const void* queries, void* qbuf,
+// dtype: 0 bf16, 1 f16, 2 f32, 3 int8. queries: (nq, d) in the store dtype,
+// or f32 where query_f32 (an int8 scan's always, quantized here; bf16/f16
+// rows of K1, K3 and K8 cast them as they stage them; not f32 rows). row_scale
+// given for int8. tile_host null: scan rows 0..n-1; else the host's n_tiles
+// tile ids (staged to the card here) and n = n_tiles * tile_n logical rows.
+// thr0 null: K1, K3, K4a, K4b; else K8's per-query warm-start thresholds
+// (bf16/f16/f32 only). score_bufs: the bf16/f16 route's score buffers (1 or
+// 2); smem_plan: pass 1's shared memory in the wrapper's plan, which must be
+// the kernel's. one_launch: pass 1's last blocks merge (the bf16/f16 route
+// only), with pass2_warps warps. ws: the call's workspace of ws_bytes
+// (carve), 16-byte aligned, whose first pieces are the results. stats null,
+// or two counters that gain the bf16/f16 route's survivors queued and its
+// flushes. card: the card of every pointer and of the stream, which must
+// be the current one.
+extern "C" int sema_scan_topk(const void* store, const void* queries, int query_f32,
                               const uint8_t* valid, const float* row_scale,
-                              const int* tile_ids, int tile_n, int n, int d,
-                              int nq, int k, int dtype, int qb,
-                              int rows_per_chunk, int slab_words, int n_chunks,
-                              int pass2_warps, int score_bufs, int smem_plan,
-                              float* cand_s, int* cand_i,
-                              float* qscale, const float* thr0,
-                              float* out_s, int* out_i,
-                              unsigned long long* stats, void* stream) {
+                              const int* tile_host, int n_tiles, int tile_n, int n, int d,
+                              int nq, int k, int dtype, int qb, int rows_per_chunk,
+                              int slab_words, int n_chunks, int pass2_warps, int score_bufs,
+                              int smem_plan, int one_launch, void* ws, long long ws_bytes,
+                              const float* thr0, unsigned long long* stats, void* stream,
+                              int card) {
+  cudaError_t e = on_card(card, stream);
+  if (e != cudaSuccess) return e;
   const bool i8 = dtype == kInt8;
-  if (i8 && (row_scale == nullptr || qbuf == nullptr || qscale == nullptr || thr0 != nullptr))
-    return cudaErrorInvalidValue;
-  const ScanArgs a{static_cast<const uint32_t*>(store),
-                   static_cast<const uint32_t*>(i8 ? qbuf : queries),
-                   valid, row_scale, tile_ids, tile_n, n, d, nq, k,
-                   rows_per_chunk, slab_words, n_chunks, cand_s, cand_i,
-                   thr0, nullptr, score_bufs, smem_plan, stats};
-  return scan(a, dtype, qb, pass2_warps, false, static_cast<const float*>(queries),
-              i8 ? qscale : nullptr, out_s, out_i, static_cast<cudaStream_t>(stream));
+  if (i8 && (row_scale == nullptr || !query_f32 || thr0 != nullptr)) return cudaErrorInvalidValue;
+  if (query_f32 && !i8 && dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if ((tile_host == nullptr) != (n_tiles == 0)) return cudaErrorInvalidValue;
+  const Workspace w = carve(ws, nq, k, n_chunks, n_tiles, d, i8);
+  if (reinterpret_cast<uintptr_t>(ws) % 16 || (long long)w.bytes != ws_bytes)
+    return cudaErrorInvalidValue;  // the plan drifted
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_tiles > 0 && (e = stage_tiles(card, tile_host, n_tiles, w.tiles, st)) != cudaSuccess)
+    return e;
+  ScanArgs a{};
+  a.store = static_cast<const uint32_t*>(store);
+  a.queries = reinterpret_cast<const uint32_t*>(i8 ? w.qbuf : query_f32 ? nullptr : queries);
+  a.fq = !i8 && query_f32 ? static_cast<const float*>(queries) : nullptr;
+  a.valid = valid;
+  a.row_scale = row_scale;
+  a.tile_ids = n_tiles > 0 ? w.tiles : nullptr;
+  a.tile_n = tile_n;
+  a.n = n;
+  a.d = d;
+  a.nq = nq;
+  a.k = k;
+  a.rows_per_chunk = rows_per_chunk;
+  a.slab_words = slab_words;
+  a.n_chunks = n_chunks;
+  a.cand_s = w.cand_s;
+  a.cand_i = w.cand_i;
+  a.thr0 = thr0;
+  a.score_bufs = score_bufs;
+  a.smem_plan = smem_plan;
+  a.merge_stats = stats;
+  a.pass2_warps = pass2_warps;
+  a.out_s = w.out_s;
+  a.out_i = w.out_i;
+  a.card = card;
+  if (one_launch && (e = done_counters(card, st, &a.done)) != cudaSuccess) return e;
+  return scan(a, dtype, qb, false, static_cast<const float*>(queries), i8 ? w.qscale : nullptr,
+              st);
 }
 
-// K9: rows 0..n-1 of a bf16/f16/f32 store, every row live. stats null, or
-// two counters that gain the spans merged and the spans on the fast path;
-// smem_plan as above.
-extern "C" int sema_fold_topk(const void* store, const void* queries, int n,
-                              int d, int nq, int k, int dtype, int qb,
-                              int rows_per_chunk, int slab_words, int n_chunks,
-                              int pass2_warps, int smem_plan, float* cand_s, int* cand_i,
-                              float* out_s, int* out_i,
-                              unsigned long long* stats, void* stream) {
-  const ScanArgs a{static_cast<const uint32_t*>(store),
-                   static_cast<const uint32_t*>(queries),
-                   nullptr, nullptr, nullptr, 0, n, d, nq, k,
-                   rows_per_chunk, slab_words, n_chunks, cand_s, cand_i,
-                   nullptr, stats, 1, smem_plan, nullptr};
-  return scan(a, dtype, qb, pass2_warps, true, nullptr, nullptr, out_s, out_i,
-              static_cast<cudaStream_t>(stream));
+// K9: rows 0..n-1 of a bf16/f16/f32 store, every row live, queries in the
+// store dtype; two launches. stats null, or two counters that gain the spans
+// merged and the spans on the fast path; the rest as above.
+extern "C" int sema_fold_topk(const void* store, const void* queries, int n, int d, int nq,
+                              int k, int dtype, int qb, int rows_per_chunk, int slab_words,
+                              int n_chunks, int pass2_warps, int smem_plan, void* ws,
+                              long long ws_bytes, unsigned long long* stats, void* stream,
+                              int card) {
+  cudaError_t e = on_card(card, stream);
+  if (e != cudaSuccess) return e;
+  const Workspace w = carve(ws, nq, k, n_chunks, 0, d, false);
+  if (reinterpret_cast<uintptr_t>(ws) % 16 || (long long)w.bytes != ws_bytes)
+    return cudaErrorInvalidValue;  // the plan drifted
+  ScanArgs a{};
+  a.store = static_cast<const uint32_t*>(store);
+  a.queries = static_cast<const uint32_t*>(queries);
+  a.n = n;
+  a.d = d;
+  a.nq = nq;
+  a.k = k;
+  a.rows_per_chunk = rows_per_chunk;
+  a.slab_words = slab_words;
+  a.n_chunks = n_chunks;
+  a.cand_s = w.cand_s;
+  a.cand_i = w.cand_i;
+  a.fold_stats = stats;
+  a.score_bufs = 1;
+  a.smem_plan = smem_plan;
+  a.pass2_warps = pass2_warps;
+  a.out_s = w.out_s;
+  a.out_i = w.out_i;
+  a.card = card;
+  return scan(a, dtype, qb, true, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* sema_cuda_error_string(int e) {

@@ -44,6 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[tuple, ctypes.CDLL] = {}     # (name, defines) → library
 _bound: set = set()          # ((name, defines), entry point) bound
+_ready: Dict[tuple, ctypes.CDLL] = {}    # (name, defines, id(signatures))
 _lock = threading.Lock()
 
 
@@ -119,7 +120,11 @@ def library(name: str, signatures: Dict[str, list],
     """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
     built first if needed. ``signatures`` maps each C entry point to its
     ctypes argtypes (two modules may bind entry points of one library);
-    every entry point returns a ``cudaError_t`` as int."""
+    every entry point returns a ``cudaError_t`` as int. Once a module's
+    ``signatures`` are bound, its later calls take one dict lookup."""
+    lib = _ready.get((name, tuple(defines), id(signatures)))
+    if lib is not None:
+        return lib
     key = (name, tuple(defines))
     with _lock:
         lib = _libs.get(key)
@@ -139,6 +144,8 @@ def library(name: str, signatures: Dict[str, list],
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
                 _bound.add((key, fn))
+        # the signatures dict lives as long as its module, so its id does
+        _ready[(name, key[1], id(signatures))] = lib
         return lib
 
 
@@ -156,12 +163,25 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def launch(entry, device, *args) -> int:
-    """``entry(*args, stream)``, a kernel entry point called with the
-    current stream of ``device`` while ``device`` is the current card: a
-    kernel launches in the current card's context, and a mesh's shards may
-    lie on several cards. Returns the entry point's ``cudaError_t``."""
+def _stream(card: int) -> int:
+    """The handle of ``card``'s current stream (0: the legacy default
+    stream, whichever card is current)."""
     import torch
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        return entry(*args, ctypes.c_void_p(stream))
+    return torch._C._cuda_getCurrentRawStream(card)
+
+
+def launch(entry, device, *args) -> int:
+    """``entry(*args, stream, card)``, a kernel entry point called with the
+    current stream of ``device``'s card while that card is the current
+    one: a kernel launches on the current card, and a mesh's shards may
+    lie on several cards. ``torch.cuda.device`` is entered only when
+    another card is current; the entry point itself refuses a card that
+    is not current, or a stream of another card
+    (``csrc/*.cu:on_card``). Returns the entry point's ``cudaError_t``."""
+    import torch
+    current = torch.cuda.current_device()
+    card = current if device.index is None else device.index
+    if card == current:
+        return entry(*args, _stream(card), card)
+    with torch.cuda.device(card):
+        return entry(*args, _stream(card), card)

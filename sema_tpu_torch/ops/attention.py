@@ -48,8 +48,8 @@ from sema_tpu_torch.ops._cuda import KernelError
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sema_attention_qkv": [_P] * 3 + [_I] * 5 + [_F, _P],
-    "sema_attention_block": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "sema_attention_qkv": [_P] * 3 + [_I] * 5 + [_F, _P, _I],  # stream,
+    "sema_attention_block": [_P] * 6 + [_I] * 6 + [_F, _P, _I],  # card
 }
 
 

@@ -51,7 +51,8 @@ _P = ctypes.c_void_p
 _SIGNATURES = {"sema_encoder_layer": (
     [_P] * 19                  # x, 12 params, mask, 5 outs
     + [ctypes.c_int] * 6       # B, S, H, I, heads, dtype
-    + [ctypes.c_float, ctypes.c_float, _P])}      # scale, eps, stream
+    + [ctypes.c_float, ctypes.c_float, _P,     # scale, eps, stream,
+       ctypes.c_int])}                         # card
 _LN = ("attn_ln_scale", "attn_ln_bias", "ffn_ln_scale", "ffn_ln_bias")
 
 # the GEMMs' tiles and plan, as csrc/encoder_layer.cu has them

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "sema_encoder_layer_int8": (
         [_P] * 29              # x, 16 params, mask, 5 outs, 6 scratch
         + [_I] * 6             # B, S, H, I, heads, dtype
-        + [_F, _F, _P]),       # scale, eps, stream
-    "sema_qmm": [_P] * 6 + [_I] * 4 + [_P],
+        + [_F, _F, _P, _I]),   # scale, eps, stream, card
+    "sema_qmm": [_P] * 6 + [_I] * 4 + [_P, _I],
 }
 LINEARS = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
 

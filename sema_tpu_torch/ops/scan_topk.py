@@ -57,6 +57,16 @@ queues flushed by rank (``csrc/scan_topk.cu:scan_pass1_merged``); their
 query block, score buffers and slab follow :func:`merge_layout`, and
 :func:`pass1_merge_reference` is the plain model of that merge, down to
 the counters the kernel can report (survivors queued, flushes).
+A call on the card (:func:`_launch`) makes one device allocation, cut
+into the returned scores and ids, pass 1's candidates, a pruned scan's
+tile ids and an int8 scan's quantized queries (:func:`workspace_layout`);
+the entry point stages the tile list through a pinned buffer of the
+card's, raises each kernel's shared-memory limit once a card, and
+refuses a card that is not the current one. At one query the bf16/f16
+route takes one launch where the chunk lists fit pass 1's shared memory
+(:func:`one_launch`, :func:`one_launch_fits`): the last block of pass 1
+to finish merges them as pass 2 would, and f32 queries are rounded to
+the store dtype as pass 1 stages them, with no cast launch before it.
 The int8 scores and ids equal the plain version's bit for bit: an i32 sum
 of d <= 1040 products of int8 values is exact in any order and converts
 to f32 without loss. K8 and K9 compute K1's function: on the card their
@@ -67,6 +77,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -82,24 +93,27 @@ _SM_SMEM = 233_472      # shared memory of one SM, of which the runtime
 _SMEM_RESERVED = 1_024  # keeps this much for each block
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2,
                 torch.int8: 3}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"sema_scan_topk": [
-    _P, _P, _P,            # store, queries, int8 queries (scratch)
-    _P, _P, _P,            # valid, row scales, tile ids
-    _I, _I, _I, _I, _I,    # tile_n, n, d, nq, k
+    _P, _P, _I,            # store, queries, queries in f32
+    _P, _P,                # valid, row scales
+    _P, _I, _I,            # tile ids (a host array), live tiles, tile_n
+    _I, _I, _I, _I,        # n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
-    _I, _I, _I,            # slab, chunks, pass-2 warps, score buffers,
-                           # pass 1's shared memory
-    _P, _P, _P, _P,        # candidates, query scales, warm thresholds
-    _P, _P, _P, _P],       # outputs, merge counters, stream
+                           # slab, chunks
+    _I, _I, _I, _I,        # pass-2 warps, score buffers, pass 1's shared
+                           # memory, one launch
+    _P, _L, _P, _P,        # workspace, its bytes, warm thresholds, merge
+                           # counters
+    _P, _I],               # stream, card
     "sema_fold_topk": [
     _P, _P,                # store, queries
     _I, _I, _I, _I,        # n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
     _I, _I,                # slab, chunks, pass-2 warps, pass 1's shared
                            # memory
-    _P, _P, _P, _P,        # candidates, outputs
-    _P, _P]}               # span counters, stream
+    _P, _L, _P,            # workspace, its bytes, span counters
+    _P, _I]}               # stream, card
 _FOLD_SPAN = 256        # rows each K9 merge takes (csrc/scan_topk.cu)
 _RANKED_SLOTS = 1_024   # the int8 route's merge_ranked slots: 8 warps x 32 words
 _PASS2_MAX_WARPS = 32   # warps of a pass-2 block
@@ -108,6 +122,10 @@ _PASS2_SLOTS = 4_096    # warps x k of a pass-2 block: three lists each, 96 KB
 _MERGED_BLOCKS = (64, 32, 16, 8)   # the query blocks its kernel takes
 _QUEUE = 32             # survivors a query's queue holds (kQueue)
 _SCORE_STRIDE = _TILE_ROWS + 4     # a query's scores, floats apart
+# the one-launch route (pass 2's merge in pass 1's last block) takes calls
+# of at most this many queries: its merge runs a query at a time in one
+# block, where pass 2 runs a block a query
+_ONE_LAUNCH_MAX_Q = 1
 
 
 def _select(scores: torch.Tensor, k: int):
@@ -628,70 +646,149 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _merged_warps(qb: int) -> int:
+    """The warps of a scan_pass1_merged block of ``qb`` queries
+    (``Merged<QB>::kThreads / 32``): its scorers (4 row groups x qb / 32
+    or qb / 8 query groups), at least 8 warps that copy, and its mergers."""
+    scorers = 4 * (qb // (32 if qb >= 32 else 8))
+    return max(8, scorers) + _mergers(qb)
+
+
+def one_launch(nq: int, itemsize: int, span: int = _TILE_ROWS) -> bool:
+    """Whether a scan of ``nq`` queries over rows of ``itemsize`` bytes
+    may take the one-launch route, pass 2's merge in the last block of
+    pass 1 (``csrc/scan_topk.cu:scan_pass1_merged``): bf16/f16 rows of K1,
+    K3 and K8 at one query. The plan takes it where the merge fits
+    (:func:`one_launch_fits`)."""
+    return _merged(itemsize, span) and nq <= _ONE_LAUNCH_MAX_Q
+
+
+def one_launch_warps(chunks: int, k: int, smem: int, qb: int) -> int:
+    """Warps of the one-launch route's merge: pass 2's rule
+    (:func:`pass2_warps`) within the merging block's warps and its shared
+    memory (three lists of k a warp, 24 k bytes)."""
+    return max(1, min(_merged_warps(qb), chunks, _PASS2_SLOTS // k,
+                      smem // (24 * k)))
+
+
+def one_launch_fits(chunks: int, k: int, smem: int, warps: int) -> bool:
+    """The last block's merge fits pass 1's ``smem`` bytes: its warps'
+    lists (24 k bytes a warp) beside a query's ``chunks`` lists, which it
+    copies in first (8 k bytes a list)."""
+    return 24 * warps * k + chunks * k * 8 <= smem
+
+
+def workspace_layout(nq: int, k: int, chunks: int, n_tiles: int, d: int,
+                     int8: bool) -> dict:
+    """The pieces of a scan call's one device allocation, {name: (byte
+    offset, bytes)}, in ``csrc/scan_topk.cu:carve``'s order, each rounded
+    up to 16 bytes: the (Q, k) scores and ids returned, the (Q, chunks, k)
+    candidates of pass 1, a pruned scan's tile ids (staged from the host),
+    an int8 scan's quantized queries (Q, d) and their scales (Q,);
+    ``"total"`` is (0, the allocation's bytes)."""
+    sizes = (("out_s", nq * k * 4), ("out_i", nq * k * 4),
+             ("cand_s", nq * chunks * k * 4), ("cand_i", nq * chunks * k * 4),
+             ("tiles", n_tiles * 4), ("qbuf", nq * d if int8 else 0),
+             ("qscale", nq * 4 if int8 else 0))
+    out, at = {}, 0
+    for name, nbytes in sizes:
+        out[name] = (at, nbytes)
+        at += _up(nbytes, 16)
+    out["total"] = (0, at)
+    return out
+
+
+class ScanPlan(NamedTuple):
+    """One scan shape's launch: pass 1's query block, rows per chunk, words
+    per slab, chunks, score buffers and shared memory; the merge's warps
+    (pass 2's, or the one-launch route's); whether it is one launch; the
+    workspace's bytes and where the returned ids start in it (f32 words)."""
+    qb: int
+    rows: int
+    words: int
+    chunks: int
+    warps2: int
+    nb: int
+    smem: int
+    one: bool
+    ws_bytes: int
+    out_i: int
+
+
 @functools.lru_cache(maxsize=4096)
-def _plan(n: int, nq: int, d: int, isz: int, k: int, span: int,
-          sms: int) -> tuple:
-    """(query block, rows per chunk, words per slab, chunks, pass-2
-    warps, score buffers, pass 1's shared memory) of one scan shape: a
-    pure function of it, planned once."""
+def _plan(n: int, nq: int, d: int, isz: int, k: int, span: int, sms: int,
+          n_tiles: int = 0) -> ScanPlan:
+    """The :class:`ScanPlan` of one scan shape: a pure function of it,
+    planned once."""
     qb = _query_block(d, isz, k, nq, span)
     smem = pass1_smem_bytes(d, isz, k, nq, span)
     rows, chunks = chunk_plan(n, nq, qb, sms, smem,
                               select_k=k if isz == 1 else 0)
     nb = merge_layout(d, k, nq)[1] if _merged(isz, span) else 1
-    return (qb, rows, slab_words(d, isz, k, nq, span), chunks,
-            pass2_warps(chunks, k), nb, smem)
+    warps2 = one_launch_warps(chunks, k, smem, qb)
+    one = one_launch(nq, isz, span) and one_launch_fits(chunks, k, smem,
+                                                        warps2)
+    if not one:
+        warps2 = pass2_warps(chunks, k)
+    layout = workspace_layout(nq, k, chunks, n_tiles, d, isz == 1)
+    return ScanPlan(qb, rows, slab_words(d, isz, k, nq, span), chunks,
+                    warps2, nb, smem, one, layout["total"][1],
+                    layout["out_i"][0] // 4)
 
 
 def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
             thr0=None, fold=False, stats=None):
-    """Both passes on the current stream; returns (Q, k) scores and ids.
-    ``q`` is in the store dtype, f32 for an int8 store (the kernel
-    quantizes it per row and scales the merged scores by the query's
-    scale); ``thr0`` K8's (Q,) thresholds; ``fold`` K9 (no mask, no
+    """The scan on the current stream of the store's card; returns (Q, k)
+    scores and ids. ``q`` is in the store dtype, or f32: an int8 scan's
+    (the kernel quantizes it per row and scales the merged scores by the
+    query's scale), or a bf16/f16 scan's (pass 1 rounds it to the store
+    dtype as it stages it); ``tiles`` a pruned scan's int32 host array of
+    live tile ids; ``thr0`` K8's (Q,) thresholds; ``fold`` K9 (no mask, no
     tiles). ``stats``, a (2,) int64 tensor or None, gains K9's spans
     merged and those merged on the fast path, or the bf16/f16 route's
     survivors queued and flushes (those of :func:`pass1_merge_reference`
-    on the kernel's scores)."""
+    on the kernel's scores).
+
+    A call makes one device allocation (:func:`workspace_layout`), whose
+    first two pieces it returns; the entry point stages the tile list
+    through a pinned buffer of the card's, sets each kernel's
+    shared-memory limit once per card, and launches pass 1 and pass 2, or
+    pass 1 alone where it merges in its last block (:func:`one_launch`)."""
     lib = _cuda.library("scan_topk", _SIGNATURES)
     q = _cuda.aligned(q)
     dev = store.device
-    d = store.shape[1]
-    nq = q.shape[0]
-    n = store.shape[0] if tiles is None else len(tiles) * tile_n
-    # pinned, so that the copy does not wait for the work already queued
-    tile_dev = (None if tiles is None
-                else torch.from_numpy(tiles).pin_memory().to(
-                    dev, non_blocking=True))
+    nq, d = q.shape
+    n_tiles = 0 if tiles is None else len(tiles)
+    n = store.shape[0] if tiles is None else n_tiles * tile_n
     isz, span = store.element_size(), _FOLD_SPAN if fold else _TILE_ROWS
-    qb, rows, words, chunks, warps2, nb, smem = _plan(
-        n, nq, d, isz, k, span, _sm_count(dev.index or 0))
-    f32, i32 = torch.float32, torch.int32
-    cand_s = torch.empty((nq, chunks, k), dtype=f32, device=dev)
-    cand_i = torch.empty((nq, chunks, k), dtype=i32, device=dev)
-    out_s = torch.empty((nq, k), dtype=f32, device=dev)
-    out_i = torch.empty((nq, k), dtype=i32, device=dev)
-    qbuf = qscale = None
-    if isz == 1:
-        qbuf = torch.empty((nq, d), dtype=torch.int8, device=dev)
-        qscale = torch.empty((nq,), dtype=f32, device=dev)
+    p = _plan(n, nq, d, isz, k, span, _sm_count(dev.index), n_tiles)
+    ws = torch.empty(p.ws_bytes // 4, dtype=torch.float32, device=dev)
+    plan = (_DTYPE_CODES[store.dtype], p.qb, p.rows, p.words, p.chunks,
+            p.warps2)
     ptr = lambda t: None if t is None else t.data_ptr()
-    plan = (_DTYPE_CODES[store.dtype], qb, rows, words, chunks, warps2)
-    cand = (cand_s.data_ptr(), cand_i.data_ptr())
     if fold:
         err = _cuda.launch(
             lib.sema_fold_topk, dev, store.data_ptr(), q.data_ptr(),
-            n, d, nq, k, *plan, smem, *cand, out_s.data_ptr(),
-            out_i.data_ptr(), ptr(stats))
+            n, d, nq, k, *plan, p.smem, ws.data_ptr(), p.ws_bytes,
+            ptr(stats))
     else:
         err = _cuda.launch(
-            lib.sema_scan_topk, dev,
-            store.data_ptr(), q.data_ptr(), ptr(qbuf), ptr(valid),
-            ptr(row_scale), ptr(tile_dev), tile_n, n, d, nq, k, *plan, nb,
-            smem, *cand, ptr(qscale), ptr(thr0), out_s.data_ptr(),
-            out_i.data_ptr(), ptr(stats))
+            lib.sema_scan_topk, dev, store.data_ptr(), q.data_ptr(),
+            q.dtype != store.dtype, ptr(valid), ptr(row_scale),
+            None if tiles is None else tiles.ctypes.data, n_tiles, tile_n,
+            n, d, nq, k, *plan, p.nb, p.smem, p.one, ws.data_ptr(),
+            p.ws_bytes, ptr(thr0), ptr(stats))
     _cuda.check(lib, err, "fold_topk" if fold else "scan_topk")
-    return out_s, out_i
+    return (ws[:nq * k].view(nq, k),
+            ws[p.out_i:p.out_i + nq * k].view(torch.int32).view(nq, k))
+
+
+def _query(queries: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
+    """The queries a bf16/f16/f32 scan takes: f32 as they are (a 16-bit
+    store's pass 1 rounds them as it stages them, where a cast would launch
+    a kernel of its own), any other dtype cast to the store's."""
+    return queries if queries.dtype == torch.float32 else queries.to(
+        store.dtype)
 
 
 def scan_topk(store: torch.Tensor, queries: torch.Tensor,
@@ -706,8 +803,7 @@ def scan_topk(store: torch.Tensor, queries: torch.Tensor,
     if store.device.type == "cpu":
         return scan_topk_reference(store, queries, valid, k, masked=masked)
     _check(store, queries, valid, k, masked)
-    out = _launch(store, queries.to(store.dtype), valid if masked else None,
-                  k)
+    out = _launch(store, _query(queries, store), valid if masked else None, k)
     scan_topk.launches += 1
     return out
 
@@ -726,7 +822,7 @@ def scan_topk_warm(store: torch.Tensor, queries: torch.Tensor,
         return scan_topk_warm_reference(store, queries, valid, k, w,
                                         masked=masked)
     _check(store, queries, valid, k, masked)
-    q = queries.to(store.dtype)
+    q = _query(queries, store)
     live = valid if masked else None
     sample = _launch(store[:w], q, None if live is None else live[:w], k)
     out = _launch(store, q, live, k, thr0=warm_threshold(sample[0][:, -1]))
@@ -782,7 +878,7 @@ def scan_topk_pruned(store: torch.Tensor, queries: torch.Tensor,
                                           n_live, k, tile_n)
     _check(store, queries, valid, k, True)
     tiles = _check_tiles(tile_ids, n_live, tile_n, store.shape[0])
-    out = _launch(store, queries.to(store.dtype), valid, k, tiles=tiles,
+    out = _launch(store, _query(queries, store), valid, k, tiles=tiles,
                   tile_n=tile_n)
     scan_topk_pruned.launches += 1
     return out
