@@ -165,19 +165,32 @@ mutant attn_late_scores_truncated encoder_layer.cu \
 mutant attn_mask_dropped_later_tiles encoder_layer.cu \
   's/const float2 bb = \*reinterpret_cast<const float2\*>(bias_j + t \* 8);/const float2 bb = j > 0 ? make_float2(0.f, 0.f) : *reinterpret_cast<const float2*>(bias_j + t * 8);/' \
   attention
-# K6's wgmma GEMM: the consumers wait on the full barrier with the wrong
-# phase parity, so a slab is read before (or long after) its bytes land
+# the wgmma GEMM (K6's qkv GEMM; K2's and K5's at index batches): the
+# consumers wait on the full barrier with the wrong phase parity, so a slab
+# is read before (or long after) its bytes land
 mutant wgmma_wrong_parity encoder_layer.cu \
   's|mbar_wait(full + s, ph);  // the slab.s bytes have landed|mbar_wait(full + s, ph ^ 1);|' \
   attention
-# K6's wgmma GEMM: the last slab of K is never loaded nor multiplied
+# the wgmma GEMM's 16-bit route: the last slab of K is never loaded nor
+# multiplied
 mutant wgmma_last_slab_dropped encoder_layer.cu \
-  's|const int nk = (K + kWgBK - 1) / kWgBK;  // slabs of K|const int nk = (K + kWgBK - 1) / kWgBK - 1;|' \
+  's|const int nk = (K + SLAB - 1) / SLAB;  // slabs of K|const int nk = (K + SLAB - 1) / SLAB - (S8 ? 0 : 1);|' \
   attention
-# K6's wgmma GEMM: the epilogue drops the bias
+# the wgmma GEMM's int8 route (K5 at index batches): the last slab of K is
+# never loaded nor multiplied
+mutant wgmma_s8_last_slab_dropped encoder_layer.cu \
+  's|const int nk = (K + SLAB - 1) / SLAB;  // slabs of K|const int nk = (K + SLAB - 1) / SLAB - (S8 ? 1 : 0);|' \
+  encoder_layer_int8
+# the wgmma GEMM: EPI_BIAS's epilogue drops the bias
 mutant wgmma_no_bias encoder_layer.cu \
-  's/Ty<DT>::pack(acc\[4 \* j + 2 \* h\] + bb.x, acc\[4 \* j + 2 \* h + 1\] + bb.y);/Ty<DT>::pack(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);/' \
+  's/ : x0 + bb.x;/ : x0;/; s/ : x1 + bb.y;/ : x1;/' \
   attention
+# the wgmma GEMM: EPI_GELU adds the bias before the product's rounding (in
+# bf16 round(v + b), not round(round(v) + b)): an ulp here and there, which
+# only the bits against the parent see
+mutant wgmma_bias_before_rounding encoder_layer.cu \
+  's/gelu(biased<DT>(x0, bb.x, false))/gelu(round_dt<DT>(x0 + bb.x))/; s/gelu(biased<DT>(x1, bb.y, false))/gelu(round_dt<DT>(x1 + bb.y))/' \
+  "layer_bits --parent-source ../parent"
 # K2, f32: the padding mask is dropped
 mutant f32_mask_dropped encoder_layer.cu \
   's/__fadd_rn(__fmul_rn(s\[i\]\[j\], scale), bj)/__fmul_rn(s[i][j], scale)/' \
@@ -190,8 +203,10 @@ mutant f32_kv_next_tile encoder_layer.cu \
 mutant f32_kv_next_tile_k67 encoder_layer.cu \
   's/const int k0 = t \* kF32Keys;/const int k0 = (t + 1) * kF32Keys;/' \
   attention
-# K2, f16: the products read the f16 operands as bf16
-mutant f16_as_bf16 encoder_layer.cu 's/f32.f16.f16.f32/f32.bf16.bf16.f32/' \
+# K2, f16: the products read the f16 operands as bf16 (mma.sync at one
+# query, wgmma at an index batch)
+mutant f16_as_bf16 encoder_layer.cu \
+  's/f32.f16.f16.f32/f32.bf16.bf16.f32/; s/k16.f32.f16.f16 {/k16.f32.bf16.bf16 {/' \
   encoder_layer
 # K2, head dim 64 at rows of 32 keys (gte-large's shortest bucket only):
 # half of each head's context is never written
@@ -297,23 +312,32 @@ mutant scan_staging_reused_early scan_topk.cu \
 mutant merge_plan_block_not_taken ops/scan_topk.py \
   's/^_MERGED_BLOCKS = (64, 32, 16, 8)/_MERGED_BLOCKS = (128, 64, 32, 16, 8)/' \
   scan_topk
-# K2 and K5, the LayerNorm GEMMs: no cluster barrier before the LayerNorm,
-# so a block may read a peer's slice before the peer has written it
+# K2 and K5, the ring's LayerNorm GEMMs (one query): no cluster barrier
+# before the LayerNorm, so a block may read a peer's slice before the peer
+# has written it
 mutant ln_no_cluster_barrier encoder_layer.cu \
   's|  cluster.sync();  // every slice of the cluster is written||' encoder_layer
 mutant ln_no_cluster_barrier_int8 encoder_layer.cu \
   's|  cluster.sync();  // every slice of the cluster is written||' \
   encoder_layer_int8
-# K2 and K5: each block reads its own slice of a row c times over, not its
-# peers' slices in column order
+# the wgmma route's LayerNorm GEMMs (index batches): no cluster barrier
+# between the slices' writes and the rows' reads
+mutant wgmma_ln_no_cluster_barrier encoder_layer.cu \
+  's|      cluster.sync();  // every block.s slice of the row tile is written||' \
+  encoder_layer
+mutant wgmma_ln_no_cluster_barrier_int8 encoder_layer.cu \
+  's|      cluster.sync();  // every block.s slice of the row tile is written||' \
+  encoder_layer_int8
+# K2 and K5 (both routes): each block reads its own slice of a row c times
+# over, not its peers' slices in column order
 mutant ln_own_slice encoder_layer.cu \
-  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/' \
+  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/; s/cluster.map_shared_rank(slice, col \/ sw)/cluster.map_shared_rank(slice, rank)/' \
   encoder_layer
 mutant ln_own_slice_int8 encoder_layer.cu \
-  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/' \
+  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/; s/cluster.map_shared_rank(slice, col \/ sw)/cluster.map_shared_rank(slice, rank)/' \
   encoder_layer_int8
-# K2 and K5 (and K6's and qmm's GEMMs): the ring waits one stage short, so
-# a slab is read before its copies land
+# K2 and K5 (and K6's and qmm's GEMMs): the ring GEMM (one query) waits
+# one stage short, so a slab is read before its copies land
 mutant ring_wait_short encoder_layer.cu \
   's/cp_async_wait<STAGES - 2>();/cp_async_wait<STAGES - 1>();/g' encoder_layer
 mutant ring_wait_short_int8 encoder_layer.cu \

@@ -4,7 +4,8 @@ Replaces the TPU kernel ``sema_tpu/ops/fused_attention.py:
 fused_encoder_layer`` (``_encoder_layer_kernel``). On a CUDA tensor
 :func:`fused_encoder_layer` launches the Hopper kernels of
 ``csrc/encoder_layer.cu`` (five launches on the current stream: qkv GEMM,
-attention, out-proj GEMM + LN1, FFN-in GEMM + GELU, FFN-out GEMM + LN2);
+attention, out-proj GEMM + LN1, FFN-in GEMM + GELU, FFN-out GEMM + LN2,
+each GEMM on the route its plan gives it);
 on a CPU tensor it runs :func:`encoder_layer_reference`, the plain
 PyTorch version. There is no other path.
 
@@ -26,12 +27,17 @@ up to 1,024 (:func:`ln_gemm_plan`) and any S >= 1; the wrapper raises
 layer (K5) is ``ops/encoder_layer_int8.py``, on the same rounding sequence
 (:func:`layer_with_products`).
 
-The LayerNorm GEMMs (out-proj + LN1, FFN-out + LN2) of K2 and K5 run as
-thread-block clusters: c = H / 128 blocks share each row block, one
-128-column slice each, and normalise whole rows through distributed
-shared memory. :func:`ln_gemm_plan` mirrors the launch (cluster size,
+Each of the four GEMMs of K2 (bf16, f16) and K5 takes one of two routes
+by its shape alone (:func:`gemm_route`, :func:`layer_gemm_plans`; the
+kernel's own is ``sema_layer_plan``): at an index batch the wgmma GEMM
+fed by TMA, whose LayerNorm GEMMs run as clusters of c = H / 256 (or H /
+128) column tiles of 128 rows that normalise whole rows through
+distributed shared memory; at one query the ring GEMM, whose LayerNorm
+GEMMs run as clusters of c = H / 128 blocks, one 128-column slice each.
+:func:`ln_gemm_plan` mirrors the ring's LayerNorm launch (cluster size,
 rows a block, blocks, shared memory, slabs of K), as ``scan_topk.py:
-chunk_plan`` mirrors K1's; the kernel's own plan is ``sema_gemm_plan``.
+chunk_plan`` mirrors K1's; the kernel's own is ``sema_gemm_plan``. K2's
+f32 GEMMs stay SIMT: TF32 would break the f32 tolerance.
 """
 
 from __future__ import annotations
@@ -113,12 +119,131 @@ def ln_gemm_plan(m: int, h: int, k: int,
                       max(ring, ln_bytes), -(-k // slab))
 
 
-# K6's qkv GEMM on wgmma (``gemm_wgmma_kernel``), as csrc/encoder_layer.cu
-# has it
-WG_BM, WG_BK = 128, 64              # a tile's rows; K of a slab
-WG_MIN_TILES = 128                  # tiles from which K6's plan takes wgmma
+# the wgmma GEMM (``gemm_wgmma_kernel``) and its plan (``gemm_route``), as
+# csrc/encoder_layer.cu has them
+WG_BM, WG_BK = 128, 64              # a tile's rows; K of a bf16/f16 slab
+WG_MIN_TILES = 128                  # tiles from which the plan takes wgmma
 WG_CLUSTER = 2                      # row tiles of a cluster, sharing W's slabs
+WG_PIECE = 32                       # rows of A's box a LayerNorm block loads
+WG_RESERVE = 1024 + 128             # the swizzle's alignment; the barriers
 SMEM_MAX = 232_448                  # dynamic shared memory a block may use
+GEMMS = ("qkv", "out-proj + LN1", "FFN up", "FFN down + LN2")
+ROUTES = ("ring", "wgmma", "simt")  # by the source's route codes
+
+
+class GemmRoute(NamedTuple):
+    """How one GEMM launches: ``route`` "wgmma" (the TMA and wgmma
+    kernel), "ring" (the cp.async ring GEMM) or "simt" (K2's f32 GEMMs),
+    tiles of ``bm`` x ``bn`` (the ring's LayerNorm slice), clusters of
+    ``cluster`` blocks (0: the ring refuses the shape), a ring of
+    ``stages`` slabs of K, ``tiles`` tiles on ``grid`` blocks, each with
+    ``smem`` bytes of dynamic shared memory."""
+    route: str
+    bm: int
+    bn: int
+    cluster: int
+    stages: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def wg_stage_bytes(bn: int) -> int:
+    """A wgmma stage: a slab's 128 bytes of K of each of A's 128 rows and
+    W's ``bn`` columns (64 bf16/f16 values, or 128 int8)."""
+    return (WG_BM + bn) * 128
+
+
+def wg_stages(bn: int, staging: Optional[int] = None) -> int:
+    """The TMA stages of a wgmma GEMM block of tiles ``bn`` wide: as many
+    as fit, beside ``staging`` bytes (default: a 16-bit output tile's, 128
+    x bn x 2), in the 227 KB a block may use: 3 at bn 256 and 6 at bn 128
+    beside a 16-bit tile, 4 and 7 beside none (EPI_LN, f32 outputs)."""
+    staging = WG_BM * bn * 2 if staging is None else staging
+    return (SMEM_MAX - WG_RESERVE - staging) // wg_stage_bytes(bn)
+
+
+def wg_smem(bn: int, staging: int) -> int:
+    return wg_stages(bn, staging) * wg_stage_bytes(bn) + staging + WG_RESERVE
+
+
+def wg_ln_bytes(bn: int) -> int:
+    """What a LayerNorm tile takes of the ring's memory once its products
+    are done: its f32 slice, 128 rows of bn + 8 (the rows themselves go
+    through registers)."""
+    return WG_BM * (bn + 8) * 4
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_route(m: int, n: int, k: int, ln: bool, quantized: bool,
+               out_bytes: int, clusters: int) -> GemmRoute:
+    """One GEMM of the layer kernels, (m, k) @ (k, n) (the LayerNorm
+    GEMM's epilogue if ``ln``; K5's int8 GEMM if ``quantized``; outputs of
+    ``out_bytes`` bytes) on a card that holds ``clusters`` clusters of the
+    persistent wgmma kernel at once. The shape alone decides:
+    - the wgmma kernel where its tiles of 128 rows number WG_MIN_TILES or
+      more (one an SM) and TMA can stride the rows (n a multiple of 8, k
+      of 8, of 16 in int8): without ``ln`` tiles 128 or 256 wide,
+      whichever pads n less (256 on a tie; int8 always 128, where its
+      epilogue does not spill), counted in whole clusters of
+      WG_CLUSTER row tiles, on a persistent grid of min(cluster tiles,
+      ``clusters``) clusters; with ``ln`` a cluster of n / bn column tiles
+      (bn 256 where it divides n, else 128; n at most 1,024, as the
+      ring's) a row tile, every tile on the grid, where the slice and the
+      rows fit the ring's memory (:func:`wg_ln_bytes`);
+    - else the ring GEMM of :func:`ln_gemm_plan` (one query);
+    - K2's f32 GEMMs (``out_bytes`` 4, not ``quantized``) stay SIMT."""
+    if not quantized and out_bytes == 4:
+        return GemmRoute("simt", 0, 0, 0, 0, 0, 0, 0)
+    strides = n % 8 == 0 and k % (16 if quantized else 8) == 0
+    if ln:
+        bn = 256 if n % 256 == 0 else 128
+        c, row_tiles = n // bn, -(-m // WG_BM)
+        if (strides and n % bn == 0 and n <= LN_SLICE * MAX_CLUSTER
+                and row_tiles * c >= WG_MIN_TILES
+                and wg_ln_bytes(bn) <= wg_stages(bn, 0)
+                * wg_stage_bytes(bn)):
+            return GemmRoute("wgmma", WG_BM, bn, c, wg_stages(bn, 0),
+                             row_tiles * c, row_tiles * c, wg_smem(bn, 0))
+    else:
+        bn = (128 if quantized or -(-n // 128) * 128 < -(-n // 256) * 256
+              else 256)
+        cluster_tiles = -(-m // (WG_CLUSTER * WG_BM)) * -(-n // bn)
+        if (strides and clusters > 0
+                and cluster_tiles * WG_CLUSTER >= WG_MIN_TILES):
+            staging = WG_BM * bn * 2 if out_bytes == 2 else 0
+            return GemmRoute("wgmma", WG_BM, bn, WG_CLUSTER,
+                             wg_stages(bn, staging),
+                             cluster_tiles * WG_CLUSTER,
+                             min(cluster_tiles, clusters) * WG_CLUSTER,
+                             wg_smem(bn, staging))
+    if ln:
+        plan = ln_gemm_plan(m, n, k, quantized)
+        if plan is None:
+            return GemmRoute("ring", 0, 0, 0, 0, 0, 0, 0)
+        return GemmRoute("ring", plan.bm, plan.slice, plan.cluster,
+                         gemm_stages(plan.bm), plan.blocks, plan.blocks,
+                         plan.smem)
+    cols = -(-n // BN)
+    bm = 64 if -(-m // 64) * cols >= FILL_BLOCKS else 32
+    blocks = -(-m // bm) * cols
+    stage = ((bm + BN) * S8_STRIDE if quantized
+             else (bm * A_STRIDE + BK * B_STRIDE) * 2)
+    return GemmRoute("ring", bm, BN, 1, gemm_stages(bm), blocks, blocks,
+                     gemm_stages(bm) * stage)
+
+
+def layer_gemm_plans(m: int, h: int, inter: int, quantized: bool, dtype,
+                     clusters: int) -> tuple:
+    """The :func:`gemm_route` of each of a layer's four GEMMs (GEMMS: qkv,
+    out-proj + LN1, FFN up, FFN down + LN2) at ``m`` rows of width ``h``
+    and FFN width ``inter`` in compute dtype ``dtype``, K5's if
+    ``quantized``: the kernel's own ``layer_plan``, which
+    ``sema_layer_plan`` exports."""
+    out = 4 if dtype == torch.float32 else 2
+    return tuple(gemm_route(m, n, k, ln, quantized, out, clusters)
+                 for n, k, ln in ((3 * h, h, False), (h, h, True),
+                                  (inter, h, False), (h, inter, True)))
 
 
 class QkvGemmPlan(NamedTuple):
@@ -135,40 +260,15 @@ class QkvGemmPlan(NamedTuple):
     smem: int
 
 
-def wg_stages(bn: int) -> int:
-    """The TMA stages of a wgmma GEMM block of tiles ``bn`` wide: as many
-    as fit, beside the output tile's staging (128 x bn, 16-bit), in the 227
-    KB a block may use: 3 of 48 KB at bn 256, 6 of 32 KB at bn 128."""
-    return ((SMEM_MAX - 1024 - 128 - WG_BM * bn * 2)
-            // ((WG_BM + bn) * WG_BK * 2))
-
-
 @functools.lru_cache(maxsize=256)
 def qkv_gemm_plan(m: int, n: int, k: int, clusters: int) -> QkvGemmPlan:
-    """K6's qkv GEMM, (m, k) @ (k, n), on a card that holds ``clusters``
-    clusters of the wgmma kernel at once: the wgmma kernel where its tiles
-    of 128 x bn, counted in whole clusters of WG_CLUSTER row tiles, number
-    WG_MIN_TILES or more (one an SM) and n and k are multiples of 8 (TMA's
-    row strides), with bn of 128 or 256, whichever pads n less (256 on a
-    tie), on a persistent grid of min(cluster tiles, ``clusters``)
-    clusters; else K2's ring GEMM (``gemm_plan`` in the source): BM 64, or
-    32 where 64 leaves the grid under FILL_BLOCKS blocks. One gte-large
-    query at tp 2 (m = 256, n = 1,536) is 12 tiles: the ring."""
-    bn = 128 if -(-n // 128) * 128 < -(-n // 256) * 256 else 256
-    cluster_tiles = -(-m // (WG_CLUSTER * WG_BM)) * -(-n // bn)
-    if (n % 8 == 0 and k % 8 == 0 and clusters > 0
-            and cluster_tiles * WG_CLUSTER >= WG_MIN_TILES):
-        stages = wg_stages(bn)
-        smem = (stages * (WG_BM + bn) * WG_BK * 2 + WG_BM * bn * 2
-                + 1024 + 128)
-        return QkvGemmPlan("wgmma", WG_BM, bn, stages,
-                           cluster_tiles * WG_CLUSTER,
-                           min(cluster_tiles, clusters) * WG_CLUSTER, smem)
-    cols = -(-n // BN)
-    bm = 64 if -(-m // 64) * cols >= FILL_BLOCKS else 32
-    blocks = -(-m // bm) * cols
-    return QkvGemmPlan("ring", bm, BN, gemm_stages(bm), blocks, blocks,
-                       gemm_stages(bm) * (bm * A_STRIDE + BK * B_STRIDE) * 2)
+    """K6's qkv GEMM, (m, k) @ (k, n) in bf16 or f16, on a card that holds
+    ``clusters`` clusters of the wgmma kernel at once: :func:`gemm_route`
+    of an EPI_BIAS GEMM. One gte-large query at tp 2 (m = 256, n = 1,536)
+    is 12 tiles: the ring."""
+    r = gemm_route(m, n, k, False, False, 2, clusters)
+    return QkvGemmPlan(r.route, r.bm, r.bn, r.stages, r.tiles, r.grid,
+                       r.smem)
 
 
 def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,

@@ -5,6 +5,8 @@ gate, on the same numpy weights and inputs."""
 
 import importlib
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -308,3 +310,129 @@ def test_layer_operands_in_the_entry_points_order():
     with pytest.raises(KernelError, match="operands made for"):
         fused_encoder_layer(x, layer, torch.empty((1, 32), device="meta"), 2,
                             0.17, LN_EPS, operands=ops)
+
+
+# -- the layer's GEMM routes (gemm_route mirrors the kernel's) ----------------
+
+CSRC = Path(layer_mod.__file__).resolve().parents[1] / "csrc"
+# (B, S) of the quarter batches of K2_SHAPES and K5_SHAPES besides the path
+# rows: the longer buckets at a quarter batch
+QUARTER_BATCHES = ((64, 256), (32, 512))
+CLUSTERS = 66                     # an H100's clusters of two at once
+
+
+def source_constants() -> dict:
+    """Every ``constexpr int|size_t NAME = EXPR;`` of
+    csrc/encoder_layer.cu whose EXPR is plain arithmetic, evaluated."""
+    src = (CSRC / "encoder_layer.cu").read_text()
+    out = {}
+    for name, expr in re.findall(
+            r"^constexpr (?:int|size_t) (k\w+|[A-Z_0-9]+) = ([^;]+);", src,
+            re.M):
+        expr = re.sub(r"\b(k\w+|[A-Z][A-Z_0-9]*)\b",
+                      lambda m: str(out.get(m.group(1), m.group(1))), expr)
+        if re.fullmatch(r"[\d\s+*/()-]+", expr):
+            out[name] = eval(expr)        # digits and operators alone
+    return out
+
+
+def test_plan_constants_are_the_sources():
+    """The mirror's tiles, thresholds and shared-memory budget are the
+    source's own, read from csrc/encoder_layer.cu."""
+    c = source_constants()
+    assert (c["kWgBM"], c["kWgBK"], c["kWgMinTiles"], c["kWgCluster"],
+            c["kWgPiece"], c["kWgReserve"]) == (
+        layer_mod.WG_BM, layer_mod.WG_BK, layer_mod.WG_MIN_TILES,
+        layer_mod.WG_CLUSTER, layer_mod.WG_PIECE, layer_mod.WG_RESERVE)
+    assert (c["BN"], c["BK"], c["BK8"], c["kLnSlice"], c["kMaxCluster"],
+            c["kFillBlocks"], c["kGemmThreads"]) == (
+        layer_mod.BN, layer_mod.BK, layer_mod.BK8, LN_SLICE, MAX_CLUSTER,
+        layer_mod.FILL_BLOCKS, layer_mod.GEMM_THREADS)
+    src = (CSRC / "encoder_layer.cu").read_text()
+    assert f"return (int)(({layer_mod.SMEM_MAX} - kWgReserve" in src
+    # the route codes, in ROUTES' order
+    assert "enum Route { kRouteRing = 0, kRouteWgmma = 1, kRouteSimt = 2 };" \
+        in src and layer_mod.ROUTES == ("ring", "wgmma", "simt")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(ENCODERS))
+def test_layer_gemm_plans_at_every_width_and_path_shape(name, dtype):
+    """At every path shape (one query; each index bucket) and the quarter
+    batches, each of K2's four GEMMs takes wgmma from 16,384 rows on and
+    the ring at one query: tiles of 128 rows, whole clusters, a grid of
+    every tile (LayerNorm) or of at most the card's clusters, shared memory
+    a block may take; the LayerNorm route's clusters hold whole rows."""
+    spec = ENCODERS[name]
+    h, inter = spec.hidden_size, spec.intermediate_size
+    rows = _path_rows(spec) + [b * s for b, s in QUARTER_BATCHES]
+    for m in rows:
+        plans = layer_mod.layer_gemm_plans(m, h, inter, False, dtype,
+                                           CLUSTERS)
+        assert len(plans) == len(layer_mod.GEMMS)
+        for g, plan in enumerate(plans):
+            ln = g in (1, 3)
+            assert plan.smem <= H100_BLOCK_SMEM
+            if plan.route == "ring":
+                assert plan.tiles == plan.grid
+                continue
+            assert plan.route == "wgmma" and plan.bm == 128
+            if ln:
+                assert plan.cluster * plan.bn == h <= LN_SLICE * MAX_CLUSTER
+                assert plan.cluster <= MAX_CLUSTER
+                assert plan.grid == plan.tiles == -(-m // 128) * plan.cluster
+                assert layer_mod.wg_ln_bytes(plan.bn) <= (
+                    plan.stages * layer_mod.wg_stage_bytes(plan.bn))
+            else:
+                assert plan.cluster == 2 and plan.bn in (128, 256)
+                assert plan.grid <= 2 * CLUSTERS and plan.grid % 2 == 0
+                assert plan.tiles >= 128
+        routes = {p.route for p in plans}
+        if m >= 16_384 and h >= 128:
+            assert routes == {"wgmma"}, (name, m)
+        if m <= 256:
+            assert routes == {"ring"}, (name, m)
+    if name == "gte-large":        # the LayerNorm tiles 256 wide, 4 a row
+        ln = layer_mod.layer_gemm_plans(65_536, h, inter, False, dtype,
+                                        CLUSTERS)[1]
+        assert (ln.bn, ln.cluster, ln.stages, ln.grid) == (256, 4, 4, 2048)
+
+
+@pytest.mark.parametrize("case,want", [
+    # (m, n, k, ln, quantized, out_bytes, clusters): the route
+    ((65_536, 1152, 384, False, False, 2, 66), "wgmma"),
+    ((65_536, 1152, 380, False, False, 2, 66), "ring"),    # K % 8
+    ((65_536, 1156, 384, False, False, 2, 66), "ring"),    # N % 8
+    ((65_536, 1152, 384, False, True, 2, 66), "wgmma"),
+    ((65_536, 1152, 376, False, True, 2, 66), "ring"),     # int8 K % 16
+    ((65_536, 1152, 384, False, False, 2, 0), "ring"),     # no cluster fits
+    ((65_536, 1152, 384, False, False, 4, 66), "simt"),    # K2 in f32
+    ((65_536, 1152, 384, False, True, 4, 66), "wgmma"),    # K5 in f32
+    ((16_384, 384, 1536, True, False, 2, 66), "wgmma"),
+    ((5_376, 384, 1536, True, False, 2, 66), "ring"),      # 42 x 3 tiles
+    ((65_536, 1280, 1280, True, False, 2, 66), "ring"),    # c 5 > 1,024 wide
+    ((65_536, 640, 640, True, False, 2, 66), "wgmma"),     # c 5 of 128
+    ((65_536, 64, 128, True, False, 2, 66), "ring"),       # narrower than 128
+    ((65_536, 1024, 4096, True, True, 2, 0), "wgmma"),     # a grid of every tile
+    ((256, 1024, 4096, True, True, 2, 66), "ring"),        # one query
+])
+def test_gemm_route_refuses_what_the_source_refuses(case, want):
+    """wgmma only where TMA can stride the rows (N of 8, K of 8, of 16 in
+    int8), the tiles fill the card and, for the LayerNorm GEMM, a cluster
+    of at most 1,024 columns holds the rows; else the ring, which refuses
+    a LayerNorm width it does not take (cluster 0); K2's f32 GEMMs SIMT."""
+    plan = layer_mod.gemm_route(*case)
+    assert plan.route == want
+    if case[:2] == (65_536, 1280):
+        assert plan.cluster == 0       # the ring refuses it too
+        assert layer_mod.ln_gemm_plan(65_536, 1280, 1280, False) is None
+
+
+def test_qkv_gemm_plan_is_the_bias_gemms_route():
+    """K6's qkv GEMM plan is the EPI_BIAS GEMM's route of K2."""
+    for m, n, k in ((65_536, 3072, 1024), (256, 1536, 1024),
+                    (16_384, 576, 384)):
+        r = layer_mod.gemm_route(m, n, k, False, False, 2, CLUSTERS)
+        q = layer_mod.qkv_gemm_plan(m, n, k, CLUSTERS)
+        assert (q.route, q.bm, q.bn, q.stages, q.tiles, q.grid, q.smem) == (
+            r.route, r.bm, r.bn, r.stages, r.tiles, r.grid, r.smem)

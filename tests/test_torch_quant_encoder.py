@@ -371,3 +371,53 @@ def test_int8_layer_operands_in_the_entry_points_order():
         int8_mod.layer_operands(
             {**layer, "ffn_out_w_s": layer["ffn_out_w_s"].to(torch.bfloat16)},
             torch.bfloat16)
+
+
+# -- K5's four int8 GEMMs: the route of each (gemm_route) ---------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("name", sorted(ENCODERS))
+def test_int8_layer_gemm_plans_at_every_width_and_path_shape(name, dtype):
+    """At every path shape and the quarter batches (64, 256) and (32,
+    512), each of K5's four int8 GEMMs takes wgmma from 16,384 rows on (in
+    f32 too: the int8 products stay on the tensor cores) and the ring at
+    one query; int8 slabs of 128 bytes, the f32 outputs with no staging
+    (a stage more at the same tile)."""
+    layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
+    spec = ENCODERS[name]
+    h, inter = spec.hidden_size, spec.intermediate_size
+    for m in _path_rows(spec) + [64 * 256, 32 * 512]:
+        plans = layer_mod.layer_gemm_plans(m, h, inter, True, dtype, 66)
+        bf16 = layer_mod.layer_gemm_plans(m, h, inter, True, torch.bfloat16,
+                                          66)
+        routes = {p.route for p in plans}
+        assert routes <= {"wgmma", "ring"}
+        if m >= 16_384 and h >= LN_SLICE:
+            assert routes == {"wgmma"}, (name, m)
+        if m <= 256:
+            assert routes == {"ring"}, (name, m)
+        for g, (plan, ref) in enumerate(zip(plans, bf16)):
+            assert plan.smem <= H100_BLOCK_SMEM
+            assert (plan.route, plan.bn, plan.tiles) == (
+                ref.route, ref.bn, ref.tiles)
+            if plan.route == "wgmma" and g in (0, 2):   # int8: 128 wide
+                assert plan.bn == 128
+                # no output staging in f32: a stage more
+                assert plan.stages == ref.stages + (dtype == torch.float32)
+            elif plan.route == "ring" and g in (1, 3):
+                want = ln_gemm_plan(m, h, inter if g == 3 else h,
+                                    quantized=True)
+                assert (plan.bm, plan.cluster, plan.grid, plan.smem) == (
+                    want.bm, want.cluster, want.blocks, want.smem)
+
+
+@pytest.mark.parametrize("k", [64, 96, 120, 128, 384])
+def test_int8_gemm_route_strides(k):
+    """wgmma's int8 rows need K a multiple of 16 (TMA's 16-byte strides);
+    a 16-bit GEMM's a multiple of 8."""
+    layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
+    s8 = layer_mod.gemm_route(65_536, 1152, k, False, True, 2, 66)
+    f16 = layer_mod.gemm_route(65_536, 1152, k, False, False, 2, 66)
+    assert s8.route == ("wgmma" if k % 16 == 0 else "ring")
+    assert f16.route == ("wgmma" if k % 8 == 0 else "ring")
