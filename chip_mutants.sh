@@ -203,6 +203,21 @@ mutant f32_kv_next_tile encoder_layer.cu \
 mutant f32_kv_next_tile_k67 encoder_layer.cu \
   's/const int k0 = t \* kF32Keys;/const int k0 = (t + 1) * kF32Keys;/' \
   attention
+# the f32 SIMT GEMM (K2's f32 route, K6's f32 qkv product): the last slab
+# of K is never loaded nor multiplied
+mutant simt_last_slab_dropped encoder_layer.cu \
+  's|const int nk = K / kSimtBK;  // slabs of K|const int nk = K / kSimtBK - 1;|' \
+  encoder_layer
+# the f32 SIMT GEMM: a ring stage is multiplied while its copies may still
+# be in flight (one group more left outstanding than the ring allows)
+mutant simt_stage_before_landed encoder_layer.cu \
+  's|cp_async_wait<STAGES - 2>();  // this thread.s copies of f32 slab kt|cp_async_wait<STAGES - 1>();  //|' \
+  encoder_layer
+# the f32 SIMT GEMM's LayerNorm clusters: no cluster barrier between the
+# slices' writes and the rows' reads
+mutant simt_ln_no_cluster_barrier encoder_layer.cu \
+  's|    cluster.sync();  // the cluster.s slices of its row tile are all written||' \
+  encoder_layer
 # K2, f16: the products read the f16 operands as bf16 (mma.sync at one
 # query, wgmma at an index batch)
 mutant f16_as_bf16 encoder_layer.cu \

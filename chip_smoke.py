@@ -40,8 +40,11 @@ Phases, one JSON line each:
                       mask dropped, with the context zeroed and with the
                       keys' heads rotated, so the check sees attention.
                       K2 also in f32 (limit: the JAX package's f32
-                      parity bound, 5e-5 + 1e-4 |x|; with the time of its
-                      attention alone, K7 at the layer's shape) and f16 (limits of
+                      parity bound, 5e-5 + 1e-4 |x|) at MiniLM (256, 128),
+                      (2048, 32) and (1, 256), e5-base (256, 128) and
+                      gte-large (256, 256) and (1, 256), its four GEMMs on
+                      the SIMT route on grids of SIMT_FILL blocks or more,
+                      and f16 (limits of
                       its own, tighter than bf16's) at (256, 128), in bf16
                       at S = 384 and 512 (the key-block attention), and at
                       gte-large width (head dim 64, H = 1024) at every
@@ -57,7 +60,7 @@ Phases, one JSON line each:
                       as a 24-layer query reads them); the route of each
                       of the four GEMMs (``layer_gemm_plans``: wgmma at
                       every index batch, M >= 16,384, the ring at one
-                      query) must be the kernel's own
+                      query; f32 the SIMT GEMM) must be the kernel's own
                       (``sema_layer_plan``), and each traced launch its
                       plan's kernel and grid (``gemms``: route, kernel,
                       grid, device ms); the ring's LayerNorm plan
@@ -93,12 +96,11 @@ Phases, one JSON line each:
                       f16 splits its device ms between its two launches
                       (the qkv GEMM, then the attention; torch.profiler)
                       beside ``addmm`` and SDPA alone, and checks the qkv
-                      GEMM's plan (``ops/encoder_layer.py:qkv_gemm_plan``:
+                      GEMM's plan (``ops/encoder_layer.py:gemm_route``:
                       ``wgmma`` at index batches, the ring GEMM at one
-                      query) against the kernel's own (``sema_qkv_plan``)
-                      and its traced grid; in f32 it splits its time
-                      between the SIMT qkv GEMM and the attention (K7
-                      alone at its shape).
+                      query, in f32 the SIMT GEMM) against the kernel's
+                      own (``sema_gemm_route``) and its traced kernel and
+                      grid.
 7. ``scan_int8``      K4a against its plain version: int8 stores of 262,144
                       rows at d = 1024 and 384, Q in {1, 256}, k in
                       {16, 128}, masked rows, a 17-way tie in one tile
@@ -381,7 +383,20 @@ Phases, one JSON line each:
                       kernels its path reaches; their launches add to the
                       kernels line's.
 
-20. ``cards_path``    (only when ``--phases`` names it, alone: with more
+20. ``f32_path``      (right after ``main_path``, on its tree) ``index``
+                      then ``query`` through the CLI at ``[model] dtype =
+                      "float32"`` over an f32 store (MiniLM-L6 at full
+                      width): K2's f32 route and K1's f32 route. The index
+                      must launch K2 once a layer a batch and nothing
+                      else, the query K2 once a layer and K1 once; the
+                      stored rows and the query vector against the plain
+                      encoder on the card (cosine >= 0.99999), the hits
+                      (ids, files, lines) against the same query with the
+                      plain versions (near-ties within twice the query
+                      vectors' distance may swap), K1 against its plain
+                      version. Prints chunks/s, the ``embed`` stage, the
+                      p50 of 20 warm queries and their busy share.
+21. ``cards_path``    (only when ``--phases`` names it, alone: with more
                       than one card visible every other phase refuses to
                       run, and on one card it raises unless
                       ``--rehearse`` repeats card 0 CARDS times) the
@@ -1664,11 +1679,16 @@ K2_SHAPES = (("minilm-l6", BF16, 2048, 32), ("minilm-l6", BF16, 1024, 64),
              ("minilm-l6", BF16, 512, 128), ("minilm-l6", BF16, 256, 256),
              ("minilm-l6", BF16, 1, 256), ("e5-base", BF16, 256, 128),
              ("minilm-l6", torch.float32, 256, 128),
+             ("minilm-l6", torch.float32, 1, 256),
+             ("minilm-l6", torch.float32, 2048, 32),
              ("minilm-l6", torch.float16, 256, 128),
              ("minilm-l6", BF16, 64, 384), ("minilm-l6", BF16, 32, 512),
+             ("e5-base", torch.float32, 256, 128),
              ("gte-large", BF16, 2048, 32), ("gte-large", BF16, 1024, 64),
              ("gte-large", BF16, 512, 128), ("gte-large", BF16, 256, 256),
-             ("gte-large", BF16, 64, 256), ("gte-large", BF16, 1, 256))
+             ("gte-large", BF16, 64, 256), ("gte-large", BF16, 1, 256),
+             ("gte-large", torch.float32, 256, 256),
+             ("gte-large", torch.float32, 1, 256))
 COS_MIN = 0.9995               # per output row
 REL_MAX = 2.0 ** -3            # |got - want| / max(|want|, 1)
 COS_MIN_F16, REL_MAX_F16 = 0.99998, 0.015
@@ -1817,13 +1837,15 @@ def layer_plans(spec, m, dtype, quantized) -> list:
     """The route of each of the layer's four GEMMs at M = m
     (``layer_gemm_plans``, given the clusters the kernel reports the card
     holds), which must be the kernel's own (``sema_layer_plan``), fit a
-    block's shared memory and, on wgmma's LayerNorm route, fit the card
-    as clusters; at M >= WGMMA_ROWS every GEMM must take wgmma and at one
-    query (m = 256) the ring, except K2's f32 SIMT GEMMs."""
+    block's shared memory and, on wgmma's and the f32 SIMT route's
+    LayerNorm GEMMs, fit the card as clusters; at M >= WGMMA_ROWS every
+    GEMM must take wgmma and at one query (m = 256) the ring, except K2's
+    f32 GEMMs, which take the SIMT route on a grid of SIMT_FILL blocks or
+    more (one query too)."""
     from sema_tpu_torch.ops import _cuda
     from sema_tpu_torch.ops.attention import DTYPE_CODES
-    from sema_tpu_torch.ops.encoder_layer import (GEMMS, ROUTES, SMEM_MAX,
-                                                  layer_gemm_plans)
+    from sema_tpu_torch.ops.encoder_layer import (GEMMS, ROUTES, SIMT_FILL,
+                                                  SMEM_MAX, layer_gemm_plans)
     lib = _cuda.library("encoder_layer", {"sema_layer_plan": [ctypes.c_int] * 5
                                           + [ctypes.POINTER(ctypes.c_int)]})
     h, inter = spec.hidden_size, spec.intermediate_size
@@ -1842,12 +1864,14 @@ def layer_plans(spec, m, dtype, quantized) -> list:
         entry = {"gemm": name, **plan._asdict(), "clusters_at_once": got[32]}
         if g in (1, 3):
             entry["ln_clusters_at_once"] = got[33 + g // 2]
-            check(plan.route != "wgmma" or got[33 + g // 2] >= 1,
+            check(plan.route == "ring" or got[33 + g // 2] >= 1,
                   f"{what} {name}: no cluster of {plan} fits the card")
         plans.append(entry)
     routes = {p["route"] for p in plans}
     if not quantized and dtype == F32:
-        check(routes == {"simt"}, f"{what}: routes {routes}")
+        check(routes == {"simt"}
+              and all(p["grid"] >= SIMT_FILL for p in plans),
+              f"{what}: routes {routes}, grids {[p['grid'] for p in plans]}")
     elif m >= WGMMA_ROWS:
         check(routes == {"wgmma"}, f"{what}: routes {routes}, not wgmma")
     elif m <= 256:
@@ -1857,10 +1881,11 @@ def layer_plans(spec, m, dtype, quantized) -> list:
 
 def check_gemm_launches(launches, positions, plans, what) -> list:
     """Each GEMM's launch (at ``positions`` of the layer's launches) ran
-    its plan: the wgmma kernel exactly where the plan says wgmma, on the
-    plan's grid of blocks, in clusters of the plan's blocks along the
-    grid's columns (the LayerNorm GEMMs, and the wgmma route's clusters
-    of row tiles). Returns each GEMM's route, kernel, grid and device ms.
+    its plan: the wgmma kernel exactly where the plan says wgmma, the f32
+    SIMT GEMM exactly where it says simt, on the plan's grid of blocks, in
+    clusters of the plan's blocks along the grid's columns (the LayerNorm
+    GEMMs, and the wgmma route's clusters of row tiles). Returns each
+    GEMM's route, kernel, grid and device ms.
     Where the profiler gave no trace (``launch_profile``'s error), the
     plans stand checked against the kernel's own alone."""
     if "error" in launches[0]:
@@ -1872,6 +1897,7 @@ def check_gemm_launches(launches, positions, plans, what) -> list:
         ln = plan["gemm"].endswith("LN1") or plan["gemm"].endswith("LN2")
         check(grid is not None
               and ("wgmma" in str(launch["kernel"])) == (plan["route"] == "wgmma")
+              and ("simt" in str(launch["kernel"])) == (plan["route"] == "simt")
               and grid[0] * grid[1] == plan["grid"]
               and (grid[1] == plan["cluster"]
                    or not (ln or plan["route"] == "wgmma")),
@@ -1927,15 +1953,12 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
     share = layer_launches(fused_encoder_layer, args,
                            lambda lay: layer_operands(lay, dtype),
                            [n for n, _, _ in linears(spec)], 5, iters)
-    if dtype != F32:       # the f32 route's GEMMs are SIMT, one per row
+    if dtype != F32:       # the ring's LayerNorm plan; f32 has its own
         share["ln_plans"] = ln_plans(spec, b * s, False)
-        share["gemm_plans"] = layer_plans(spec, b * s, dtype, False)
-        share["gemms"] = check_gemm_launches(
-            share["launches"], (0, 2, 3, 4), share["gemm_plans"],
-            f"K2 {spec.name} {dtype} ({b}, {s})")
-    if dtype == F32:    # the f32 attention's share of the layer: K7 alone
-        share["attention_ms"] = attention_ms(b, s, h, heads, scale, bias,
-                                             gen, iters)
+    share["gemm_plans"] = layer_plans(spec, b * s, dtype, False)
+    share["gemms"] = check_gemm_launches(
+        share["launches"], (0, 2, 3, 4), share["gemm_plans"],
+        f"K2 {spec.name} {dtype} ({b}, {s})")
     return {"model": spec.name, "dtype": str(dtype).removeprefix("torch."),
             "b": b, "s": s, "head_dim": h // heads,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
@@ -1948,15 +1971,6 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
                                   iters),
             "library_ms": library_ms, "bound_ms": ms, "bound_by": bound_by,
             **share}
-
-
-def attention_ms(b, s, h_out, heads, scale, bias, gen, iters) -> float:
-    """Device ms of K7 in f32 on a (b, s, 3 h_out) qkv: the attention that
-    K2's and K6's f32 routes run after their qkv GEMM, at their shape."""
-    from sema_tpu_torch.ops.attention import fused_attention_qkv
-    qkv = 1.5 * torch.randn(b, s, 3 * h_out, generator=gen, device=DEV)
-    return device_ms(lambda: fused_attention_qkv(qkv, bias, heads, scale),
-                     iters)
 
 
 def phase_layer(gen):
@@ -2368,22 +2382,18 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
         library_ms = device_ms(lib, iters)
     kernel_ms = device_ms(lambda: fn(*args), iters)
     split = {}
-    if kind == "block" and dtype != F32:
-        plan = qkv_plan(b * s, 3 * h_out, h)
+    if kind == "block":
+        plan = qkv_plan(b * s, 3 * h_out, h, 4 if dtype == F32 else 2)
         split = {"plan": plan, **block_split(lambda: fn(*args), x, w, qb,
                                              bias, n, scale, iters)}
         grid = split.get("gemm_grid")   # None where the trace missed
+        kernel = str(split.get("gemm_kernel"))
         if grid is not None:
-            check(("wgmma" in str(split["gemm_kernel"]))
-                  == (plan["route"] == "wgmma")
+            check(("wgmma" in kernel) == (plan["route"] == "wgmma")
+                  and ("simt" in kernel) == (plan["route"] == "simt")
                   and grid[0] * grid[1] == plan["grid"],
                   f"K6 {spec.name} tp {tp} ({b}, {s}): the qkv GEMM ran "
-                  f"{split['gemm_kernel']} on grid {grid}, plan {plan}")
-    elif kind == "block":
-        # K6 f32 is the SIMT qkv GEMM, then K7's attention at its shape
-        split["attention_ms"] = attention_ms(b, s, h_out, n, scale, bias,
-                                             gen, iters)
-        split["gemm_ms"] = kernel_ms - split["attention_ms"]
+                  f"{kernel} on grid {grid}, plan {plan}")
     return {"kernel": "K6" if kind == "block" else "K7",
             "model": spec.name, "tp": tp, "h": h, "h_out": h_out,
             "heads": n, "head_dim": h // heads,
@@ -2403,23 +2413,26 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
             "bound_ms": ms, "bound_by": bound_by, **split}
 
 
-def qkv_plan(m, n, k) -> dict:
-    """K6's qkv GEMM plan for (m, k) @ (k, n) on this card
-    (``qkv_gemm_plan`` of the clusters the kernel reports the card holds),
-    which must be the kernel's own (``sema_qkv_plan``) and fit a block's
-    shared memory."""
+def qkv_plan(m, n, k, out_bytes) -> dict:
+    """K6's qkv GEMM plan for (m, k) @ (k, n) with outputs of
+    ``out_bytes`` bytes on this card (``gemm_route`` of an EPI_BIAS GEMM,
+    given the clusters the kernel reports the card holds: ``wgmma`` at an
+    index batch and the ring at one query in bf16 and f16, the SIMT GEMM
+    of ``simt_plan`` in f32), which must be the kernel's own
+    (``sema_gemm_route``) and fit a block's shared memory."""
     from sema_tpu_torch.ops import _cuda
-    from sema_tpu_torch.ops.encoder_layer import SMEM_MAX, qkv_gemm_plan
-    lib = _cuda.library("encoder_layer", {"sema_qkv_plan": [ctypes.c_int] * 3
-                                          + [ctypes.POINTER(ctypes.c_int)]})
-    got = (ctypes.c_int * 8)()
-    _cuda.check(lib, lib.sema_qkv_plan(m, n, k, got), "sema_qkv_plan")
-    want = qkv_gemm_plan(m, n, k, got[7])
-    check(tuple(got[:7]) == (int(want.route == "wgmma"), *want[1:])
+    from sema_tpu_torch.ops.encoder_layer import (ROUTES, SMEM_MAX,
+                                                  gemm_route)
+    lib = _cuda.library("encoder_layer", {"sema_gemm_route": [ctypes.c_int]
+                                          * 6 + [ctypes.POINTER(ctypes.c_int)]})
+    got = (ctypes.c_int * 9)()
+    _cuda.check(lib, lib.sema_gemm_route(m, n, k, 0, 0, out_bytes, got),
+                "sema_gemm_route")
+    want = gemm_route(m, n, k, False, False, out_bytes, got[8])
+    check(tuple(got[:8]) == (ROUTES.index(want.route), *want[1:])
           and want.smem <= SMEM_MAX,
-          f"M={m} N={n} K={k}: qkv_gemm_plan {want}, the kernel's "
-          f"{list(got)}")
-    return {**want._asdict(), "clusters_at_once": got[7]}
+          f"M={m} N={n} K={k}: gemm_route {want}, the kernel's {list(got)}")
+    return {**want._asdict(), "clusters_at_once": got[8]}
 
 
 def block_split(run, x, w, qb, bias, heads, scale, iters) -> dict:
@@ -3086,6 +3099,169 @@ def phase_main_path(work: Path, n_files: int, extra=()):
          bucket_batches={str(s): n for s, n in sorted(batches.items())},
          stored_min_cosine=float(cos.min()), hits=len(hits), wide=wide)
     return index_launches, query_launches, k1
+
+
+# -- f32_path: the f32 encoder and store end to end ---------------------------
+
+F32_WARM = 20                  # warm queries of f32_path
+F32_COS_MIN = 0.99999          # an f32 embedding against the plain encoder's
+
+
+def phase_f32_path(work: Path, tree: Path, extra=()) -> dict:
+    """``index`` then ``query`` of ``tree`` (the main path's) through the
+    CLI at ``[model] dtype = "float32"`` (MiniLM-L6 at full width, random
+    weights from seed 0) over an ``store_dtype = "float32"`` store, in a
+    home and data dir of its own: K2's f32 route (the SIMT GEMMs) and K1's
+    f32 route. The launch counts are set to 0 before each step and read
+    after it: the index launches K2 once a layer a batch, the query K2 once
+    a layer and K1 once, and nothing else. The stored rows of a sample
+    and the query vector against the plain encoder on the card (per-row
+    cosine >= F32_COS_MIN); the query's hits (ids, files, lines) equal to
+    those of the same CLI query with the encoder's and the scans' plain
+    versions swapped in, but where two hits' scores lie within twice the
+    query vectors' distance (a near-tie the plain query may order the
+    other way); K1 against its plain version on the store's rows
+    (``check_scan``). Prints chunks/s, the index's stages (``embed``),
+    the p50 of F32_WARM warm queries, their device busy share and the
+    kernels that took it (the SIMT GEMMs must be among them). The
+    environment's home and data dir are restored at the end."""
+    from sema_tpu_torch import cli
+    from sema_tpu_torch.config import ConfigManager
+    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+    from sema_tpu_torch.utils.metrics import Metrics
+    saved = {k: os.environ.get(k) for k in ("SEMA_TPU_HOME", "SEMA_TPU_DATA")}
+    home, data = work / "f32-home", work / "f32-data"
+    os.environ["SEMA_TPU_HOME"], os.environ["SEMA_TPU_DATA"] = (str(home),
+                                                                str(data))
+    try:
+        manager = ConfigManager(home)
+        config = manager.load_config()
+        config.model.dtype, config.index.store_dtype = "float32", "float32"
+        manager.save_config(config)
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_cli(["index", str(tree), "--stats", *extra])
+        index_s = time.perf_counter() - t0
+        index_launches = launch_counts()
+        n_chunks = int(re.search(r"indexed (\d+) chunks", out).group(1))
+        stats = json.loads(out[out.index("{"):])
+
+        argv = ["query", QUERY, "--json", *extra]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_cli(argv)
+        query_cli_s = time.perf_counter() - t0
+        query_launches = launch_counts()
+        hits = [json.loads(line) for line in out.splitlines()]
+        with plain_layers(), plain_scans():
+            plain = [json.loads(line) for line in run_cli(argv).splitlines()]
+
+        args = cli.build_parser().parse_args(["query", QUERY, *extra])
+        metrics = Metrics()
+        mgr = cli.make_index_manager(cli.load_config(args), args.device,
+                                     metrics=metrics)
+        store, enc = mgr.vector_store, mgr.encoder
+        layers = enc.spec.num_layers
+        counts, batches = bucket_batches(
+            enc, [store.chunk_at(i).content for i in range(n_chunks)])
+        want_index = {name: 0 for name in index_launches}
+        want_index["encoder_layer"] = sum(batches.values()) * layers
+        want_query = {name: 0 for name in query_launches}
+        want_query.update(encoder_layer=layers, scan_topk=1)
+        for _ in range(3):
+            mgr.search(QUERY, 50)
+        metrics.stage_samples.clear()
+        lat = []
+        for _ in range(F32_WARM):
+            t0 = time.perf_counter()
+            mgr.search(QUERY, 50)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+        stages_p50_ms = {k: v * 1e3
+                         for k, v in metrics.report()["p50_s"].items()}
+        device = query_device_time(lambda: mgr.search(QUERY, 50), F32_WARM)
+
+        # the query vector and a sample of stored rows against the plain
+        # encoder on the card; K1 on the store's rows against its plain
+        # version on the kernels' query vector
+        qvec = enc.encode_query_device(QUERY)[None, :]
+        with plain_layers():
+            qplain = enc.encode_query_device(QUERY)[None, :]
+            sample = list(range(0, n_chunks, max(1, n_chunks // 16)))[:16]
+            ref = enc.encode_texts([store.chunk_at(i).content
+                                    for i in sample])
+        buckets = store.device_buckets()
+        b = buckets[0]
+        rows = b["store"][sample].float().cpu()
+        row_cos = float(F.cosine_similarity(rows, ref, dim=1).min())
+        q_cos = float(F.cosine_similarity(qvec, qplain, dim=1)[0])
+        q_dist = float((qvec - qplain).norm())
+        masked = not b["all_valid"]
+        k = min(64, b["rows"])
+        got = scan_topk(b["store"], qvec, b["valid"], k, masked)
+        want = scan_topk_reference(b["store"], qvec, b["valid"], k, masked)
+        scan_err = check_scan(b["store"], qvec, b["valid"], masked, got, want)
+        k1 = {"n": b["rows"], "q": 1, "k": k, "masked": masked,
+              "max_abs_err": scan_err}
+        ms, bound_by = bound(b["rows"] * D * 4 + (b["rows"] if masked else 0)
+                             + D * 4 + k * 8, 2.0 * b["rows"] * D,
+                             F32_OPS_PER_S)
+        k1.update(
+            ms=device_ms(lambda: scan_topk(b["store"], qvec, b["valid"], k,
+                                           masked), 50),
+            plain_ms=device_ms(lambda: scan_topk_reference(
+                b["store"], qvec, b["valid"], k, masked), 50),
+            library_ms=device_ms(lambda: torch.topk(qvec @ b["store"].T, k),
+                                 50),
+            bound_ms=ms, bound_by=bound_by)
+        dtypes = (str(enc.compute_dtype), store.store_dtype,
+                  str(b["store"].dtype))
+        mgr.close()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    tol = 2 * q_dist + 1e-6
+    key = lambda h: (h["id"], h["file_path"], h["start_line"], h["end_line"])
+    swapped_near_ties = sum(key(g) != key(w) for g, w in zip(hits, plain))
+    result = {"files": len(list(tree.rglob("*.py"))), "chunks": n_chunks,
+              "dtypes": dtypes, "index_s": index_s,
+              "chunks_per_s": n_chunks / index_s,
+              "index_stages_s": stats["stages_s"],
+              "embed_s": stats["stages_s"].get("embed"),
+              "query_cli_s": query_cli_s,
+              "query_p50_ms": lat[len(lat) // 2], "query_max_ms": lat[-1],
+              "query_stages_p50_ms": stages_p50_ms, "query_device": device,
+              "index_launches": index_launches,
+              "query_launches": query_launches,
+              "stored_min_cosine": row_cos, "query_cosine": q_cos,
+              "query_distance": q_dist, "hits": len(hits),
+              "hits_swapped_within_tol": swapped_near_ties, "tol": tol,
+              "k1": k1}
+    emit("f32_path", **result)
+    check(dtypes == ("torch.float32", "float32", "torch.float32"),
+          f"f32_path: encoder, store and rows in {dtypes}")
+    check(index_launches == want_index, f"f32_path: index launches "
+          f"{index_launches}, want {want_index} (batches {dict(batches)})")
+    check(query_launches == want_query, f"f32_path: query launches "
+          f"{query_launches}, want {want_query}")
+    check(any("gemm_simt" in name for name in device["top_ms"]),
+          f"f32_path: no SIMT GEMM among the query's kernels "
+          f"{list(device['top_ms'])}")
+    check(len(hits) == 50 and all(math.isfinite(h["score"]) for h in hits),
+          f"f32_path: {len(hits)} hits, or a score that is not finite")
+    check(len(plain) == len(hits) and all(
+        key(g) == key(w) or abs(g["score"] - w["score"]) <= tol
+        for g, w in zip(hits, plain)),
+          f"f32_path: the hits differ from the plain versions' beyond the "
+          f"near-ties of {tol}")
+    check(row_cos >= F32_COS_MIN and q_cos >= F32_COS_MIN,
+          f"f32_path: stored rows cosine {row_cos}, query {q_cos} against "
+          "the plain encoder")
+    return result
 
 
 # -- int8 and IVF stores (BASELINE config 4) ----------------------------------
@@ -6643,6 +6819,9 @@ def main() -> int:
         tree = work / "tree"
         if not tree.exists():
             make_tree(tree, 400)
+        if run("f32_path"):
+            f32 = phase_f32_path(work, tree)
+            tick("f32_path")
         if run("tui_path"):     # before append_path rewrites the tree
             tui_runs, monkey = phase_tui_path(work, tree)
             tick("tui_path")
@@ -6713,7 +6892,8 @@ def main() -> int:
               if (c["model"], c["dtype"], c["b"], c["s"])
               == (IVF_MODEL, "bfloat16", 1, 256))
     int8_k, bf16_k = paths["int8"]["kernels"], paths["bfloat16"]["kernels"]
-    runs = [index_launches, query_launches, scan_ab["launches"]] + [
+    runs = [index_launches, query_launches, scan_ab["launches"],
+            f32["index_launches"], f32["query_launches"]] + [
         p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")] + [
         dict(s["launches"]) for s in spill.values()] + [append["launches"]] \
@@ -6759,6 +6939,24 @@ def main() -> int:
               [AB_N, 256, 10], scan_ab["K8"]),
         entry("fold_topk", scan_src, "tools/scan_ab14.py:164",
               [AB_N, 256, 10], scan_ab["K9"])]
+    # the f32 path's routes: K2's f32 layer (its SIMT GEMMs) at MiniLM's
+    # (256, 128) bucket batch and K1 over the f32 store, each with its
+    # launches in f32_path
+    k2_f32 = next(c for c in layer_cases
+                  if (c["model"], c["dtype"], c["b"], c["s"])
+                  == ("minilm-l6", "float32", 256, 128))
+    f32_launches = {name: f32["index_launches"][name]
+                    + f32["query_launches"][name]
+                    for name in ("encoder_layer", "scan_topk")}
+    kernels += [
+        {**entry("encoder_layer", "sema_tpu_torch/csrc/encoder_layer.cu",
+                 "sema_tpu/ops/fused_attention.py:356", [256, 128, D],
+                 k2_f32),
+         "name": "encoder_layer:f32_path",
+         "launches": f32_launches["encoder_layer"]},
+        {**entry("scan_topk", scan_src, "sema_tpu/ops/pallas_topk.py:280",
+                 [f32["k1"]["n"], 1, f32["k1"]["k"]], f32["k1"]),
+         "name": "scan_topk:f32_path", "launches": f32_launches["scan_topk"]}]
     # the spill path's new launch shapes: K1 over a streamed slice, K3 and
     # K4b over a staged probe at tiles of 128 rows, each with its launches
     # at that shape

@@ -37,7 +37,10 @@ GEMMs run as clusters of c = H / 128 blocks, one 128-column slice each.
 :func:`ln_gemm_plan` mirrors the ring's LayerNorm launch (cluster size,
 rows a block, blocks, shared memory, slabs of K), as ``scan_topk.py:
 chunk_plan`` mirrors K1's; the kernel's own is ``sema_gemm_plan``. K2's
-f32 GEMMs stay SIMT: TF32 would break the f32 tolerance.
+(and K6's) f32 GEMMs stay on the FMA units, bit for bit the f32 sums they
+had (TF32 would round the operands): register-tiled SIMT GEMMs fed by a
+cp.async ring, whose tile :func:`simt_plan` picks so that one query fills
+the card, the LayerNorm GEMMs as clusters across the columns.
 """
 
 from __future__ import annotations
@@ -130,10 +133,21 @@ SMEM_MAX = 232_448                  # dynamic shared memory a block may use
 GEMMS = ("qkv", "out-proj + LN1", "FFN up", "FFN down + LN2")
 ROUTES = ("ring", "wgmma", "simt")  # by the source's route codes
 
+# the f32 SIMT GEMM (``gemm_simt_kernel``) and its plan (``simt_plan``), as
+# csrc/encoder_layer.cu has them
+SIMT_BK, SIMT_PAD = 16, 4           # K of an f32 slab; floats after A's rows
+SIMT_FILL = 132                     # blocks a grid should reach: the SMs
+# (BM, BN, TM, TN, the LayerNorm GEMMs' alone): a block's outputs and a
+# thread's, by preference
+SIMT_TILES = ((128, 64, 8, 4, 1), (128, 128, 8, 8, 0), (64, 128, 4, 8, 0),
+              (64, 64, 4, 4, 0), (32, 128, 2, 8, 0), (32, 64, 2, 4, 0),
+              (16, 128, 1, 8, 0), (16, 64, 1, 4, 0), (8, 128, 1, 4, 0),
+              (8, 64, 1, 2, 0))
+
 
 class GemmRoute(NamedTuple):
     """How one GEMM launches: ``route`` "wgmma" (the TMA and wgmma
-    kernel), "ring" (the cp.async ring GEMM) or "simt" (K2's f32 GEMMs),
+    kernel), "ring" (the cp.async ring GEMM) or "simt" (the f32 GEMMs),
     tiles of ``bm`` x ``bn`` (the ring's LayerNorm slice), clusters of
     ``cluster`` blocks (0: the ring refuses the shape), a ring of
     ``stages`` slabs of K, ``tiles`` tiles on ``grid`` blocks, each with
@@ -174,6 +188,43 @@ def wg_ln_bytes(bn: int) -> int:
     return WG_BM * (bn + 8) * 4
 
 
+def simt_stages(bm: int) -> int:
+    """The cp.async stages of an f32 GEMM block of ``bm`` rows."""
+    return 4 if bm >= 64 else 6
+
+
+@functools.lru_cache(maxsize=1024)
+def simt_plan(m: int, n: int, k: int, ln: bool) -> GemmRoute:
+    """The f32 GEMM's launch, (m, k) @ (k, n) (the LayerNorm GEMM's
+    epilogue if ``ln``): the first tile of SIMT_TILES whose grid has
+    SIMT_FILL blocks, else the last the shape takes. With ``ln`` only
+    tiles whose width divides ``n`` in at most MAX_CLUSTER tiles, which
+    are one cluster of whole rows, 128 x 64 first (MiniLM's clusters of 6
+    fill the card in whole waves where 128 x 128's clusters of 3 did
+    not); without, the tiles not marked the LayerNorm GEMMs'. The grid is every tile; shared memory
+    the ring of slabs, which the LayerNorm's f32 slice (bm rows of bn + 8)
+    and one row of ``n`` a warp take over. Cluster 0 where the kernel does
+    not take the shape (k a multiple of SIMT_BK, n of 4). One MiniLM query
+    (m = 256): the qkv GEMM on 144 blocks of 32 x 64, the LayerNorm GEMMs
+    on 192 of 8 x 64 in clusters of 6; an index batch: tiles of 128 x
+    128, MiniLM's LayerNorm GEMMs 128 x 64."""
+    plan = GemmRoute("simt", 0, 0, 0, 0, 0, 0, 0)
+    if min(m, n, k) <= 0 or k % SIMT_BK or n % 4:
+        return plan
+    for bm, bn, _, _, ln_only in SIMT_TILES:
+        if ln_only > ln or ln and (n % bn or n // bn > MAX_CLUSTER):
+            continue
+        rows, cols = -(-m // bm), -(-n // bn)
+        ring = simt_stages(bm) * (bm * (SIMT_BK + SIMT_PAD)
+                                  + SIMT_BK * bn) * 4
+        slice_bytes = (bm * (bn + 8) + GEMM_THREADS // 32 * n) * 4 if ln else 0
+        plan = GemmRoute("simt", bm, bn, cols if ln else 1, simt_stages(bm),
+                         rows * cols, rows * cols, max(ring, slice_bytes))
+        if rows * cols >= SIMT_FILL:
+            break
+    return plan
+
+
 @functools.lru_cache(maxsize=1024)
 def gemm_route(m: int, n: int, k: int, ln: bool, quantized: bool,
                out_bytes: int, clusters: int) -> GemmRoute:
@@ -192,9 +243,10 @@ def gemm_route(m: int, n: int, k: int, ln: bool, quantized: bool,
       ring's) a row tile, every tile on the grid, where the slice and the
       rows fit the ring's memory (:func:`wg_ln_bytes`);
     - else the ring GEMM of :func:`ln_gemm_plan` (one query);
-    - K2's f32 GEMMs (``out_bytes`` 4, not ``quantized``) stay SIMT."""
+    - the f32 GEMMs (``out_bytes`` 4, not ``quantized``) the SIMT GEMM of
+      :func:`simt_plan`."""
     if not quantized and out_bytes == 4:
-        return GemmRoute("simt", 0, 0, 0, 0, 0, 0, 0)
+        return simt_plan(m, n, k, ln)
     strides = n % 8 == 0 and k % (16 if quantized else 8) == 0
     if ln:
         bn = 256 if n % 256 == 0 else 128

@@ -436,3 +436,114 @@ def test_qkv_gemm_plan_is_the_bias_gemms_route():
         q = layer_mod.qkv_gemm_plan(m, n, k, CLUSTERS)
         assert (q.route, q.bm, q.bn, q.stages, q.tiles, q.grid, q.smem) == (
             r.route, r.bm, r.bn, r.stages, r.tiles, r.grid, r.smem)
+
+
+# -- the f32 route's SIMT GEMMs (simt_plan mirrors the kernel's) -------------
+
+
+def test_simt_constants_are_the_sources():
+    """The f32 GEMM's slab, padding, fill target, stages and tiles are the
+    source's own, read from csrc/encoder_layer.cu."""
+    c = source_constants()
+    assert (c["kSimtBK"], c["kSimtPad"], c["kSimtFill"]) == (
+        layer_mod.SIMT_BK, layer_mod.SIMT_PAD, layer_mod.SIMT_FILL)
+    src = (CSRC / "encoder_layer.cu").read_text()
+    assert ("constexpr int simt_stages(int bm) { return bm >= 64 ? 4 : 6; }"
+            in src)
+    assert [layer_mod.simt_stages(bm) for bm in (8, 16, 32, 64, 128)] == [
+        6, 6, 6, 4, 4]
+    body = re.search(r"constexpr SimtTile kSimtTiles\[\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    tiles = tuple(tuple(int(v) for v in t.split(","))
+                  for t in re.findall(r"\{([\d,\s]+)\}", body))
+    assert tiles == layer_mod.SIMT_TILES
+    # every tile is 256 threads of TM x TN outputs; the launcher's switch
+    # instantiates each, in kSimtTiles' order (a LayerNorm GEMMs' tile for
+    # EPI_LN alone)
+    cases = src[src.index("cudaError_t with_simt_kernel("):]
+    for i, (bm, bn, tm, tn, ln) in enumerate(tiles):
+        assert (bm // tm) * (bn // tn) == layer_mod.GEMM_THREADS
+        case = cases[cases.index(f"case {i}:"):cases.index(
+            f"case {i + 1}:" if i + 1 < len(tiles) else "default:")]
+        assert f"go(gemm_simt_kernel<EPI, {bm}, {bn}, {tm}, {tn}>)" in case
+        assert ("if constexpr (EPI == EPI_LN)" in case) == bool(ln)
+
+
+def test_f32_route_no_longer_reaches_the_old_gemm():
+    """K2's f32 layer and K6's f32 qkv product launch the SIMT GEMM of
+    simt_plan, four GEMMs a layer; the SIMT GEMM of one row block a
+    block (gemm_f32_kernel) is gone."""
+    src = (CSRC / "encoder_layer.cu").read_text()
+    assert "gemm_f32_kernel" not in src and "launch_gemm_f32" not in src
+    layer = src[src.index("cudaError_t layer_f32("):]
+    layer = layer[:layer.index("\n}\n")]
+    assert [m.group(1) for m in re.finditer(
+        r"launch_gemm_simt<(EPI_\w+)>", layer)] == [
+        "EPI_BIAS", "EPI_LN", "EPI_GELU", "EPI_LN"]
+    block = src[src.index("cudaError_t attention_block("):]
+    block = block[:block.index("\n}\n")]
+    assert "launch_gemm_simt<EPI_BIAS>(x, w_qkv" in block
+
+
+@pytest.mark.parametrize("m", [256, 65_536])
+@pytest.mark.parametrize("name", ["minilm-l6", "e5-base", "gte-large"])
+def test_f32_layer_plans_fill_the_card(name, m):
+    """At one query (m = 256) and an index batch, each of K2's four f32
+    GEMMs takes the SIMT route on a grid of every tile that puts a block on
+    each of an H100's 132 SMs, in shared memory a block may take; the
+    LayerNorm GEMMs as clusters of at most 8 column tiles that hold whole
+    rows (at one query on 192 or more blocks, where the GEMM of 32 rows a
+    block before took 8); an index batch in tiles of 128 x 128."""
+    spec = ENCODERS[name]
+    h, inter = spec.hidden_size, spec.intermediate_size
+    plans = layer_mod.layer_gemm_plans(m, h, inter, False, torch.float32,
+                                       CLUSTERS)
+    for g, (plan, (n, k)) in enumerate(zip(plans, (
+            (3 * h, h), (h, h), (inter, h), (h, inter)))):
+        ln = g in (1, 3)
+        assert plan == layer_mod.gemm_route(m, n, k, ln, False, 4, 0)
+        assert plan.route == "simt" and plan.smem <= layer_mod.SMEM_MAX
+        assert plan.stages == layer_mod.simt_stages(plan.bm)
+        assert plan.grid == plan.tiles == -(-m // plan.bm) * -(-n // plan.bn)
+        assert plan.grid >= layer_mod.SIMT_FILL
+        if ln:
+            assert plan.cluster * plan.bn == h and plan.cluster <= MAX_CLUSTER
+            assert plan.smem >= (plan.bm * (plan.bn + 8) + 8 * h) * 4
+        else:
+            assert plan.cluster == 1
+        if m == 256 and ln:
+            assert plan.grid >= 192
+        if m == 65_536:      # MiniLM's LayerNorm GEMMs in clusters of 6
+            assert (plan.bm, plan.bn) == (
+                (128, 64) if ln and h // 64 <= MAX_CLUSTER else (128, 128))
+
+
+@pytest.mark.parametrize("case,want", [
+    # (m, n, k, ln): (bm, bn, cluster, grid), or None where it refuses
+    ((256, 1152, 384, False), (32, 64, 1, 144)),      # MiniLM's qkv, a query
+    ((256, 384, 384, True), (8, 64, 6, 192)),         # its LayerNorm GEMMs
+    ((256, 4096, 1024, False), (64, 64, 1, 256)),     # gte-large's FFN up
+    ((256, 1024, 4096, True), (8, 128, 8, 256)),      # its FFN down + LN2
+    ((256, 1536, 1024, False), (32, 64, 1, 192)),     # K6, gte-large tp 2
+    ((256, 288, 384, False), (8, 64, 1, 160)),        # K6, MiniLM tp 4
+    ((8, 64, 64, False), (8, 64, 1, 1)),              # nothing fills: the last
+    ((64, 64, 128, True), (8, 64, 1, 8)),             # H 64: one block a row
+    ((256, 1152, 376, False), None),                  # K % 16
+    ((256, 1150, 384, False), None),                  # N % 4
+    ((32_768, 384, 1536, True), (128, 64, 6, 1536)),  # MiniLM's at an index
+    ((32_768, 384, 1536, False), (128, 128, 1, 768)), # not a LayerNorm GEMM
+    ((65_536, 1024, 4096, True), (128, 128, 8, 4096)),  # 16 tiles of 64: 128
+    ((256, 1280, 1280, True), None),                  # 10 column tiles of 128
+    ((256, 96, 96, True), None),                      # no tile divides H
+])
+def test_simt_plan_by_shape(case, want):
+    """The tile is the first of SIMT_TILES whose grid has SIMT_FILL blocks,
+    else the last the shape takes; a LayerNorm GEMM only takes a tile whose
+    width divides N in at most 8 tiles; cluster 0 where the kernel refuses
+    the shape (K a multiple of 16, N of 4)."""
+    plan = layer_mod.simt_plan(*case)
+    assert plan.route == "simt"
+    if want is None:
+        assert plan.cluster == 0 and plan.grid == 0
+    else:
+        assert (plan.bm, plan.bn, plan.cluster, plan.grid) == want
