@@ -453,6 +453,21 @@ mutant cards_merge_not_gathered parallel/sharded_topk.py \
 mutant cards_psum_no_copy_back models/bert.py \
   's/    return \[total.to(p.device) for p in parts\]/    return [total for p in parts]/' \
   "cards_path --cards-parts tp4"
+# bge-small-en's [CLS] pooling reads token 1: families_path holds the query
+# vector and stored rows against a pooling of its own
+mutant cls_pool_reads_token1 models/bert.py \
+  's/    pooled = hidden\[..., 0, :\].float()/    pooled = hidden[..., 1, :].float()/' \
+  families_path
+# K1's bf16 pass 1 (scan_pass1_merged) drops the last k-step of the last
+# slab at d 768 (e5-base's width), caught by scan_topk's d 768 cases
+mutant k1_d768_last_k_step_dropped scan_topk.cu \
+  '/a copier scores nothing/,/for (int kk = 0; kk < cn; kk += 16) {/ s/for (int kk = 0; kk < cn; kk += 16) {/for (int kk = 0; kk < cn - (d == 768 \&\& c0 + cn == dp ? 16 : 0); kk += 16) {/' \
+  scan_topk
+# a removal leaves the device buckets' valid masks stale (no re-upload of
+# the tombstones), caught by fuzz_path against the sequence's own answer
+mutant valid_mask_stale index/vector_store.py \
+  's/^                self._valid_dirty = True$/                pass/' \
+  fuzz_path
 # the doctor's self-test (planted winners at k = 1, the encoder against f32
 # on the CPU) against the faults of kernels it launches: K1, K3, K4a, K2,
 # K5 and the spilled union probe

@@ -10,9 +10,10 @@ Phases, one JSON line each:
                       ``nvcc`` each, all started together
 3. ``scan_topk``      K1 against its plain version: bf16 stores of 262,144
                       and 3,000 rows at d=384, Q in {1, 256}, k in
-                      {16, 64, 128}, masked and not, and f32 stores at the
+                      {16, 64, 128}, masked and not, f32 stores at the
                       wider models' d (768, 1024), whose rows pass 1 reads
-                      in slabs. Duplicated rows must
+                      in slabs, and bf16 stores at e5-base's d 768 (the
+                      same n, Q, k and masks). Duplicated rows must
                       give identical ids; elsewhere ids may differ only
                       between scores within 1e-5 of each other, and scores
                       agree within 1e-5 (both sum the same f32 products in
@@ -35,7 +36,8 @@ Phases, one JSON line each:
 4. ``encoder_layer``  K2 against its plain version, bf16, at MiniLM width
                       (head dim 32) at every bucket shape of the index and
                       at the query's (1, 256), and at e5-base width (head
-                      dim 64): see ``layer_close`` for the limits. The
+                      dim 64; (256, 128), the query's (1, 256) and the
+                      32-token bucket's (2048, 32)): see ``layer_close`` for the limits. The
                       same limits must reject the plain version with the
                       mask dropped, with the context zeroed and with the
                       keys' heads rotated, so the check sees attention.
@@ -396,7 +398,38 @@ Phases, one JSON line each:
                       vectors' distance may swap), K1 against its plain
                       version. Prints chunks/s, the ``embed`` stage, the
                       p50 of 20 warm queries and their busy share.
-21. ``cards_path``    (only when ``--phases`` names it, alone: with more
+21. ``families_path`` (after ``f32_path``, on the main path's tree)
+                      ``index`` then ``query`` through the CLI with
+                      ``--model bge-small-en``, then ``--model e5-base``
+                      (12 layers each at full width, random weights from
+                      seed 0, the default bf16 exact store, a home and
+                      data dir each): the index must launch K2 once a
+                      layer a batch and nothing else, the query K2 once a
+                      layer and K1 once; the query vector and 16 stored
+                      rows against the layers' plain versions pooled by
+                      the family's rule as the script writes it ([CLS]
+                      for bge-small-en; cosine >= COS_MIN), K1 on the
+                      store's rows (d 384, and d 768 for e5-base) against
+                      its plain version, K2 at the query's shape and at
+                      the index's most launched shape on the path's own
+                      activations against its plain version, the CLI's
+                      hits against the store's own answer. Prints each
+                      family's chunks/s, ``embed`` stage, p50 of 20 warm
+                      queries, busy share, launches, and K2's launches by
+                      (rows, tokens) as recorded where they launch.
+22. ``fuzz_path``     the store's state machine: the seeded op sequences of
+                      ``sema_tpu_torch/tools/store_fuzz.py`` (``fuzz_ops``:
+                      adds of 3-150 rows, per-file removes, reopens,
+                      searches) at seeds 3 and 41 through a store on the
+                      card and one on the CPU in lockstep, bf16 and int8,
+                      exact, spilled ("all", "mixed"), IVF and IVF +
+                      spill, sealed at 96 rows, slices of 64, IVF tiles of
+                      128 and 64 (the pruned scans' smallest), at d 384:
+                      every answer of the card against the CPU's and both
+                      against the sequence's own (``fuzz_agree``); live
+                      rows and each remove's count equal after every
+                      step; K1, K3, K4a and K4b each launched.
+23. ``cards_path``    (only when ``--phases`` names it, alone: with more
                       than one card visible every other phase refuses to
                       run, and on one card it raises unless
                       ``--rehearse`` repeats card 0 CARDS times) the
@@ -823,12 +856,18 @@ def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
         "passes": scan_passes(lambda: scan_topk(store, q, valid, k, masked))}
 
 
-# phase scan_topk's cases: (n, Q, k, masked, d, dtype)
+# phase scan_topk's cases: (n, Q, k, masked, d, dtype); the bf16 store
+# at e5-base's d 768 (families_path's) last, drawn from a generator of
+# its own (K1_D768_SEED) so that the cases before them draw what they drew
+K1_D768 = tuple((n, nq, k, masked, 768, torch.bfloat16)
+                for n in (262_144, 3_000) for nq in (1, 256)
+                for k in (16, 64, 128) for masked in (True, False))
+K1_D768_SEED = 18
 K1_CASES = tuple((n, nq, k, masked, D, torch.bfloat16)
                  for n in (262_144, 3_000) for nq in (1, 256)
                  for k in (16, 64, 128) for masked in (True, False)) + tuple(
     (3_000, nq, 64, True, d, torch.float32)
-    for d in (768, 1024) for nq in (1, 256))
+    for d in (768, 1024) for nq in (1, 256)) + K1_D768
 
 
 def int_rows(n, d, gen):
@@ -983,9 +1022,11 @@ def fence_before_count() -> list:
 
 
 def phase_scan(gen):
-    cases = [scan_case(n, nq, k, masked, gen, 10 if n > 10_000 else 30,
-                       d=d, dtype=dt)
-             for n, nq, k, masked, d, dt in K1_CASES]
+    d768_gen = torch.Generator(device=DEV).manual_seed(K1_D768_SEED)
+    cases = [scan_case(n, nq, k, masked,
+                       d768_gen if c in K1_D768 else gen,
+                       10 if n > 10_000 else 30, d=d, dtype=dt)
+             for c in K1_CASES for n, nq, k, masked, d, dt in [c]]
     # the merge cases draw from their own generator, so that the phases
     # after this one draw what they drew before these cases existed
     merge_gen = torch.Generator(device=DEV).manual_seed(15)
@@ -993,6 +1034,7 @@ def phase_scan(gen):
     stress = one_launch_stress(torch.Generator(device=DEV).manual_seed(16))
     emit("scan_topk", cases=cases, merge_model=merges,
          one_launch_stress=stress, fence_before_count=fence_before_count())
+    return cases
 
 
 # -- K4a, K3, K4b -------------------------------------------------------------
@@ -1688,7 +1730,12 @@ K2_SHAPES = (("minilm-l6", BF16, 2048, 32), ("minilm-l6", BF16, 1024, 64),
              ("gte-large", BF16, 512, 128), ("gte-large", BF16, 256, 256),
              ("gte-large", BF16, 64, 256), ("gte-large", BF16, 1, 256),
              ("gte-large", torch.float32, 256, 256),
-             ("gte-large", torch.float32, 1, 256))
+             ("gte-large", torch.float32, 1, 256)) + (
+    # e5-base's one query and its shortest bucket (families_path), last and
+    # drawn from a generator of their own (K2_FAMILY_SEED)
+    ("e5-base", BF16, 1, 256), ("e5-base", BF16, 2048, 32))
+K2_FAMILY = K2_SHAPES[-2:]
+K2_FAMILY_SEED = 19
 COS_MIN = 0.9995               # per output row
 REL_MAX = 2.0 ** -3            # |got - want| / max(|want|, 1)
 COS_MIN_F16, REL_MAX_F16 = 0.99998, 0.015
@@ -1909,15 +1956,47 @@ def check_gemm_launches(launches, positions, plans, what) -> list:
     return out
 
 
+def layer_costs(args, operands, iters) -> dict:
+    """K2's device ms on ``args`` (x, layer, mask bias, heads, scale, eps)
+    with its ``operands`` made beforehand, its plain version's, the
+    library layer's (``library_layer``, the keys that the mask bias pads
+    left out) and the bound: the activations read and written once, the
+    weights and vectors read once, against the layer's GEMM and attention
+    operations at the peak rate of x's type."""
+    from sema_tpu_torch.ops.encoder_layer import (encoder_layer_reference,
+                                                  fused_encoder_layer)
+    x, layer, bias, heads, _, eps = args
+    b, s, h = x.shape
+    inter = layer["ffn_in_w"].shape[1]
+    m = b * s
+    isz = x.element_size()
+    weights = 4 * h * h + 2 * h * inter
+    ms, bound_by = bound(
+        2 * isz * m * h + isz * weights + isz * (3 * h + h + inter + h)
+        + 4 * 4 * h + 4 * b * s,
+        2.0 * m * weights + 4.0 * b * s * s * h,
+        F32_OPS_PER_S if x.dtype == torch.float32 else BF16_OPS_PER_S)
+    lib = library_layer(layer, heads, eps, x.dtype)
+    pad = bias < 0
+    with torch.inference_mode():
+        library_ms = device_ms(lambda: lib(x, src_key_padding_mask=pad),
+                               iters)
+    return {"ms": device_ms(lambda: fused_encoder_layer(
+                *args, operands=operands), iters),
+            "plain_ms": device_ms(lambda: encoder_layer_reference(*args),
+                                  iters),
+            "library_ms": library_ms, "bound_ms": ms, "bound_by": bound_by}
+
+
 def layer_case(layer, spec, dtype, b, s, gen, iters):
     from sema_tpu_torch.models.bert import LN_EPS
     from sema_tpu_torch.ops.encoder_layer import (encoder_layer_reference,
                                                   fused_encoder_layer,
                                                   layer_operands)
-    h, inter = spec.hidden_size, spec.intermediate_size
+    h = spec.hidden_size
     close = {torch.float32: layer_close_f32,
              torch.float16: layer_close_f16}.get(dtype, layer_close)
-    x, pad, bias, heads, scale = layer_inputs(spec, dtype, b, s, gen)
+    x, _, bias, heads, scale = layer_inputs(spec, dtype, b, s, gen)
     args = (x, layer, bias, heads, scale, LN_EPS)
     operands = layer_operands(layer, dtype)
     got = fused_encoder_layer(*args, operands=operands)
@@ -1938,18 +2017,7 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
     for name, out in broken.items():
         check(not close(out, want)[0],
               f"{spec.name} {dtype} ({b}, {s}): the check passes {name}")
-    m = b * s
-    isz = x.element_size()
-    weights = 4 * h * h + 2 * h * inter
-    ms, bound_by = bound(
-        2 * isz * m * h + isz * weights + isz * (3 * h + h + inter + h)
-        + 4 * 4 * h + 4 * b * s,
-        2.0 * m * weights + 4.0 * b * s * s * h,
-        F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
-    lib = library_layer(layer, heads, LN_EPS, dtype)
-    with torch.inference_mode():
-        library_ms = device_ms(lambda: lib(x, src_key_padding_mask=pad),
-                               iters)
+    costs = layer_costs(args, operands, iters)
     share = layer_launches(fused_encoder_layer, args,
                            lambda lay: layer_operands(lay, dtype),
                            [n for n, _, _ in linears(spec)], 5, iters)
@@ -1965,23 +2033,22 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
             "max_rel_err": rel, "min_cosine": cos,
             "broken_min_cosine": {name: close(out, want)[1]
                                   for name, out in broken.items()},
-            "ms": device_ms(lambda: fused_encoder_layer(
-                *args, operands=operands), iters),
-            "plain_ms": device_ms(lambda: encoder_layer_reference(*args),
-                                  iters),
-            "library_ms": library_ms, "bound_ms": ms, "bound_by": bound_by,
-            **share}
+            **costs, **share}
 
 
 def phase_layer(gen):
     from sema_tpu_torch.models.registry import get_spec
     cases = []
-    for name in dict.fromkeys(m for m, _, _, _ in K2_SHAPES):
-        spec = get_spec(name)
-        layer = layer_params(spec.hidden_size, spec.intermediate_size, gen)
-        cases += [layer_case(layer, spec, dt, b, s, gen, iters=10)
-                  for m, dt, b, s in K2_SHAPES if m == name]
-        del layer
+    for shapes, g in ((K2_SHAPES[:-len(K2_FAMILY)], gen),
+                      (K2_FAMILY, torch.Generator(device=DEV).manual_seed(
+                          K2_FAMILY_SEED))):
+        for name in dict.fromkeys(m for m, _, _, _ in shapes):
+            spec = get_spec(name)
+            layer = layer_params(spec.hidden_size, spec.intermediate_size,
+                                 g)
+            cases += [layer_case(layer, spec, dt, b, s, g, iters=10)
+                      for m, dt, b, s in shapes if m == name]
+            del layer
     sweep = k2_sweep()
     emit("encoder_layer", cases=cases, k2_sweep=sweep)
     check_k2_sweep(sweep)
@@ -2908,10 +2975,12 @@ def make_tree(root: Path, n_files: int) -> Path:
 def bucket_batches(enc, texts):
     """The index's rows and batches per sequence bucket of ``texts``, as
     Encoder.encode_texts forms them: per super-batch of 8 * batch_size
-    chunks. Returns (rows, batches), two Counters keyed by bucket length."""
+    chunks, each text at ``Encoder.bucket_len`` (max_length under
+    SEMA_TPU_BUCKETS=off). Returns (rows, batches), two Counters keyed by
+    bucket length."""
     counts, batches = Counter(), Counter()
     for off in range(0, len(texts), 8 * enc.batch_size):
-        part = Counter(enc._bucket_len(len(tok_ids)) for tok_ids, _ in
+        part = Counter(enc.bucket_len(len(tok_ids)) for tok_ids, _ in
                        enc._encode(texts[off:off + 8 * enc.batch_size]))
         for s, n in part.items():
             counts[s] += n
@@ -2994,7 +3063,6 @@ def phase_main_path(work: Path, n_files: int, extra=()):
     from sema_tpu_torch.ingest.hashing import HASH_NAME
     from sema_tpu_torch.models.encoder import Encoder
     from sema_tpu_torch.utils.metrics import Metrics
-    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
     tree = make_tree(work / "tree", n_files)
     os.environ["SEMA_TPU_HOME"] = str(work / "home")
     os.environ["SEMA_TPU_DATA"] = str(work / "data")
@@ -3050,11 +3118,7 @@ def phase_main_path(work: Path, n_files: int, extra=()):
     buckets = store.device_buckets()
     check(len(buckets) == 1, f"{len(buckets)} device buckets")
     b = buckets[0]
-    masked = not b["all_valid"]
-    k = min(64, b["rows"])          # the k class of --limit 50
-    got = scan_topk(b["store"], qvec, b["valid"], k, masked)
-    want = scan_topk_reference(b["store"], qvec, b["valid"], k, masked)
-    scan_err = check_scan(b["store"], qvec, b["valid"], masked, got, want)
+    k1 = k1_on_bucket(b, qvec)
     ids = store.search_batch(qvec, 50)[1][0]
     check([h["id"] for h in hits]
           == [store.chunk_at(int(i)).id for i in ids], "CLI hits differ")
@@ -3075,18 +3139,6 @@ def phase_main_path(work: Path, n_files: int, extra=()):
     check(sum(batches.values()) * enc.spec.num_layers
           == index_launches["encoder_layer"],
           f"batches {dict(batches)}, launches {index_launches}")
-    k1 = {"n": b["rows"], "q": 1, "k": k, "masked": masked,
-          "max_abs_err": scan_err}
-    ms, bound_by = bound(b["rows"] * D * 2 + (b["rows"] if masked else 0)
-                         + D * 4 + k * 8, 2.0 * b["rows"] * D)
-    k1.update(
-        ms=device_ms(lambda: scan_topk(b["store"], qvec, b["valid"], k,
-                                       masked), 50),
-        plain_ms=device_ms(lambda: scan_topk_reference(
-            b["store"], qvec, b["valid"], k, masked), 50),
-        library_ms=device_ms(lambda: torch.topk(
-            qvec.to(torch.bfloat16) @ b["store"].T, k), 50),
-        bound_ms=ms, bound_by=bound_by)
     k_max_refusals(b, qvec)
     mgr.close()
     emit("main_path", files=n_files, chunks=n_chunks, hash=HASH_NAME,
@@ -3103,45 +3155,118 @@ def phase_main_path(work: Path, n_files: int, extra=()):
 
 # -- f32_path: the f32 encoder and store end to end ---------------------------
 
-F32_WARM = 20                  # warm queries of f32_path
+CLI_WARM = 20                  # warm queries of a cli_path run
 F32_COS_MIN = 0.99999          # an f32 embedding against the plain encoder's
 
 
-def phase_f32_path(work: Path, tree: Path, extra=()) -> dict:
-    """``index`` then ``query`` of ``tree`` (the main path's) through the
-    CLI at ``[model] dtype = "float32"`` (MiniLM-L6 at full width, random
-    weights from seed 0) over an ``store_dtype = "float32"`` store, in a
-    home and data dir of its own: K2's f32 route (the SIMT GEMMs) and K1's
-    f32 route. The launch counts are set to 0 before each step and read
-    after it: the index launches K2 once a layer a batch, the query K2 once
-    a layer and K1 once, and nothing else. The stored rows of a sample
-    and the query vector against the plain encoder on the card (per-row
-    cosine >= F32_COS_MIN); the query's hits (ids, files, lines) equal to
-    those of the same CLI query with the encoder's and the scans' plain
-    versions swapped in, but where two hits' scores lie within twice the
-    query vectors' distance (a near-tie the plain query may order the
-    other way); K1 against its plain version on the store's rows
-    (``check_scan``). Prints chunks/s, the index's stages (``embed``),
-    the p50 of F32_WARM warm queries, their device busy share and the
-    kernels that took it (the SIMT GEMMs must be among them). The
-    environment's home and data dir are restored at the end."""
+def k1_on_bucket(b: dict, qvec) -> dict:
+    """K1 on a device bucket's rows at the k class of ``--limit 50``,
+    against its plain version (``check_scan``), timed beside its plain
+    version, the library (``topk`` of the product in the store's dtype)
+    and its bound: the rows, the mask, the query and the top k moved
+    once, against the product's operations at the peak rate of the
+    rows' type."""
+    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+    store, valid = b["store"], b["valid"]
+    n, d = store.shape
+    masked = not b["all_valid"]
+    k = min(64, n)
+    got = scan_topk(store, qvec, valid, k, masked)
+    want = scan_topk_reference(store, qvec, valid, k, masked)
+    err = check_scan(store, qvec, valid, masked, got, want)
+    ms, bound_by = bound(
+        n * d * store.element_size() + (n if masked else 0) + d * 4 + k * 8,
+        2.0 * n * d,
+        F32_OPS_PER_S if store.dtype == torch.float32 else BF16_OPS_PER_S)
+    q_lib = qvec.to(store.dtype)
+    return {"n": n, "d": d, "q": 1, "k": k, "masked": masked,
+            "max_abs_err": err,
+            "ms": device_ms(lambda: scan_topk(store, qvec, valid, k, masked),
+                            50),
+            "plain_ms": device_ms(lambda: scan_topk_reference(
+                store, qvec, valid, k, masked), 50),
+            "library_ms": device_ms(lambda: torch.topk(q_lib @ store.T, k),
+                                    50),
+            "bound_ms": ms, "bound_by": bound_by}
+
+
+def layer_shapes(rec) -> Counter:
+    """(rows, tokens) → K2 launches, of the encoder's calls ``rec``
+    recorded."""
+    return Counter(c.shape[:2] for c in rec.calls
+                   if c.wrapper == "fused_encoder_layer")
+
+
+def k2_launched(rec, shapes: Counter, iters: int = 20) -> dict:
+    """K2 at the most launched of ``shapes`` ((rows, tokens) → launches),
+    on the arguments of its first launch there as ``rec`` kept them (a
+    path's own activations at layer 0): against its plain version by the
+    layer checks of its dtype, then ``layer_costs``. Returns the shape,
+    the launches measured at it and the costs."""
+    from sema_tpu_torch.ops.encoder_layer import (encoder_layer_reference,
+                                                  fused_encoder_layer,
+                                                  layer_operands)
+    (b, s), n = shapes.most_common(1)[0]
+    args = next(a for (name, _, shape), a in rec.first.items()
+                if name == "fused_encoder_layer" and shape[:2] == (b, s))
+    x = args[0]
+    close = {torch.float32: layer_close_f32,
+             torch.float16: layer_close_f16}.get(x.dtype, layer_close)
+    with torch.inference_mode():
+        operands = layer_operands(args[1], x.dtype)
+        got = fused_encoder_layer(*args, operands=operands)
+        want = encoder_layer_reference(*args)
+        ok, cos, rel = close(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        check(ok, f"K2 at ({b}, {s}) on the path's activations: cosine "
+              f"{cos}, relative error {rel}, max abs error {err}")
+        costs = layer_costs(args, operands, iters)
+    return {"b": b, "s": s, "h": x.shape[2], "launches": n,
+            "max_abs_err": err, "min_cosine": cos, "max_rel_err": rel,
+            **costs}
+
+
+def cli_path(work: Path, tree: Path, tag: str, extra=(), dtypes=None,
+             plain_query=None) -> dict:
+    """``index`` then ``query`` of ``tree`` through the CLI with ``extra``
+    in a home and data dir of ``tag``'s own, with the config's (model
+    dtype, store_dtype) set to ``dtypes`` first if given; the
+    environment's home and data dir are restored at the end. The launch
+    counts are set to 0 before each step and read after it; the encoder's
+    K2 calls are recorded by shape (``index_shapes``, ``query_shapes``:
+    "rows x tokens" → launches). ``plain_query(argv)``, if given, runs
+    after the CLI query, in the same home. Then, through a manager of the
+    same config (``open_s``: its open, the encoder's random weights drawn
+    on the host included, as each CLI call pays it): CLI_WARM warm
+    queries (p50, stages, device busy share); the query vector and a
+    sample of 16 stored rows against the plain encoder on the card,
+    pooled by the family's rule as written here (:func:`plain_pooled`);
+    K1 on the store's one device bucket (:func:`k1_on_bucket`); K2 at the
+    query's shape and at the index's most launched shape, on the path's
+    own activations (:func:`k2_launched`); the store's own answer to the
+    kernels' query vector. Returns the measurements, ``want_index`` and
+    ``want_query`` (the index launches K2 once a layer a batch, by
+    ``bucket_batches``, the query K2 once a layer and K1 once, and
+    nothing else), ``hits``, ``plain`` and ``store_hits`` for the
+    caller's checks."""
     from sema_tpu_torch import cli
     from sema_tpu_torch.config import ConfigManager
-    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
     from sema_tpu_torch.utils.metrics import Metrics
     saved = {k: os.environ.get(k) for k in ("SEMA_TPU_HOME", "SEMA_TPU_DATA")}
-    home, data = work / "f32-home", work / "f32-data"
-    os.environ["SEMA_TPU_HOME"], os.environ["SEMA_TPU_DATA"] = (str(home),
-                                                                str(data))
+    home = work / f"{tag}-home"
+    os.environ["SEMA_TPU_HOME"] = str(home)
+    os.environ["SEMA_TPU_DATA"] = str(work / f"{tag}-data")
     try:
-        manager = ConfigManager(home)
-        config = manager.load_config()
-        config.model.dtype, config.index.store_dtype = "float32", "float32"
-        manager.save_config(config)
+        if dtypes is not None:
+            manager = ConfigManager(home)
+            config = manager.load_config()
+            config.model.dtype, config.index.store_dtype = dtypes
+            manager.save_config(config)
 
         reset_launch_counts()
         t0 = time.perf_counter()
-        out = run_cli(["index", str(tree), "--stats", *extra])
+        with CallRecorder().recording() as index_rec:
+            out = run_cli(["index", str(tree), "--stats", *extra])
         index_s = time.perf_counter() - t0
         index_launches = launch_counts()
         n_chunks = int(re.search(r"indexed (\d+) chunks", out).group(1))
@@ -3150,72 +3275,62 @@ def phase_f32_path(work: Path, tree: Path, extra=()) -> dict:
         argv = ["query", QUERY, "--json", *extra]
         reset_launch_counts()
         t0 = time.perf_counter()
-        out = run_cli(argv)
+        with CallRecorder().recording() as query_rec:
+            out = run_cli(argv)
         query_cli_s = time.perf_counter() - t0
         query_launches = launch_counts()
         hits = [json.loads(line) for line in out.splitlines()]
-        with plain_layers(), plain_scans():
-            plain = [json.loads(line) for line in run_cli(argv).splitlines()]
+        plain = None if plain_query is None else plain_query(argv)
 
         args = cli.build_parser().parse_args(["query", QUERY, *extra])
         metrics = Metrics()
+        t0 = time.perf_counter()
         mgr = cli.make_index_manager(cli.load_config(args), args.device,
                                      metrics=metrics)
+        open_s = time.perf_counter() - t0
         store, enc = mgr.vector_store, mgr.encoder
-        layers = enc.spec.num_layers
+        spec = enc.spec
         counts, batches = bucket_batches(
             enc, [store.chunk_at(i).content for i in range(n_chunks)])
-        want_index = {name: 0 for name in index_launches}
-        want_index["encoder_layer"] = sum(batches.values()) * layers
-        want_query = {name: 0 for name in query_launches}
-        want_query.update(encoder_layer=layers, scan_topk=1)
+        want_index = {key: 0 for key in index_launches}
+        want_index["encoder_layer"] = sum(batches.values()) * spec.num_layers
+        want_query = {key: 0 for key in query_launches}
+        want_query.update(encoder_layer=spec.num_layers, scan_topk=1)
         for _ in range(3):
             mgr.search(QUERY, 50)
         metrics.stage_samples.clear()
         lat = []
-        for _ in range(F32_WARM):
+        for _ in range(CLI_WARM):
             t0 = time.perf_counter()
             mgr.search(QUERY, 50)
             lat.append((time.perf_counter() - t0) * 1e3)
         lat.sort()
         stages_p50_ms = {k: v * 1e3
                          for k, v in metrics.report()["p50_s"].items()}
-        device = query_device_time(lambda: mgr.search(QUERY, 50), F32_WARM)
+        device = query_device_time(lambda: mgr.search(QUERY, 50),
+                                   CLI_WARM)
 
-        # the query vector and a sample of stored rows against the plain
-        # encoder on the card; K1 on the store's rows against its plain
-        # version on the kernels' query vector
         qvec = enc.encode_query_device(QUERY)[None, :]
-        with plain_layers():
-            qplain = enc.encode_query_device(QUERY)[None, :]
-            sample = list(range(0, n_chunks, max(1, n_chunks // 16)))[:16]
-            ref = enc.encode_texts([store.chunk_at(i).content
-                                    for i in sample])
         buckets = store.device_buckets()
+        check(len(buckets) == 1, f"{tag}: {len(buckets)} device buckets")
         b = buckets[0]
-        rows = b["store"][sample].float().cpu()
+        sample = list(range(0, n_chunks, max(1, n_chunks // 16)))[:16]
+        qplain = plain_pooled(enc, [QUERY])
+        ref = plain_pooled(enc, [store.chunk_at(i).content for i in sample])
+        rows = b["store"][sample].float()
         row_cos = float(F.cosine_similarity(rows, ref, dim=1).min())
-        q_cos = float(F.cosine_similarity(qvec, qplain, dim=1)[0])
-        q_dist = float((qvec - qplain).norm())
-        masked = not b["all_valid"]
-        k = min(64, b["rows"])
-        got = scan_topk(b["store"], qvec, b["valid"], k, masked)
-        want = scan_topk_reference(b["store"], qvec, b["valid"], k, masked)
-        scan_err = check_scan(b["store"], qvec, b["valid"], masked, got, want)
-        k1 = {"n": b["rows"], "q": 1, "k": k, "masked": masked,
-              "max_abs_err": scan_err}
-        ms, bound_by = bound(b["rows"] * D * 4 + (b["rows"] if masked else 0)
-                             + D * 4 + k * 8, 2.0 * b["rows"] * D,
-                             F32_OPS_PER_S)
-        k1.update(
-            ms=device_ms(lambda: scan_topk(b["store"], qvec, b["valid"], k,
-                                           masked), 50),
-            plain_ms=device_ms(lambda: scan_topk_reference(
-                b["store"], qvec, b["valid"], k, masked), 50),
-            library_ms=device_ms(lambda: torch.topk(qvec @ b["store"].T, k),
-                                 50),
-            bound_ms=ms, bound_by=bound_by)
-        dtypes = (str(enc.compute_dtype), store.store_dtype,
+        q_cos = float(F.cosine_similarity(qvec.float(), qplain, dim=1)[0])
+        q_dist = float((qvec.float() - qplain).norm())
+        k1 = k1_on_bucket(b, qvec)
+        index_shapes, query_shapes = (layer_shapes(r)
+                                      for r in (index_rec, query_rec))
+        k2 = {"query": k2_launched(query_rec, query_shapes),
+              "index": k2_launched(index_rec, index_shapes)}
+        del index_rec, query_rec
+        ids = store.search_batch(qvec, 50)[1][0]
+        store_hits = [store.chunk_at(int(i)) for i in ids]
+        layout = (spec.name, spec.num_layers, spec.hidden_size, spec.pooling,
+                  str(enc.compute_dtype), store.store_dtype,
                   str(b["store"].dtype))
         mgr.close()
     finally:
@@ -3224,43 +3339,207 @@ def phase_f32_path(work: Path, tree: Path, extra=()) -> dict:
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = value
-    tol = 2 * q_dist + 1e-6
-    key = lambda h: (h["id"], h["file_path"], h["start_line"], h["end_line"])
-    swapped_near_ties = sum(key(g) != key(w) for g, w in zip(hits, plain))
-    result = {"files": len(list(tree.rglob("*.py"))), "chunks": n_chunks,
-              "dtypes": dtypes, "index_s": index_s,
-              "chunks_per_s": n_chunks / index_s,
-              "index_stages_s": stats["stages_s"],
-              "embed_s": stats["stages_s"].get("embed"),
-              "query_cli_s": query_cli_s,
-              "query_p50_ms": lat[len(lat) // 2], "query_max_ms": lat[-1],
-              "query_stages_p50_ms": stages_p50_ms, "query_device": device,
-              "index_launches": index_launches,
-              "query_launches": query_launches,
-              "stored_min_cosine": row_cos, "query_cosine": q_cos,
-              "query_distance": q_dist, "hits": len(hits),
-              "hits_swapped_within_tol": swapped_near_ties, "tol": tol,
-              "k1": k1}
-    emit("f32_path", **result)
-    check(dtypes == ("torch.float32", "float32", "torch.float32"),
-          f"f32_path: encoder, store and rows in {dtypes}")
-    check(index_launches == want_index, f"f32_path: index launches "
-          f"{index_launches}, want {want_index} (batches {dict(batches)})")
-    check(query_launches == want_query, f"f32_path: query launches "
-          f"{query_launches}, want {want_query}")
-    check(any("gemm_simt" in name for name in device["top_ms"]),
+    shape_key = lambda c: {f"{r}x{t}": n for (r, t), n in sorted(c.items())}
+    return {"layout": layout, "files": len(list(tree.rglob("*.py"))),
+            "chunks": n_chunks, "index_s": index_s,
+            "chunks_per_s": n_chunks / index_s,
+            "index_stages_s": stats["stages_s"],
+            "embed_s": stats["stages_s"].get("embed"),
+            "query_cli_s": query_cli_s, "open_s": open_s,
+            "query_p50_ms": lat[len(lat) // 2], "query_max_ms": lat[-1],
+            "query_stages_p50_ms": stages_p50_ms, "query_device": device,
+            "busy_share": device.get("busy_share"),
+            "index_launches": index_launches,
+            "query_launches": query_launches,
+            "want_index": want_index, "want_query": want_query,
+            "bucket_rows": {str(s): n for s, n in sorted(counts.items())},
+            "bucket_batches": {str(s): n
+                               for s, n in sorted(batches.items())},
+            "index_shapes": shape_key(index_shapes),
+            "query_shapes": shape_key(query_shapes),
+            "stored_min_cosine": row_cos, "query_cosine": q_cos,
+            "query_distance": q_dist, "k1": k1, "k2": k2,
+            "hits": hits, "plain": plain, "store_hits": [
+                (c.id, str(c.file_path), c.start_line, c.end_line)
+                for c in store_hits]}
+
+
+def cli_path_checks(r: dict, tag: str) -> None:
+    """The checks every ``cli_path`` run answers to: the launches equal
+    to the bucketing's, and recorded by shape in full; 50 finite hits."""
+    check(r["index_launches"] == r["want_index"], f"{tag}: index launches "
+          f"{r['index_launches']}, want {r['want_index']} (batches "
+          f"{r['bucket_batches']})")
+    check(r["query_launches"] == r["want_query"], f"{tag}: query launches "
+          f"{r['query_launches']}, want {r['want_query']}")
+    for step in ("index", "query"):
+        check(sum(r[f"{step}_shapes"].values())
+              == r[f"{step}_launches"]["encoder_layer"],
+              f"{tag}: {step} K2 launches by shape {r[f'{step}_shapes']}, "
+              f"counted {r[f'{step}_launches']['encoder_layer']}")
+    check(len(r["hits"]) == 50
+          and all(math.isfinite(h["score"]) for h in r["hits"]),
+          f"{tag}: {len(r['hits'])} hits, or a score that is not finite")
+
+
+HIT_KEY = lambda h: (h["id"], h["file_path"], h["start_line"], h["end_line"])
+
+
+def phase_f32_path(work: Path, tree: Path, extra=()) -> dict:
+    """:func:`cli_path` of ``tree`` (the main path's) at ``[model] dtype =
+    "float32"`` (MiniLM-L6 at full width, random weights from seed 0)
+    over an ``store_dtype = "float32"`` store: K2's f32 route (the SIMT
+    GEMMs) and K1's f32 route. Beside ``cli_path_checks``: the stored
+    rows of a sample and the query vector against the plain encoder
+    (per-row cosine >= F32_COS_MIN); the query's hits (ids, files, lines)
+    equal to those of the same CLI query with the encoder's and the
+    scans' plain versions swapped in, but where two hits' scores lie
+    within twice the query vectors' distance (a near-tie the plain query
+    may order the other way); the SIMT GEMMs among the kernels that took
+    the query's device time. Prints chunks/s, the index's stages
+    (``embed``), the p50 of CLI_WARM warm queries and their device busy
+    share."""
+    def plain_query(argv):
+        with plain_layers(), plain_scans():
+            return [json.loads(line) for line in run_cli(argv).splitlines()]
+    r = cli_path(work, tree, "f32", extra, ("float32", "float32"),
+                 plain_query)
+    hits, plain = r.pop("hits"), r.pop("plain")
+    r.pop("store_hits")
+    tol = 2 * r["query_distance"] + 1e-6
+    r.update(hits=len(hits), tol=tol, hits_swapped_within_tol=sum(
+        HIT_KEY(g) != HIT_KEY(w) for g, w in zip(hits, plain)))
+    emit("f32_path", **r)
+    cli_path_checks({**r, "hits": hits}, "f32_path")
+    check(r["layout"][4:] == ("torch.float32", "float32", "torch.float32"),
+          f"f32_path: encoder, store and rows in {r['layout'][4:]}")
+    check(any("gemm_simt" in name for name in r["query_device"]["top_ms"]),
           f"f32_path: no SIMT GEMM among the query's kernels "
-          f"{list(device['top_ms'])}")
-    check(len(hits) == 50 and all(math.isfinite(h["score"]) for h in hits),
-          f"f32_path: {len(hits)} hits, or a score that is not finite")
+          f"{list(r['query_device']['top_ms'])}")
     check(len(plain) == len(hits) and all(
-        key(g) == key(w) or abs(g["score"] - w["score"]) <= tol
+        HIT_KEY(g) == HIT_KEY(w) or abs(g["score"] - w["score"]) <= tol
         for g, w in zip(hits, plain)),
           f"f32_path: the hits differ from the plain versions' beyond the "
           f"near-ties of {tol}")
-    check(row_cos >= F32_COS_MIN and q_cos >= F32_COS_MIN,
-          f"f32_path: stored rows cosine {row_cos}, query {q_cos} against "
-          "the plain encoder")
+    check(r["stored_min_cosine"] >= F32_COS_MIN
+          and r["query_cosine"] >= F32_COS_MIN,
+          f"f32_path: stored rows cosine {r['stored_min_cosine']}, query "
+          f"{r['query_cosine']} against the plain encoder")
+    return r
+
+
+# -- families_path: bge-small-en and e5-base end to end -----------------------
+
+FAMILIES = ("bge-small-en", "e5-base")
+
+
+def plain_pooled(enc, texts) -> torch.Tensor:
+    """``texts`` through ``enc``'s layers' plain versions on its device,
+    each padded to max_length, then pooled by the family's rule as written
+    here, not by ``models/bert.py``'s pooling: [CLS] (token 0) for
+    bge-small-en, the masked mean for the others; L2-normalized, f32."""
+    from sema_tpu_torch.models import bert
+    ids, mask = (torch.as_tensor(a).to(enc.device)
+                 for a in enc.tokenize_batch(texts))
+    with plain_layers(), torch.inference_mode():
+        hidden = bert.bert_forward(enc.params, ids, mask, enc.spec,
+                                   enc.compute_dtype).float()
+    if enc.spec.pooling == "cls":
+        pooled = hidden[:, 0]
+    else:
+        m = mask.float()[..., None]
+        pooled = (hidden * m).sum(1) / m.sum(1)
+    return F.normalize(pooled, dim=1)
+
+
+def family_run(work: Path, tree: Path, name: str, extra=()) -> dict:
+    """:func:`cli_path` of ``tree`` with ``--model name`` (full width and
+    depth, random weights from seed 0, the default bf16 exact store).
+    Beside ``cli_path_checks``: 12 layers over a bf16 store; the query
+    vector and the 16 stored rows against the plain encoder pooled by the
+    family's rule (per-row cosine >= COS_MIN); the CLI's hits (ids,
+    files, lines) equal to the store's own answer to the kernels' query
+    vector, as ``main_path`` holds them."""
+    r = cli_path(work, tree, name, ["--model", name, *extra])
+    hits, store_hits = r.pop("hits"), r.pop("store_hits")
+    r.pop("plain")
+    r.update(model=name, hits=len(hits))
+    emit(f"families_path:{name}", **r)
+    cli_path_checks({**r, "hits": hits}, name)
+    layout = r["layout"]
+    check(layout[:2] == (name, 12) and layout[5:] == ("bfloat16",
+                                                      "torch.bfloat16"),
+          f"{name}: model, depth or store {layout}")
+    check([HIT_KEY(h) for h in hits] == store_hits, f"{name}: the CLI's "
+          "hits differ from the store's answer to the kernels' query vector")
+    check(r["stored_min_cosine"] >= COS_MIN and r["query_cosine"] >= COS_MIN,
+          f"{name}: stored rows cosine {r['stored_min_cosine']}, query "
+          f"{r['query_cosine']} against the plain encoder")
+    return r
+
+
+def phase_families_path(work: Path, tree: Path, extra=(),
+                        families=FAMILIES) -> dict:
+    """:func:`family_run` for each of ``families`` on ``tree`` (the main
+    path's 3,600 chunks): bge-small-en (12 layers at MiniLM's widths,
+    [CLS] pooling; K1 at d 384) and e5-base (12 layers at 768; K1 on a
+    bf16 store at d 768). Returns each family's result by name, and
+    ``launches``: their index and query launches summed."""
+    out = {name: family_run(work, tree, name, extra) for name in families}
+    launches = Counter()
+    for r in out.values():
+        launches.update(r["index_launches"])
+        launches.update(r["query_launches"])
+    out["launches"] = dict(launches)
+    return out
+
+
+# -- fuzz_path: the store's state machine on the card --------------------------
+
+FUZZ_SEEDS = (3, 41)
+
+
+def phase_fuzz_path(work: Path, device=None, seeds=FUZZ_SEEDS,
+                    d: int = D) -> dict:
+    """The store's state machine on the card: ``store_fuzz.fuzz_ops`` at
+    each of
+    ``seeds`` through a store on the card and one on the CPU (the plain
+    versions) in lockstep, bf16 and int8, in each of FUZZ_MODES at d
+    ``d``: buckets of 3 to 150 rows sealed at 96, tombstone masks
+    refreshed in place, 64-row spill slices with partial tails, IVF tiles
+    of 64 and 128 rows. Every search's answer on the card against the
+    CPU's and both against the sequence's own (:func:`fuzz_agree`; no
+    removed chunk); ``live_rows`` and each remove's count
+    equal after every step. The launch counts are set to 0 before the
+    phase and read after it: K1, K3, K4a and K4b must each have launched,
+    so the kernels, not a fallback, answered."""
+    from sema_tpu_torch.tools.store_fuzz import FUZZ_MODES, fuzz_case
+    dev = DEV if device is None else torch.device(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cases = [fuzz_case(work, dtype, mode, seed, d, [dev, "cpu"])
+             for dtype in ("bfloat16", "int8") for mode in FUZZ_MODES
+             for seed in seeds]
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    result = {"d": d, "seeds": list(seeds), "cases": cases,
+              "searches_compared": sum(c["compared"] for c in cases),
+              "max_abs_err": max(c["max_abs_err"] for c in cases),
+              "seconds": seconds, "launches": launches}
+    emit("fuzz_path", **result)
+    check(all(launches[name] > 0 for name in SCANS),
+          f"fuzz_path: launches {launches}: a scan of the store never ran "
+          "on the card")
+    for mode in FUZZ_MODES:
+        mine = [c for c in cases if c["mode"] == mode]
+        check(any(c["sealed"] for c in mine), f"fuzz_path {mode}: no "
+              "sealed bucket")
+        if mode in ("all", "mixed", "ivf+spill"):
+            check(any(c["spilled"] for c in mine),
+                  f"fuzz_path {mode}: nothing spilled")
+        if mode in ("ivf", "ivf+spill"):
+            check(any(c["clustered"] for c in mine),
+                  f"fuzz_path {mode}: no bucket clustered")
     return result
 
 
@@ -3613,6 +3892,7 @@ class Call(NamedTuple):
     rows: int                 # rows of its first argument
     tile_n: int | None        # a pruned scan's tile
     args: tuple | None        # None for an encoder call past the first
+    shape: tuple              # of its first argument
 
 
 class CallRecorder:
@@ -3643,7 +3923,8 @@ class CallRecorder:
                             self.calls.append(Call(
                                 _name, key[1], t.shape[0],
                                 a[-1] if "pruned" in _name else None,
-                                a if _name in SCANS else None))
+                                a if _name in SCANS else None,
+                                key[2]))
                         return _fn(*a, **kw)
                     wrap[name] = call
                 stack.enter_context(swapped(module, wrap))
@@ -6822,6 +7103,12 @@ def main() -> int:
         if run("f32_path"):
             f32 = phase_f32_path(work, tree)
             tick("f32_path")
+        if run("families_path"):
+            families = phase_families_path(work, tree)
+            tick("families_path")
+        if run("fuzz_path"):
+            fuzz = phase_fuzz_path(work)
+            tick("fuzz_path")
         if run("tui_path"):     # before append_path rewrites the tree
             tui_runs, monkey = phase_tui_path(work, tree)
             tick("tui_path")
@@ -6893,7 +7180,8 @@ def main() -> int:
               == (IVF_MODEL, "bfloat16", 1, 256))
     int8_k, bf16_k = paths["int8"]["kernels"], paths["bfloat16"]["kernels"]
     runs = [index_launches, query_launches, scan_ab["launches"],
-            f32["index_launches"], f32["query_launches"]] + [
+            f32["index_launches"], f32["query_launches"],
+            families["launches"], fuzz["launches"]] + [
         p[key] for p in [*paths.values(), *tp_runs]
         for key in ("index_launches", "query_launches")] + [
         dict(s["launches"]) for s in spill.values()] + [append["launches"]] \
@@ -6957,6 +7245,23 @@ def main() -> int:
         {**entry("scan_topk", scan_src, "sema_tpu/ops/pallas_topk.py:280",
                  [f32["k1"]["n"], 1, f32["k1"]["k"]], f32["k1"]),
          "name": "scan_topk:f32_path", "launches": f32_launches["scan_topk"]}]
+    # families_path's new shapes: K1 on e5-base's bf16 store at d 768, and
+    # K2 at e5-base's query shape and at its index's most launched shape,
+    # on the path's own activations, each with the launches measured at
+    # that shape in families_path
+    e5 = families["e5-base"]
+    kernels.append({**entry("scan_topk", scan_src,
+                            "sema_tpu/ops/pallas_topk.py:280",
+                            [e5["k1"]["n"], 1, e5["k1"]["k"]], e5["k1"]),
+                    "name": "scan_topk:families_e5-base",
+                    "launches": e5["query_launches"]["scan_topk"]})
+    for step, f in e5["k2"].items():
+        kernels.append({**entry("encoder_layer",
+                                "sema_tpu_torch/csrc/encoder_layer.cu",
+                                "sema_tpu/ops/fused_attention.py:356",
+                                [f["b"], f["s"], f["h"]], f),
+                        "name": f"encoder_layer:e5-base_{step}",
+                        "launches": f["launches"]})
     # the spill path's new launch shapes: K1 over a streamed slice, K3 and
     # K4b over a staged probe at tiles of 128 rows, each with its launches
     # at that shape

@@ -405,14 +405,31 @@ class VectorStore:
         self.store_dtype = store_dtype
         self.np_dtype, self.torch_dtype = _store_types(store_dtype)
         self.rescore_k = rescore_k
-        self.ivf = ivf
+        # SEMA_TPU_IVF (vector_store.py:316-318): "" or "0" is off, any
+        # other value on, unset leaves the argument
+        env_ivf = os.environ.get("SEMA_TPU_IVF")
+        self.ivf = (env_ivf not in ("", "0")) if env_ivf is not None \
+            else ivf
+        # SEMA_TPU_SEAL_ROWS (vector_store.py:323-331), the operator's
+        # seal threshold: an instance attribute shadows the class
+        # constant only when the variable is set, so a test that patches
+        # the class still wins; a malformed value keeps the default
+        env_seal = os.environ.get("SEMA_TPU_SEAL_ROWS")
+        if env_seal:
+            try:
+                self.SEAL_ROWS = max(1, int(env_seal))
+            except ValueError:
+                print(f"Warning: ignoring malformed "
+                      f"SEMA_TPU_SEAL_ROWS={env_seal!r}", file=sys.stderr)
         # the recall contract (vector_store.py:332-349): a mean recall@10
-        # target maps to nprobe through the frontier or, above it, routes
-        # every query to the exact scan; SEMA_TPU_IVF_NPROBE, the expert
-        # override, wins over both
+        # target (SEMA_TPU_IVF_MIN_RECALL, else the argument) maps to
+        # nprobe through the frontier or, above it, routes every query to
+        # the exact scan; SEMA_TPU_IVF_NPROBE, the expert override, wins
+        # over both
         self.ivf_nprobe = int(os.environ.get("SEMA_TPU_IVF_NPROBE",
                                              ivf_nprobe))
-        self.ivf_min_recall = ivf_min_recall
+        self.ivf_min_recall = float(os.environ.get(
+            "SEMA_TPU_IVF_MIN_RECALL", ivf_min_recall))
         self._ivf_route_exact = False
         if self.ivf and self.ivf_min_recall > 0:
             nprobe = self.nprobe_for_recall(self.ivf_min_recall)

@@ -218,7 +218,12 @@ class Encoder:
                 outs.append(out.to(self.device))
         return torch.cat(outs)[:n]
 
-    def _bucket_len(self, n: int) -> int:
+    def bucket_len(self, n: int) -> int:
+        """The sequence length a text of ``n`` tokens is padded to: the
+        smallest bucket that holds it, or ``max_length`` when none does
+        or when ``SEMA_TPU_BUCKETS=off`` (as in ``sema_tpu``'s encoder)."""
+        if os.environ.get("SEMA_TPU_BUCKETS", "on") == "off":
+            return self.max_length
         for b in self.BUCKETS:
             if n <= b <= self.max_length:
                 return b
@@ -258,7 +263,7 @@ class Encoder:
             encs = self._encode(texts[soff:soff + SB])
             buckets: dict = {}
             for i, (tok_ids, _) in enumerate(encs):
-                buckets.setdefault(self._bucket_len(len(tok_ids)),
+                buckets.setdefault(self.bucket_len(len(tok_ids)),
                                    []).append(i)
             for blen in sorted(buckets):
                 idxs = buckets[blen]

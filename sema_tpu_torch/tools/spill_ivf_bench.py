@@ -41,6 +41,7 @@ import shutil
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +88,23 @@ def _chunks(lo: int, hi: int, fname: str):
     return [Chunk(id=f"{fname}:{i}", file_path=Path(fname),
                   start_line=i, end_line=i, content=f"row {i}")
             for i in range(lo, hi)]
+
+
+@contextmanager
+def _ivf_env(value: str):
+    """``SEMA_TPU_IVF`` at ``value`` while a store opens (the store reads
+    it over its ``ivf`` argument, as the JAX tool sets it before each
+    open), so an inherited value cannot make the exact reopen IVF; the
+    caller's value is restored after."""
+    saved = os.environ.get("SEMA_TPU_IVF")
+    os.environ["SEMA_TPU_IVF"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("SEMA_TPU_IVF", None)
+        else:
+            os.environ["SEMA_TPU_IVF"] = saved
 
 
 def _measure(store, queries: np.ndarray, k: int, repeats: int):
@@ -177,8 +195,9 @@ def main(argv=None) -> int:
     q = q_all[:args.q]
 
     before = launch_counts()
-    store = VectorStore(work, args.dim, "bench", ivf=True,
-                        store_dtype=args.store_dtype, device=dev)
+    with _ivf_env("1"):
+        store = VectorStore(work, args.dim, "bench", ivf=True,
+                            store_dtype=args.store_dtype, device=dev)
     built = store.total_rows
     if built == 0:
         t0 = time.perf_counter()
@@ -248,8 +267,9 @@ def main(argv=None) -> int:
     nprobe = store.ivf_nprobe
     store.close()
 
-    store2 = VectorStore(work, args.dim, "bench", ivf=False,
-                         store_dtype=args.store_dtype, device=dev)
+    with _ivf_env("0"):
+        store2 = VectorStore(work, args.dim, "bench", ivf=False,
+                             store_dtype=args.store_dtype, device=dev)
     exact_bytes = rows * args.dim * itemsize
     oracle_only = bool(args.exact_oracle_only or overtime())
     if oracle_only:

@@ -130,7 +130,7 @@ def test_k_larger_than_live_rows_and_empty_store(tmp_path):
     ps.close()
 
 
-def test_int8_manifest_raises_not_implemented(tmp_path):
+def test_int8_manifest_opens_in_the_port(tmp_path):
     """An int8 manifest opens in the port (the disk holds bf16
     originals) and answers as the JAX package does, also when the port is
     configured for another dtype (the disk format wins)."""
