@@ -79,7 +79,8 @@ def variant(name: str, edits):
     for sub in ("csrc", "ops"):
         (root / "sema_tpu_torch" / sub).mkdir(parents=True, exist_ok=True)
     texts = {f: (ROOT / "sema_tpu_torch" / f).read_text()
-             for f in ("csrc/scan_topk.cu", "ops/scan_topk.py")}
+             for f in ("csrc/scan_topk.cu", "ops/scan_topk.py",
+                       "ops/_cuda.py")}
     for f, old, new in edits:
         cs.check(texts[f].count(old) == 1, f"{name}: {old!r} not in {f}")
         texts[f] = texts[f].replace(old, new)
@@ -87,8 +88,8 @@ def variant(name: str, edits):
         (root / "sema_tpu_torch" / f).write_text(text)
     out = root / "libscan_topk.so"
     proc = subprocess.run(
-        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out),
-         str(root / "sema_tpu_torch" / "csrc" / "scan_topk.cu")],
+        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
+         str(out), str(root / "sema_tpu_torch" / "csrc" / "scan_topk.cu")],
         capture_output=True, text=True)
     cs.check(proc.returncode == 0, f"{name} does not build: {proc.stderr}")
     lib = ctypes.CDLL(str(out))

@@ -327,6 +327,18 @@ mutant scan_staging_reused_early scan_topk.cu \
 mutant merge_plan_block_not_taken ops/scan_topk.py \
   's/^_MERGED_BLOCKS = (64, 32, 16, 8)/_MERGED_BLOCKS = (128, 64, 32, 16, 8)/' \
   scan_topk
+# K1's wgmma route (K1 and K8 of a batch): the consumers wait on the wrong
+# phase of a ring slot's full barrier, so they score a slab before its
+# rows have landed, or the slot's last slab (stale rows)
+mutant wgmma_scan_wrong_phase scan_topk.cu \
+  's|mbar_wait(full + s, ph);  // the slab.s rows have landed|mbar_wait(full + s, ph ^ 1);|' \
+  scan_topk
+# K1's wgmma route: f32 queries rounded into the unswizzled layout (bf16
+# queries, copied, keep the swizzle), so each query's 16-byte pieces sit
+# where wgmma reads other columns
+mutant wgmma_f32_queries_unswizzled scan_topk.cu \
+  's|      \*reinterpret_cast<uint4\*>(dst) = make_uint4(w\[0\], w\[1\], w\[2\], w\[3\]);|      *reinterpret_cast<uint4*>(qs + (c / 64 * QB + qi) * 64 + c % 64) = make_uint4(w[0], w[1], w[2], w[3]);|' \
+  scan_topk
 # K2 and K5, the ring's LayerNorm GEMMs (one query): no cluster barrier
 # before the LayerNorm, so a block may read a peer's slice before the peer
 # has written it

@@ -109,7 +109,8 @@ def build(sources: dict) -> dict:
         src, lib = OUT / f"encoder_layer_{name}.cu", OUT / f"lib{name}.so"
         src.write_text(text)
         procs[name] = (lib, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
+             str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (path, proc) in procs.items():

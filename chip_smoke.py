@@ -12,8 +12,13 @@ Phases, one JSON line each:
                       and 3,000 rows at d=384, Q in {1, 256}, k in
                       {16, 64, 128}, masked and not, f32 stores at the
                       wider models' d (768, 1024), whose rows pass 1 reads
-                      in slabs, and bf16 stores at e5-base's d 768 (the
-                      same n, Q, k and masks). Duplicated rows must
+                      in slabs, bf16 stores at e5-base's d 768 (the
+                      same n, Q, k and masks), and K1_WIDE: bench.py's
+                      e5-base scan (1,048,576 x 768, Q 64 and Q 1, k 10)
+                      and a gte-large bf16 store's batches (262,144 x
+                      1,024, Q 64 and 256, k 64); each case with its plan
+                      (the wgmma route's ring stages, query block, score
+                      buffers, chunks). Duplicated rows must
                       give identical ids; elsewhere ids may differ only
                       between scores within 1e-5 of each other, and scores
                       agree within 1e-5 (both sum the same f32 products in
@@ -31,7 +36,8 @@ Phases, one JSON line each:
                       one query back to back, the query alternating, each
                       bit-equal to its query's first call; and in the
                       built library (``cuobjdump -sass``) a GPU fence
-                      before each merged pass 1's count
+                      before each merged pass 1's count, the mma.sync
+                      scorers' and the wgmma route's
                       (``fence_before_count``).
 4. ``encoder_layer``  K2 against its plain version, bf16, at MiniLM width
                       (head dim 32) at every bucket shape of the index and
@@ -154,7 +160,9 @@ Phases, one JSON line each:
                       ``query``: the query must launch K5 24 times, K2
                       not at all, K4b once per sealed bucket, K4a once (the
                       tail) and K1 not at all; the index's K5 launches must
-                      match its batches per sequence bucket, with no K2.
+                      match its batches per sequence bucket, with no K2,
+                      and are printed by (rows, tokens) as the encoder
+                      makes them (``index_launches_by_shape``).
                       The stored rows of a sample of the tail are held
                       against the plain encoder on the card (per-row
                       cosine >= 0.9999). The kernels' hits must equal the
@@ -360,7 +368,11 @@ Phases, one JSON line each:
                       (``TOOLS``): ``load_test`` at 262,144 x 384 with 256
                       clients and the mutator, again at ``--k 50`` (the
                       store's k class 64, K1 over batches of about 124
-                      queries), then at BASELINE config 4's
+                      queries), at bench.py's e5-base cell (1,048,576 x
+                      768, batches of up to 64: K1's wgmma route, whose
+                      launches there the kernels line's
+                      ``scan_topk:batch_e5-base`` counts), then at
+                      BASELINE config 4's
                       widths (int8 IVF, d 1,024, 64 clients); 0 errors, 0
                       mismatches. ``spill_ivf_bench`` in bf16 and int8: a
                       bucket spilled, the probe staging less than the
@@ -832,8 +844,15 @@ def k1_inputs(n, nq, d, dtype, gen):
 
 
 def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
-    from sema_tpu_torch.ops.scan_topk import scan_topk, scan_topk_reference
+    """One K1 case against its plain version and the library's ``topk``
+    of the product, with its plan: the wgmma route's ring stages (0: the
+    mma.sync scorers; f32 rows the SIMT route), query block and score
+    buffers."""
+    scan_mod = importlib.import_module("sema_tpu_torch.ops.scan_topk")
+    scan_topk, scan_topk_reference = (scan_mod.scan_topk,
+                                      scan_mod.scan_topk_reference)
     store, q, valid = k1_inputs(n, nq, d, dtype, gen)
+    plan = scan_mod.plan_on(DEV, n, nq, d, store.element_size(), k)
     got = scan_topk(store, q, valid, k, masked)
     want = scan_topk_reference(store, q, valid, k, masked)
     torch.cuda.synchronize()
@@ -848,6 +867,8 @@ def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
     return {
         "n": n, "q": nq, "k": k, "masked": masked, "d": d,
         "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+        "ring_stages": plan.stages, "query_block": plan.qb,
+        "score_buffers": plan.nb, "chunks": plan.chunks,
         "ms": device_ms(lambda: scan_topk(store, q, valid, k, masked), iters),
         "plain_ms": device_ms(
             lambda: scan_topk_reference(store, q, valid, k, masked), iters),
@@ -857,17 +878,26 @@ def scan_case(n, nq, k, masked, gen, iters, d=D, dtype=torch.bfloat16):
 
 
 # phase scan_topk's cases: (n, Q, k, masked, d, dtype); the bf16 store
-# at e5-base's d 768 (families_path's) last, drawn from a generator of
-# its own (K1_D768_SEED) so that the cases before them draw what they drew
+# at e5-base's d 768 (families_path's) after the rest, drawn from a
+# generator of its own (K1_D768_SEED) so that the cases before them draw
+# what they drew; then, from another (K1_WIDE_SEED), bench.py's e5-base
+# scan (1,048,576 x 768 at Q 64 and Q 1, k 10: the batcher's batches over
+# an e5-base store) and a gte-large bf16 store's batches (262,144 x 1,024
+# at Q 64 and 256, k 64), K1's wgmma route at d 768 and 1,024
 K1_D768 = tuple((n, nq, k, masked, 768, torch.bfloat16)
                 for n in (262_144, 3_000) for nq in (1, 256)
                 for k in (16, 64, 128) for masked in (True, False))
 K1_D768_SEED = 18
+K1_WIDE = ((1 << 20, 64, 10, True, 768, torch.bfloat16),
+           (1 << 20, 1, 10, True, 768, torch.bfloat16),
+           (262_144, 64, 64, True, 1024, torch.bfloat16),
+           (262_144, 256, 64, True, 1024, torch.bfloat16))
+K1_WIDE_SEED = 21
 K1_CASES = tuple((n, nq, k, masked, D, torch.bfloat16)
                  for n in (262_144, 3_000) for nq in (1, 256)
                  for k in (16, 64, 128) for masked in (True, False)) + tuple(
     (3_000, nq, 64, True, d, torch.float32)
-    for d in (768, 1024) for nq in (1, 256)) + K1_D768
+    for d in (768, 1024) for nq in (1, 256)) + K1_D768 + K1_WIDE
 
 
 def int_rows(n, d, gen):
@@ -883,7 +913,10 @@ MERGE_CASES = (("K1", 16_384, 64, 64, True), ("K1", 16_384, 200, 128, True),
                ("K1", 8_192, 20, 1024, False), ("K1", 8_192, 40, 256, True),
                ("K1", 3_600, 1, 64, False),
                ("K8", 16_384, 64, 64, True), ("K3", 24, 1, 64, True),
-               ("K3", 24, 64, 16, True))
+               ("K3", 24, 64, 16, True),
+               # the wgmma route's blocks of 64 and 32 (chunks of 8 tiles)
+               ("K1", 65_536, 64, 64, True), ("K8", 65_536, 64, 64, True),
+               ("K1", 65_536, 24, 16, False))
 
 
 def merge_case(what, size, nq, k, masked, gen) -> dict:
@@ -905,12 +938,12 @@ def merge_case(what, size, nq, k, masked, gen) -> dict:
     valid[TIE] = True
     if not masked:
         valid[:] = True
-    kw, rows = {}, torch.arange(n, device=DEV)
+    kw, rows, n_tiles = {}, torch.arange(n, device=DEV), 0
     if what == "K3":
         tiles = np.sort(np.concatenate([[0], np.random.default_rng(
             size).choice(np.arange(1, SEAL // IVF_TILE), size - 1,
                          replace=False)])).astype(np.int32)
-        kw = {"tiles": tiles, "tile_n": IVF_TILE}
+        kw, n_tiles = {"tiles": tiles, "tile_n": IVF_TILE}, size
         rows = scan_mod._tile_rows(tiles, size, IVF_TILE, DEV)
         want = scan_mod.scan_topk_pruned_reference(store, q, valid, tiles,
                                                    size, k, IVF_TILE)
@@ -925,8 +958,7 @@ def merge_case(what, size, nq, k, masked, gen) -> dict:
     got = scan_mod._launch(store, q.to(BF16), valid if masked else None, k,
                            stats=stats, **kw)
     torch.cuda.synchronize()
-    plan = scan_mod._plan(len(rows), nq, D, 2, k, 64,
-                          scan_mod._sm_count(DEV.index or 0))
+    plan = scan_mod.plan_on(DEV, len(rows), nq, D, 2, k, n_tiles=n_tiles)
     scores = scan_mod._scores(store[rows], q, valid[rows], masked).cpu()
     warm = kw.get("thr0")
     model = scan_mod.pass1_merge_reference(
@@ -939,7 +971,8 @@ def merge_case(what, size, nq, k, masked, gen) -> dict:
           f"{counters}, the model's {model}")
     return {"kernel": what, "n": n, "rows": len(rows), "q": nq, "k": k,
             "masked": masked, "query_block": plan[0],
-            "score_buffers": plan[5], "chunks": plan[3],
+            "score_buffers": plan[5], "ring_stages": plan.stages,
+            "chunks": plan[3],
             "queued": counters[0], "flushes": counters[1]}
 
 
@@ -961,8 +994,7 @@ def one_launch_stress(gen) -> list:
     out = []
     for n, k in ONE_LAUNCH_STRESS:
         store, q, valid = k1_inputs(n, 4, D, BF16, gen)
-        plan = scan_mod._plan(n, 1, D, 2, k, 64,
-                              scan_mod._sm_count(DEV.index or 0))
+        plan = scan_mod.plan_on(DEV, n, 1, D, 2, k)
         check(plan.one, f"one-launch stress ({n}, {k}): the plan {plan} "
               "takes two launches")
         want = [scan_mod.scan_topk(store, q[j:j + 1], valid, k)
@@ -990,7 +1022,9 @@ def one_launch_stress(gen) -> list:
 
 def fence_before_count() -> list:
     """The one-launch route's release, read from the built library
-    (``cuobjdump -sass``): in every ``scan_pass1_merged`` a GPU-scope fence
+    (``cuobjdump -sass``): in every ``scan_pass1_merged`` (the eight of the
+    mma.sync scorers and the four of the wgmma route, which share the
+    code) a GPU-scope fence
     (``MEMBAR``/``FENCE`` at ``.GPU``) comes before the block's count, its
     one 32-bit global atomic add that returns the old value (the merge
     counters' adds are 64-bit, the queues' ORs in shared memory). Without
@@ -1016,15 +1050,17 @@ def fence_before_count() -> list:
                     "count_line": count})
     bad = [f for f in out if f["count_line"] is None or f["fence_line"] is None
            or f["fence_line"] > f["count_line"]]
-    check(len(out) == 8 and not bad, f"scan_pass1_merged: {len(out)} "
+    check(len(out) == 12 and not bad, f"scan_pass1_merged: {len(out)} "
           f"instantiations, a count with no GPU fence before it: {bad}")
     return out
 
 
 def phase_scan(gen):
     d768_gen = torch.Generator(device=DEV).manual_seed(K1_D768_SEED)
+    wide_gen = torch.Generator(device=DEV).manual_seed(K1_WIDE_SEED)
     cases = [scan_case(n, nq, k, masked,
-                       d768_gen if c in K1_D768 else gen,
+                       d768_gen if c in K1_D768 else
+                       wide_gen if c in K1_WIDE else gen,
                        10 if n > 10_000 else 30, d=d, dtype=dt)
              for c in K1_CASES for n, nq, k, masked, d, dt in [c]]
     # the merge cases draw from their own generator, so that the phases
@@ -2657,12 +2693,18 @@ def in_library(fn, lib):
     return run
 
 
+BITS_TURN_MS = 5.0             # the least a timed turn of bits_case lasts
+
+
 def bits_case(what, fn, parent_fn, args, iters) -> dict:
     """``fn(*args)`` through this tree's kernels and ``parent_fn(*args)``
     through the parent's: where their outputs (a tensor or a tuple of
     them) differ, and the ms of each by CUDA events (``ms``,
     ``parent_ms``), the means of three turns each in the order this tree,
-    parent, parent, this tree, this tree, parent on the same card."""
+    parent, parent, this tree, this tree, parent on the same card. A turn
+    is ``iters`` calls, or more where a call is short, so that it lasts
+    BITS_TURN_MS at least: a turn of a few calls of 50-100 us measures
+    the host's jitter more than the call."""
     got, want = fn(*args), parent_fn(*args)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -2673,6 +2715,8 @@ def bits_case(what, fn, parent_fn, args, iters) -> dict:
     gaps = [(g.float() - w.float()).abs()[f] for g, w, f in
             zip(got, want, both)]
     times = {"ms": [], "parent_ms": []}
+    iters = max(iters, min(400, math.ceil(
+        BITS_TURN_MS / max(device_ms(lambda: fn(*args), 3), 1e-3))))
     for side in ("", "parent_", "parent_", "", "", "parent_"):
         f = parent_fn if side else fn
         times[side + "ms"].append(device_ms(lambda: f(*args), iters))
@@ -3718,7 +3762,8 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = run_cli(["index", str(tree), "--stats", "--device", device])
+    with CallRecorder().recording() as index_rec:
+        out = run_cli(["index", str(tree), "--stats", "--device", device])
     index_s = time.perf_counter() - t0
     index_launches = launch_counts()
     n_chunks = int(re.search(r"indexed (\d+) chunks", out).group(1))
@@ -3727,6 +3772,16 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
           and not index_launches[other_k]
           and not any(index_launches[n] for n in SCANS),
           f"{name} index: {n_chunks} chunks, launches {index_launches}")
+    # the index's layer launches by (rows, tokens), recorded where the
+    # encoder makes them
+    index_shapes = Counter(
+        c.shape[:2] for c in index_rec.calls
+        if c.wrapper == ("fused_encoder_layer_int8" if int8
+                         else "fused_encoder_layer"))
+    check(sum(index_shapes.values()) == index_launches[layer_k],
+          f"{name} index: shapes {dict(index_shapes)}, launches "
+          f"{index_launches}")
+    del index_rec
 
     # the first query of the store: it builds the buckets (k-means of each
     # sealed one, its sidecar written) before it scans
@@ -3848,6 +3903,8 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
          query_launches=query_launches, open_s=open_s,
          bucket_rows={str(s): n for s, n in sorted(counts.items())},
          bucket_batches={str(s): n for s, n in sorted(batches.items())},
+         index_launches_by_shape={f"{b}x{t}": n for (b, t), n in
+                                  sorted(index_shapes.items())},
          stored_min_cosine=float(cos.min()),
          query_p50_ms=lat[len(lat) // 2], query_max_ms=lat[-1],
          query_stages_p50_ms=stages_p50_ms, query_device=busy,
@@ -6800,6 +6857,10 @@ def phase_cards_path(work: Path, tree: Path, gen, weights, cards,
 
 # (tool, arguments, the kernels its run must launch); text_index_scale,
 # host only, runs beside encoder_ablate (whose times are the profiler's)
+E5_LOAD_TEST = ("load_test", ["--rows", "1048576", "--dim", "768",
+                               "--max-batch", "64", "--clients", "256",
+                               "--duration", "3", "--warmup", "1"],
+                ("scan_topk",))
 TOOLS = (
     ("load_test", ["--rows", "262144", "--dim", "384", "--clients", "256",
                    "--max-batch", "256", "--duration", "3", "--warmup", "1",
@@ -6807,6 +6868,8 @@ TOOLS = (
     ("load_test", ["--rows", "262144", "--dim", "384", "--clients", "256",
                    "--max-batch", "256", "--duration", "3", "--warmup", "1",
                    "--k", "50"], ("scan_topk",)),
+    # the batcher over an e5-base-width store: K1's wgmma route at d 768
+    E5_LOAD_TEST,
     ("load_test", ["--ivf", "--store-dtype", "int8", "--dim", "1024",
                    "--rows", "262144", "--clients", "64", "--duration", "2",
                    "--warmup", "1"],
@@ -6898,11 +6961,18 @@ TOOL_LANES = {"load_test": 0, "serving_sweep": 0, "spill_ivf_bench": 1,
               "encoder_ablate": 2}
 
 
+def tool_lane(tool) -> int:
+    """A TOOLS entry's lane: its module's, but E5_LOAD_TEST's store of
+    1,048,576 x 768 rows takes some 45 s to build, so it runs beside the
+    encoder tools, the shortest lane."""
+    return 2 if tool == E5_LOAD_TEST else TOOL_LANES.get(tool[0], 0)
+
+
 def phase_tools_path(work: Path, smi: str, tools=TOOLS,
                      text_args=TEXT_SCALE_ARGS) -> dict:
     """Each of the port's tools as ``python -m sema_tpu_torch.tools.<name>``
     in a fresh process on the card (TMPDIR in ``work``), in the lanes of
-    TOOL_LANES at once, each lane's tools one after another; each last
+    TOOL_LANES (tool_lane) at once, each lane's tools one after another; each last
     line printed and checked (``tool_checks``): exit 0, ``device`` the
     card's nvidia-smi line, and the kernels it must reach among its
     ``launches``; ``text_index_scale`` on the host beside
@@ -6910,13 +6980,14 @@ def phase_tools_path(work: Path, smi: str, tools=TOOLS,
     are this process's peak, which a child inherits at fork and keeps
     across exec: its own RSS shows only when it runs by hand). Every run
     is printed before a failed check fails the phase. Returns the
-    launches summed over the tools."""
+    launches summed over the tools, and each tool's by its ``(module,
+    argv)``."""
     from concurrent.futures import ThreadPoolExecutor
     tmp = work / "tools-tmp"
     tmp.mkdir(exist_ok=True)
     env = {**os.environ, "TMPDIR": str(tmp)}
     t_phase = time.perf_counter()
-    failed, launches = [], Counter()
+    failed, launches, by_tool = [], Counter(), {}
 
     def run_tool_side(module, argv):
         """One tool's run (and text_index_scale's beside encoder_ablate)."""
@@ -6939,8 +7010,8 @@ def phase_tools_path(work: Path, smi: str, tools=TOOLS,
         return runs
 
     lanes = {}
-    for i, (module, argv, _) in enumerate(tools):
-        lanes.setdefault(TOOL_LANES.get(module, 0), []).append(i)
+    for i, tool in enumerate(tools):
+        lanes.setdefault(tool_lane(tool), []).append(i)
     results = {}
 
     def run_lane(indices):
@@ -6962,6 +7033,7 @@ def phase_tools_path(work: Path, smi: str, tools=TOOLS,
                 continue
             launched = last["launches"]
             launches.update(launched)
+            by_tool[(r["tool"], tuple(r["argv"]))] = launched
             if must:
                 if last["device"] != smi:
                     failed.append(f"{what}: device {last['device']!r}")
@@ -6975,7 +7047,7 @@ def phase_tools_path(work: Path, smi: str, tools=TOOLS,
     emit("tools_path", seconds=seconds, lanes=list(lanes.values()),
          launches=dict(launches), failed=failed)
     check(not failed, f"tools_path: {failed}")
-    return dict(launches)
+    return dict(launches), by_tool
 
 
 def main() -> int:
@@ -7051,7 +7123,7 @@ def main() -> int:
         walls[name] = now - last[0]
         last[0] = now
     if run("scan_topk"):
-        phase_scan(gen)
+        k1_cases = phase_scan(gen)
         tick("scan_topk")
     if run("encoder_layer"):
         layer_cases = phase_layer(gen)
@@ -7164,7 +7236,7 @@ def main() -> int:
             emit("cards_path", ran=False, cards=count)
         if run("tools_path"):
             chosen = (cli_args.tools or "").split(",")
-            tools_launches = phase_tools_path(work, smi, [
+            tools_launches, tool_runs = phase_tools_path(work, smi, [
                 t for t in TOOLS if cli_args.tools is None or t[0] in chosen])
             tick("tools_path")
     emit("walls", seconds=walls, total_s=time.perf_counter() - t_start)
@@ -7293,6 +7365,17 @@ def main() -> int:
                             "name": f"{name}:shard_{store_name}_{rows}",
                             "launches": shard["shapes"][key][
                                 (name, int(rows))]})
+    # K1's wgmma route at bench.py's e5-base cell (1,048,576 x 768, Q 64,
+    # k 10), with the launches of load_test's batches over a store of that
+    # width (E5_LOAD_TEST)
+    wide = next(c for c in k1_cases if (c["n"], c["q"], c["k"], c["d"])
+                == (1 << 20, 64, 10, 768))
+    kernels.append({**entry("scan_topk", scan_src,
+                            "sema_tpu/ops/pallas_topk.py:280",
+                            [wide["n"], wide["q"], wide["k"]], wide),
+                    "name": "scan_topk:batch_e5-base",
+                    "launches": tool_runs[(E5_LOAD_TEST[0], tuple(
+                        E5_LOAD_TEST[1]))].get("scan_topk", 0)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

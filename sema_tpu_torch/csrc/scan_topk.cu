@@ -128,6 +128,20 @@
 //           their thresholds) and flags a query that has a score above it;
 //           the merge skips an unflagged query, whose merge would take
 //           nothing.
+//           K1 and K8 of a batch (more than 8 queries, rows 0..n-1 of a
+//           bf16/f16 store) score on wgmma instead (wgmma_scorers, the WG
+//           form of scan_pass1_merged; ops/scan_topk.py:wgmma_layout plans
+//           it): a producer warp keeps a ring of TMA copies of 64 x 64
+//           boxes of the rows in flight, guarded by mbarriers, and a
+//           consumer warpgroup runs wgmma m64nQBk16 (QB 32 or 64) on each
+//           box against the block's queries, staged once, both in the
+//           128-byte swizzle; each score is still one f32 accumulator
+//           stepped over k16 in order, so the scores are mma.sync's bit
+//           for bit. The mma.sync scorers read every operand through
+//           ldmatrix (three times the shared-memory bytes of their
+//           products) and stop the block at each stage's barrier: at
+//           262,144 x 768, Q 256 they ran at a tenth of the card's bf16
+//           rate, 1.35 times the library's matmul + topk.
 //   f32     f32 FMAs over the row's values against the query, one thread a
 //           row (TF32 would round the operands).
 // Masked rows score -inf.
@@ -187,8 +201,17 @@
 // while it runs; the bf16/f16 route's merge runs in warps of its own, so
 // that a tile's merge overlaps the next tile's copies and products, and
 // costs time only where it takes longer than they do (the first tiles of
-// a chunk, where every score survives). Each chunk restarts its
-// lists, so the insertions grow with the chunks, and the wrapper plans
+// a chunk, where every score survives). On the wgmma route of a batch the
+// products take a fifth of the card's bf16 rate or less, and streaming the
+// rows into the ring sets the time: with the products and the merge left
+// out, a build still took two thirds of the route's time at 262,144 x
+// 768, Q 256 (the four query blocks of a chunk each read its rows from L2,
+// some 3.7 TB/s in all), and at one query block the route runs at 1.2
+// times HBM's bound (chip_wgmma_ab.py, H100). A build that shared each
+// box among a chunk's query blocks by TMA multicast (clusters of four)
+// took 1.22-1.36 times as long, in turns. Each chunk
+// restarts its lists, so the insertions grow with the chunks, and the
+// wrapper plans
 // one wave of blocks (chunk_plan), two an SM where shared memory holds
 // two; at one query block an int8 scan takes fewer, longer chunks, so that
 // at most a quarter of its rows become candidates. Pass 2 grows with
@@ -205,6 +228,8 @@
 #include <map>
 #include <mutex>
 #include <utility>
+
+#include "hopper.cuh"  // smem_addr, mbarriers, TMA, wgmma_16
 
 namespace {
 
@@ -476,6 +501,8 @@ struct ScanArgs {
   const float* thr0;        // (nq,) K8's warm-start thresholds, or null
   unsigned long long* fold_stats;  // K9: (spans merged, spans fast), or null
   int score_bufs;           // bf16/f16 K1, K3, K8: score buffers (1 or 2)
+  int ring_stages;          // bf16/f16 K1, K8 of a batch: the wgmma route's
+                            // ring of TMA stages, or 0: the mma.sync scorers
   int smem_plan;            // pass 1's shared memory as the wrapper planned it
   unsigned long long* merge_stats;  // bf16/f16 K1, K3, K8: (survivors
                                     // queued, flushes), or null
@@ -637,9 +664,6 @@ __global__ void __launch_bounds__(kThreads) scan_pass1_simt(ScanArgs a) {
   write_candidates(a, ls, li, nqb, q0, chunk, tid);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -1035,6 +1059,10 @@ constexpr int kScoreStride = kTileRows + 4;  // a query's scores, floats apart
 // buffer b written (kBarFull + b: the scorers arrive, the mergers wait) and
 // read (kBarEmpty + b: the mergers arrive, the scorers wait)
 constexpr int kBarStage = 1, kBarFull = 2, kBarEmpty = 4;
+// the wgmma route's two consumer warpgroups take turns on the ring: the
+// one with tile t + 1 waits on kBarTurn + (t + 1) % 2 for the other to be
+// done waiting on tile t's slabs
+constexpr int kBarTurn = 6;
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -1134,13 +1162,179 @@ __device__ __forceinline__ uint16_t to_store16(float v) {
     return __half_as_ushort(__float2half_rn(v));
 }
 
-template <int QB> struct Merged {
+// WG: the wgmma route (wgmma_scorers), two consumer warpgroups (warps 0-7)
+// and a producer warp (8) where the mma.sync route has its scorers and
+// copiers; each use of a score buffer's barriers is one consumer
+// warpgroup's and the mergers' (kBarThreads).
+template <int QB, bool WG = false> struct Merged {
   static constexpr int kWQ = QB >= 32 ? 32 : 8;
-  static constexpr int kScorers = 4 * (QB / kWQ);
-  static constexpr int kCopiers = kScorers < 8 ? 8 : kScorers;
+  static constexpr int kScorers = WG ? 8 : 4 * (QB / kWQ);
+  static constexpr int kCopiers = WG ? 9 : kScorers < 8 ? 8 : kScorers;
   static constexpr int kMergers = QB == 8 ? 8 : 16;
   static constexpr int kThreads = (kCopiers + kMergers) * 32;
+  static constexpr int kBarThreads = WG ? 128 + kMergers * 32 : kThreads;
 };
+
+constexpr int kRingStage = kTileRows * 128;  // a ring stage: 64 rows x 128 bytes
+constexpr int kRingMin = 3;                  // stages the wgmma route needs
+
+// The wgmma route's queries (WG of scan_pass1_merged): the block's QB
+// queries, [nslab][QB][64 values] with the 128-byte swizzle (16-byte piece
+// u of query qi's 128 bytes at piece u ^ (qi % 8), as TMA lays the rows
+// out); zeros past d (up to the last slab's end) and past the batch. f32
+// queries are rounded to the store dtype as the wrapper's cast would round
+// them (no cast launch before the scan). d is a multiple of 8, and so is
+// each piece of 8 values. Thread t of the nthr that stage them; each then
+// makes its part visible to wgmma (the async proxy).
+template <int DT, int QB>
+__device__ void wgmma_queries(const ScanArgs& a, uint16_t* qs, int q0, int nqb, int t,
+                              int nthr) {
+  const int d = a.d, nslab = ((d + 15) / 16 * 16 + 63) / 64;
+  const uint16_t* queries = reinterpret_cast<const uint16_t*>(a.queries);
+  for (int e = t; e < QB * nslab * 8; e += nthr) {
+    const int qi = e / (nslab * 8), c = e % (nslab * 8) * 8;
+    uint16_t* dst = qs + (c / 64 * QB + qi) * 64 + ((c / 8 % 8) ^ (qi & 7)) * 8;
+    const bool in = qi < nqb && c < d;
+    if (a.fq == nullptr) {
+      cp_async16(dst, in ? queries + (size_t)(q0 + qi) * d + c : queries, in);
+    } else {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+      if (in) {
+        const float4* src = reinterpret_cast<const float4*>(a.fq + (size_t)(q0 + qi) * d + c);
+        x = src[0];
+        y = src[1];
+      }
+      const float v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = (uint32_t)to_store16<DT>(v[2 * j]) | (uint32_t)to_store16<DT>(v[2 * j + 1]) << 16;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();  // this thread's copies have landed
+  fence_proxy_async();  // the queries are wgmma's to read
+}
+
+// The wgmma route's scorers (WG of scan_pass1_merged, K1 and K8 of a
+// batch at query blocks of 32 and 64; see the top of the file). Warp 8 is
+// the producer: one thread keeps the ring's S stages (a.ring_stages) in
+// flight, stage g the 64 x 64 box (128 bytes of each of the tile's 64 rows,
+// the 128-byte swizzle, zeros past d and past the store) of slab g % nslab
+// of the chunk's tile g / nslab, through TMA (cp.async.bulk.tensor), each
+// stage guarded by a full mbarrier (its bytes have landed) and an empty one
+// (each warp of the tile's consumer warpgroup is done with it). Warps 0-3
+// and 4-7 are the consumer warpgroups, one a score buffer (a.score_bufs):
+// warpgroup w takes the tiles w, w + nb, ... and score buffer w, so that
+// one's epilogue, and its wait for the mergers, runs beside the other's
+// products. They take the ring's slabs in turns, tile by tile (kBarTurn):
+// a slab's full barrier tells apart only its last two uses (its phase's
+// parity), so no consumer may wait on a slab before the one S slabs back
+// has been waited on. Once the block's queries are staged (wgmma_queries,
+// K-major in the same swizzled layout), a warpgroup scores each of its
+// tiles: a slab is four k16 steps of one wgmma m64nQBk16 (A the tile's
+// rows, B the queries, both K-major in shared memory), each score one f32
+// accumulator stepped over k16 in order from column 0 across the slabs,
+// as mma.sync's is, so the scores are the mma.sync route's bit for bit.
+// The steps past d rounded up to 16 (a last slab of a row not a multiple
+// of 64) add products of zeros (TMA's fill, the queries' padding), which
+// change no bit: an accumulator that starts at +0 is never -0, and x + 0
+// is x. One slab's products are in flight while the next is issued. At
+// the tile's end the epilogue writes the scores, -inf for a dead row, and
+// the flags into score buffer tt % nb as the mma.sync scorers do (wgmma's
+// fragment: row (warp % 4) * 16 + lane / 4 + 8 h, query 8 j + 2 (lane %
+// 4) + c).
+template <int DT, int QB>
+__device__ void wgmma_scorers(const ScanArgs& a, const CUtensorMap* rows_map,
+                              unsigned char* ring, uint16_t* qs, uint64_t* full,
+                              uint64_t* empty, float* sc, const float* thr, int* hit,
+                              int r_begin, int r_end, int n_tiles, int warp, int lane) {
+  constexpr int NTH = Merged<QB, true>::kBarThreads;  // the score buffers' barriers
+  const int d = a.d, nb = a.score_bufs, S = a.ring_stages;
+  const int dp = (d + 15) / 16 * 16;
+  const int nslab = (dp + 63) / 64;  // slabs of 64 values, 128 bytes
+  const int n_stages = n_tiles * nslab;
+  if (warp == 8) {  // the producer: one thread issues every copy
+    if (lane == 0) {
+      int s = 0, ph = 0;
+      for (int g = 0; g < n_stages; ++g) {
+        mbar_wait(empty + s, ph ^ 1);  // the consumers are done with the slot
+        mbar_expect_tx(full + s, kRingStage);
+        tma_load_2d(ring + s * kRingStage, rows_map, g % nslab * 64,
+                    r_begin + g / nslab * kTileRows, full + s);
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+  const int wg = warp / 4, consumers = nb;  // a consumer warpgroup a score buffer
+  if (wg >= consumers) return;
+  const volatile float* vthr = thr;
+  float acc[QB / 2];
+  for (int tt = wg; tt < n_tiles; tt += consumers) {
+#pragma unroll
+    for (int i = 0; i < QB / 2; ++i) acc[i] = 0.f;
+    int prev = -1, g = tt * nslab, s = g % S, ph = g / S & 1;
+    if (consumers == 2 && tt > 0) bar_sync(kBarTurn + tt % 2, 256);  // tile tt - 1's slabs
+    for (int j = 0; j < nslab; ++j) {
+      mbar_wait(full + s, ph);  // the slab's rows have landed
+      const uint32_t ra = smem_addr(ring + s * kRingStage);
+      const uint32_t qa = smem_addr(qs + j * QB * 64);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // k16 steps, 32 bytes of the slab each
+        wgmma_16<DT == 1, QB, 0>(acc, sw128_desc(ra + kk * 32, 16, 1024),
+                                 sw128_desc(qa + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the slab before this one is done: its stage goes back
+      if (prev >= 0 && lane == 0) mbar_arrive(empty + prev);
+      prev = s;
+      if (++s == S) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    if (consumers == 2 && tt + 1 < n_tiles) bar_arrive(kBarTurn + (tt + 1) % 2, 256);
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + prev);
+    fence_acc<QB / 2>(acc);
+
+    const int b = tt % nb, t0 = r_begin + tt * kTileRows;
+    const int rows = min(kTileRows, r_end - t0);
+    if (tt >= nb) bar_sync(kBarEmpty + b, NTH);  // the mergers are done with b
+    float* sb = sc + b * QB * kScoreStride;
+    float th[QB / 8][2];
+    bool beat[QB / 8][2] = {};
+#pragma unroll
+    for (int t = 0; t < QB / 8; ++t)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) th[t][c] = vthr[t * 8 + (lane & 3) * 2 + c];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp & 3) * 16 + (lane >> 2) + 8 * h;
+      const bool live = r < rows && (a.valid == nullptr || a.valid[t0 + r]);
+#pragma unroll
+      for (int t = 0; t < QB / 8; ++t)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = live ? acc[4 * t + 2 * h + c] : -INFINITY;
+          sb[(t * 8 + (lane & 3) * 2 + c) * kScoreStride + r] = v;
+          beat[t][c] |= v > th[t][c];
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < QB / 8; ++t)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (beat[t][c]) hit[b * QB + t * 8 + (lane & 3) * 2 + c] = 1;
+    bar_arrive(kBarFull + b, NTH);  // buffer b is the mergers'
+  }
+}
 
 // bf16/f16 rows on the tensor cores, the merge in warps of its own (see the
 // top of the file). The scorers (and copiers) stream the chunk's tiles
@@ -1159,24 +1353,43 @@ template <int QB> struct Merged {
 // [QB][k] (scores, then ids), the queues [QB][kQueue] (scores, then ids),
 // thr [QB], the queues' counts [QB], nb flag sets [QB], and each merger's
 // placement scratch [M][(k + 31) / 32].
-template <int DT, int QB>
-__global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
-    scan_pass1_merged(ScanArgs a) {
-  constexpr int WQ = Merged<QB>::kWQ;
+// WG (query blocks of 32 and 64 of K1 and K8, rows of a whole store): the
+// scorers are wgmma_scorers' consumer warpgroups and producer warp, and the
+// queries and stage buffers give way to the ring [S][64][128 bytes]
+// (1,024-aligned, the swizzle's unit), the queries [nslab][QB][128 bytes]
+// and the ring's full and empty mbarriers [S] each; the rest as above.
+template <int DT, int QB, bool WG>
+__global__ void __launch_bounds__(Merged<QB, WG>::kThreads, QB == 8 ? 2 : 1)
+    scan_pass1_merged(ScanArgs a, const __grid_constant__ CUtensorMap rows_map) {
+  constexpr int WQ = Merged<QB, WG>::kWQ;
   constexpr int NT = WQ / 8;  // n8 tiles of a scorer
-  constexpr int SCORERS = Merged<QB>::kScorers;
-  constexpr int NSC = Merged<QB>::kCopiers * 32;  // the stages' copies and barrier
-  constexpr int NTH = Merged<QB>::kThreads;
-  constexpr int M = Merged<QB>::kMergers;
+  constexpr int SCORERS = Merged<QB, WG>::kScorers;
+  constexpr int NSC = Merged<QB, WG>::kCopiers * 32;  // the stages' copies and barrier
+  constexpr int NTH = Merged<QB, WG>::kBarThreads;    // the score buffers' barriers
+  constexpr int NALL = Merged<QB, WG>::kThreads;
+  constexpr int M = Merged<QB, WG>::kMergers;
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = a.d, k = a.k, nb = a.score_bufs;
   const int dp = (d + 15) / 16 * 16;
   const int se = 2 * a.slab_words;
   const int qstr = dp + 8, tstr = se + 8;
   const int nslab = (dp + se - 1) / se;
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem);                      // [QB][qstr]
-  uint16_t* tiles = qs + QB * qstr;                                      // [2][64][tstr]
-  float* sc = reinterpret_cast<float*>(tiles + 2 * kTileRows * tstr);   // [nb][QB][stride]
+  uint16_t *qs, *tiles = nullptr;
+  unsigned char* ring = nullptr;
+  uint64_t *full = nullptr, *empty = nullptr;
+  float* sc;
+  if constexpr (WG) {
+    const int S = a.ring_stages;
+    ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);               // [S][kRingStage]
+    qs = reinterpret_cast<uint16_t*>(ring + S * kRingStage);                // [nslab][QB][64]
+    full = reinterpret_cast<uint64_t*>(qs + (dp + 63) / 64 * QB * 64);      // [S]
+    empty = full + S;                                                       // [S]
+    sc = reinterpret_cast<float*>(empty + S);                               // [nb][QB][stride]
+  } else {
+    qs = reinterpret_cast<uint16_t*>(smem);                                 // [QB][qstr]
+    tiles = qs + QB * qstr;                                                 // [2][64][tstr]
+    sc = reinterpret_cast<float*>(tiles + 2 * kTileRows * tstr);            // [nb][QB][stride]
+  }
   float* ls = sc + nb * QB * kScoreStride;                               // [QB][k]
   int* li = reinterpret_cast<int*>(ls + QB * k);                         // [QB][k]
   float* qv = reinterpret_cast<float*>(li + QB * k);                     // [QB][kQueue]
@@ -1196,24 +1409,41 @@ __global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
   const int r_end = min(a.n, r_begin + a.rows_per_chunk);
   const int n_tiles = (r_end - r_begin + kTileRows - 1) / kTileRows;
 
-  for (int e = tid; e < QB * (dp / 8) && tid < NSC && a.fq == nullptr; e += NSC) {
+  for (int e = tid; !WG && e < QB * (dp / 8) && tid < NSC && a.fq == nullptr; e += NSC) {
     const int qi = e / (dp / 8), c = e % (dp / 8) * 8;
     const bool in = qi < nqb && c < d;
     cp_async16(qs + qi * qstr + c, in ? queries + (size_t)(q0 + qi) * d + c : queries, in);
   }
-  for (int e = tid; e < QB * k; e += NTH) {
+  if (WG && tid == 0) {
+    for (int i = 0; i < a.ring_stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = tid; e < QB * k; e += NALL) {
     ls[e] = -INFINITY;
     li[e] = 0;
   }
-  for (int qi = tid; qi < QB; qi += NTH) {
+  for (int qi = tid; qi < QB; qi += NALL) {
     // a query past the batch is never flagged
     thr[qi] = qi >= nqb ? INFINITY : a.thr0 == nullptr ? -INFINITY : a.thr0[q0 + qi];
     qcnt[qi] = 0;
   }
-  for (int e = tid; e < nb * QB; e += NTH) hit[e] = 0;
+  for (int e = tid; e < nb * QB; e += NALL) hit[e] = 0;
   __syncthreads();
+  if constexpr (WG) {
+    if (warp != 8) {  // all but the producer, which starts the ring meanwhile
+      wgmma_queries<DT, QB>(a, qs, q0, nqb, warp < 8 ? tid : tid - 32, NALL - 32);
+      bar_sync(kBarStage, NALL - 32);  // the queries are staged
+    }
+  }
 
-  if (warp < NSC / 32) {
+  if (WG && warp < NSC / 32) {
+    if constexpr (WG)
+      wgmma_scorers<DT, QB>(a, &rows_map, ring, qs, full, empty, sc, thr, hit, r_begin,
+                            r_end, n_tiles, warp, lane);
+  } else if (warp < NSC / 32) {
     // stage g: slab g % nslab of the chunk's tile g / nslab, into buffer
     // g % 2; zeros past the tile's rows and past d; one group
     auto load = [&](int g) {
@@ -1396,7 +1626,7 @@ __global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
     }
   }
   __syncthreads();
-  write_candidates(a, ls, li, nqb, q0, chunk, tid, NTH);
+  write_candidates(a, ls, li, nqb, q0, chunk, tid, NALL);
   if (a.done == nullptr) return;  // scan_pass2 merges the chunk lists
   // one launch (see the top of the file): the last of the query block's
   // chunks to finish merges their lists
@@ -1412,7 +1642,7 @@ __global__ void __launch_bounds__(Merged<QB>::kThreads, QB == 8 ? 2 : 1)
   int* st_i = reinterpret_cast<int*>(st_s + m);
   for (int qi = 0; qi < nqb; ++qi) {
     const size_t o = (size_t)(q0 + qi) * m;
-    for (size_t e = tid; e < m; e += NTH) {
+    for (size_t e = tid; e < m; e += NALL) {
       st_s[e] = __ldcg(a.cand_s + o + e);
       st_i[e] = __ldcg(a.cand_i + o + e);
     }
@@ -1586,7 +1816,8 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
   constexpr bool MMA = DT != 2;
   if (a.tile_ids != nullptr && (FOLD || a.tile_n < kTileRows || a.tile_n % kTileRows))
     return cudaErrorInvalidValue;
-  if (a.done != nullptr || a.fq != nullptr) return cudaErrorInvalidValue;  // merged route only
+  if (a.done != nullptr || a.fq != nullptr || a.ring_stages != 0)
+    return cudaErrorInvalidValue;  // merged route only
   size_t smem;
   if constexpr (MMA) {
     if (a.slab_words < 8 || a.slab_words % 8) return cudaErrorInvalidValue;
@@ -1617,40 +1848,58 @@ cudaError_t launch_pass1(const ScanArgs& a, cudaStream_t stream) {
 // bf16/f16 pass 1 of K1, K3 and K8 (scan_pass1_merged): checks the layout
 // the wrapper planned, sizes the shared memory as the kernel carves it; in
 // the one-launch route, that its last block's merge fits its warps and its
-// shared memory.
-template <int DT, int QB>
+// shared memory. WG, the wgmma route: rows of a whole store (no tile list),
+// no one-launch merge, slabs of 64 values (32 words), at least kRingMin
+// stages; the store's TMA map built here, boxes of 64 rows x 128 bytes.
+template <int DT, int QB, bool WG>
 cudaError_t launch_merged(const ScanArgs& a, cudaStream_t stream) {
-  if (a.tile_ids != nullptr && (a.tile_n < kTileRows || a.tile_n % kTileRows))
+  if (a.tile_ids != nullptr && (WG || a.tile_n < kTileRows || a.tile_n % kTileRows))
     return cudaErrorInvalidValue;
   if (a.slab_words < 8 || a.slab_words % 8 || (a.score_bufs != 1 && a.score_bufs != 2))
     return cudaErrorInvalidValue;
-  const size_t dp = (a.d + 15) / 16 * 16, nb = a.score_bufs;
-  const size_t smem = (size_t)QB * (dp + 8) * 2 + 2 * kTileRows * (2 * a.slab_words + 8) * 2 +
-                      nb * QB * kScoreStride * 4 + (size_t)QB * a.k * 8 +
-                      (size_t)QB * kQueue * 8 + (size_t)QB * 8 + nb * QB * 4 +
-                      (size_t)Merged<QB>::kMergers * ((a.k + 31) / 32) * 4;
-  if (smem != (size_t)a.smem_plan) return cudaErrorInvalidValue;  // the plan drifted
+  if (WG && (a.done != nullptr || a.slab_words != 32 || a.ring_stages < kRingMin))
+    return cudaErrorInvalidValue;
   const int q_blocks = (a.nq + QB - 1) / QB;
+  const size_t dp = (a.d + 15) / 16 * 16, nb = a.score_bufs;
+  const size_t beside = nb * QB * kScoreStride * 4 + (size_t)QB * a.k * 8 +
+                        (size_t)QB * kQueue * 8 + (size_t)QB * 8 + nb * QB * 4 +
+                        (size_t)Merged<QB, WG>::kMergers * ((a.k + 31) / 32) * 4;
+  const size_t smem =
+      WG ? 1024 + (size_t)a.ring_stages * (kRingStage + 16) + (dp + 63) / 64 * QB * 128 + beside
+         : (size_t)QB * (dp + 8) * 2 + 2 * kTileRows * (2 * a.slab_words + 8) * 2 + beside;
+  if (smem != (size_t)a.smem_plan) return cudaErrorInvalidValue;  // the plan drifted
   if (a.done != nullptr &&
-      (q_blocks > kMaxDone || a.pass2_warps > Merged<QB>::kThreads / 32 ||
+      (q_blocks > kMaxDone || a.pass2_warps > Merged<QB, WG>::kThreads / 32 ||
        (size_t)24 * a.pass2_warps * a.k + (size_t)a.n_chunks * a.k * 8 > smem))
     return cudaErrorInvalidValue;  // the merge's lists and a query's chunk lists
+  CUtensorMap rows_map{};
+  const CUtensorMapDataType type =
+      DT == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  if (WG && !tma_map_2d(&rows_map, type, 2, a.store, a.n, a.d, kTileRows))
+    return cudaErrorInvalidValue;
 
-  void (*kern)(ScanArgs) = scan_pass1_merged<DT, QB>;
+  void (*kern)(ScanArgs, const CUtensorMap) = scan_pass1_merged<DT, QB, WG>;
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), a.card, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(q_blocks, a.n_chunks);
-  kern<<<grid, Merged<QB>::kThreads, smem, stream>>>(a);
+  kern<<<grid, Merged<QB, WG>::kThreads, smem, stream>>>(a, rows_map);
   return cudaGetLastError();
 }
 
 template <int DT>
 cudaError_t launch_merged_qb(int qb, const ScanArgs& a, cudaStream_t st) {
+  if (a.ring_stages > 0) {  // the wgmma route
+    switch (qb) {
+      case 64: return launch_merged<DT, 64, true>(a, st);
+      case 32: return launch_merged<DT, 32, true>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (qb) {
-    case 64: return launch_merged<DT, 64>(a, st);
-    case 32: return launch_merged<DT, 32>(a, st);
-    case 16: return launch_merged<DT, 16>(a, st);
-    case 8: return launch_merged<DT, 8>(a, st);
+    case 64: return launch_merged<DT, 64, false>(a, st);
+    case 32: return launch_merged<DT, 32, false>(a, st);
+    case 16: return launch_merged<DT, 16, false>(a, st);
+    case 8: return launch_merged<DT, 8, false>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1718,9 +1967,11 @@ cudaError_t scan(const ScanArgs& a, int dtype, int qb, bool fold, const float* f
 // tile ids (staged to the card here) and n = n_tiles * tile_n logical rows.
 // thr0 null: K1, K3, K4a, K4b; else K8's per-query warm-start thresholds
 // (bf16/f16/f32 only). score_bufs: the bf16/f16 route's score buffers (1 or
-// 2); smem_plan: pass 1's shared memory in the wrapper's plan, which must be
-// the kernel's. one_launch: pass 1's last blocks merge (the bf16/f16 route
-// only), with pass2_warps warps. ws: the call's workspace of ws_bytes
+// 2); ring_stages: the wgmma route's TMA stages (bf16/f16 K1 and K8 at query
+// blocks of 32 and 64), or 0 for the mma.sync scorers; smem_plan: pass 1's
+// shared memory in the wrapper's plan, which must be the kernel's.
+// one_launch: pass 1's last blocks merge (the bf16/f16 route only), with
+// pass2_warps warps. ws: the call's workspace of ws_bytes
 // (carve), 16-byte aligned, whose first pieces are the results. stats null,
 // or two counters that gain the bf16/f16 route's survivors queued and its
 // flushes. card: the card of every pointer and of the stream, which must
@@ -1730,7 +1981,8 @@ extern "C" int sema_scan_topk(const void* store, const void* queries, int query_
                               const int* tile_host, int n_tiles, int tile_n, int n, int d,
                               int nq, int k, int dtype, int qb, int rows_per_chunk,
                               int slab_words, int n_chunks, int pass2_warps, int score_bufs,
-                              int smem_plan, int one_launch, void* ws, long long ws_bytes,
+                              int ring_stages, int smem_plan, int one_launch, void* ws,
+                              long long ws_bytes,
                               const float* thr0, unsigned long long* stats, void* stream,
                               int card) {
   cudaError_t e = on_card(card, stream);
@@ -1764,6 +2016,7 @@ extern "C" int sema_scan_topk(const void* store, const void* queries, int query_
   a.cand_i = w.cand_i;
   a.thr0 = thr0;
   a.score_bufs = score_bufs;
+  a.ring_stages = ring_stages;
   a.smem_plan = smem_plan;
   a.merge_stats = stats;
   a.pass2_warps = pass2_warps;

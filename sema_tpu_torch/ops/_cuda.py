@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, at first use, and loaded
-with ``ctypes``. The library name carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+with ``ctypes``. The library name carries a hash of the source, of the
+headers of ``csrc/`` (``hopper.cuh``, which both sources include) and of
+the flags, so an edited source or header is rebuilt and an unchanged one
+is reused.
 ``build()`` starts one ``nvcc`` per missing source, all at once.
 ``defines`` (``-D`` macros) build a source a second time into a library
 of its own; only the attribution tools of ``sema_tpu_torch/tools/`` pass
@@ -67,9 +69,12 @@ def _macros(defines: Tuple[str, ...]) -> Tuple[str, ...]:
 
 
 def lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source + flags (and
-    the ``defines`` of a second build, which its name also shows)."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by source, the headers of
+    ``csrc/`` it may include, and flags (and the ``defines`` of a second
+    build, which its name also shows)."""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + _macros(defines)).encode())
     tag = "".join("-" + re.sub(r"\W", "", d) for d in defines)
     return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"

@@ -56,7 +56,12 @@ and pass 2's warps :func:`pass2_warps` (its plain version is
 queues flushed by rank (``csrc/scan_topk.cu:scan_pass1_merged``); their
 query block, score buffers and slab follow :func:`merge_layout`, and
 :func:`pass1_merge_reference` is the plain model of that merge, down to
-the counters the kernel can report (survivors queued, flushes).
+the counters the kernel can report (survivors queued, flushes). K1 and
+K8 of a batch of more than 8 queries over a whole bf16/f16 store score on
+``wgmma`` fed by TMA instead of ``mma.sync`` (``csrc/scan_topk.cu:
+wgmma_scorers``) where :func:`wgmma_layout` finds a block of 32 or 64
+queries and a ring of at least three stages, with the same mergers and
+the same bits.
 A call on the card (:func:`_launch`) makes one device allocation, cut
 into the returned scores and ids, pass 1's candidates, a pruned scan's
 tile ids and an int8 scan's quantized queries (:func:`workspace_layout`);
@@ -101,8 +106,9 @@ _SIGNATURES = {"sema_scan_topk": [
     _I, _I, _I, _I,        # n, d, nq, k
     _I, _I, _I, _I, _I,    # dtype, query block, rows per chunk, words per
                            # slab, chunks
-    _I, _I, _I, _I,        # pass-2 warps, score buffers, pass 1's shared
-                           # memory, one launch
+    _I, _I, _I, _I, _I,    # pass-2 warps, score buffers, the wgmma
+                           # route's ring stages, pass 1's shared memory,
+                           # one launch
     _P, _L, _P, _P,        # workspace, its bytes, warm thresholds, merge
                            # counters
     _P, _I],               # stream, card
@@ -126,6 +132,17 @@ _SCORE_STRIDE = _TILE_ROWS + 4     # a query's scores, floats apart
 # of at most this many queries: its merge runs a query at a time in one
 # block, where pass 2 runs a block a query
 _ONE_LAUNCH_MAX_Q = 1
+# the wgmma route of K1 and K8 over a whole bf16/f16 store
+# (csrc/scan_topk.cu:wgmma_scorers)
+_WG_BLOCKS = (64, 32)   # the query blocks its kernel takes (wgmma N)
+_RING_STAGE = _TILE_ROWS * 128   # a TMA stage, 64 rows x 128 B (kRingStage)
+_RING_MIN = 3           # the fewest stages it takes (kRingMin)
+_RING_ALIGN = 1_024     # the ring's alignment, the 128-byte swizzle's unit
+# the fewest ring stages (64 rows x 64 values each) a block of the route
+# streams: below, its fixed cost (the queries staged, the ring armed) is a
+# visible share of a call of some 50 us and the mma.sync scorers are as
+# fast or faster (chip_wgmma_ab.py's crossover, PERF.md)
+_WG_MIN_SLABS = 24
 
 
 def _select(scores: torch.Tensor, k: int):
@@ -339,6 +356,46 @@ def merge_layout(d: int, k: int, nq: int) -> tuple:
     return qb, 1, slab
 
 
+def _wgmma_fixed(d: int, qb: int, k: int, nb: int) -> int:
+    """The wgmma route's shared memory beside its ring: the alignment, the
+    ``qb`` queries in slabs of 64 values (128 bytes a query), and what
+    :func:`_merged_fixed` counts beside its queries."""
+    slabs = -(-_up(d, 16) // 64)
+    return (_RING_ALIGN + slabs * qb * 128
+            + _merged_fixed(d, qb, k, nb) - qb * (_up(d, 16) + 8) * 2)
+
+
+def _wgmma_smem(d: int, qb: int, k: int, nb: int, stages: int) -> int:
+    """The wgmma route's shared memory with a ring of ``stages`` (each a
+    box of 64 rows x 128 bytes and its full and empty mbarriers)."""
+    return _wgmma_fixed(d, qb, k, nb) + stages * (_RING_STAGE + 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def wgmma_layout(d: int, k: int, nq: int):
+    """(query block, score buffers, ring stages) of the wgmma route of K1
+    and K8 over a whole bf16/f16 store (``csrc/scan_topk.cu:
+    wgmma_scorers``), or None where the plan keeps the mma.sync scorers:
+    a batch of 8 or fewer (one n8 tile), a row narrower than a TMA box
+    (64 values), or where no block of 32 or 64 leaves room for
+    ``_RING_MIN`` stages. The block is 32 for a batch of
+    32 or fewer, else 64 where it fits (the store read once per 64
+    queries), else 32; a second score buffer where a fourth stage still
+    fits beside it; the ring takes the rest of the block's shared memory,
+    so one block holds an SM (800 threads of up to 80 registers). Each
+    score buffer has a consumer warpgroup of its own (two take alternate
+    tiles)."""
+    if nq <= 8 or d < _TILE_ROWS:
+        return None
+    room = lambda qb, nb: ((_SMEM_MAX - _wgmma_fixed(d, qb, k, nb))
+                           // (_RING_STAGE + 16))
+    for qb in _WG_BLOCKS if nq > 32 else _WG_BLOCKS[1:]:
+        if room(qb, 1) >= _RING_MIN:
+            nb = 2 if room(qb, 2) >= _RING_MIN + 1 else 1
+            return qb, nb, room(qb, nb)
+    return None
+
+
 def _query_block(d: int, itemsize: int, k: int, nq: int,
                  span: int = _TILE_ROWS) -> int:
     """Queries one block of pass 1 takes. bf16/f16 rows of K1, K3 and
@@ -398,7 +455,7 @@ def pass1_smem_bytes(d: int, itemsize: int, k: int, nq: int,
 
 
 def chunk_plan(n: int, nq: int, qb: int, sms: int, smem: int,
-               select_k: int = 0):
+               select_k: int = 0, per_sm: int = 0):
     """(rows per chunk, chunks) for ``nq`` queries in blocks of ``qb``:
     split N so that the blocks of pass 1 (``smem`` bytes of shared memory
     each) fill the card once and no more, two an SM where two fit, else
@@ -417,8 +474,9 @@ def chunk_plan(n: int, nq: int, qb: int, sms: int, smem: int,
     selection, which merge_ranked makes in one step a tile, and a block
     of 512 rows still streams its 512 KB at about the rate a share of
     the card's memory gives it. The bf16/f16/f32 routes keep the
-    one-wave plan."""
-    per_sm = _per_sm(smem)
+    one-wave plan. ``per_sm``: the blocks an SM holds where something
+    other than shared memory sets it (0: by ``smem``)."""
+    per_sm = per_sm or _per_sm(smem)
     q_blocks = -(-nq // qb)
     tiles = -(-n // _TILE_ROWS)
     chunks = max(1, min(tiles, per_sm * sms // q_blocks))
@@ -702,7 +760,8 @@ class ScanPlan(NamedTuple):
     """One scan shape's launch: pass 1's query block, rows per chunk, words
     per slab, chunks, score buffers and shared memory; the merge's warps
     (pass 2's, or the one-launch route's); whether it is one launch; the
-    workspace's bytes and where the returned ids start in it (f32 words)."""
+    workspace's bytes and where the returned ids start in it (f32 words);
+    the wgmma route's ring stages (0: the mma.sync scorers)."""
     qb: int
     rows: int
     words: int
@@ -713,27 +772,53 @@ class ScanPlan(NamedTuple):
     one: bool
     ws_bytes: int
     out_i: int
+    stages: int = 0
 
 
 @functools.lru_cache(maxsize=4096)
 def _plan(n: int, nq: int, d: int, isz: int, k: int, span: int, sms: int,
           n_tiles: int = 0) -> ScanPlan:
     """The :class:`ScanPlan` of one scan shape: a pure function of it,
-    planned once."""
-    qb = _query_block(d, isz, k, nq, span)
-    smem = pass1_smem_bytes(d, isz, k, nq, span)
-    rows, chunks = chunk_plan(n, nq, qb, sms, smem,
-                              select_k=k if isz == 1 else 0)
-    nb = merge_layout(d, k, nq)[1] if _merged(isz, span) else 1
+    planned once. bf16/f16 rows of a whole store (K1, K8) of at least a
+    TMA box's 64 rows take the wgmma route where :func:`wgmma_layout`
+    plans one and each block's chunk streams at least ``_WG_MIN_SLABS``
+    slabs of 64 values; a tile list (K3) and the rest keep their
+    routes."""
+    wg = (_merged(isz, span) and not n_tiles and n >= _TILE_ROWS
+          and wgmma_layout(d, k, nq))
+    if wg:
+        qb, nb, stages = wg
+        smem = _wgmma_smem(d, qb, k, nb, stages)
+        words = _TILE_ROWS // 2     # a ring stage's 64 values of a row
+        # 800 threads of up to 80 registers fill an SM's registers,
+        # whatever the ring leaves of shared memory: one block an SM
+        rows, chunks = chunk_plan(n, nq, qb, sms, smem, per_sm=1)
+        if rows // _TILE_ROWS * -(-_up(d, 16) // 64) < _WG_MIN_SLABS:
+            wg = None
+    if not wg:
+        qb, stages = _query_block(d, isz, k, nq, span), 0
+        smem = pass1_smem_bytes(d, isz, k, nq, span)
+        words = slab_words(d, isz, k, nq, span)
+        nb = merge_layout(d, k, nq)[1] if _merged(isz, span) else 1
+        rows, chunks = chunk_plan(n, nq, qb, sms, smem,
+                                  select_k=k if isz == 1 else 0)
     warps2 = one_launch_warps(chunks, k, smem, qb)
     one = one_launch(nq, isz, span) and one_launch_fits(chunks, k, smem,
                                                         warps2)
     if not one:
         warps2 = pass2_warps(chunks, k)
     layout = workspace_layout(nq, k, chunks, n_tiles, d, isz == 1)
-    return ScanPlan(qb, rows, slab_words(d, isz, k, nq, span), chunks,
-                    warps2, nb, smem, one, layout["total"][1],
-                    layout["out_i"][0] // 4)
+    return ScanPlan(qb, rows, words, chunks, warps2, nb, smem, one,
+                    layout["total"][1], layout["out_i"][0] // 4, stages)
+
+
+def plan_on(device, n: int, nq: int, d: int, isz: int, k: int,
+            span: int = _TILE_ROWS, n_tiles: int = 0) -> ScanPlan:
+    """The :class:`ScanPlan` of a scan on CUDA ``device``: :func:`_plan`
+    with that card's SMs."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return _plan(n, nq, d, isz, k, span, _sm_count(index), n_tiles)
 
 
 def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
@@ -761,7 +846,7 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
     n_tiles = 0 if tiles is None else len(tiles)
     n = store.shape[0] if tiles is None else n_tiles * tile_n
     isz, span = store.element_size(), _FOLD_SPAN if fold else _TILE_ROWS
-    p = _plan(n, nq, d, isz, k, span, _sm_count(dev.index), n_tiles)
+    p = plan_on(dev, n, nq, d, isz, k, span, n_tiles)
     ws = torch.empty(p.ws_bytes // 4, dtype=torch.float32, device=dev)
     plan = (_DTYPE_CODES[store.dtype], p.qb, p.rows, p.words, p.chunks,
             p.warps2)
@@ -776,8 +861,8 @@ def _launch(store, q, valid, k, *, row_scale=None, tiles=None, tile_n=0,
             lib.sema_scan_topk, dev, store.data_ptr(), q.data_ptr(),
             q.dtype != store.dtype, ptr(valid), ptr(row_scale),
             None if tiles is None else tiles.ctypes.data, n_tiles, tile_n,
-            n, d, nq, k, *plan, p.nb, p.smem, p.one, ws.data_ptr(),
-            p.ws_bytes, ptr(thr0), ptr(stats))
+            n, d, nq, k, *plan, p.nb, p.stages, p.smem, p.one,
+            ws.data_ptr(), p.ws_bytes, ptr(thr0), ptr(stats))
     _cuda.check(lib, err, "fold_topk" if fold else "scan_topk")
     return (ws[:nq * k].view(nq, k),
             ws[p.out_i:p.out_i + nq * k].view(torch.int32).view(nq, k))
