@@ -355,13 +355,40 @@ mutant wgmma_ln_no_cluster_barrier encoder_layer.cu \
 mutant wgmma_ln_no_cluster_barrier_int8 encoder_layer.cu \
   's|      cluster.sync();  // every block.s slice of the row tile is written||' \
   encoder_layer_int8
+# K5 at an index batch: the LayerNorms' int8 rows (h1's, and LN2's that
+# the next layer takes for its x) quantized from the sum before the
+# LayerNorm, not from the rows stored
+mutant ln_rows_quantized_before_layernorm encoder_layer.cu \
+  's|        r\[i\] = Ty<DT>::to_f(y);|        (void)y;|' \
+  encoder_layer_int8
+# K5: LN2 writes the carried rows' scales one row late (the next layer's
+# x rows then take their neighbours' scales)
+mutant carried_scales_one_row_late encoder_layer.cu \
+  's|  ep.outs = a.os;|  ep.outs = a.os == nullptr ? nullptr : a.os + 1;|' \
+  encoder_layer_int8
+# K5: a layer given no carried rows skips its own quantize(x) all the same
+# (its qkv product reads whatever the scratch held)
+mutant x_quantize_skipped_without_rows encoder_layer.cu \
+  's|  if (a.xq == nullptr) {|  if (false) {|' \
+  encoder_layer_int8
+# K5's row quantizations at an index batch (quantize(x), quantize(ctx),
+# quantize(up) and the LayerNorms' int8 rows): each quotient by the row's
+# reciprocal alone, without its Markstein correction
+mutant quant_quotient_uncorrected encoder_layer.cu \
+  's|  return max(-127, min(127, __float2int_rn(quotient(v, sx, inv))));|  return max(-127, min(127, __float2int_rn(__fmul_rn(v, inv))));|' \
+  encoder_layer_int8
+# K2 and K5's wgmma LayerNorm GEMMs: each lane adds the residual of the
+# first column of its group of 32 to every value it loads
+mutant ln_resid_column_lost encoder_layer.cu \
+  's|               Ty<DT>::to_f(resid\[o + lane + 32 \* i\]);|               Ty<DT>::to_f(resid[o + 32 * i]);|' \
+  encoder_layer
 # K2 and K5 (both routes): each block reads its own slice of a row c times
 # over, not its peers' slices in column order
 mutant ln_own_slice encoder_layer.cu \
-  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/; s/cluster.map_shared_rank(slice, col \/ sw)/cluster.map_shared_rank(slice, rank)/' \
+  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/; s/cluster.map_shared_rank(slice, p < c ? p : 0)/cluster.map_shared_rank(slice, rank)/' \
   encoder_layer
 mutant ln_own_slice_int8 encoder_layer.cu \
-  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/; s/cluster.map_shared_rank(slice, col \/ sw)/cluster.map_shared_rank(slice, rank)/' \
+  's/cluster.map_shared_rank(slice, p)/cluster.map_shared_rank(slice, rank)/; s/cluster.map_shared_rank(slice, p < c ? p : 0)/cluster.map_shared_rank(slice, rank)/' \
   encoder_layer_int8
 # K2 and K5 (and K6's and qmm's GEMMs): the ring GEMM (one query) waits
 # one stage short, so a slab is read before its copies land

@@ -1914,6 +1914,18 @@ def ln_plans(spec, m, quantized) -> list:
 # rows from which every GEMM of K2 (bf16, f16) and K5 must take the wgmma
 # route: every index batch of K2_SHAPES and K5_SHAPES
 WGMMA_ROWS = 16_384
+# launches more of each index-batch layer (the wgmma route) on the same
+# inputs, each of which must give the first launch's bits: a barrier
+# missing between the blocks of a LayerNorm cluster shows in some launches
+# only
+SAME_LAUNCHES = 40
+
+
+def same_every_launch(fn, got, what) -> None:
+    """``fn()`` SAME_LAUNCHES times, each output bit-equal to ``got``."""
+    differ = sum(not torch.equal(fn(), got) for _ in range(SAME_LAUNCHES))
+    check(differ == 0, f"{what}: {differ} of {SAME_LAUNCHES} more launches "
+          "on the same inputs differ from the first")
 
 
 def layer_plans(spec, m, dtype, quantized) -> list:
@@ -2039,6 +2051,10 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
     check(torch.equal(got, fused_encoder_layer(*args)),
           f"{spec.name} {dtype} ({b}, {s}): the layer differs without its "
           "operands made beforehand (or is not finite)")
+    if dtype != F32 and b * s >= WGMMA_ROWS:
+        same_every_launch(lambda: fused_encoder_layer(*args,
+                                                      operands=operands),
+                          got, f"{spec.name} {dtype} ({b}, {s})")
     want = encoder_layer_reference(*args)
     torch.cuda.synchronize()
     ok, cos, rel = close(got, want)
@@ -2283,6 +2299,9 @@ def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
     check(torch.equal(got, fused_encoder_layer_int8(*args)),
           f"{spec.name} {dtype} ({b}, {s}): the int8 layer differs without "
           "its operands made beforehand (or is not finite)")
+    if b * s >= WGMMA_ROWS:
+        same_every_launch(lambda: fused_encoder_layer_int8(
+            *args, operands=operands), got, f"K5 {spec.name} {dtype} ({b}, {s})")
     want = encoder_layer_int8_reference(*args)
     torch.cuda.synchronize()
     ok, cos, rel = close(got, want)
@@ -2331,11 +2350,97 @@ def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
             "gemm_plans": gemm_plans, "gemms": gemms, **launches}
 
 
+# two K5 layers in turn, the second taking the int8 rows of its x that the
+# first's LN2 wrote (``x_rows``, ``out_rows``): at gte-large's index batch
+# and at one query, with weights and inputs from a generator of their own
+# (seed K5_CHAIN_SEED), so that the cases above keep their draws
+K5_CHAIN = (("gte-large", BF16, 256, 256), ("gte-large", BF16, 1, 256))
+K5_CHAIN_SEED = 22
+# the layer_bits cases whose launches are each timed apart, this tree's
+# and the parent's
+K5_PROFILED = (("K5", "gte-large", BF16, 256, 256),)
+
+
+def chained_int8(layers, args, ops, rows):
+    """``layers`` run in turn by K5 (``args``: x, mask bias, heads, scale,
+    eps; ``ops``: each layer's operands): with ``rows``
+    (``row_buffers``) each layer but the last writes its output's int8
+    rows into them and each but the first takes them for its x; without,
+    each quantizes its own x. Returns every layer's output."""
+    from sema_tpu_torch.ops.encoder_layer_int8 import fused_encoder_layer_int8
+    x, *rest = args
+    outs = []
+    for i, (layer, o) in enumerate(zip(layers, ops)):
+        carry = {} if rows is None else {
+            "x_rows": rows if i > 0 else None,
+            "out_rows": rows if i + 1 < len(layers) else None}
+        x = fused_encoder_layer_int8(x, layer, *rest, operands=o, **carry)
+        outs.append(x)
+    return tuple(outs)
+
+
+def int8_chain_case(layers, spec, dtype, b, s, gen, iters) -> dict:
+    """K5 over two layers in turn (``chained_int8``) with the rows
+    carried: the carried rows and scales must equal the plain version's
+    quantization (``quantize_rows``) of the first layer's output bit for
+    bit, the second layer's output must equal the same layer's without
+    them (its own quantize launch) bit for bit, and lie within K5_LIMITS
+    of the plain version of the second layer on the first's output. The
+    plain version of both layers in turn is reported beside them. Both
+    pairs timed (CUDA events), and the carried pair's launches each timed
+    apart by the profiler (8 + 7), the second layer's GEMMs held to their
+    plans at their positions (0, 3, 4, 6 of its seven)."""
+    from sema_tpu_torch.models.bert import LN_EPS
+    from sema_tpu_torch.ops.encoder_layer_int8 import (
+        encoder_layer_int8_reference, layer_operands, quantize_rows,
+        row_buffers)
+    cos_min, rel_max = K5_LIMITS[dtype]
+    x, _, bias, heads, scale = layer_inputs(spec, dtype, b, s, gen)
+    args = (x, bias, heads, scale, LN_EPS)
+    ops = [layer_operands(layer, dtype) for layer in layers]
+    rows = row_buffers(x)
+    got = chained_int8(layers, args, ops, rows)
+    apart = chained_int8(layers, args, ops, None)
+    q, sx = quantize_rows(got[0])
+    torch.cuda.synchronize()
+    rows_equal = (torch.equal(rows[0], q.reshape(rows[0].shape))
+                  and torch.equal(rows[1], sx.reshape(-1)))
+    same = all(torch.equal(g, a) for g, a in zip(got, apart))
+    want = encoder_layer_int8_reference(got[0], layers[1], bias, heads,
+                                        scale, LN_EPS)
+    ok, cos, rel = layer_close(got[1], want, cos_min, rel_max)
+    plain = x
+    for layer in layers:
+        plain = encoder_layer_int8_reference(plain, layer, bias, heads, scale,
+                                             LN_EPS)
+    _, chain_cos, chain_rel = layer_close(got[1], plain, cos_min, rel_max)
+    launches = launch_profile(lambda: chained_int8(layers, args, ops, rows),
+                              15)
+    gemms = check_gemm_launches(
+        launches if "error" in launches[0] else launches[8:], (0, 3, 4, 6),
+        layer_plans(spec, b * s, dtype, True),
+        f"K5 chain {spec.name} {dtype} ({b}, {s}), second layer")
+    return {"model": spec.name, "dtype": str(dtype).removeprefix("torch."),
+            "b": b, "s": s, "layers": len(layers), "ok": ok,
+            "rows_bit_equal": rows_equal, "bit_equal_apart": same,
+            "limits": {"min_cosine": cos_min, "max_rel_err": rel_max},
+            "min_cosine": cos, "max_rel_err": rel,
+            "max_abs_err": float((got[1].float() - want.float()).abs().max()),
+            "plain_chain_min_cosine": chain_cos,
+            "plain_chain_max_rel_err": chain_rel,
+            "ms": device_ms(lambda: chained_int8(layers, args, ops, rows),
+                            iters),
+            "apart_ms": device_ms(lambda: chained_int8(layers, args, ops,
+                                                       None), iters),
+            "launches": launches, "gemms": gemms}
+
+
 def phase_layer_int8(gen):
     """K5: ``qmm`` bit-equal to its plain version at the four products of
     MiniLM and gte-large at M = 256 and 65,536; the layer against its
     plain version under K5_LIMITS, which must reject the plain version
-    with attention broken. Every case is emitted before a failure
+    with attention broken; two layers in turn with the int8 rows carried
+    (``int8_chain_case``). Every case is emitted before a failure
     raises."""
     from sema_tpu_torch.models.registry import get_spec
     qmm_cases, cases = [], []
@@ -2350,7 +2455,17 @@ def phase_layer_int8(gen):
                   for m, dt, b, s in K5_SHAPES if m == name]
         del layer
         torch.cuda.empty_cache()
-    emit("encoder_layer_int8", qmm=qmm_cases, cases=cases)
+    chain_gen = torch.Generator(device=DEV).manual_seed(K5_CHAIN_SEED)
+    chains = []
+    for name in dict.fromkeys(m for m, _, _, _ in K5_CHAIN):
+        spec = get_spec(name)
+        layers = [int8_layer_params(spec, chain_gen) for _ in range(2)]
+        chains += [int8_chain_case(layers, spec, dt, b, s, chain_gen,
+                                   iters=10)
+                   for m, dt, b, s in K5_CHAIN if m == name]
+        del layers
+        torch.cuda.empty_cache()
+    emit("encoder_layer_int8", qmm=qmm_cases, cases=cases, chain=chains)
     bad = ([f"qmm {c['model']} {c['linear']} M={c['m']}: not bit-equal "
             f"(max abs error {c['max_abs_err']})"
             for c in qmm_cases if not c["bit_equal"]]
@@ -2359,7 +2474,13 @@ def phase_layer_int8(gen):
               for c in cases if not c["ok"]]
            + [f"{c['model']} {c['dtype']} ({c['b']}, {c['s']}): the check "
               f"passes {c['broken_passes']}" for c in cases
-              if c["broken_passes"]])
+              if c["broken_passes"]]
+           + [f"chain {c['model']} {c['dtype']} ({c['b']}, {c['s']}): rows "
+              f"bit-equal {c['rows_bit_equal']}, equal apart "
+              f"{c['bit_equal_apart']}, cosine {c['min_cosine']}, relative "
+              f"error {c['max_rel_err']}" for c in chains
+              if not (c["ok"] and c["rows_bit_equal"]
+                      and c["bit_equal_apart"])])
     check(not bad, "K5: " + "; ".join(bad))
     return cases
 
@@ -2677,11 +2798,14 @@ def parent_libraries(root: Path, names) -> dict:
 
 
 def bind(lib, modules) -> None:
-    """Set the argument types of each entry point the ``modules`` call."""
+    """Set the argument types of each entry point the ``modules`` call
+    that ``lib`` has (another revision's library may predate one: a call
+    to it then fails)."""
     for module in modules:
         for fn, argtypes in module._SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
 
 
 def in_library(fn, lib):
@@ -2766,12 +2890,44 @@ def phase_layer_bits(gen, parent):
                 what = f"{kernel} {name} {str(dt).removeprefix('torch.')} " \
                        f"({b}, {s})"
                 run = lambda *a, _o=ops: fn(*a, operands=_o)
+                args = (x, layer, bias, heads, scale, LN_EPS)
                 cases.append(bits_case(
-                    what, run, in_library(run, parent),
-                    (x, layer, bias, heads, scale, LN_EPS),
+                    what, run, in_library(run, parent), args,
                     iters=50 if b == 1 else 10))
+                if (kernel, name, dt, b, s) in K5_PROFILED:
+                    # each of the layer's launches apart, this tree's and
+                    # the parent's (the breakdown of the redesign)
+                    cases[-1].update(
+                        launches=launch_profile(lambda: run(*args), 8),
+                        parent_launches=launch_profile(
+                            lambda: in_library(run, parent)(*args), 8))
             del layer
             torch.cuda.empty_cache()
+    # K5 over two layers in turn, this tree's with the int8 rows carried
+    # against two of the parent's launches that each quantize their x
+    chain_gen = torch.Generator(device=DEV).manual_seed(K5_CHAIN_SEED)
+    for name in dict.fromkeys(m for m, _, _, _ in K5_CHAIN):
+        spec = get_spec(name)
+        layers = [int8_layer_params(spec, chain_gen) for _ in range(2)]
+        for m, dt, b, s in K5_CHAIN:
+            if m != name:
+                continue
+            x, _, bias, heads, scale = layer_inputs(spec, dt, b, s,
+                                                    chain_gen)
+            ops = [encoder_layer_int8.layer_operands(lay, dt)
+                   for lay in layers]
+            args = (x, bias, heads, scale, LN_EPS)
+            rows = encoder_layer_int8.row_buffers(x)
+            cases.append(bits_case(
+                f"K5 chain {name} {str(dt).removeprefix('torch.')} "
+                f"({b}, {s})",
+                lambda _a=args, _o=ops, _r=rows: chained_int8(layers, _a, _o,
+                                                              _r),
+                in_library(lambda _a=args, _o=ops: chained_int8(
+                    layers, _a, _o, None), parent), (),
+                iters=50 if b == 1 else 10))
+        del layers
+        torch.cuda.empty_cache()
     def k67_shapes(model, tp, dt):
         shapes = [("K6", b, s) for b, s in K6_BS] + [("K7", b, s)
                                                      for b, s in K7_BS]
@@ -3918,6 +4074,7 @@ def phase_ivf_path(work: Path, tree: Path, store_dtype: str, n_rows: int,
         phase_serve(tree, requests, device)
     return {"query_launches": query_launches,
             "index_launches": index_launches, "kernels": kernels,
+            "index_shapes": dict(index_shapes),
             "recall_at_10_mean": float(recall.mean())}
 
 
@@ -7365,6 +7522,21 @@ def main() -> int:
                             "name": f"{name}:shard_{store_name}_{rows}",
                             "launches": shard["shapes"][key][
                                 (name, int(rows))]})
+    # K5 at the index batches of gte-large W8A8 (BASELINE config 4): the
+    # (256, 256) and (2048, 32) buckets and bench.py's gte-large int8 cell
+    # (64, 256), each with its launches at that shape in int8_ivf_path's
+    # index
+    for b, s in ((256, 256), (2048, 32), (64, 256)):
+        f = next(c for c in int8_cases if (c["model"], c["dtype"], c["b"],
+                                           c["s"]) == (IVF_MODEL, "bfloat16",
+                                                       b, s))
+        kernels.append({**entry("encoder_layer_int8",
+                                "sema_tpu_torch/csrc/encoder_layer.cu",
+                                "sema_tpu/ops/fused_attention.py:493",
+                                [b, s, GTE_D], f),
+                        "name": f"encoder_layer_int8:{IVF_MODEL}_{b}x{s}",
+                        "launches": paths["int8"]["index_shapes"].get(
+                            (b, s), 0)})
     # K1's wgmma route at bench.py's e5-base cell (1,048,576 x 768, Q 64,
     # k 10), with the launches of load_test's batches over a store of that
     # width (E5_LOAD_TEST)

@@ -43,7 +43,7 @@ from sema_tpu_torch.ops.encoder_layer import \
 from sema_tpu_torch.ops.encoder_layer import layer_norm_f32
 from sema_tpu_torch.ops.encoder_layer_int8 import (LINEARS, column_major,
                                                    fused_encoder_layer_int8,
-                                                   qmm)
+                                                   qmm, row_buffers)
 from sema_tpu_torch.ops.encoder_layer_int8 import \
     layer_operands as layer_operands_int8
 from sema_tpu_torch.ops.quant import div127
@@ -160,11 +160,19 @@ def bert_forward(params: Params, input_ids: torch.Tensor,
     # additive mask: 0 where attended, -1e9 (f32) where padded
     mask_bias = (1.0 - attention_mask.float()) * -1e9
     scale = 1.0 / math.sqrt(spec.hidden_size // spec.num_heads)
-    fused = (fused_encoder_layer_int8 if "qkv_w_q" in params["layers"]
-             else fused_encoder_layer)
+    quantized = "qkv_w_q" in params["layers"]
+    fused = fused_encoder_layer_int8 if quantized else fused_encoder_layer
     views = layer_views(params) if views is None else views
-    for i, layer in enumerate(views[:spec.num_layers]):
+    layers = views[:spec.num_layers]
+    # W8A8: each layer's LN2 also writes its output's int8 rows, which the
+    # next layer takes for its x instead of quantizing x again; one pair of
+    # buffers carries them (a layer reads them before it writes them)
+    rows = row_buffers(x) if quantized and len(layers) > 1 else None
+    for i, layer in enumerate(layers):
         extra = {} if operands is None else {"operands": operands[i]}
+        if rows is not None:
+            extra.update(x_rows=rows if i > 0 else None,
+                         out_rows=rows if i + 1 < len(layers) else None)
         x = fused(x, layer, mask_bias, spec.num_heads, scale, LN_EPS, **extra)
     return x
 

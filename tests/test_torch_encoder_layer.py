@@ -379,7 +379,7 @@ def test_layer_gemm_plans_at_every_width_and_path_shape(name, dtype):
             assert plan.route == "wgmma" and plan.bm == 128
             if ln:
                 assert plan.cluster * plan.bn == h <= LN_SLICE * MAX_CLUSTER
-                assert plan.cluster <= MAX_CLUSTER
+                assert plan.cluster <= MAX_CLUSTER and plan.stages >= 3
                 assert plan.grid == plan.tiles == -(-m // 128) * plan.cluster
                 assert layer_mod.wg_ln_bytes(plan.bn) <= (
                     plan.stages * layer_mod.wg_stage_bytes(plan.bn))

@@ -178,6 +178,104 @@ def test_int8_layer_matches_pallas_kernel_bf16(b, s, h, heads, inter, atol):
     np.testing.assert_allclose(got, want, atol=atol, rtol=2 ** -8)
 
 
+def _two_layers_both(dtype, seeds=(0, 1), b=2, s=32, h=128, heads=2,
+                     inter=256):
+    """Two W8A8 layers in turn: ``sema_tpu``'s fused int8 layer in
+    interpret mode applied layer by layer, and the port's wrapper on the
+    CPU (its plain version) with the first layer's output rows carried
+    into the second (``out_rows``, then ``x_rows``). Returns the JAX and
+    port outputs of the second layer, the port's first output and the
+    carried rows."""
+    layers = [_quantized_layer(h, inter, seed) for seed in seeds]
+    rng = np.random.default_rng(seeds[0] + 7)
+    x = rng.standard_normal((b, s, h)).astype(np.float32)
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = s
+    bias = ((np.arange(s)[None, :] >= lengths[:, None]) * -1e9).astype(
+        np.float32)
+    scale = 1.0 / math.sqrt(h // heads)
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}[dtype]
+    want = jnp.asarray(x, dtype=jdt)
+    for layer in layers:
+        want = jax_layer(want, {k: jnp.asarray(v) for k, v in layer.items()},
+                         jnp.asarray(bias), num_heads=heads, scale=scale,
+                         ln_eps=LN_EPS, interpret=True)
+    xt = torch.from_numpy(x).to(dtype)
+    port = [{k: torch.from_numpy(v) for k, v in layer.items()}
+            for layer in layers]
+    rows = int8_mod.row_buffers(xt)
+    first = fused_encoder_layer_int8(xt, port[0], torch.from_numpy(bias),
+                                     heads, scale, LN_EPS, out_rows=rows)
+    carried = (rows[0].clone(), rows[1].clone())
+    got = fused_encoder_layer_int8(first, port[1], torch.from_numpy(bias),
+                                   heads, scale, LN_EPS, x_rows=rows)
+    assert got.dtype == dtype and got.shape == (b, s, h)
+    return (np.asarray(want.astype(jnp.float32)), got.float().numpy(), first,
+            carried)
+
+
+@pytest.mark.parametrize("dtype,atol", [
+    # the JAX package's own bound between its int8 kernel and the composed
+    # XLA W8A8 layer (tests/test_fused_attention.py), held over two layers
+    (torch.float32, 5e-5),
+    # the bf16 layer's bound at head dim 64 (above), over two layers
+    (torch.bfloat16, 6e-2),
+])
+def test_two_int8_layers_with_carried_rows_match_pallas_kernel(dtype, atol):
+    """H 128, 2 heads, I 256, B 2, S 32: two layers through the port's
+    plain path with the first's output rows carried into the second equal
+    sema_tpu's fused_encoder_layer_int8 applied layer by layer."""
+    want, got, _, _ = _two_layers_both(dtype)
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    assert cos.min() >= 0.999
+    np.testing.assert_allclose(got, want, atol=atol, rtol=2 ** -8
+                               if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_carried_rows_are_qmm_references_own_quantization(dtype):
+    """The rows and scales a layer carries out are the quantization
+    qmm_reference makes of its output, bit for bit, so the next layer's
+    products with them are qmm_reference's; and the layer given them
+    equals the layer that quantizes its x itself."""
+    _, got, first, (q, sx) = _two_layers_both(dtype)
+    want_q, want_s = int8_mod.quantize_rows(first.reshape(-1, 128))
+    assert q.dtype == torch.int8 and sx.dtype == torch.float32
+    assert torch.equal(q, want_q) and torch.equal(sx, want_s)
+    layer = {k: torch.from_numpy(v) for k, v in _quantized_layer(
+        128, 256, 1).items()}
+    x2 = first.reshape(-1, 128)
+    assert torch.equal(
+        int8_mod.qmm_rows(q, sx, layer["qkv_w_q"], layer["qkv_w_s"]),
+        qmm_reference(x2, layer["qkv_w_q"], layer["qkv_w_s"]))
+    bias = torch.zeros(first.shape[:2])
+    alone = fused_encoder_layer_int8(first, layer, bias, 2, 0.125, LN_EPS)
+    given = fused_encoder_layer_int8(first, layer, bias, 2, 0.125, LN_EPS,
+                                     x_rows=(q, sx))
+    assert torch.equal(alone, given)
+
+
+def test_row_buffers_are_checked():
+    """The rows a layer takes or writes must be (B*S, H) contiguous int8
+    rows and (B*S,) f32 scales on x's device."""
+    x = torch.zeros((2, 32, 64), dtype=torch.bfloat16)
+    layer = {k: torch.from_numpy(v) for k, v in _quantized_layer(
+        64, 128, 0).items()}
+    bias = torch.zeros((2, 32))
+    q, sx = int8_mod.row_buffers(x)
+    assert q.shape == (64, 64) and q.dtype == torch.int8
+    assert sx.shape == (64,) and sx.dtype == torch.float32
+    for bad in ((q[:, :32], sx), (q, sx.double()), (q.float(), sx),
+                (q.t().contiguous().t(), sx)):
+        with pytest.raises(KernelError, match="x_rows"):
+            fused_encoder_layer_int8(x, layer, bias, 2, 0.17, LN_EPS,
+                                     x_rows=bad)
+    with pytest.raises(KernelError, match="out_rows"):
+        fused_encoder_layer_int8(x, layer, bias, 2, 0.17, LN_EPS,
+                                 out_rows=(q[:32], sx))
+
+
 def test_quantized_embed_matches_jax_embed():
     """2 layers at MiniLM width, f32, the same quantized params: the port's
     forward (the int8 layer's plain version) against ``sema_tpu``'s int8
@@ -318,6 +416,20 @@ def test_int8_ln_gemm_plan_at_every_width_and_path_shape(name):
             assert plan.slabs == -(-k // 128)      # int8 slabs of 128
     if name == "gte-large":           # one W8A8 query fills the card
         assert ln_gemm_plan(256, h, 4 * h, quantized=True).blocks >= 128
+    # at an index batch the wgmma route's LayerNorm GEMMs: the f32 slice of
+    # a row tile over a ring of at least three stages, in the 227 KB a block
+    # may take, clusters of at most 8 column tiles that hold whole rows
+    layer_mod = importlib.import_module("sema_tpu_torch.ops.encoder_layer")
+    for m in _path_rows(spec) + [64 * 256, 32 * 512]:
+        for k in (h, spec.intermediate_size):
+            plan = layer_mod.gemm_route(m, h, k, True, True, 2, 66)
+            if plan.route != "wgmma":
+                assert m < 16_384 or h < LN_SLICE
+                continue
+            assert plan.cluster * plan.bn == h and plan.cluster <= MAX_CLUSTER
+            assert plan.stages >= 3 and plan.smem <= H100_BLOCK_SMEM
+            assert layer_mod.wg_ln_bytes(plan.bn) <= (
+                plan.stages * layer_mod.wg_stage_bytes(plan.bn))
 
 
 @pytest.mark.parametrize("h", [64, 128, 192, 320, 384, 768, 1024, 1280])

@@ -251,8 +251,8 @@ def _entry_points(name):
 STREAM_ENTRIES = {
     "scan_topk": ("sema_scan_topk", "sema_fold_topk"),
     "encoder_layer": ("sema_encoder_layer", "sema_encoder_layer_int8",
-                      "sema_qmm", "sema_attention_qkv",
-                      "sema_attention_block")}
+                      "sema_encoder_layer_int8_rows", "sema_qmm",
+                      "sema_attention_qkv", "sema_attention_block")}
 GUARDED = [(src, e) for src, entries in STREAM_ENTRIES.items()
            for e in entries]
 
@@ -286,6 +286,7 @@ def test_entry_point_ctypes_signature_has_its_parameters(source, entry):
     modules = {"sema_scan_topk": "scan_topk", "sema_fold_topk": "scan_topk",
                "sema_encoder_layer": "encoder_layer",
                "sema_encoder_layer_int8": "encoder_layer_int8",
+               "sema_encoder_layer_int8_rows": "encoder_layer_int8",
                "sema_qmm": "encoder_layer_int8",
                "sema_attention_qkv": "attention",
                "sema_attention_block": "attention"}
