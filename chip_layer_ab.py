@@ -6,17 +6,21 @@ EPI_LN, ``quantize_rows_kernel``, ``layer_int8``), on one NVIDIA card:
 
     python3 chip_layer_ab.py                 # from the repository root
     python3 chip_layer_ab.py --variants no_prefetch --cases k5:gte-large:256
+    python3 chip_layer_ab.py --source build/parent --variants mma_no_softmax
 
-Each variant is a build of this tree's ``csrc/encoder_layer.cu`` with one
-edit (VARIANTS), one ``nvcc`` each, all started together, into
-``build/var/layer/``. Every case of CASES runs through every build on the
+Each variant is a build of this tree's ``csrc/encoder_layer.cu`` (or of
+the tree ``--source`` names, another revision unpacked by ``git
+archive``: the variants of its own kernels) with one edit (VARIANTS),
+one ``nvcc`` each, all started together, into ``build/var/layer/``.
+Every case of CASES runs through every build on the
 same inputs, with the layer's operands gathered once as the Encoder
 gathers them: the output bit for bit against this tree's build (the
 variants marked timing-only compute another function and are not
 compared), CUDA-event ms in turns (the builds in order, then in reverse,
 twice) and each of the layer's launches apart (torch.profiler). A "k5x2"
 case is two K5 layers in turn with the int8 rows carried
-(``chip_smoke.chained_int8``).
+(``chip_smoke.chained_int8``); a "k7" case the attention launch alone
+(K7 at the model's full width, tp 1).
 
 Prints one JSON line a case, then the card's ``nvidia-smi`` line. Exits
 non-zero, before the measurements, where a variant's edit does not
@@ -37,6 +41,10 @@ import chip_smoke as cs
 ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "sema_tpu_torch" / "csrc" / "encoder_layer.cu"
 OUT = ROOT / "build" / "var" / "layer"
+# the wgmma attention's probabilities of a k16 step, as the source has them
+PA_LINE = ("          a[4 * kb + r] = Ty<DT>::pack(softmax_quotient(e[2 * r], "
+           "sum[r & 1], inv[r & 1]),\n                                       "
+           "softmax_quotient(e[2 * r + 1], sum[r & 1], inv[r & 1]));")
 # name: ([(old text, new text), ...] edits of SOURCE, bit-equal to the
 # product's build)
 VARIANTS = {
@@ -60,19 +68,105 @@ VARIANTS = {
                       "(wg - 1) * 4 + warp);", "                                "
                       "ep.out, nullptr, ep.outs, (wg - 1) * 4 + warp);")],
                     False),
+    # timing only, where the mma.sync attention's time goes (PR 22's
+    # attention_kernel; run with --source on a tree that has it): no
+    # exponential, sum or quotient (the probabilities are the rounded
+    # scores); no P.V product (the probabilities still computed, folded
+    # into one accumulator); no scores written to shared memory between the
+    # passes (the later passes read what is there)
+    "mma_no_softmax": ([("          sum[h] += softmax_exp(v.x, mx[h]);\n"
+                         "          sum[h] += softmax_exp(v.y, mx[h]);\n", ""),
+                        ("    return Ty<DT>::pack(softmax_quotient(softmax_exp("
+                         "v.x, mx[h]), sum[h], inv[h]),\n                      "
+                         "  softmax_quotient(softmax_exp(v.y, mx[h]), sum[h], "
+                         "inv[h]));", "    return w;")], False),
+    "mma_no_pv": ([("      a[3] = probs(sj[96], 1);\n#pragma unroll\n"
+                    "      for (int np = 0; np < NO / 2; ++np) {",
+                    "      a[3] = probs(sj[96], 1);\n      o[0][0] += "
+                    "__uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3]);\n"
+                    "      for (int np = 0; np < 0; ++np) {")], False),
+    "mma_no_score_stores": ([("        sj[(t * 2 + h) * 32] = pair;\n", "")],
+                            False),
+    # timing only, where the wgmma attention's time goes: no exponential
+    # and no quotient (a product and the exponential's input instead); no
+    # P V products (the probabilities still computed); no context stored
+    "aw_no_softmax": ([("          v[0] = softmax_exp(v[0], mx[h]);",
+                        "          v[0] = v[0] * 1e-3f;"),
+                       ("          v[1] = softmax_exp(v[1], mx[h]);",
+                        "          v[1] = v[1] * 1e-3f;"),
+                       (PA_LINE, "          a[4 * kb + r] = Ty<DT>::pack("
+                                 "e[2 * r], e[2 * r + 1]);")], False),
+    "aw_no_pv": ([("      for (int kb = 0; kb < 4; ++kb)\n        wgmma_16_rs<",
+                   "      for (int kb = 0; kb < 4 && S < 0; ++kb)\n"
+                   "        wgmma_16_rs<")], False),
+    "aw_no_store": ([("      tma_store_3d(&map_ctx, mine_out,",
+                      "      if (S < 0) tma_store_3d(&map_ctx, mine_out,")],
+                    False),
+    # each score's scale and bias in one FFMA: the same bits only where the
+    # scale is a power of two (head dim 64) and the product is normal
+    "aw_ffma_scores": ([("Ty<DT>::pack(__fadd_rn(__fmul_rn(v[0], scale), bb.x),\n"
+                         "                                                       "
+                         "__fadd_rn(__fmul_rn(v[1], scale), bb.y))",
+                         "Ty<DT>::pack(__fmaf_rn(v[0], scale, bb.x), "
+                         "__fmaf_rn(v[1], scale, bb.y))")], False),
+    # the ring of one pair stage: no pair's copies fly while another is used
+    "aw_one_stage": ([("    p.stages = aw_stages(p.hd, p.tile);",
+                       "    p.stages = 1;")], True),
+    # the scores of a row as one m64n64 product a key chunk and k16 step,
+    # not one m64n(64 NT)
+    "aw_n64_scores": ([("    if constexpr (NT != 3) {  // every key at once",
+                        "    if constexpr (NT != 3 && false) {  // every key "
+                        "at once")], True),
+    # the wgmma route at the 32-key buckets too (the plan keeps the mma.sync
+    # kernel there)
+    "aw_at_32_keys": ([("  } else if (S > 32 && S <= kAwMaxChunks * kAwChunk",
+                        "  } else if (S > 0 && S <= kAwMaxChunks * kAwChunk")],
+                      True),
+    # the two warpgroups' Q K^T products in turn (named barriers 1 and 2,
+    # warpgroup 0 first): one's products on the tensor cores while the
+    # other's softmax runs
+    "aw_pingpong": ([("  const int items = mine * NT;\n",
+                      "  const int items = mine * NT;\n  if (wg == 1) asm "
+                      "volatile(\"bar.arrive 1, 256;\\n\" ::: \"memory\");\n"),
+                     ("    float sc[NT * 32];  // key chunk j's scores, then "
+                      "exponentials: sc[32 j ..]\n    wgmma_fence();",
+                      "    float sc[NT * 32];  // key chunk j's scores, then "
+                      "exponentials: sc[32 j ..]\n    asm volatile(\"bar.sync "
+                      "%0, 256;\\n\" ::\"r\"(1 + wg) : \"memory\");\n"
+                      "    wgmma_fence();"),
+                     ("    fence_acc<NT * 32>(sc);\n",
+                      "    fence_acc<NT * 32>(sc);\n    if (it + 1 < items) asm "
+                      "volatile(\"bar.arrive %0, 256;\\n\" ::\"r\"(2 - wg) : "
+                      "\"memory\");\n")], True),
+    # each exponential computed again for its probability (the mma.sync
+    # kernel's way), not kept from the sum
+    "aw_exp_twice": ([("          v[0] = softmax_exp(v[0], mx[h]);\n"
+                       "          sum[h] += v[0];\n"
+                       "          v[1] = softmax_exp(v[1], mx[h]);\n"
+                       "          sum[h] += v[1];",
+                       "          sum[h] += softmax_exp(v[0], mx[h]);\n"
+                       "          sum[h] += softmax_exp(v[1], mx[h]);"),
+                      (PA_LINE, "          a[4 * kb + r] = Ty<DT>::pack("
+                       "softmax_quotient(softmax_exp(e[2 * r], mx[r & 1]), "
+                       "sum[r & 1], inv[r & 1]),\n                          "
+                       "             softmax_quotient(softmax_exp(e[2 * r + 1], "
+                       "mx[r & 1]), sum[r & 1], inv[r & 1]));")], True),
 }
 # (kind, model, B, S): K5 or K2 one layer, or two K5 layers in turn
 CASES = (("k5", "gte-large", 256, 256), ("k5", "gte-large", 2048, 32),
          ("k5", "gte-large", 64, 256), ("k5", "gte-large", 1, 256),
          ("k5x2", "gte-large", 256, 256), ("k5", "minilm-l6", 256, 256),
          ("k2", "gte-large", 256, 256), ("k2", "gte-large", 2048, 32),
-         ("k2", "e5-base", 256, 256), ("k2", "minilm-l6", 256, 256))
+         ("k2", "e5-base", 256, 256), ("k2", "minilm-l6", 256, 256),
+         ("k7", "gte-large", 256, 256), ("k7", "minilm-l6", 256, 256),
+         ("k7", "e5-base", 256, 256),
+         ("k7", "gte-large", 2048, 32), ("k7", "minilm-l6", 2048, 32))
 
 
-def variant_sources(names) -> dict:
-    """{name: source text}, "product" this tree's source unchanged; raises
-    where an edit does not apply exactly once."""
-    src = SOURCE.read_text()
+def variant_sources(names, source=SOURCE) -> dict:
+    """{name: source text}, "product" ``source`` unchanged; raises where
+    an edit does not apply exactly once."""
+    src = source.read_text()
     out = {"product": src}
     for name in names:
         text = src
@@ -84,20 +178,22 @@ def variant_sources(names) -> dict:
     return out
 
 
-def build(sources: dict) -> dict:
-    """Each source built with the port's nvcc flags, all at once, and
-    loaded with the entry points the layer wrappers bind: {name: lib}."""
+def build(sources: dict, csrc=None) -> dict:
+    """Each source built with the port's nvcc flags (its headers from
+    ``csrc``, this tree's by default), all at once, and loaded with the
+    entry points the layer wrappers bind: {name: lib}."""
     import ctypes
 
     from sema_tpu_torch.ops import _cuda, attention, encoder_layer
     from sema_tpu_torch.ops import encoder_layer_int8
+    csrc = csrc or _cuda.CSRC
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
         src, lib = OUT / f"encoder_layer_{name}.cu", OUT / f"lib{name}.so"
         src.write_text(text)
         procs[name] = (lib, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(csrc), "-o",
              str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -122,6 +218,12 @@ def case_fn(kind, name, b, s, gen):
     spec = get_spec(name)
     dt = cs.BF16
     x, _, bias, heads, scale = cs.layer_inputs(spec, dt, b, s, gen)
+    if kind == "k7":
+        from sema_tpu_torch.ops.attention import fused_attention_qkv
+        qkv = (1.5 * torch.randn(b, s, 3 * spec.hidden_size, generator=gen,
+                                 device=cs.DEV)).to(dt)
+        return (f"K7 {name} bf16 ({b}, {s})",
+                lambda: fused_attention_qkv(qkv, bias, heads, scale), 1)
     if kind == "k2":
         layer = cs.layer_params(spec.hidden_size, spec.intermediate_size, gen)
         ops = encoder_layer.layer_operands(layer, dt)
@@ -172,10 +274,16 @@ def main() -> int:
     ap.add_argument("--cases", default=None,
                     help="comma-separated KIND:MODEL:B of CASES "
                          "(default: all)")
+    ap.add_argument("--source", default=None,
+                    help="another tree whose csrc/encoder_layer.cu the "
+                         "variants edit (default: this tree's)")
     args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "needs an NVIDIA card")
     names = args.variants.split(",")
-    libs = build(variant_sources(names))
+    csrc = (Path(args.source).resolve() / "sema_tpu_torch" / "csrc"
+            if args.source else None)
+    libs = build(variant_sources(names, csrc / "encoder_layer.cu" if csrc
+                                 else SOURCE), csrc)
     cases = [c for c in CASES if args.cases is None
              or f"{c[0]}:{c[1]}:{c[2]}" in args.cases.split(",")]
     gen = torch.Generator(device=cs.DEV).manual_seed(0)

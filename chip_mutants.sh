@@ -262,6 +262,28 @@ mutant k6_stride_of_x encoder_layer.cu \
 mutant k7_next_heads_keys encoder_layer.cu \
   's|(i < nt ? H : 2 \* H)|(i < nt ? H + ((head + 1) % (H / HD) - head) * HD : 2 * H)|' \
   attention
+# the wgmma attention (K2's, K5's, K6's and K7's at index batches): the
+# consumers read Q and K without waiting for their full barrier
+mutant aw_full_k_wait_removed encoder_layer.cu \
+  's|    mbar_wait(full_k + s, ph);  // Q.s and K.s bytes have landed, the bias is written||' \
+  attention
+# the wgmma attention: the first warp to release a pair stage refills it,
+# while the pair's other warps still read it
+mutant aw_refill_at_first_release encoder_layer.cu \
+  's|      last = atomicSub(left + s, 1) == 1;|      last = atomicSub(left + s, 1) == 4 * NT;|' \
+  attention
+# the wgmma attention: each exponential taken from the unrounded score
+# (the row max still of the rounded ones), caught by rounding_probe at the
+# wgmma route's (64, 256)
+mutant aw_exp_of_unrounded_score encoder_layer.cu \
+  's/          v\[0\] = r.x;/          v[0] = __fadd_rn(__fmul_rn(v[0], scale), bb.x);/; s/          v\[1\] = r.y;/          v[1] = __fadd_rn(__fmul_rn(v[1], scale), bb.y);/' \
+  attention
+# the wgmma attention: a thread sums each pair of its exponentials in the
+# other key order (an ulp here and there, which only the bits against the
+# parent see)
+mutant aw_sum_key_order encoder_layer.cu \
+  's/^          sum\[h\] += v\[1\];$/          sum[h] += v[0];  \/\/ swapped/; s/^          sum\[h\] += v\[0\];$/          sum[h] += v[1];/; s/^          v\[1\] = softmax_exp(v\[1\], mx\[h\]);$//; s/^          v\[0\] = softmax_exp(v\[0\], mx\[h\]);$/          v[0] = softmax_exp(v[0], mx[h]); v[1] = softmax_exp(v[1], mx[h]);/' \
+  "layer_bits --parent-source ../parent"
 # K1 (bf16/f16 pass 1 on the tensor cores): the first k-step of every slab
 # is never scored, caught by K1's check and, separately, by the A/B path's
 mutant mma_k_step_dropped scan_topk.cu \

@@ -96,9 +96,17 @@ Phases, one JSON line each:
                       widened for what attention alone returns; they must
                       reject the plain version with the mask dropped, with
                       the keys' heads rotated and (K6) with its bias
-                      dropped; ``rounding_probe`` (K7 at (4, 512) on scores
-                      a fraction of a bf16 ulp apart) must reject the plain
-                      version with its scores unrounded. Library:
+                      dropped; ``rounding_probe`` (K7 at (4, 512), the
+                      mma.sync kernel, and (64, 256), the wgmma route, on
+                      scores a fraction of a bf16 ulp apart) must reject
+                      the plain version with its scores unrounded. K7 also
+                      at the full width (tp 1) of MiniLM, e5-base and
+                      gte-large at (256, 256) and (2048, 32) in bf16 (K2's
+                      and K5's attention launch). Every case's attention
+                      plan (``ops/attention.py:attention_plan``) must be
+                      the kernel's own (``sema_attention_plan``), fit a
+                      block's shared memory and name the kernel the
+                      profiler traced (``attn_plan``). Library:
                       ``F.scaled_dot_product_attention`` on the qkv viewed
                       as heads (K6: after ``torch.addmm``). K6 in bf16 and
                       f16 splits its device ms between its two launches
@@ -586,7 +594,8 @@ def check(ok, what="check failed") -> None:
 
 
 def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1,
-                   keep=lambda name: "at::native" not in name) -> list:
+                   keep=lambda name: "at::native" not in name,
+                   whole: bool = True) -> list:
     """Device ms of each launch of ``fn()``, which runs ``layers`` layers
     of ``per_call`` kernels of ``csrc/`` each, by position in the layer
     (position ``i`` takes every ``per_call``-th kernel from ``i``): the
@@ -595,7 +604,9 @@ def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1,
     name, grid, block and dynamic shared memory as the trace records them.
     PyTorch's own kernels (casts of the weights to the compute dtype) are
     left out (``keep``: the kernels to count, by name). A trace that
-    misses more is taken again, twice at most, then reported as
+    misses more, or (``whole``) one whose positions do not each name one
+    kernel in every call (a launch missing from the trace's middle shifts
+    every later one), is taken again, twice at most, then reported as
     ``[{"error": ...}]``."""
     from torch.profiler import ProfilerActivity, profile
     want = per_call * layers * iters
@@ -613,13 +624,15 @@ def launch_profile(fn, per_call: int, iters: int = 5, layers: int = 1,
                 events = json.load(f)["traceEvents"]
         kernels = sorted((e for e in events if e.get("cat") == "kernel"
                           and keep(e["name"])),
-                         key=lambda e: e["ts"])
-        if len(kernels) >= want:
+                         key=lambda e: e["ts"])[-want:]
+        if len(kernels) == want and (not whole or all(
+                len({e["name"] for e in kernels[i::per_call]}) == 1
+                for i in range(per_call))):
             break
     else:
         return [{"error": f"{len(kernels)} kernels traced for {iters + 1} "
-                          f"calls of {layers} x {per_call} launches"}]
-    kernels = kernels[-want:]
+                          f"calls of {layers} x {per_call} launches, "
+                          f"whole={whole}"}]
     out = []
     for i in range(per_call):
         evs = kernels[i::per_call]
@@ -639,7 +652,8 @@ def scan_passes(fn) -> dict:
     grid; ``launches`` counts them (two where a trace of four calls names
     ``scan_pass2`` among its kernels) and ``device_ms`` adds them up."""
     keep = lambda name: "scan_pass" in name
-    names = launch_profile(fn, 1, iters=4, keep=keep)[0].get("kernel") or []
+    names = launch_profile(fn, 1, iters=4, keep=keep, whole=False)[0].get(
+        "kernel") or []
     names = names if isinstance(names, list) else [names]
     got = launch_profile(fn, 2 if any("scan_pass2" in k for k in names)
                          else 1, iters=10, keep=keep)
@@ -2004,6 +2018,16 @@ def check_gemm_launches(launches, positions, plans, what) -> list:
     return out
 
 
+def layer_attention_plan(launches, position, b, s, h, heads, dtype,
+                         what) -> dict:
+    """``attn_plan`` of a layer's attention launch, the traced launch at
+    ``position`` of ``launches`` (``layer_launches``), which must hold."""
+    traced = None if "error" in launches[0] else launches[position]["kernel"]
+    plan = attn_plan(b, s, h, heads, dtype, traced)
+    check("error" not in plan, f"{what}: {plan.get('error')}")
+    return plan
+
+
 def layer_costs(args, operands, iters) -> dict:
     """K2's device ms on ``args`` (x, layer, mask bias, heads, scale, eps)
     with its ``operands`` made beforehand, its plain version's, the
@@ -2078,6 +2102,9 @@ def layer_case(layer, spec, dtype, b, s, gen, iters):
     share["gemm_plans"] = layer_plans(spec, b * s, dtype, False)
     share["gemms"] = check_gemm_launches(
         share["launches"], (0, 2, 3, 4), share["gemm_plans"],
+        f"K2 {spec.name} {dtype} ({b}, {s})")
+    share["attention"] = layer_attention_plan(
+        share["launches"], 1, b, s, h, heads, dtype,
         f"K2 {spec.name} {dtype} ({b}, {s})")
     return {"model": spec.name, "dtype": str(dtype).removeprefix("torch."),
             "b": b, "s": s, "head_dim": h // heads,
@@ -2322,6 +2349,9 @@ def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
     gemms = check_gemm_launches(launches["launches"], (1, 4, 5, 7),
                                 gemm_plans,
                                 f"K5 {spec.name} {dtype} ({b}, {s})")
+    launches["attention"] = layer_attention_plan(
+        launches["launches"], 2, b, s, h, heads, dtype,
+        f"K5 {spec.name} {dtype} ({b}, {s})")
     # int8 products at the int8 rate plus attention at the bf16 (f32) rate,
     # as int8-rate-equivalent operations
     attn_rate = F32_OPS_PER_S if dtype == F32 else BF16_OPS_PER_S
@@ -2357,8 +2387,10 @@ def int8_layer_case(layer, spec, dtype, b, s, gen, iters):
 K5_CHAIN = (("gte-large", BF16, 256, 256), ("gte-large", BF16, 1, 256))
 K5_CHAIN_SEED = 22
 # the layer_bits cases whose launches are each timed apart, this tree's
-# and the parent's
-K5_PROFILED = (("K5", "gte-large", BF16, 256, 256),)
+# and the parent's (K5's eight, K2's five)
+K5_PROFILED = (("K5", "gte-large", BF16, 256, 256),
+               ("K2", "minilm-l6", BF16, 256, 256),
+               ("K2", "gte-large", BF16, 256, 256))
 
 
 def chained_int8(layers, args, ops, rows):
@@ -2495,6 +2527,10 @@ K67_WIDTHS = (("gte-large", 2), ("gte-large", 4), ("minilm-l6", 2),
 K6_BS = ((1, 256), (64, 256), (256, 192))
 # 512: the longest row of the one-pass route; 640: the three-pass route
 K7_BS = ((256, 32), (128, 128), (32, 512), (16, 640))
+# K7 at the full width (tp 1), bf16: the attention launch of K2 and K5 at
+# their index batches, the 256 bucket (the wgmma route) and the 32 one
+K7_FULL = ("minilm-l6", "e5-base", "gte-large")
+K7_FULL_BS = ((256, 256), (2048, 32))
 # the tp_path's own (B, S) of gte-large at tp 2, bf16, beyond those of
 # K6_BS and K7_BS: a full index batch of each sequence bucket
 # (``Encoder.encode_texts``: batch_size * max_length // S rows) through K6
@@ -2606,6 +2642,12 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
         library_ms = device_ms(lib, iters)
     kernel_ms = device_ms(lambda: fn(*args), iters)
     split = {}
+    if kind == "qkv":     # the kernel's name None where the trace missed
+        traced = launch_profile(lambda: fn(*args), 1)[0]
+        split = {"attention_ms": traced.get("ms"),
+                 "attention_kernel": traced.get("kernel"),
+                 **({"trace_error": traced["error"]} if "error" in traced
+                    else {})}
     if kind == "block":
         plan = qkv_plan(b * s, 3 * h_out, h, 4 if dtype == F32 else 2)
         split = {"plan": plan, **block_split(lambda: fn(*args), x, w, qb,
@@ -2634,7 +2676,39 @@ def attention_case(kind, spec, tp, dtype, b, s, gen, iters):
             "library_ms": library_ms,
             "library_call": ("torch.addmm + " if kind == "block" else "")
             + "F.scaled_dot_product_attention with its transposes",
-            "bound_ms": ms, "bound_by": bound_by, **split}
+            "bound_ms": ms, "bound_by": bound_by, **split,
+            "attention_plan": attn_plan(b, s, h_out, n, dtype,
+                                        split.get("attention_kernel"))}
+
+
+# the kernel of each route of ``attention_plan``, as the profiler names it
+ATTN_KERNELS = {"mma": "attention_kernel<", "wgmma": "attention_wgmma_kernel",
+                "long": "attention_long_kernel", "simt": "attention_f32_kernel"}
+
+
+def attn_plan(b, s, h, heads, dtype, traced) -> dict:
+    """The attention's plan for ctx (b, s, h) over ``heads`` heads in
+    ``dtype`` on this card: ``ops/attention.py:attention_plan`` must be the
+    kernel's own (``sema_attention_plan``), fit a block's shared memory,
+    and name the kernel the profiler traced (``traced``; None where the
+    trace missed it). "error" says which failed."""
+    from sema_tpu_torch.ops import _cuda
+    from sema_tpu_torch.ops.attention import (ATTN_ROUTES, DTYPE_CODES,
+                                              SMEM_MAX, attention_plan)
+    lib = _cuda.library("encoder_layer", {"sema_attention_plan": [
+        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]})
+    got = (ctypes.c_int * 8)()
+    rc = lib.sema_attention_plan(b, s, h, heads, DTYPE_CODES[dtype], got)
+    want = attention_plan(b, s, h, heads, dtype, got[7])
+    out = {**want._asdict(), "sms": got[7]}
+    if rc != 0 or tuple(got[:7]) != (ATTN_ROUTES.index(want.route),
+                                     *want[1:]):
+        out["error"] = f"attention_plan {want}, the kernel's {list(got)}"
+    elif want.smem > SMEM_MAX:
+        out["error"] = f"attention_plan {want} exceeds {SMEM_MAX} bytes"
+    elif traced is not None and ATTN_KERNELS[want.route] not in str(traced):
+        out["error"] = f"attention_plan {want}, the trace ran {traced}"
+    return out
 
 
 def qkv_plan(m, n, k, out_bytes) -> dict:
@@ -2694,12 +2768,15 @@ def unrounded_attention(qkv, bias, heads, scale):
     return ctx.permute(0, 2, 1, 3).reshape(b, s, h3 // 3)
 
 
-ROUNDING_PROBE = (4, 512)      # K7's (B, S) of the probe below
+# K7's (B, S) of the probe below: the mma.sync kernel's longest rows and
+# the wgmma route's
+ROUNDING_PROBE = ((4, 512), (64, 256))
 
 
-def rounding_probe(gen) -> dict:
-    """K7 in bf16 at gte-large tp 2 on a qkv whose scaled scores lie a
-    fraction of a bf16 ulp apart: q = (16, 1, 0, ...), key j = (16, t_j,
+def rounding_probe(gen, b, s) -> dict:
+    """K7 in bf16 at gte-large tp 2 at (``b``, ``s``) on a qkv whose
+    scaled scores lie a fraction of a bf16 ulp apart: q = (16, 1, 0, ...),
+    key j = (16, t_j,
     0, ...) with t_j in [0, 2) (exact in bf16), so a score is 32 + t_j / 8
     (scale 1/8), which rounds to 32 or 32.25; the values are random. The
     kernel must pass ``attention_close`` against its plain version, and
@@ -2711,7 +2788,6 @@ def rounding_probe(gen) -> dict:
     from sema_tpu_torch.ops.attention import (attention_qkv_reference,
                                               fused_attention_qkv)
     spec = get_spec(IVF_MODEL)
-    b, s = ROUNDING_PROBE
     h_out, n = spec.hidden_size // 2, spec.num_heads // 2
     hd = h_out // n
     qkv = torch.zeros(b, s, 3, n, hd, device=DEV)
@@ -2754,11 +2830,17 @@ def phase_attention(gen):
               for kind, b, s in K67_PATH]
     cases += [attention_case(kind, spec, 2, F16, b, s, gen, iters=10)
               for kind, b, s in K67_PATH if kind == "block"]
-    cases.append(rounding_probe(gen))
+    cases += [attention_case("qkv", get_spec(model), 1, BF16, b, s, gen,
+                             iters=10)
+              for model in K7_FULL for b, s in K7_FULL_BS]
+    cases += [rounding_probe(gen, b, s) for b, s in ROUNDING_PROBE]
     emit("attention", cases=cases)
     bad = ([f"{c['kernel']} {c['model']} tp {c['tp']} {c['dtype']} "
             f"({c['b']}, {c['s']}): cosine {c['min_cosine']}, relative "
             f"error {c['max_rel_err']}" for c in cases if not c["ok"]]
+           + [f"{c['kernel']} {c['model']} tp {c['tp']} {c['dtype']} "
+              f"({c['b']}, {c['s']}): {c['attention_plan']['error']}"
+              for c in cases if "error" in c.get("attention_plan", {})]
            + [f"{c['kernel']} {c['model']} tp {c['tp']} {c['dtype']} "
               f"({c['b']}, {c['s']}): the check passes {c['broken_passes']}"
               for c in cases if c["broken_passes"]])
@@ -2897,10 +2979,12 @@ def phase_layer_bits(gen, parent):
                 if (kernel, name, dt, b, s) in K5_PROFILED:
                     # each of the layer's launches apart, this tree's and
                     # the parent's (the breakdown of the redesign)
+                    per_call = 8 if kernel == "K5" else 5
                     cases[-1].update(
-                        launches=launch_profile(lambda: run(*args), 8),
+                        launches=launch_profile(lambda: run(*args), per_call),
                         parent_launches=launch_profile(
-                            lambda: in_library(run, parent)(*args), 8))
+                            lambda: in_library(run, parent)(*args),
+                            per_call))
             del layer
             torch.cuda.empty_cache()
     # K5 over two layers in turn, this tree's with the int8 rows carried
@@ -2929,6 +3013,8 @@ def phase_layer_bits(gen, parent):
         del layers
         torch.cuda.empty_cache()
     def k67_shapes(model, tp, dt):
+        if tp == 1:       # K7 at the full width (K2's and K5's attention)
+            return dict.fromkeys(("K7", b, s) for b, s in K7_FULL_BS)
         shapes = [("K6", b, s) for b, s in K6_BS] + [("K7", b, s)
                                                      for b, s in K7_BS]
         if (model, tp, dt) == (IVF_MODEL, 2, BF16):   # the tp_path's own
@@ -2936,11 +3022,11 @@ def phase_layer_bits(gen, parent):
                        for kind, b, s in K67_PATH]
         return dict.fromkeys(shapes)
 
-    for model, tp in K67_WIDTHS:
+    for model, tp in K67_WIDTHS + tuple((m, 1) for m in K7_FULL):
         spec = get_spec(model)
         h, heads = spec.hidden_size, spec.num_heads
         h_out, n = h // tp, heads // tp
-        for dt in (BF16, F16, F32):
+        for dt in (BF16, F16, F32) if tp > 1 else (BF16,):
             for kernel, b, s in k67_shapes(model, tp, dt):
                 lens = torch.randint(1, s + 1, (b,), generator=gen,
                                      device=DEV)
@@ -7452,6 +7538,18 @@ def main() -> int:
               k6),
         entry("attention_qkv", "sema_tpu_torch/csrc/encoder_layer.cu",
               "sema_tpu/ops/fused_attention.py:134", [256, 32, 3 * 512], k7),
+        # the wgmma attention (K2's and K5's attention launch at an index
+        # batch): K7 at gte-large's full width, with the launches of the
+        # layers at that shape in both IVF paths' index
+        {**entry("attention_qkv", "sema_tpu_torch/csrc/encoder_layer.cu",
+                 "sema_tpu/ops/fused_attention.py:134",
+                 [256, 256, 3 * GTE_D], next(
+                     c for c in attention_cases
+                     if (c["kernel"], c["model"], c["tp"], c["b"], c["s"])
+                     == ("K7", IVF_MODEL, 1, 256, 256))),
+         "name": f"attention_qkv:wgmma_{IVF_MODEL}_256x256",
+         "launches": sum(p["index_shapes"].get((256, 256), 0)
+                         for p in paths.values())},
         entry("scan_topk_warm", scan_src, "sema_tpu/ops/pallas_topk.py:280",
               [AB_N, 256, 10], scan_ab["K8"]),
         entry("fold_topk", scan_src, "tools/scan_ab14.py:164",

@@ -1,8 +1,9 @@
 // The Hopper (sm_90a) building blocks that the port's kernels share:
-// encoder_layer.cu's wgmma GEMM (K2, K5, K6) and scan_topk.cu's wgmma
-// scorers (K1, K8): shared addresses, mbarriers, TMA copies and their
-// tensor maps, the wgmma fences, and the 16-bit wgmma with f32
-// accumulators, both operands in shared memory with the 128-byte swizzle.
+// encoder_layer.cu's wgmma GEMM (K2, K5, K6) and wgmma attention (K2, K5,
+// K6, K7) and scan_topk.cu's wgmma scorers (K1, K8): shared addresses,
+// mbarriers, TMA copies and their tensor maps, the wgmma fences, and the
+// 16-bit wgmma with f32 accumulators, both operands in shared memory with
+// the 128-byte (or 64-byte) swizzle, or A in registers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the driver call itself comes through the runtime
@@ -39,6 +40,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (spins > (1ll << 26)) __trap();
   }
 }
+// the box at (c0 inner, c1, c2 outer) of a 3D `map` into dst, counted on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
 // the box at (c0 inner, c1 outer) of `map` into dst, counted on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             uint64_t* bar) {
@@ -65,6 +75,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// the box at (c0 inner, c1, c2 outer) of a 3D `map` from src, in the
+// thread's bulk group; the box's rows past the array's bounds are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 // one arrival on `bar` of this block
@@ -103,6 +123,14 @@ __device__ __forceinline__ void fence_acc(int* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+// the N registers of a wgmma's A fragments stay in place across this point:
+// fenced after the wait that ends their products, none is reused while a
+// product may still read it
+template <int N>
+__device__ __forceinline__ void fence_acc(uint32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 // a wgmma operand in shared memory, 128-byte swizzle: the leading and
 // stride byte offsets (K-major, A and int8 W: rows 8 apart at `sbo`; for
 // a 16-bit W, N-major: 64 columns apart at `lbo`, 8 rows of K apart at
@@ -110,6 +138,12 @@ __device__ __forceinline__ void fence_acc(int* d) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
          (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+// the same with the 64-byte swizzle: rows of 64 bytes, 8 rows 512 bytes
+// apart (a head of 32 bf16/f16 values a row)
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 2ull << 62;
 }
 // d (64 x N, f32) (+)= A (64 x 16, K-major) @ B (16 x N), bf16 (F16
 // false) or f16 operands from shared memory, N 32, 64, 128 or 256: N / 2
@@ -261,6 +295,52 @@ __device__ __forceinline__ void wgmma_16(float* d, uint64_t da, uint64_t db, int
   }
 }
 
+// d (64 x N, f32) (+)= A (64 x 16) @ B (16 x N), A from registers: a[0..3]
+// of each thread are the m16n8k16 A fragment of its warp's 16 rows (rows
+// g and g + 8, columns (lane & 3) * 2 and + 8, g = lane / 4; two values a
+// register, the lower column in the low half), B from shared memory as
+// wgmma_16's (TB 0 K-major, TB 1 N-major); N 32 or 64: N / 2 accumulators
+// a thread.
+template <bool F16, int N, int TB>
+__device__ __forceinline__ void wgmma_16_rs(float* d, const uint32_t* a, uint64_t db,
+                                            int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_16_rs: N of 32 or 64");
+  static_assert(TB == 0 || TB == 1, "wgmma_16_rs: TB 0 or 1");
+  if constexpr (N == 32 && F16 == false) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+  } else if constexpr (N == 32 && F16 == true) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+  } else if constexpr (N == 64 && F16 == false) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+  }
+}
+
 // cuTensorMapEncodeTiled, through the runtime: the library does not link
 // the driver
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -294,6 +374,27 @@ bool tma_map_2d(CUtensorMap* map, CUtensorMapDataType type, int esz, const void*
   const cuuint32_t unit[2] = {1, 1};
   return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The TMA map of a (d2, d1, d0) array of 16-bit `type` whose rows (d0
+// elements wide) lie stride1 elements apart and whose planes stride2, in
+// boxes of box1 rows x box0 elements, box0 * 2 bytes the swizzle's width
+// (128 or 64), zeros outside the array: a box that reaches past d1 reads
+// zeros for those rows, never the next plane's.
+bool tma_map_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base, long long d0,
+                long long d1, long long d2, long long stride1, long long stride2, int box0,
+                int box1) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || (box0 != 64 && box0 != 32)) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)stride1 * 2, (cuuint64_t)stride2 * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box0 == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

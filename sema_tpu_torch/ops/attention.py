@@ -16,9 +16,14 @@ K2, whose qkv GEMM and attention are the same kernels.
 On a CUDA tensor each wrapper launches the kernels of
 ``csrc/encoder_layer.cu`` or raises
 :class:`~sema_tpu_torch.ops._cuda.KernelError`; on a CPU tensor it runs
-its plain version. There is no other path. K7 is the attention: up to
-512 keys one kernel that streams each key and value tile through shared
-memory once, beyond that three passes over the key blocks. K6 is the qkv
+its plain version. There is no other path. K7 is the attention, on the
+route of :func:`attention_plan` (the kernel's ``sema_attention_plan``):
+at an index batch of 33 to 256 keys a persistent ``wgmma`` kernel fed by
+TMA that reads each (batch row, head)'s Q, K and V once and keeps the
+scores and exponentials in registers; else up to 512 keys one kernel
+that streams each key and value tile through shared memory once, beyond
+that three passes over the key blocks; f32 a SIMT kernel. Every route
+gives the same bits. K6 is the qkv
 product with its bias epilogue at N = 3·H_out, K = H, into a (B·S,
 3·H_out) scratch, then the attention; the product runs on ``wgmma``, fed
 by TMA, in clusters of two blocks that share the weight's slabs, where
@@ -38,6 +43,8 @@ multiple of 32 and any S >= 1 (rows longer than 512 in key blocks).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +58,93 @@ _SIGNATURES = {
     "sema_attention_qkv": [_P] * 3 + [_I] * 5 + [_F, _P, _I],  # stream,
     "sema_attention_block": [_P] * 6 + [_I] * 6 + [_F, _P, _I],  # card
 }
+
+# the attention's launch plan (``attention_plan``), as csrc/encoder_layer.cu
+# has it: its routes by the source's codes, the mma.sync kernel's tiles,
+# the wgmma kernel's chunks and ring, the long rows' and f32's kernels
+ATTN_ROUTES = ("mma", "wgmma", "long", "simt")
+ATTN_MAX_KEYS = 512             # the longest row of the one-pass kernels
+ATTN_WARPS, ATTN_STAGES = 4, 3  # the mma.sync kernel: 64 query rows a block
+AW_CHUNK = 64                   # a TMA box's rows: a query tile, a key chunk
+AW_MAX_CHUNKS = 4               # the wgmma route's longest row: 256 keys
+AW_THREADS = 256                # two warpgroups, each filling the ring too
+AW_MAX_STAGES = 8               # its ring's pair stages, at most
+AW_MIN_PAIRS = 132              # (batch row, head) pairs from which it runs
+AW_RESERVE = 1024 + 3 * AW_MAX_STAGES * 8   # alignment; the barriers
+KEY_BLOCK = 64                  # the long rows' key block
+F32_ROWS, F32_KEYS, F32_CACHED, F32_THREADS = 64, 64, 512, 256
+SMEM_MAX = 232_448              # dynamic shared memory a block may use
+
+
+class AttnPlan(NamedTuple):
+    """How one attention launch runs: ``route`` "mma" (the mma.sync
+    kernel, a block a 64-row query tile of a (batch row, head)), "wgmma"
+    (the persistent TMA and wgmma kernel, a block an SM walking the pairs),
+    "long" (rows past 512 keys) or "simt" (f32); head dim ``hd``; ``tile``
+    the mma route's key tile (32 or 64), the wgmma route's key chunks of
+    64, the others' key block; ``stages`` the wgmma ring's pair stages;
+    ``grid`` blocks of ``threads`` threads, each with ``smem`` bytes of
+    dynamic shared memory."""
+    route: str
+    hd: int
+    tile: int
+    stages: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def aw_staging(hd: int) -> int:
+    """The wgmma route's two context tiles on their way out (TMA's store):
+    64 rows of ``hd`` a warpgroup."""
+    return 2 * AW_CHUNK * hd * 2
+
+
+def aw_stage_bytes(hd: int, nt: int) -> int:
+    """A pair stage of the wgmma route at ``nt`` key chunks: nt chunks
+    each of Q, K and V (64 rows of a head of ``hd``) and the mask bias of
+    nt * 64 keys, in whole KB."""
+    return -(-(3 * nt * AW_CHUNK * hd * 2 + nt * AW_CHUNK * 4) // 1024) * 1024
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(b: int, s: int, h: int, heads: int, dtype,
+                   sms: int) -> AttnPlan:
+    """The kernel's ``attention_plan`` for a (b, s, h) context over
+    ``heads`` heads in ``dtype`` on a card of ``sms`` SMs (what
+    ``sema_attention_plan`` exports): the wgmma route for bf16/f16 rows of
+    33 to 256 keys where the batch holds AW_MIN_PAIRS pairs or more, on
+    min(pairs, sms) blocks whose ring holds as many pair stages as fit;
+    the mma.sync kernel for the rest up to 512 keys (one query, the 32-key
+    buckets), key tiles of 32 for rows of 32 keys or fewer; the long rows'
+    kernel beyond; f32 its SIMT kernel. None where no kernel takes the
+    head dim."""
+    if b <= 0 or s <= 0 or heads <= 0 or h % heads or h // heads not in (32,
+                                                                         64):
+        return None
+    hd, q_tiles = h // heads, -(-s // 64)
+    if dtype == torch.float32:
+        keys = -(-s // F32_KEYS) * F32_KEYS if s <= F32_CACHED else F32_KEYS
+        smem = 4 * (F32_ROWS * (hd + 4) * (3 if s <= F32_CACHED else 5)
+                    + F32_ROWS * (keys + 16))
+        return AttnPlan("simt", hd, F32_KEYS, 0, -(-s // F32_ROWS) * heads * b,
+                        F32_THREADS, smem)
+    if s > ATTN_MAX_KEYS:
+        return AttnPlan("long", hd, KEY_BLOCK, 0, q_tiles * heads * b, 128,
+                        (64 + 2 * KEY_BLOCK) * (hd + 8) * 2 + KEY_BLOCK * 4)
+    if 32 < s <= AW_MAX_CHUNKS * AW_CHUNK and b * heads >= AW_MIN_PAIRS \
+            and sms > 0:
+        nt = -(-s // AW_CHUNK)
+        stages = min(AW_MAX_STAGES, (SMEM_MAX - AW_RESERVE - aw_staging(hd))
+                     // aw_stage_bytes(hd, nt))
+        return AttnPlan("wgmma", hd, nt, stages, min(b * heads, sms),
+                        AW_THREADS, stages * aw_stage_bytes(hd, nt)
+                        + aw_staging(hd) + AW_RESERVE)
+    kt = 32 if s <= 32 else 64
+    smem = ((ATTN_WARPS * 16 + ATTN_STAGES * kt) * (hd + 8) * 2
+            + -(-s // kt) * kt * (4 + ATTN_WARPS * 16 * 2))
+    return AttnPlan("mma", hd, kt, 0, q_tiles * heads * b, ATTN_WARPS * 32,
+                    smem)
 
 
 # the softmaxes of heads_attention: the product's, and the two that

@@ -7,6 +7,8 @@ kernels do not take."""
 
 import importlib
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +17,10 @@ import torch
 
 from sema_tpu.ops.fused_attention import (
     fused_attention_block as jax_block, fused_attention_qkv as jax_qkv)
+from sema_tpu_torch.models.encoder import Encoder
+from sema_tpu_torch.models.registry import ENCODERS
 from sema_tpu_torch.ops._cuda import KernelError
-from sema_tpu_torch.ops.attention import (check_block_args,
+from sema_tpu_torch.ops.attention import (attention_plan, check_block_args,
                                           check_qkv_args,
                                           fused_attention_block,
                                           fused_attention_qkv)
@@ -61,6 +65,9 @@ CASES = [
     (128, 2, 1, 2, 300, torch.bfloat16),
     (128, 2, 1, 2, 512, torch.float32),
     (128, 2, 1, 2, 512, torch.bfloat16),
+    # the full width (tp 1) at head dim 32 and a 256-key row: K2's and K5's
+    # attention launch at an index bucket
+    (128, 4, 1, 2, 256, torch.bfloat16),
 ]
 
 
@@ -186,3 +193,110 @@ def test_qkv_gemm_plan_grid_is_persistent_only_on_wgmma():
     assert qkv_gemm_plan(16_384, 1536, 1024, 0).route == "ring"
     ring = qkv_gemm_plan(256, 1536, 1024, 4)
     assert ring.route == "ring" and ring.grid == ring.tiles
+
+
+# The attention plan at every shape the paths launch: each bucket of
+# Encoder.BUCKETS at its index batch (batch_size 256 x max_length 256 / S
+# rows) and at one query, at every width of the registry whose heads the
+# kernels take (head dim 32 or 64), at tp 1, 2 and 4, in each dtype, on a
+# card of 132 SMs: the wgmma route where the batch holds AW_MIN_PAIRS
+# (batch row, head) pairs and 32 < S <= 256, the mma.sync kernel at one
+# query and the 32-key buckets, f32's SIMT kernel; every route's shared
+# memory within what a block may use.
+PATH_SHAPES = [(name, tp, b, s, dt)
+               for name, spec in ENCODERS.items()
+               if spec.hidden_size // spec.num_heads in (32, 64)
+               for tp in (1, 2, 4) if spec.num_heads % tp == 0
+               for s in Encoder.BUCKETS for b in (256 * 256 // s, 1)
+               for dt in (torch.bfloat16, torch.float16, torch.float32)]
+
+
+@pytest.mark.parametrize("name,tp,b,s,dtype", PATH_SHAPES)
+def test_attention_plan_routes_every_path_shape(name, tp, b, s, dtype):
+    spec = ENCODERS[name]
+    h, heads = spec.hidden_size // tp, spec.num_heads // tp
+    plan = attention_plan(b, s, h, heads, dtype, 132)
+    want = ("simt" if dtype == torch.float32
+            else "wgmma" if s > 32 and b * heads >= 132 else "mma")
+    assert plan.route == want
+    assert plan.hd == spec.hidden_size // spec.num_heads
+    assert 0 < plan.smem <= SMEM_MAX
+    if want == "wgmma":
+        assert plan.tile == -(-s // 64) and plan.stages >= 2
+        assert plan.grid == min(b * heads, 132) and plan.threads == 256
+    else:
+        assert plan.grid == -(-s // 64) * heads * b
+
+
+# (B, S, H, heads, dtype) -> (route, head dim, key tile or chunks, stages,
+# grid, threads, shared memory) on a card of 132 SMs: the index batches of
+# gte-large (tp 1 and 2) and MiniLM on the wgmma route, its rows of 64
+# keys with eight stages, one query and 512 keys on the mma.sync kernel,
+# 640 keys on the long rows' kernel, f32 on its SIMT kernel
+ATTN_PLANS = [
+    ((256, 256, 1024, 16, torch.bfloat16),
+     ("wgmma", 64, 4, 2, 132, 256, 216_256)),
+    ((256, 256, 512, 8, torch.bfloat16),
+     ("wgmma", 64, 4, 2, 132, 256, 216_256)),
+    ((256, 192, 192, 6, torch.float16),
+     ("wgmma", 32, 3, 5, 132, 256, 198_848)),
+    ((1024, 64, 384, 12, torch.bfloat16),
+     ("wgmma", 32, 1, 8, 132, 256, 115_904)),
+    ((2, 256, 1024, 16, torch.bfloat16),
+     ("mma", 64, 64, 0, 128, 128, 70_656)),
+    ((1, 256, 1024, 16, torch.bfloat16),
+     ("mma", 64, 64, 0, 64, 128, 70_656)),
+    ((2048, 32, 1024, 16, torch.bfloat16),
+     ("mma", 64, 32, 0, 32_768, 128, 27_264)),
+    ((32, 512, 512, 8, torch.bfloat16),
+     ("mma", 64, 64, 0, 2_048, 128, 104_448)),
+    ((16, 640, 512, 8, torch.bfloat16),
+     ("long", 64, 64, 0, 1_280, 128, 27_904)),
+    ((256, 128, 384, 12, torch.float32),
+     ("simt", 32, 64, 0, 6_144, 256, 64_512)),
+]
+
+
+@pytest.mark.parametrize("shape,want", ATTN_PLANS)
+def test_attention_plan_by_shape(shape, want):
+    plan = attention_plan(*shape, 132)
+    assert tuple(plan) == want
+    assert plan.smem <= SMEM_MAX
+
+
+def test_attention_plan_refuses_what_no_kernel_takes():
+    assert attention_plan(256, 256, 1024, 8, torch.bfloat16, 132) is None
+    assert attention_plan(256, 256, 1000, 16, torch.bfloat16, 132) is None
+    assert attention_plan(0, 256, 1024, 16, torch.bfloat16, 132) is None
+    # a card that cannot say its SMs: no wgmma route
+    assert attention_plan(256, 256, 1024, 16, torch.bfloat16, 0).route \
+        == "mma"
+
+
+def test_attention_plan_constants_are_the_sources():
+    """The mirror's tiles, chunks, ring, threshold and threads are
+    csrc/encoder_layer.cu's own, and its routes the source's codes."""
+    src = (Path(attn_mod.__file__).resolve().parents[1] / "csrc"
+           / "encoder_layer.cu").read_text()
+    c = {}
+    for name, expr in re.findall(r"^constexpr (?:int|size_t) (k\w+) = ([^;]+);",
+                                 src, re.M):
+        expr = re.sub(r"\b(k\w+)\b", lambda m: str(c.get(m.group(1),
+                                                           m.group(1))), expr)
+        if re.fullmatch(r"[\d\s+*/()-]+", expr):
+            c[name] = eval(expr)          # digits and operators alone
+    assert (c["kAwChunk"], c["kAwMaxChunks"], c["kAwThreads"],
+            c["kAwMaxStages"], c["kAwMinPairs"], c["kAwReserve"]) == (
+        attn_mod.AW_CHUNK, attn_mod.AW_MAX_CHUNKS, attn_mod.AW_THREADS,
+        attn_mod.AW_MAX_STAGES, attn_mod.AW_MIN_PAIRS, attn_mod.AW_RESERVE)
+    assert (c["kAttnMaxKeys"], c["kAttnWarps"], c["kAttnStages"],
+            c["kKeyBlock"]) == (attn_mod.ATTN_MAX_KEYS, attn_mod.ATTN_WARPS,
+                                attn_mod.ATTN_STAGES, attn_mod.KEY_BLOCK)
+    assert (c["kF32Rows"], c["kF32Keys"], c["kF32CachedKeys"],
+            c["kF32Threads"]) == (attn_mod.F32_ROWS, attn_mod.F32_KEYS,
+                                  attn_mod.F32_CACHED, attn_mod.F32_THREADS)
+    assert (f"(({attn_mod.SMEM_MAX} - kAwReserve - aw_staging(hd)) / "
+            "aw_stage_bytes(hd, nt))" in src)
+    assert ("enum AttnRoute { kAttnMma = 0, kAttnWgmma = 1, kAttnLong = 2, "
+            "kAttnSimt = 3 };" in src and attn_mod.ATTN_ROUTES == (
+                "mma", "wgmma", "long", "simt"))
